@@ -1,0 +1,292 @@
+"""PulseEngine: the user-facing traversal engine (dispatch + execute),
+single memory node, read path.
+
+Execution paths:
+  * ``backend="kernel"``    -- the pulse_chase CUDA kernel under the
+                               variable-depth wave scheduler (the default
+                               when the arena is on the card).
+  * ``backend="reference"`` -- the plain torch executor
+                               (``iterator.execute_batched``), the oracle the
+                               kernel path is held against.
+  * ``cpu_node``            -- the Cache-based baseline: the traversal runs at
+                               the CPU node with an LRU trace of node fetches;
+                               chosen by the dispatch model for iterators it
+                               does not offload when the arena is on the CPU,
+                               and only on request (``force_offload=False``)
+                               when it is on the card.
+
+The dispatch engine's offload decision (t_c <= eta * t_d, S4.1) lives in
+``core.dispatch``.  Multi-shard routing over a mesh and mutating iterators
+come with later slices (ROADMAP queue 1, items 6 and 5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from repro_torch.core import dispatch as dispatch_mod
+from repro_torch.core import routing
+from repro_torch.core.arena import NULL, PERM_READ, Arena
+from repro_torch.core.iterator import (
+    STATUS_DONE,
+    STATUS_FAULT,
+    STATUS_MAXED,
+    PulseIterator,
+    execute_batched,
+)
+
+# Re-exported: part of the engine's public surface.
+can_elide_access_check = routing.can_elide_access_check
+
+BACKENDS = ("kernel", "reference")
+
+
+@dataclasses.dataclass
+class CpuNodeTrace:
+    """Access trace from the cpu_node path (feeds Fig. 7 latency models)."""
+
+    total_fetches: int
+    cache_hits: int
+    per_request_iters: np.ndarray
+
+    @property
+    def misses(self) -> int:
+        return self.total_fetches - self.cache_hits
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _fused_step(it: PulseIterator, node, ptr, scratch):
+    if it.step_fn is not None:
+        return it.step_fn(node, ptr, scratch)
+    done, scr = it.end_fn(node, ptr, scratch)
+    nptr, nscr = it.next_fn(node, ptr, scr)
+    return done, torch.where(done, ptr, nptr), torch.where(done[:, None], scr, nscr)
+
+
+def cpu_node_execute(
+    it: PulseIterator,
+    arena: Arena,
+    ptr0,
+    scratch0,
+    *,
+    max_iters: int = 1 << 20,
+    cache_nodes: int = 0,
+):
+    """Cache-based baseline: traverse at the CPU node over remote memory.
+
+    Functionally equivalent to the accelerator path; additionally simulates
+    a CPU-side LRU cache of ``cache_nodes`` node records and reports the
+    trace.  Runs hop by hop on the host (numpy, with the iterator's batched
+    body on CPU tensors) -- it *is* the slow path being modelled.
+    Returns numpy ``(ptr, scratch, iters, trace)``.
+    """
+    data = arena.data.cpu().numpy()
+    ptr = torch.as_tensor(ptr0).cpu().numpy().astype(np.int64)
+    B = ptr.shape[0]
+    scratch = torch.as_tensor(scratch0).cpu().numpy().astype(np.int32)
+    scratch = scratch.reshape(B, it.scratch_words).copy()
+    done = np.zeros(B, bool)
+    iters = np.zeros(B, np.int64)
+    lru: OrderedDict[int, None] = OrderedDict()
+    hits = fetches = 0
+
+    while not done.all() and (iters[~done].min(initial=0) < max_iters):
+        live = ~done & (ptr != NULL)
+        if not live.any():
+            break
+        # CPU-node cache simulation, per node fetch
+        for a in ptr[live]:
+            fetches += 1
+            a = int(a)
+            if a in lru:
+                hits += 1
+                lru.move_to_end(a)
+            elif cache_nodes > 0:
+                lru[a] = None
+                if len(lru) > cache_nodes:
+                    lru.popitem(last=False)
+        node = data[np.clip(ptr, 0, data.shape[0] - 1)]
+        d, np_, ns = _fused_step(
+            it, torch.from_numpy(node), torch.from_numpy(ptr.astype(np.int32)),
+            torch.from_numpy(scratch.copy()),
+        )
+        d, np_, ns = d.numpy(), np_.numpy(), ns.numpy()
+        scratch[live] = ns[live]
+        iters[live] += 1
+        newly_done = live & (d | (np_ == NULL) | (iters >= max_iters))
+        ptr[live & ~newly_done] = np_[live & ~newly_done]
+        done |= newly_done
+    trace = CpuNodeTrace(fetches, hits, iters.copy())
+    return ptr.astype(np.int32), scratch, iters, trace
+
+
+@dataclasses.dataclass
+class ExecResult:
+    """Per-lane results as int32 tensors on the arena's device."""
+
+    ptr: torch.Tensor
+    scratch: torch.Tensor
+    status: torch.Tensor
+    iters: torch.Tensor
+    stats: object | None = None
+    offloaded: bool = True
+    decision: dispatch_mod.OffloadDecision | None = None
+
+
+class PulseEngine:
+    """Front door: dispatch decision + the right execution path."""
+
+    def __init__(
+        self,
+        arena: Arena,
+        *,
+        mesh=None,
+        accel: dispatch_mod.AcceleratorSpec | None = None,
+        eta: float | None = None,
+        fault_injector=None,
+    ):
+        self.arena = arena
+        self.mesh = mesh
+        self.accel = accel or dispatch_mod.AcceleratorSpec()
+        self.eta = self.accel.eta if eta is None else eta
+        # test hook with the reference's FaultInjector interface
+        # (begin_call / kill_step / fire); every execute() counts as one call
+        self.fault_injector = fault_injector
+        # the kernel path's logic (and its code tensor) per iterator
+        self._logic: dict = {}
+
+    def _local_fault_check(self):
+        """Register the engine call with the fault injector and fire its
+        kill before any work runs."""
+        inj = self.fault_injector
+        if inj is not None:
+            k = inj.kill_step(inj.begin_call())
+            if k is not None:
+                inj.fire(k)
+
+    def dispatch(self, it: PulseIterator) -> dispatch_mod.OffloadDecision:
+        return dispatch_mod.offload_decision(
+            it, self.arena.node_words, self.accel, eta=self.eta
+        )
+
+    def execute(
+        self,
+        it: PulseIterator,
+        ptr0,
+        scratch0,
+        *,
+        max_iters: int = 1 << 20,
+        force_offload: bool | None = None,
+        cache_nodes: int = 0,
+        backend: str | None = None,
+    ) -> ExecResult:
+        """Dispatch + execute a batch of traversals on one memory node.
+
+        ``backend`` selects the executor: ``"kernel"`` runs the pulse_chase
+        kernel under the variable-depth wave scheduler (the plain version of
+        the kernel when the arena is on the CPU); ``"reference"`` runs the
+        plain executor.  The default is ``"kernel"`` for an arena on the
+        card and ``"reference"`` otherwise.  Both give bit-identical
+        ``ptr``, ``scratch``, ``status`` and ``iters``, except that the
+        kernel path detects translation faults between depth quanta.
+
+        ``force_offload=None`` follows the dispatch model only for an arena
+        on the CPU.  An arena on the card is always traversed on the card:
+        the model's decision is still made and returned in
+        ``ExecResult.decision``, and the host-side ``cpu_node`` baseline
+        runs only when the caller asks for it with ``force_offload=False``.
+        """
+        if it.mutates:
+            raise NotImplementedError(
+                f"iterator {it.name!r} mutates: the write path comes with "
+                f"ROADMAP queue 1, item 5"
+            )
+        if self.mesh is not None and self.arena.num_shards > 1:
+            raise NotImplementedError(
+                "distributed execution over a mesh comes with ROADMAP queue 1, item 6"
+            )
+        on_card = _on_card(self.arena.data)
+        if backend is None:
+            backend = "kernel" if on_card else "reference"
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose one of {BACKENDS}")
+        decision = self.dispatch(it)
+        if force_offload is not None:
+            offload = force_offload
+        else:
+            offload = decision.offload or on_card
+        dev = self.arena.data.device
+        if not offload:
+            self._local_fault_check()
+            ptr, scratch, iters, trace = cpu_node_execute(
+                it, self.arena, ptr0, scratch0,
+                max_iters=max_iters, cache_nodes=cache_nodes,
+            )
+            status = np.where(iters >= max_iters, STATUS_MAXED, STATUS_DONE)
+            return ExecResult(
+                torch.from_numpy(ptr).to(dev),
+                torch.from_numpy(scratch).to(dev),
+                torch.from_numpy(status.astype(np.int32)).to(dev),
+                torch.from_numpy(iters.astype(np.int32)).to(dev),
+                trace,
+                False,
+                decision,
+            )
+
+        self._local_fault_check()
+        if backend == "kernel":
+            res = self._execute_kernel(it, ptr0, scratch0, max_iters=max_iters)
+            return dataclasses.replace(res, decision=decision)
+        elide = routing.can_elide_access_check(it, self.arena)
+        ptr, scratch, status, iters = execute_batched(
+            it, self.arena, ptr0, scratch0,
+            max_iters=min(max_iters, (1 << 31) - 1), elide_access_check=elide,
+        )
+        return ExecResult(ptr, scratch, status, iters, decision=decision)
+
+    def _execute_kernel(
+        self, it: PulseIterator, ptr0, scratch0, *, max_iters: int
+    ) -> ExecResult:
+        """Single-node path on the pulse_chase kernel (variable-depth waves).
+
+        Translation/protection faults (NULL or out-of-range pointers,
+        perm-revoked ranges) are enforced by a device-side ``fault_fn``
+        between depth quanta, so detection is quantum-granular rather than
+        per-iteration like the reference executor -- a faulting lane may
+        execute a few extra clamped (harmless) loads first, and its
+        iteration count includes them.  Lanes still active after
+        ``max_iters`` report MAXED (resumable).
+        """
+        from repro_torch.kernels.pulse_chase import ops as chase_ops
+
+        arena = self.arena
+        dev = arena.data.device
+        ptr0 = torch.as_tensor(ptr0, dtype=torch.int32).to(dev)
+        B = ptr0.shape[0]
+        scratch0 = torch.as_tensor(scratch0, dtype=torch.int32).to(dev)
+        scratch0 = scratch0.reshape(B, it.scratch_words)
+        logic = self._logic.get(it)
+        if logic is None:
+            logic = self._logic[it] = chase_ops.iterator_logic(it)
+        max_steps = int(min(max_iters, 1 << 20))
+        bounds, perms, cap = arena.bounds, arena.perms, arena.capacity
+
+        def fault_fn(p):
+            shard = torch.searchsorted(bounds, p, right=True) - 1
+            ok = perms[shard.clamp(0, perms.shape[0] - 1)] & PERM_READ
+            return (p < 0) | (p >= cap) | (ok != PERM_READ)
+
+        ptr, scratch, st, wstats = chase_ops.pulse_chase_waves(
+            arena.data, ptr0, scratch0, torch.zeros(B, dtype=torch.int32, device=dev),
+            logic_fn=logic, max_steps=max_steps, fault_fn=fault_fn,
+        )
+        status = torch.where(st == 1, STATUS_DONE, STATUS_MAXED).to(torch.int32)
+        status = torch.where(wstats.faulted, STATUS_FAULT, status).to(torch.int32)
+        return ExecResult(ptr, scratch, status, wstats.retire_step, wstats)
