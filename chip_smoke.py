@@ -7,20 +7,40 @@ Run from the root of the repository, on a machine with a CUDA card and
     python3 chip_smoke.py [--seed 0] [--json PATH]
 
 Phases (any failure exits non-zero before the last line):
-  1. device and build: the card's name and power limit, then the
-     ``pulse_chase`` kernel built from ``src/repro_torch/csrc`` with its
-     ``-Xptxas -v`` report;
-  2. kernel against its plain version: the four ISA read programs, each on
-     its structure at a small size and at the paper's size, through
+  1. device and build: the card's name and power limit, then the three
+     kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
+     started together) with their ``-Xptxas -v`` reports;
+  2. ``pulse_chase`` against its plain version: the four ISA read programs,
+     each on its structure at a small size and at the paper's size, through
      ``ops.pulse_chase`` (kernel) and ``ref.chase_reference`` (plain) on the
      same CUDA tensors; every output must be bit-equal (tolerance 0: the
      state is int32);
-  3. the main path: ``PulseEngine(arena).execute(it, ptr0, scr0,
+  3. the traversal main path: ``PulseEngine(arena).execute(it, ptr0, scr0,
      max_iters=4096)`` with the default backend ("kernel") on three
      workloads of 65,536 YCSB-Zipfian queries (90% stored keys by rank with
      p ~ rank^-0.99, 10% absent keys); results must equal
      ``backend="reference"`` and the structure's ``ref_find`` oracle, and
-     the kernel's launch count must rise.
+     the kernel's launch count must rise;
+  4. ``flash_attention`` against its plain version (``mha_reference``) on
+     the shapes of ``tests/test_kernels.py`` in f32 and bf16 and at the
+     serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32); tolerance
+     2e-5 (f32) and 2e-2 (bf16), absolute and relative; timed beside
+     ``scaled_dot_product_attention`` (the library yardstick, never used by
+     the port);
+  5. ``paged_attention`` against its plain version on the shapes of
+     ``tests/test_kernels.py`` and at Qwen3-0.6B's widths (H=16, Hk=8,
+     D=128, page 16, lengths 512-528, f32), same tolerances;
+  6. the serve path: ``repro_torch.launch.serve.main`` on the full-width
+     ``qwen3_0_6b`` (seeded weights; 8 requests, 4 slots, prompt 512, 16
+     new tokens): every request finishes and ``flash_attention`` launches
+     28 times per prefill call; then the same requests on the plain
+     ``attn_backend="chunked"`` with the same weights: prefill logits agree
+     within 1e-3 absolute, and the emitted tokens are compared;
+  7. paged decode at full width: one prefill's K/V written into a
+     ``PagedKVCache`` (28 layers, page 16) through ``write_token``, the
+     page tables walked on the card by the PULSE executor, and for every
+     layer ``paged_attention`` held against its plain version and dense
+     attention over the same KV (2e-5).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -39,8 +59,13 @@ ROOT = Path(__file__).resolve().parent
 B_MAIN = 65_536  # queries per main-path workload
 ZIPF_S = 0.99  # YCSB's Zipfian constant
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+F32_FLOP_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 TPU_KERNEL = "src/repro/kernels/pulse_chase/kernel.py:38"
 KERNEL_SOURCE = "src/repro_torch/csrc/pulse_chase.cu"
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:133,177
+LOGIT_TOL = 1e-3  # kernel vs chunked prefill logits, 28 f32 layers
+SERVE_ARGS = ["--arch", "qwen3_0_6b", "--requests", "8", "--max-batch", "4",
+              "--prompt-len", "512", "--max-len", "1024", "--max-new", "16"]
 
 
 def log(msg: str) -> None:
@@ -159,6 +184,50 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_cuda_rotating(fns, rounds: int) -> float:
+    """Mean milliseconds per call of ``fns`` called in turn, ``rounds``
+    times over, by CUDA events: with inputs that together exceed the 50 MB
+    L2, each call finds its own inputs cold, as a decode step finds each
+    layer's pages."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        for fn in fns:
+            fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (rounds * len(fns))
+
+
+def kernel_device_ms(fns, rounds: int, name: str):
+    """Mean device time of one launch of the kernel whose name contains
+    ``name``, over ``rounds`` passes of ``fns``, from the profiler's kernel
+    timestamps: unlike CUDA events around a run, it leaves out the gaps
+    where the card waits for the host to launch a short kernel.  None when
+    the profiler saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in evs)
+    return sum(e.self_device_time_total for e in evs) / count / 1e3 if count else None
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
@@ -187,7 +256,10 @@ def kernel_vs_plain(arena, it, ptr0, scr0, num_steps: int):
 def phase_device():
     import torch
 
-    from repro_torch.kernels.pulse_chase import kernel
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+    from repro_torch.kernels.pulse_chase import kernel as chase_kernel
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -197,13 +269,24 @@ def phase_device():
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} visible)")
     log(f"nvidia-smi: {smi}")
+    sources = [chase_kernel.SOURCE, flash_kernel.SOURCE, paged_kernel.SOURCE]
     t0 = time.perf_counter()
-    so = kernel.build()
-    log(f"built {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in kernel.build_log().splitlines():
-        if "ptxas" in line:
-            log(f"  {line.strip()}")
-    return name, smi
+    libs = _build.build_all(sources)
+    log(f"built {', '.join(so.name for so in libs)} in {time.perf_counter() - t0:.1f} s")
+    report = {}  # kernel -> [(entry function, ptxas's resource line)]
+    for src in sources:
+        log(f"  {src.name}:")
+        entry, report[src.name] = "", []
+        for line in src.build_log().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "ptxas info" in line and "Used" in line:
+                report[src.name].append((entry, line.split(":", 1)[1].strip()))
+            elif "spill" in line and not line.strip().endswith("0 bytes spill loads"):
+                report[src.name].append((entry, line.strip()))
+        for entry, info in report[src.name]:
+            log(f"    {entry}: {info}")
+    return name, smi, report
 
 
 def phase_kernel_vs_plain(rng):
@@ -379,6 +462,462 @@ def phase_main(rng, workloads):
     return rows
 
 
+# --------------------------- attention kernels ------------------------------
+
+
+def _close(got, want, dtype):
+    """(within tolerance?, max |diff|) of two CUDA tensors, in f32."""
+    import torch
+
+    g, w = got.float(), want.float()
+    tol = TOL[dtype]
+    ok = bool(torch.all((g - w).abs() <= tol + tol * w.abs()).item())
+    return ok, float((g - w).abs().max().item())
+
+
+def _randn(gen, shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(
+        getattr(torch, dtype))
+
+
+def flash_work(B, H, Hk, Lq, Lk, D, causal, elem_bytes=4):
+    """(FLOPs, bytes) the function needs: 4*D per (query, key) pair kept
+    (q.k and p.v, a multiply-add each), and q, k, v, o once."""
+    off = Lk - Lq if causal else 0
+    pairs = sum(min(Lk, max(0, off + r + 1)) if causal else Lk for r in range(Lq))
+    flops = 4 * D * B * H * pairs
+    nbytes = (2 * B * H * Lq * D + 2 * B * Hk * Lk * D) * elem_bytes
+    return flops, nbytes
+
+
+def bound(flops, nbytes):
+    """(least ms, what bounds it): the larger of the two times."""
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_flash(seed):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [  # B, H, Hk, Lq, Lk, D, causal, block
+        (2, 4, 2, 128, 128, 64, True, 64),
+        (1, 4, 4, 256, 256, 32, True, 64),
+        (2, 2, 1, 128, 256, 64, True, 64),
+        (1, 4, 2, 128, 128, 64, False, 64),
+    ]
+    checks = []
+    for dtype in ("float32", "bfloat16"):
+        for B, H, Hk, Lq, Lk, D, causal, blk in cases:
+            q = _randn(gen, (B, H, Lq, D), dtype)
+            k, v = _randn(gen, (B, Hk, Lk, D), dtype), _randn(gen, (B, Hk, Lk, D), dtype)
+            got = ops.flash_attention(q, k, v, causal, blk, blk)
+            ok, err = _close(got, ref.mha_reference(q, k, v, causal=causal), dtype)
+            checks.append(dict(shape=[B, H, Hk, Lq, Lk, D], causal=causal, dtype=dtype,
+                               within_tol=ok, max_abs_err=err))
+            log(f"  flash {dtype:8s} B={B} H={H} Hk={Hk} Lq={Lq} Lk={Lk} D={D} "
+                f"causal={causal}: max_abs_err={err:.3g} ok={ok}")
+            if not ok:
+                raise AssertionError("flash_attention kernel disagrees with its plain version")
+
+    # the serve shape: one prefill call's attention in one layer
+    B, H, Hk, L, D = 4, 16, 8, 512, 128
+    q = _randn(gen, (B, H, L, D), "float32")
+    k, v = _randn(gen, (B, Hk, L, D), "float32"), _randn(gen, (B, Hk, L, D), "float32")
+    got = ops.flash_attention(q, k, v, True, 128, 128)
+    want = ref.mha_reference(q, k, v, causal=True)
+    ok, err = _close(got, want, "float32")
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    _, lib_err = _close(lib, want, "float32")
+    log(f"  flash serve shape B={B} H={H} Hk={Hk} L={L} D={D} causal f32: "
+        f"max_abs_err={err:.3g} ok={ok} (SDPA vs plain {lib_err:.3g})")
+    if not ok:
+        raise AssertionError("flash_attention kernel disagrees with its plain version")
+    events_ms = time_cuda(lambda: ops.flash_attention(q, k, v, True, 128, 128), 50)
+    device_ms = kernel_device_ms([lambda: ops.flash_attention(q, k, v, True, 128, 128)], 20,
+                                 "flash_fwd")
+    ms = events_ms if device_ms is None else device_ms
+    plain_ms = time_cuda(lambda: ref.mha_reference(q, k, v, causal=True), 10)
+    library_ms = time_cuda(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 50)
+    flops, nbytes = flash_work(B, H, Hk, L, L, D, True)
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(shape=[B, H, Hk, L, L, D], causal=True, dtype="float32", max_abs_err=err,
+               ms=ms, ms_source="events" if device_ms is None else "profiler",
+               ms_events=events_ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
+               flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  flash serve shape: kernel {ms:.4f} ms ({row['ms_source']}; CUDA events over 50 "
+        f"launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
+    log(json.dumps({"phase": "flash_vs_plain", "name": "flash_attention", "checks": checks,
+                    "serve_shape": row}))
+    return checks, row
+
+
+def paged_inputs(gen, B, H, Hk, D, page, lengths, dtype):
+    """Queries, pools and a page table whose pages are distinct, as an
+    allocator hands them out (shuffled), and padded with page 0 (the trash
+    page, never handed out)."""
+    import torch
+
+    P = max(-(-n // page) for n in lengths)
+    N = sum(-(-n // page) for n in lengths) + 1
+    q = _randn(gen, (B, H, D), dtype)
+    kp, vp = _randn(gen, (N, page, Hk, D), dtype), _randn(gen, (N, page, Hk, D), dtype)
+    perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
+    pt = torch.zeros((B, P), dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lengths):
+        m = -(-n // page)
+        pt[b, :m] = perm[used:used + m].int()
+        used += m
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, ln
+
+
+def paged_work(H, Hk, D, lengths, B, P, elem_bytes=4):
+    """(FLOPs, bytes): 4*D per (head, valid token); the valid tokens' K and
+    V once, q and o once, the page table and lengths once."""
+    toks = sum(lengths)
+    flops = 4 * D * H * toks
+    nbytes = (2 * toks * Hk * D + 2 * B * H * D) * elem_bytes + (B * P + B) * 4
+    return flops, nbytes
+
+
+def phase_paged(seed):
+    import torch
+
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cases = [(2, 4, 2, 64, 16, 4, 32), (1, 8, 8, 32, 8, 8, 64), (3, 4, 1, 64, 16, 3, 16)]
+    checks = []
+    for dtype in ("float32", "bfloat16"):
+        for B, H, Hk, D, page, P, N in cases:
+            q = _randn(gen, (B, H, D), dtype)
+            kp, vp = _randn(gen, (N, page, Hk, D), dtype), _randn(gen, (N, page, Hk, D), dtype)
+            pt = torch.randint(0, N, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+            ln = torch.randint(1, P * page + 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            got = ops.paged_attention(q, kp, vp, pt, ln)
+            ok, err = _close(got, ref.paged_attention_reference(q, kp, vp, pt, ln), dtype)
+            checks.append(dict(shape=[B, H, Hk, D, page, P, N], dtype=dtype, within_tol=ok,
+                               max_abs_err=err))
+            log(f"  paged {dtype:8s} B={B} H={H} Hk={Hk} D={D} page={page} P={P} N={N}: "
+                f"max_abs_err={err:.3g} ok={ok}")
+            if not ok:
+                raise AssertionError("paged_attention kernel disagrees with its plain version")
+
+    # Qwen3-0.6B's widths, one decode step of 4 sequences of 512-528 tokens
+    B, H, Hk, D, page, lengths = 4, 16, 8, 128, 16, [528, 523, 517, 512]
+    q, kp, vp, pt, ln = paged_inputs(gen, B, H, Hk, D, page, lengths, "float32")
+    got = ops.paged_attention(q, kp, vp, pt, ln)
+    ok, err = _close(got, ref.paged_attention_reference(q, kp, vp, pt, ln), "float32")
+    log(f"  paged Qwen3-0.6B widths, lengths {lengths}: max_abs_err={err:.3g} ok={ok}")
+    if not ok:
+        raise AssertionError("paged_attention kernel disagrees with its plain version")
+    # a decode step reads each layer's pages once: time over 8 copies of the
+    # pools (139 MB, beyond the L2) so that every call reads from HBM
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(7)]
+    launches = [lambda k=k, v=v: ops.paged_attention(q, k, v, pt, ln) for k, v in pools]
+    events_ms = time_cuda_rotating(launches, 20)
+    device_ms = kernel_device_ms(launches, 10, "paged_decode")
+    ms = events_ms if device_ms is None else device_ms
+    warm_ms = kernel_device_ms([lambda: ops.paged_attention(q, kp, vp, pt, ln)], 80,
+                               "paged_decode")
+    plain_ms = time_cuda_rotating(
+        [lambda k=k, v=v: ref.paged_attention_reference(q, k, v, pt, ln) for k, v in pools], 2)
+    del pools
+    flops, nbytes = paged_work(H, Hk, D, lengths, B, pt.shape[1])
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(shape=[B, H, Hk, D, page], lengths=lengths, dtype="float32", max_abs_err=err,
+               ms=ms, ms_source="events" if device_ms is None else "profiler",
+               ms_events=events_ms, ms_l2_warm=warm_ms, plain_ms=plain_ms, flops=flops,
+               bytes=nbytes,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  paged Qwen3-0.6B widths: kernel {ms:.4f} ms from HBM ({row['ms_source']}; "
+        f"{warm_ms} ms with the pools in L2; CUDA events over the rotation {events_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s")
+    log(json.dumps({"phase": "paged_vs_plain", "name": "paged_attention", "checks": checks,
+                    "qwen_widths": row}))
+    return checks, row
+
+
+# ------------------------------ LM serving ----------------------------------
+
+
+def phase_serve():
+    """The serve path through the user's entry point, then the plain route."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving.batching import ContinuousBatcher
+
+    cfg = get_config("qwen3_0_6b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention.launches = 0
+    m, reqs = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = flash_ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(r.finished_step >= 0 for r in reqs):
+        raise AssertionError("serve: requests left unfinished")
+    if m.prefill_calls == 0 or launches != cfg.n_layers * m.prefill_calls:
+        raise AssertionError(f"serve: flash_attention launched {launches} times for "
+                             f"{m.prefill_calls} prefill calls of {cfg.n_layers} layers")
+    row = dict(requests=len(reqs), steps=m.steps, tokens_out=m.tokens_out, wall_s=m.wall_s,
+               tokens_per_s=m.tokens_per_s, prefill_calls=m.prefill_calls,
+               prefill_ms_per_call=m.prefill_s / m.prefill_calls * 1e3,
+               decode_ms_per_step=m.decode_s / m.steps * 1e3, peak_device_gb=peak_gb,
+               flash_launches=launches)
+    log(f"  serve (kernel route): {row['tokens_per_s']:.1f} tokens/s, "
+        f"prefill {row['prefill_ms_per_call']:.2f} ms/call x {m.prefill_calls}, "
+        f"decode {row['decode_ms_per_step']:.2f} ms/step x {m.steps}, wall {m.wall_s:.3f} s, "
+        f"peak {peak_gb:.2f} GB, flash_attention launches {launches}")
+
+    # the plain route on the same weights and prompts
+    kmodel = build_model(cfg)
+    pmodel = build_model(cfg.replace(attn_backend="chunked"))
+    params = serve.init_params(kmodel, "cuda")
+    preqs = serve.make_requests(cfg, len(reqs), 512, 16)
+    b = ContinuousBatcher(pmodel, max_batch=4, max_len=1024)
+    b.model_params = params
+    pm = b.serve(preqs)
+    toks = torch.from_numpy(np.stack([r.prompt for r in preqs[:4]])).cuda()
+    with torch.no_grad():
+        lk, _ = kmodel.prefill(params, {"tokens": toks}, 512)
+        lp, _ = pmodel.prefill(params, {"tokens": toks}, 512)
+        logit_err = float((lk - lp).abs().max().item())
+    del lk, lp
+    agree = sum(a == c for r, p in zip(reqs, preqs) for a, c in zip(r.output, p.output))
+    total = sum(len(r.output) for r in reqs)
+    first_diffs = []
+    for r, p in zip(reqs, preqs):
+        j = next((i for i, (a, c) in enumerate(zip(r.output, p.output)) if a != c), None)
+        if j is None:
+            continue
+        seq = torch.from_numpy(np.concatenate([p.prompt, np.asarray(p.output[:j], np.int32)]))
+        lg, _ = pmodel.prefill(params, {"tokens": seq[None].cuda()}, len(seq))
+        top = lg[0, -1].topk(2).values
+        first_diffs.append(dict(req=r.req_id, index=j, margin=float(top[0] - top[1])))
+    log(f"  serve (plain route): {pm.tokens_per_s:.1f} tokens/s, prefill "
+        f"{pm.prefill_s / pm.prefill_calls * 1e3:.2f} ms/call, decode "
+        f"{pm.decode_s / pm.steps * 1e3:.2f} ms/step")
+    log(f"  prefill logits kernel vs plain: max_abs_err={logit_err:.3g} (tolerance {LOGIT_TOL}); "
+        f"tokens agreeing {agree}/{total}; first differences {first_diffs}")
+    if logit_err > LOGIT_TOL:
+        raise AssertionError("serve: kernel and plain prefill logits disagree")
+    row.update(warm_breakdown(kmodel, params, toks))
+    row.update(plain_tokens_per_s=pm.tokens_per_s,
+               plain_prefill_ms_per_call=pm.prefill_s / pm.prefill_calls * 1e3,
+               plain_decode_ms_per_step=pm.decode_s / pm.steps * 1e3,
+               prefill_logit_max_abs_err=logit_err, tokens_agree=agree, tokens_total=total,
+               first_differences=first_diffs)
+    log(json.dumps({"phase": "serve", **row}))
+    return row, params
+
+
+def _device_ms(prof):
+    """(kernel ms summed over the profiled window, the top 6 kernels by
+    time); (None, []) when the profiler saw no kernel.  Only the kernels'
+    own events count: an operator's device time is its kernels' again."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total <= 0:
+        return None, []
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return total, [dict(kernel=e.key[:120], device_ms=e.self_device_time_total / 1e3,
+                        calls=e.count) for e in top]
+
+
+def warm_breakdown(model, params, toks):
+    """The kernel route warm: a prefill call (4 x 512) and decode steps by
+    the host clock around work that ends in a synchronise, then one
+    profiled window of each for the kernels' time; the device's busy share
+    is that time over the unprofiled wall time (the profiler slows the
+    host)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    B, T = toks.shape
+
+    def prefill():
+        logits, cache = model.prefill(params, {"tokens": toks}, 1024)
+        return logits[:, -1].argmax(-1).int(), cache
+
+    def decode(cur, cache, pos):
+        logits, cache = model.decode_step(params, cache, cur, pos)
+        return logits.argmax(-1).int(), cache
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(3):
+            (cur, cache), ms = timed(prefill)
+            prefill_ms.append(ms)
+        pos = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        decode_ms = []
+        for _ in range(5):
+            (cur, cache), ms = timed(decode, cur, cache, pos)
+            decode_ms.append(ms)
+            pos += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            (cur, cache), p_wall = timed(prefill)
+        p_dev, p_top = _device_ms(prof)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            d_wall = 0.0
+            for _ in range(3):
+                (cur, cache), ms = timed(decode, cur, cache, pos)
+                d_wall += ms
+                pos += 1
+        d_dev, d_top = _device_ms(prof)
+    p_med, d_med = float(np.median(prefill_ms)), float(np.median(decode_ms))
+    # least times: the prefill's matmul and attention FLOPs at the f32 peak;
+    # a decode step's weights and live cache read once at the HBM rate
+    cfg = model.cfg
+    mm_params = cfg.param_count() - cfg.vocab * cfg.d_model  # the embedding is a gather
+    attn_flops, _ = flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)
+    prefill_flops = 2 * B * T * mm_params + cfg.n_layers * attn_flops
+    decode_bytes = 4 * (mm_params + 2 * cfg.n_layers * B * (T + 4) * cfg.n_kv_heads * cfg.hd)
+    bounds = dict(prefill_flops=prefill_flops,
+                  prefill_bound_ms=prefill_flops / F32_FLOP_PER_S * 1e3,
+                  prefill_tflop_per_s=prefill_flops / p_med / 1e9,
+                  decode_bytes=decode_bytes,
+                  decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"  prefill: {prefill_flops / 1e12:.3f} TFLOP, {bounds['prefill_tflop_per_s']:.1f} "
+        f"TFLOP/s warm, bound {bounds['prefill_bound_ms']:.2f} ms; decode step: "
+        f"{decode_bytes / 1e9:.3f} GB, bound {bounds['decode_bound_ms']:.3f} ms")
+    busy = dict(prefill=None if p_dev is None else p_dev / p_med,
+                decode=None if d_dev is None else d_dev / 3 / d_med)
+    out = dict(warm_prefill_ms=prefill_ms, warm_decode_ms=decode_ms,
+               profiled_prefill_wall_ms=p_wall, prefill_kernel_ms=p_dev,
+               profiled_decode_wall_ms_3_steps=d_wall, decode_kernel_ms_3_steps=d_dev,
+               prefill_device_busy=busy["prefill"], decode_device_busy=busy["decode"],
+               prefill_top_kernels=p_top, decode_top_kernels=d_top, **bounds)
+    log(f"  warm kernel route: prefill ms {[round(x, 2) for x in prefill_ms]}, decode ms/step "
+        f"{[round(x, 2) for x in decode_ms]}")
+    for what, dev, per, med, top in (("prefill", p_dev, 1, p_med, p_top),
+                                     ("decode step", d_dev, 3, d_med, d_top)):
+        if dev is None:
+            log(f"  profiled {what}: the profiler saw no kernel (device time not measured)")
+            continue
+        log(f"  profiled {what}: kernels {dev / per:.2f} ms of {med:.2f} ms warm wall, device "
+            f"busy {100 * dev / per / med:.1f}%, idle {100 * (1 - dev / per / med):.1f}%; top "
+            + "; ".join(f"{t['kernel'][:60]} {t['device_ms'] / per:.2f} ms x{t['calls'] // per}"
+                        for t in top))
+    return out
+
+
+def phase_paged_decode(params):
+    """Paged decode at full width on one prefill's K/V."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_reference
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving.kv_cache import PagedKVCache
+
+    cfg = get_config("qwen3_0_6b")
+    L, H, Hk, D, page, B, T = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 16, 4, 512
+    lengths = [512, 509, 500, 487]
+    reqs = serve.make_requests(cfg, B, T, 1)
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).cuda()
+    with torch.no_grad():
+        _, kv = build_model(cfg).prefill(params, {"tokens": toks}, T)
+    n_pages = sum(-(-n // page) for n in lengths) + 1
+    cache = PagedKVCache(cfg, n_pages=n_pages, page_size=page, max_batch=B, device="cuda")
+    t0 = time.perf_counter()
+    for t in range(T):
+        active = np.array([t < n for n in lengths])
+        for b in np.flatnonzero(active):
+            cache.ensure_capacity(int(b), t + 1)
+        cache.write_token((kv["k"][:, :, t], kv["v"][:, :, t]), active=active)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    max_pages = -(-max(lengths) // page)
+    t0 = time.perf_counter()
+    pt, ln = cache.walk_page_tables(max_pages)
+    torch.cuda.synchronize()
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    if ln.tolist() != lengths or not pt.is_cuda:
+        raise AssertionError("paged decode: walked lengths differ")
+    for b in range(B):  # the walk against the host's chains
+        want, p = [], int(cache.heads[b])
+        while p != -1:
+            want.append(int(cache.builder.data[p, 0]))
+            p = int(cache.builder.data[p, 1])
+        if pt[b, :len(want)].tolist() != want:
+            raise AssertionError(f"paged decode: walked page table of slot {b} differs")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((B, H, D), generator=gen, device="cuda")
+    ops.paged_attention.launches = 0
+    errs, dense_errs = [], []
+    for layer in range(L):
+        got = ops.paged_attention(q, cache.k_pages[layer], cache.v_pages[layer], pt, ln)
+        want = ref.paged_attention_reference(q, cache.k_pages[layer], cache.v_pages[layer],
+                                             pt, ln)
+        ok, err = _close(got, want, "float32")
+        for b, n in enumerate(lengths):
+            kd = kv["k"][layer, b, :n].transpose(0, 1)[None]  # (1, Hk, n, D)
+            vd = kv["v"][layer, b, :n].transpose(0, 1)[None]
+            dense = mha_reference(q[b][None, :, None], kd, vd, causal=False)[0, :, 0]
+            ok_d, err_d = _close(got[b], dense, "float32")
+            ok, dense_errs = ok and ok_d, dense_errs + [err_d]
+        errs.append(err)
+        if not ok:
+            raise AssertionError(f"paged decode: layer {layer} disagrees "
+                                 f"(plain {err:.3g}, dense {max(dense_errs):.3g})")
+    torch.cuda.synchronize()
+    launches = ops.paged_attention.launches
+    if launches != L:
+        raise AssertionError(f"paged decode: {launches} kernel launches for {L} layers")
+    # the decode step's order: every layer once, each layer's pages cold
+    sweep = [lambda i=i: ops.paged_attention(q, cache.k_pages[i], cache.v_pages[i], pt, ln)
+             for i in range(L)]
+    events_ms = time_cuda_rotating(sweep, 10)
+    device_ms = kernel_device_ms(sweep, 5, "paged_decode")
+    ms = events_ms if device_ms is None else device_ms
+    flops, nbytes = paged_work(H, Hk, D, lengths, B, pt.shape[1])
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(layers=L, lengths=lengths, page=page, launches=launches,
+               max_abs_err=max(errs), dense_max_abs_err=max(dense_errs), ms_per_layer=ms,
+               ms_source="events" if device_ms is None else "profiler",
+               ms_per_layer_events=events_ms,
+               bound_ms_per_layer=bound_ms, bound_by=bound_by, write_s=write_s,
+               walk_ms=walk_ms)
+    log(f"  paged decode: {L} layers, lengths {lengths}, launches {launches}, max_abs_err "
+        f"{max(errs):.3g} (dense {max(dense_errs):.3g}), kernel {ms:.4f} ms/layer "
+        f"({row['ms_source']}; CUDA events {events_ms:.4f}) "
+        f"(bound {bound_ms:.5f}), write {write_s:.2f} s, walk {walk_ms:.1f} ms")
+    log(json.dumps({"phase": "paged_decode", **row}))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -403,7 +942,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     t_start = time.perf_counter()
     log("== phase 1: device and build")
-    name, smi = phase_device()
+    name, smi, build_report = phase_device()
     log("== phase 2: pulse_chase kernel against its plain version")
     checks = phase_kernel_vs_plain(rng)
     log("== phase 3: PulseEngine.execute, backend='kernel'")
@@ -426,11 +965,51 @@ def main(argv=None) -> int:
         bound_by="bytes", library_ms=None, timed_on=head["workload"],
         workloads=rows,
     )
-    summary = {"kernels": [entry]}
+    log("== phase 4: flash_attention kernel against its plain version")
+    flash_checks, flash_row = phase_flash(args.seed)
+    log("== phase 5: paged_attention kernel against its plain version")
+    paged_checks, paged_row = phase_paged(args.seed)
+    log("== phase 6: the serve path, qwen3_0_6b at full width")
+    serve_row, params = phase_serve()
+    log("== phase 7: paged decode at full width")
+    decode_row = phase_paged_decode(params)
+    del params
+
+    def f32_err(cks, row):
+        return max([c["max_abs_err"] for c in cks if c["dtype"] == "float32"]
+                   + [row["max_abs_err"]])
+
+    def bf16_err(cks):
+        return max(c["max_abs_err"] for c in cks if c["dtype"] == "bfloat16")
+
+    flash_entry = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:26",
+        launches=serve_row["flash_launches"], max_abs_err=f32_err(flash_checks, flash_row),
+        max_abs_err_bf16=bf16_err(flash_checks), ms=flash_row["ms"],
+        plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
+        bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
+        library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        timed_on="serve shape B=4 H=16 Hk=8 L=512 D=128 causal f32", serve=serve_row,
+    )
+    paged_entry = dict(
+        name="paged_attention", route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:33",
+        launches=decode_row["launches"],
+        max_abs_err=max(f32_err(paged_checks, paged_row), decode_row["max_abs_err"]),
+        max_abs_err_bf16=bf16_err(paged_checks), ms=paged_row["ms"],
+        plain_ms=paged_row["plain_ms"], bound_ms=paged_row["bound_ms"],
+        bound_by=paged_row["bound_by"], library_ms=None,
+        timed_on="Qwen3-0.6B widths, B=4, lengths 512-528, f32, one layer",
+        paged_decode=decode_row,
+    )
+    summary = {"kernels": [entry, flash_entry, paged_entry]}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(
-            device=name, nvidia_smi=smi, seed=args.seed, checks=checks, **summary,
+            device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
+            flash_checks=flash_checks, paged_checks=paged_checks, **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

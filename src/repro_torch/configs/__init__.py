@@ -1,1 +1,116 @@
-"""Configurations the port runs: the paper's PULSE workloads."""
+"""Configurations the port runs: the paper's PULSE workloads
+(``pulse_paper``) and the LM architectures.
+
+Each ``<arch>.py`` exports ``CONFIG`` (the published dims) and
+``reduced()`` (the same family at tiny dims, for CPU tests); ``get_config``
+maps ``--arch <id>`` to it.  Only the architectures in ``ARCH_IDS`` are
+ported so far; the rest of the JAX package's (moe, ssm, hybrid, vlm,
+encdec) come with ROADMAP queue 1, item 10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    # attention variants
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    nonparametric_norm: bool = False  # OLMo: RMSNorm without learned scale
+    rope_theta: float = 10000.0
+    attn_chunk: int = 1024  # kv-chunk of the plain blockwise attention
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_renormalize: bool = True
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    hybrid_attn_every: int = 0
+    # enc-dec (whisper)
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    n_audio_frames: int = 1500
+    # vlm
+    n_patches: int = 0
+    # numerics / execution
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    # "kernel": the flash_attention CUDA kernel (the JAX package's "pallas");
+    # "chunked": plain blockwise attention in torch (its "xla")
+    attn_backend: str = "kernel"
+    decode_kv_f32: bool = True  # False: read the cache in its storage dtype
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6*N*D)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        hd = self.hd
+        attn = D * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * D
+        if self.family in ("ssm",):
+            d_in = self.ssm_expand * D
+            per = D * (2 * d_in + 2 * self.ssm_state + d_in // self.ssm_head_dim) + d_in * D
+            return self.n_layers * per + 2 * V * D
+        if self.family == "hybrid":
+            d_in = self.ssm_expand * D
+            per = D * (2 * d_in + 2 * self.ssm_state + d_in // self.ssm_head_dim) + d_in * D
+            return self.n_layers * per + attn + 3 * D * F + 2 * V * D
+        mlp = 3 * D * F
+        if self.family == "moe":
+            mlp = self.n_experts * 3 * D * self.moe_d_ff + D * self.n_experts
+            mlp += self.n_shared_experts * 3 * D * self.moe_d_ff
+        if self.family == "encdec":
+            mlp = 2 * D * F
+            return (
+                self.n_enc_layers * (attn + mlp)
+                + self.n_dec_layers * (2 * attn + mlp)
+                + V * D
+            )
+        return self.n_layers * (attn + mlp) + 2 * V * D
+
+
+ARCH_IDS = ["qwen3_0_6b"]
+
+
+def _module(arch_id: str):
+    arch_id = arch_id.replace("-", "_")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(
+            f"unknown or not yet ported arch {arch_id!r}; the port has {ARCH_IDS} "
+            f"(the others come with ROADMAP queue 1, item 10)"
+        )
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_reduced_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).reduced()

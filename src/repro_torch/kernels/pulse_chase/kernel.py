@@ -10,11 +10,9 @@ over 3.35 TB/s).  What the design does about it: one thread per lane and
 many resident lanes per SM, so the warp scheduler overlaps the gathers of
 independent lanes.
 
-The source is compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` inside the package (so the package must sit in a
-writable place: a checkout or an editable install), keyed by a hash of the
-source and flags, and loaded with ``ctypes`` through a plain C entry point.
-The opcode numbering is passed to the compiler from ``core.isa`` as
+The source is built and loaded by ``kernels._build`` (``nvcc`` for
+``sm_90a``, a hashed library under ``build/kernels/``, ``ctypes``).  The
+opcode numbering is passed to the compiler from ``core.isa`` as
 ``-DPULSE_OP_<NAME>`` defines, so the kernel has no copy of its own.  A
 build or launch failure raises.
 """
@@ -23,82 +21,27 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from repro_torch.core import isa
 from repro_torch.core.arena import MAX_NODE_WORDS
+from repro_torch.kernels import _build
 
-_PACKAGE = Path(__file__).resolve().parents[2]
-_SRC = _PACKAGE / "csrc" / "pulse_chase.cu"
-BUILD_DIR = _PACKAGE / "build" / "kernels"
 OPCODE_DEFINES = tuple(
     f"-DPULSE_OP_{name}={op}" for op, name in sorted(isa.OP_NAMES.items())
 ) + (f"-DPULSE_LAST_OP={max(isa.ALL_OPS)}",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v", *OPCODE_DEFINES,
-)
+SOURCE = _build.KernelSource("pulse_chase", _build.CSRC / "pulse_chase.cu", OPCODE_DEFINES)
+_SRC = SOURCE.source
+NVCC_FLAGS = SOURCE.flags
 
 MAX_SCRATCH_WORDS = 32
 MAX_PROGRAM_ROWS = 1024  # 16 KB of shared memory
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
-            "PATH): the pulse_chase kernel cannot be built"
-        )
-    return found
-
-
-def library_path() -> Path:
-    """Where the shared library for the current source and flags lives."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"pulse_chase_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernel unless a library for this source already exists.
-    The compiler's ``-Xptxas -v`` report is kept beside it (``.log``)."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {_SRC} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
-
-
-def build_log() -> str:
-    """The ``-Xptxas -v`` report of the current build (registers, shared
-    memory, spills)."""
-    return build().with_suffix(".log").read_text()
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = SOURCE.load()
     fn = lib.pulse_chase_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # arena, cap, W

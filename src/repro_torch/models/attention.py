@@ -1,0 +1,152 @@
+"""GQA attention: init + prefill apply + decode-with-cache apply.
+
+The prefill path is ``attn_backend="kernel"`` (the hand-written CUDA
+flash-attention kernel on a card, its plain version on the CPU; the JAX
+package's ``"pallas"``) or ``"chunked"`` (blockwise online-softmax
+attention in plain torch; its ``"xla"``).  Decode is plain torch, as the
+JAX package's decode is plain einsum.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import apply_rope, dense_apply, dense_init, rmsnorm_apply
+from repro_torch.models.common import rmsnorm_init
+
+NEG_INF = -1e30
+BACKENDS = ("kernel", "chunked")
+
+
+def attention_init(gen, cfg):
+    D, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": dense_init(gen, D, H * hd, cfg.param_dtype, bias=cfg.qkv_bias),
+        "wk": dense_init(gen, D, Hk * hd, cfg.param_dtype, bias=cfg.qkv_bias),
+        "wv": dense_init(gen, D, Hk * hd, cfg.param_dtype, bias=cfg.qkv_bias),
+        "wo": dense_init(gen, H * hd, D, cfg.param_dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, cfg.param_dtype, gen.device)
+        p["k_norm"] = rmsnorm_init(hd, cfg.param_dtype, gen.device)
+    return p
+
+
+def _project_q(p, cfg, x, positions, *, rope=True):
+    B, L, _ = x.shape
+    q = dense_apply(p["wq"], x, cfg.compute_dtype).reshape(B, L, cfg.n_heads, cfg.hd)
+    if "q_norm" in p:
+        q = rmsnorm_apply(p["q_norm"], q)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _project_kv(p, cfg, x, positions, *, rope=True):
+    B, L, _ = x.shape
+    Hk, hd = cfg.n_kv_heads, cfg.hd
+    k = dense_apply(p["wk"], x, cfg.compute_dtype).reshape(B, L, Hk, hd)
+    v = dense_apply(p["wv"], x, cfg.compute_dtype).reshape(B, L, Hk, hd)
+    if "k_norm" in p:
+        k = rmsnorm_apply(p["k_norm"], k)
+    if rope:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024, q_offset: int = 0):
+    """Blockwise online-softmax attention in plain torch.
+
+    q: (B, L, H, hd); k, v: (B, Lk, Hk, hd).  O(L*chunk) live memory, a loop
+    over kv chunks; exact softmax attention.  KV heads are expanded to the
+    H query heads before the score product, as in the JAX package.
+    """
+    B, Lq, H, hd = q.shape
+    Lk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    chunk = min(chunk, Lk)
+    nchunk = -(-Lk // chunk)
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    qf = q.float() * hd ** -0.5
+    rows = q_offset + torch.arange(Lq, device=q.device)
+    m = torch.full((B, Lq, H), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Lq, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Lq, H, hd), dtype=torch.float32, device=q.device)
+    for ci in range(nchunk):
+        kb = k[:, ci * chunk:(ci + 1) * chunk].float()
+        vb = v[:, ci * chunk:(ci + 1) * chunk].float()
+        s = torch.einsum("blhd,bchd->blhc", qf, kb)
+        if causal:
+            cols = ci * chunk + torch.arange(kb.shape[1], device=q.device)
+            valid = rows[:, None] >= cols[None, :]
+            s = torch.where(valid[None, :, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        pexp = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("blhc,bchd->blhd", pexp, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True):
+    """Prefill self-attention -> (out (B, L, D), (k, v) each (B, L, Hk, hd)).
+
+    Sharding hints (the JAX package's ``shard_hint``) are nothing on one
+    device; the sharding port comes later (ROADMAP queue 1, item 10).
+    """
+    B, L, _ = x.shape
+    if positions is None:
+        positions = torch.arange(L, device=x.device).expand(B, L)
+    q = _project_q(p, cfg, x, positions, rope=rope)
+    k, v = _project_kv(p, cfg, x, positions, rope=rope)
+    if cfg.attn_backend == "kernel":
+        o = flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal, 128, 128,
+        ).transpose(1, 2)
+    elif cfg.attn_backend == "chunked":
+        o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    else:
+        raise ValueError(f"unknown attn_backend {cfg.attn_backend!r}; known: {BACKENDS}")
+    return dense_apply(p["wo"], o.reshape(B, L, -1), cfg.compute_dtype), (k, v)
+
+
+def decode_attention_apply(p, cfg, x, cache_k, cache_v, pos, *, rope=True):
+    """One-token decode against a (B, S, Hk, hd) cache.
+
+    Writes the new token's K/V into ``cache_k``/``cache_v`` at position
+    ``pos`` (per sequence) IN PLACE -- the JAX package returns new arrays;
+    updating in place saves a copy of the whole cache per layer and step --
+    attends over positions <= pos, and returns the output (B, 1, D).
+    """
+    B = x.shape[0]
+    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = cache_k.shape[1]
+    pos = pos if pos.dim() == 1 else pos[:, 0]
+    positions = pos[:, None]
+    q = _project_q(p, cfg, x, positions, rope=rope)  # (B, 1, H, hd)
+    k_new, v_new = _project_kv(p, cfg, x, positions, rope=rope)  # (B, 1, Hk, hd)
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, pos.long()] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[rows, pos.long()] = v_new[:, 0].to(cache_v.dtype)
+
+    G = H // Hk
+    qg = q.reshape(B, Hk, G, hd)
+    if cfg.decode_kv_f32:
+        s = torch.einsum("bkgd,bskd->bkgs", qg.float() * hd ** -0.5, cache_k.float())
+    else:  # read the cache in its storage dtype, accumulate in f32
+        s = torch.einsum("bkgd,bskd->bkgs", qg.to(cache_k.dtype), cache_k).float() * hd ** -0.5
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    pexp = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if cfg.decode_kv_f32:
+        o = torch.einsum("bkgs,bskd->bkgd", pexp, cache_v.float())
+    else:
+        o = torch.einsum("bkgs,bskd->bkgd", pexp.to(cache_v.dtype), cache_v).float()
+    o = o / pexp.sum(dim=-1)[..., None]
+    o = o.reshape(B, 1, H * hd).to(cfg.compute_dtype)
+    return dense_apply(p["wo"], o, cfg.compute_dtype)

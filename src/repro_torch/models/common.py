@@ -1,0 +1,82 @@
+"""Shared model building blocks (functional, dict-param style).
+
+Conventions, as in the JAX package:
+  * params are nested dicts of tensors; a dense weight is ``(in, out)``
+    and applied as ``x @ w``.  A layer stack is a list of per-layer dicts
+    applied by a plain loop (the JAX package stacks them on a leading L
+    axis and scans).
+  * compute happens in ``cfg.compute_dtype``, master params in
+    ``cfg.param_dtype``; norms, softmax and rope always in f32.
+  * init draws from an explicit ``torch.Generator`` and places every tensor
+    on that generator's device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def uniform_scale_init(gen: torch.Generator, shape, scale, dtype):
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale / (fan_in ** 0.5)
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * std).to(dtype)
+
+
+def dense_init(gen, in_dim, out_dim, dtype, *, bias=False, scale=1.0):
+    p = {"w": uniform_scale_init(gen, (in_dim, out_dim), scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((out_dim,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense_apply(p, x, compute_dtype):
+    y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def rmsnorm_init(dim, dtype, device, *, parametric=True):
+    if not parametric:  # OLMo-style non-parametric norm: no learned scale
+        return {}
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps=1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if "scale" in p:
+        y = y * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Half-split rotary embedding.  x: (..., L, H, D); positions:
+    broadcastable to (..., L)."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, x.device)  # (D/2,)
+    ang = positions[..., None].float() * freqs  # (..., L, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_init(gen, d_model, d_ff, dtype):
+    return {
+        "wi": dense_init(gen, d_model, d_ff, dtype),
+        "wg": dense_init(gen, d_model, d_ff, dtype),
+        "wo": dense_init(gen, d_ff, d_model, dtype),
+    }
+
+
+def swiglu_apply(p, x, compute_dtype):
+    h = F.silu(dense_apply(p["wg"], x, compute_dtype)) * dense_apply(p["wi"], x, compute_dtype)
+    return dense_apply(p["wo"], h, compute_dtype)

@@ -1,0 +1,167 @@
+"""Port parity: flash_attention.
+
+On the CPU the port's ``ops.flash_attention`` runs its plain version
+(``ref.mha_reference``); it must agree with the JAX package's Pallas kernel
+in interpret mode and with its ``mha_reference`` on the
+``tests/test_kernels.py`` shapes, within 2e-5 in f32 and 2e-2 in bf16 (the
+JAX package's own tolerances: the sums are taken in another order).
+
+The CUDA kernel is held against the plain version on the card by the tests
+marked ``gpu`` (``pytest -m gpu`` there); this file imports without JAX for
+them."""
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.ops import flash_attention as jflash
+    from repro.kernels.flash_attention.ref import mha_reference as jref
+except ImportError:  # the card's machine has no JAX; its gpu tests need none
+    jnp = None
+from repro_torch.kernels.flash_attention import kernel as tkernel
+from repro_torch.kernels.flash_attention import ops as tops
+from repro_torch.kernels.flash_attention import ref as tref
+
+SHAPES = [  # B, H, Hk, Lq, Lk, D, causal (tests/test_kernels.py:113-122)
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 4, 4, 256, 256, 32, True),
+    (2, 2, 1, 128, 256, 64, True),  # decode-style Lq < Lk
+    (1, 4, 2, 128, 128, 64, False),  # bidirectional (encoder)
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(shape, seed):
+    B, H, Hk, Lq, Lk, D, _ = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Lq, D)).astype(np.float32),
+            rng.standard_normal((B, Hk, Lk, D)).astype(np.float32),
+            rng.standard_normal((B, Hk, Lk, D)).astype(np.float32))
+
+
+def _torch(x, dtype, device="cpu"):
+    return torch.from_numpy(x).to(device=device, dtype=TORCH_DTYPES[dtype])
+
+
+def _np(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_pallas_interpret_and_reference(shape, dtype):
+    causal = shape[-1]
+    q, k, v = _inputs(shape, seed=sum(shape[:6]))
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(x).astype(jd) for x in (q, k, v))
+    want_kernel = np.asarray(jflash(jq, jk, jv, causal, 64, 64, True, True), np.float32)
+    want_ref = np.asarray(jref(jq, jk, jv, causal=causal), np.float32)
+    got = tops.flash_attention(*(_torch(x, dtype) for x in (q, k, v)), causal, 64, 64)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == q.shape
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), want_kernel, atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), want_ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("Lq,Lk,bq,bk", [(100, 128, 64, 64), (128, 96, 64, 64),
+                                         (130, 130, 128, 128)])
+def test_lengths_that_do_not_divide_raise(Lq, Lk, bq, bk):
+    q = torch.zeros((1, 2, Lq, 32))
+    k = torch.zeros((1, 2, Lk, 32))
+    with pytest.raises(ValueError, match="divide"):
+        tops.flash_attention(q, k, k, True, bq, bk)
+    with pytest.raises(ValueError, match="divide"):  # the JAX kernel raises the same
+        jflash(*(jnp.asarray(t.numpy()) for t in (q, k, k)), True, bq, bk, True, True)
+
+
+def test_blocks_are_cut_to_short_lengths():
+    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 2, 1, 8, 8, 16, True), 3))
+    got = tops.flash_attention(q, k, v, True, 128, 128)
+    torch.testing.assert_close(got, tref.mha_reference(q, k, v, causal=True), rtol=0, atol=0)
+
+
+def test_cuda_tensor_never_runs_the_plain_version(monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises (checked
+    with a fake CUDA test, no card): here the launch refuses the CPU tensor,
+    and neither the plain version nor the launch count moves."""
+    monkeypatch.setattr(tops, "_on_cuda", lambda t: True)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tops, "mha_reference", no_plain)
+    q = torch.zeros((1, 2, 64, 32))
+    before = tops.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.flash_attention(q, q, q, True, 64, 64)
+    assert tops.flash_attention.launches == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No card-side compiler, no kernel: the build raises, nothing falls
+    back to the plain version."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tkernel.SOURCE.build()
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_kernel_source_is_its_own_build():
+    assert tkernel.SOURCE.source.name == "flash_attention.cu"
+    assert "arch=compute_90a,code=sm_90a" in tkernel.SOURCE.flags
+    assert tkernel.SOURCE.library_path().name.startswith("flash_attention_")
+
+
+# ------------------------------ on the card ---------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; run on the card with pytest -m gpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES + [(1, 16, 8, 192, 192, 128, True),
+                                            (1, 4, 2, 8, 40, 64, True)])
+def test_kernel_matches_plain_on_card(shape, dtype):
+    _card()
+    causal = shape[-1]
+    q, k, v = (_torch(x, dtype, "cuda") for x in _inputs(shape, seed=sum(shape[:6])))
+    before = tops.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal, 8, 8)
+    assert tops.flash_attention.launches == before + 1
+    want = tref.mha_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.is_cuda
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_kernel_takes_strided_views_on_card():
+    """attention_apply hands the kernel (B, L, H, D) tensors transposed to
+    (B, H, L, D) without a copy."""
+    _card()
+    q, k, v = (torch.from_numpy(x).cuda() for x in _inputs((2, 4, 2, 64, 64, 64, True), 9))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not qt.is_contiguous()
+    got = tops.flash_attention(qt, kt, vt, True, 64, 64)
+    torch.testing.assert_close(got, tref.mha_reference(q, k, v, causal=True),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_unsupported_head_dims_on_card():
+    _card()
+    q = torch.zeros((1, 2, 64, 16), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        tops.flash_attention(q, q, q, True, 64, 64)

@@ -32,9 +32,17 @@ def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("core/arena.py", "core/engine.py", "core/isa.py", "core/verify.py",
                  "kernels/pulse_chase/kernel.py", "kernels/pulse_chase/ops.py",
-                 "kernels/pulse_chase/ref.py", "configs/pulse_paper.py"):
+                 "kernels/pulse_chase/ref.py", "configs/pulse_paper.py",
+                 "kernels/_build.py", "configs/qwen3_0_6b.py",
+                 "kernels/flash_attention/kernel.py", "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ref.py", "kernels/paged_attention/kernel.py",
+                 "kernels/paged_attention/ops.py", "kernels/paged_attention/ref.py",
+                 "models/common.py", "models/attention.py", "models/transformer.py",
+                 "models/model_zoo.py", "serving/batching.py", "serving/kv_cache.py",
+                 "launch/serve.py"):
         assert want in names
-    assert (PORT / "csrc" / "pulse_chase.cu").is_file()
+    for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu"):
+        assert (PORT / "csrc" / cu).is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 
 
