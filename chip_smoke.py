@@ -7,7 +7,7 @@ Run from the root of the repository, on a machine with a CUDA card and
     python3 chip_smoke.py [--seed 0] [--json PATH]
 
 Phases (any failure exits non-zero before the last line):
-  1. device and build: the card's name and power limit, then the three
+  1. device and build: the card's name and power limit, then the four
      kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
      started together) with their ``-Xptxas -v`` reports;
   2. ``pulse_chase`` against its plain version: the four ISA read programs,
@@ -40,7 +40,17 @@ Phases (any failure exits non-zero before the last line):
      ``PagedKVCache`` (28 layers, page 16) through ``write_token``, the
      page tables walked on the card by the PULSE executor, and for every
      layer ``paged_attention`` held against its plain version and dense
-     attention over the same KV (2e-5).
+     attention over the same KV (2e-5);
+  8. ``ssd_scan`` against its plain version (``ssd_chunked_batched``) on
+     the shapes of ``tests/test_kernels.py``, the reduced mamba2_780m's
+     (N 16, dh 16, chunk = prompt length) and the serve shape (B 4, L 512,
+     H 48, dh 64, N 128, chunk 128), in f32 and bf16 x; tolerance 1e-4
+     (f32) and 2e-2 (bf16), absolute and relative;
+  9. the serve path of the full-width ``mamba2_780m`` (seeded weights; 8
+     requests, 4 slots, prompt 512, 16 new tokens): every request
+     finishes and ``ssd_scan`` launches 48 times per prefill call; then the
+     same requests on the plain ``ssm_backend="chunked"``: prefill logits
+     agree within 1e-3 absolute, and the emitted tokens are compared.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -63,9 +73,12 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 TPU_KERNEL = "src/repro/kernels/pulse_chase/kernel.py:38"
 KERNEL_SOURCE = "src/repro_torch/csrc/pulse_chase.cu"
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:133,177
-LOGIT_TOL = 1e-3  # kernel vs chunked prefill logits, 28 f32 layers
-SERVE_ARGS = ["--arch", "qwen3_0_6b", "--requests", "8", "--max-batch", "4",
-              "--prompt-len", "512", "--max-len", "1024", "--max-new", "16"]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:201-202
+LOGIT_TOL = 1e-3  # kernel vs chunked prefill logits, 28 (qwen) or 48 (mamba2) f32 layers
+SERVE_SHAPE = ["--requests", "8", "--max-batch", "4", "--prompt-len", "512", "--max-len",
+               "1024", "--max-new", "16"]
+SERVE_ARGS = ["--arch", "qwen3_0_6b", *SERVE_SHAPE]
+SSM_SERVE_ARGS = ["--arch", "mamba2_780m", *SERVE_SHAPE]
 
 
 def log(msg: str) -> None:
@@ -260,6 +273,7 @@ def phase_device():
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.pulse_chase import kernel as chase_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -269,7 +283,7 @@ def phase_device():
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} visible)")
     log(f"nvidia-smi: {smi}")
-    sources = [chase_kernel.SOURCE, flash_kernel.SOURCE, paged_kernel.SOURCE]
+    sources = [chase_kernel.SOURCE, flash_kernel.SOURCE, paged_kernel.SOURCE, ssd_kernel.SOURCE]
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
     log(f"built {', '.join(so.name for so in libs)} in {time.perf_counter() - t0:.1f} s")
@@ -465,12 +479,12 @@ def phase_main(rng, workloads):
 # --------------------------- attention kernels ------------------------------
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tols=TOL):
     """(within tolerance?, max |diff|) of two CUDA tensors, in f32."""
     import torch
 
     g, w = got.float(), want.float()
-    tol = TOL[dtype]
+    tol = tols[dtype]
     ok = bool(torch.all((g - w).abs() <= tol + tol * w.abs()).item())
     return ok, float((g - w).abs().max().item())
 
@@ -650,55 +664,171 @@ def phase_paged(seed):
     return checks, row
 
 
+# ------------------------------- ssd_scan -----------------------------------
+
+
+def ssd_work(Bt, L, H, dh, N, chunk, elem_bytes=4):
+    """(FLOPs, bytes) the function needs: per (batch, chunk) C B^T over the
+    pairs j <= i (a multiply-add each per state dim; one B/C group serves
+    all heads); per (batch, head, chunk) the intra-chunk product over the
+    same pairs, C S and the state update (a multiply-add each); x (and y)
+    at ``elem_bytes``, dt, A, B, C and the final state in f32, each once."""
+    nc = L // chunk
+    pairs = chunk * (chunk + 1) // 2
+    flops = 2 * Bt * nc * N * pairs + 2 * Bt * H * nc * (dh * pairs + 2 * chunk * N * dh)
+    nbytes = (2 * Bt * L * H * dh * elem_bytes
+              + 4 * (Bt * L * H + H + 2 * Bt * L * N + Bt * H * N * dh))
+    return flops, nbytes
+
+
+def phase_ssd(seed):
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def inputs(Bt, L, H, dh, N, dtype):
+        """The distributions of tests/test_kernels.py's ssd test."""
+        x = _randn(gen, (Bt, L, H, dh), "float32") * 0.5
+        dt = torch.rand((Bt, L, H), generator=gen, device="cuda") * 0.19 + 0.01
+        A = -(torch.rand((H,), generator=gen, device="cuda") * 0.9 + 0.1)
+        B, C = (_randn(gen, (Bt, L, N), "float32") * 0.5 for _ in range(2))
+        return x.to(getattr(torch, dtype)), dt, A, B, C
+
+    def check(case, dtype):
+        *shape, chunk = case
+        args = inputs(*shape, dtype)
+        y, S = ops.ssd_scan(*args, chunk=chunk)
+        wy, wS = ref.ssd_chunked_batched(*args, chunk=chunk)
+        ok_y, err_y = _close(y, wy, dtype, SSD_TOL)
+        ok_s, err_s = _close(S, wS, dtype, SSD_TOL)
+        log(f"  ssd {dtype:8s} B={shape[0]} L={shape[1]} H={shape[2]} dh={shape[3]} "
+            f"N={shape[4]} chunk={chunk}: max_abs_err y {err_y:.3g} S {err_s:.3g} "
+            f"ok={ok_y and ok_s}")
+        if not (ok_y and ok_s and y.dtype == args[0].dtype):
+            raise AssertionError("ssd_scan kernel disagrees with its plain version")
+        return args, dict(shape=shape, chunk=chunk, dtype=dtype, within_tol=True,
+                          max_abs_err=max(err_y, err_s))
+
+    cases = [  # B, L, H, dh, N, chunk: tests/test_kernels.py:187-188, then the
+        # reduced mamba2_780m (chunk = prompt length, or 128 past it)
+        (2, 256, 3, 32, 16, 32), (2, 256, 3, 32, 16, 64),
+        (1, 128, 2, 64, 64, 32), (1, 128, 2, 64, 64, 64),
+        (4, 5, 8, 16, 16, 5), (4, 100, 8, 16, 16, 100), (4, 256, 8, 16, 16, 128),
+    ]
+    serve_case = (4, 512, 48, 64, 128, 128)
+    checks = [check(c, dtype)[1] for dtype in ("float32", "bfloat16") for c in cases]
+    checks.append(check(serve_case, "bfloat16")[1])
+
+    # the serve shape: one prefill call's scan in one layer
+    args, row = check(serve_case, "float32")
+    checks.append(dict(row))
+    chunk = serve_case[-1]
+    events_ms = time_cuda(lambda: ops.ssd_scan(*args, chunk=chunk), 50)
+    device_ms = kernel_device_ms([lambda: ops.ssd_scan(*args, chunk=chunk)], 20,
+                                 "ssd_chunk_scan")
+    ms = events_ms if device_ms is None else device_ms
+    plain_ms = time_cuda(lambda: ref.ssd_chunked_batched(*args, chunk=chunk), 10)
+    flops, nbytes = ssd_work(*serve_case)
+    bound_ms, bound_by = bound(flops, nbytes)
+    Bt, L, H, dh, N, Q = serve_case
+    nc = L // Q
+    full_square = 2 * Bt * nc * Q * Q * N + 2 * Bt * H * nc * (Q * Q * dh + 2 * Q * N * dh)
+    per_head = 2 * Bt * H * nc * (Q * Q * N + Q * Q * dh + 2 * Q * N * dh)
+    row.update(ms=ms, ms_source="events" if device_ms is None else "profiler",
+               ms_events=events_ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+               bound_ms=bound_ms, bound_by=bound_by,
+               flops_full_square=full_square, flops_per_head_tpu=per_head,
+               bound_ms_full_square=full_square / F32_FLOP_PER_S * 1e3,
+               bound_ms_per_head_tpu=per_head / F32_FLOP_PER_S * 1e3)
+    log(f"  ssd serve shape: kernel {ms:.4f} ms ({row['ms_source']}; CUDA events over 50 "
+        f"launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}: {flops / 1e9:.3f} GFLOP over the causal half, {nbytes / 1e6:.1f} MB; "
+        f"{full_square / 1e9:.3f} GFLOP full-square, {per_head / 1e9:.3f} per head as the TPU "
+        f"kernel counts), {flops / ms / 1e9:.1f} TFLOP/s")
+    log(json.dumps({"phase": "ssd_vs_plain", "name": "ssd_scan", "checks": checks,
+                    "serve_shape": row}))
+    return checks, row
+
+
+def phase_ssm_serve():
+    """The mamba2_780m serve path through the user's entry point, then the
+    plain route."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    row, params = serve_and_compare(SSM_SERVE_ARGS, ssd_ops.ssd_scan, "ssm_backend")
+    row["ssd_launches"] = row.pop("kernel_launches")
+    del params
+    log(json.dumps({"phase": "ssm_serve", **row}))
+    return row
+
+
 # ------------------------------ LM serving ----------------------------------
 
 
 def phase_serve():
-    """The serve path through the user's entry point, then the plain route."""
+    """The qwen3_0_6b serve path through the user's entry point, then the
+    plain route."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    row, params = serve_and_compare(SERVE_ARGS, flash_ops.flash_attention, "attn_backend")
+    row["flash_launches"] = row.pop("kernel_launches")
+    log(json.dumps({"phase": "serve", **row}))
+    return row, params
+
+
+def serve_and_compare(serve_args, kernel_op, backend_field):
+    """``serve.main(serve_args)`` with ``kernel_op.launches`` counted around
+    it (one launch per layer per prefill call), then the same requests on
+    the plain route (``backend_field="chunked"``) with the same weights:
+    prefill logits within LOGIT_TOL, tokens compared, and a warm
+    breakdown of the kernel route.  Returns (row, params)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import serve
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving.batching import ContinuousBatcher
 
-    cfg = get_config("qwen3_0_6b")
+    cfg = get_config(serve_args[serve_args.index("--arch") + 1])
+    prompt_len = int(serve_args[serve_args.index("--prompt-len") + 1])
+    max_new = int(serve_args[serve_args.index("--max-new") + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.flash_attention.launches = 0
-    m, reqs = serve.main(SERVE_ARGS)
+    kernel_op.launches = 0
+    m, reqs = serve.main(serve_args)
     torch.cuda.synchronize()
-    launches = flash_ops.flash_attention.launches
+    launches = kernel_op.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(r.finished_step >= 0 for r in reqs):
         raise AssertionError("serve: requests left unfinished")
     if m.prefill_calls == 0 or launches != cfg.n_layers * m.prefill_calls:
-        raise AssertionError(f"serve: flash_attention launched {launches} times for "
+        raise AssertionError(f"serve: {kernel_op.__name__} launched {launches} times for "
                              f"{m.prefill_calls} prefill calls of {cfg.n_layers} layers")
-    row = dict(requests=len(reqs), steps=m.steps, tokens_out=m.tokens_out, wall_s=m.wall_s,
-               tokens_per_s=m.tokens_per_s, prefill_calls=m.prefill_calls,
+    row = dict(arch=cfg.arch_id, requests=len(reqs), steps=m.steps, tokens_out=m.tokens_out,
+               wall_s=m.wall_s, tokens_per_s=m.tokens_per_s, prefill_calls=m.prefill_calls,
                prefill_ms_per_call=m.prefill_s / m.prefill_calls * 1e3,
                decode_ms_per_step=m.decode_s / m.steps * 1e3, peak_device_gb=peak_gb,
-               flash_launches=launches)
-    log(f"  serve (kernel route): {row['tokens_per_s']:.1f} tokens/s, "
+               kernel_launches=launches)
+    log(f"  serve {cfg.arch_id} (kernel route): {row['tokens_per_s']:.1f} tokens/s, "
         f"prefill {row['prefill_ms_per_call']:.2f} ms/call x {m.prefill_calls}, "
         f"decode {row['decode_ms_per_step']:.2f} ms/step x {m.steps}, wall {m.wall_s:.3f} s, "
-        f"peak {peak_gb:.2f} GB, flash_attention launches {launches}")
+        f"peak {peak_gb:.2f} GB, {kernel_op.__name__} launches {launches}")
 
     # the plain route on the same weights and prompts
     kmodel = build_model(cfg)
-    pmodel = build_model(cfg.replace(attn_backend="chunked"))
+    pmodel = build_model(cfg.replace(**{backend_field: "chunked"}))
     params = serve.init_params(kmodel, "cuda")
-    preqs = serve.make_requests(cfg, len(reqs), 512, 16)
+    preqs = serve.make_requests(cfg, len(reqs), prompt_len, max_new)
     b = ContinuousBatcher(pmodel, max_batch=4, max_len=1024)
     b.model_params = params
     pm = b.serve(preqs)
     toks = torch.from_numpy(np.stack([r.prompt for r in preqs[:4]])).cuda()
     with torch.no_grad():
-        lk, _ = kmodel.prefill(params, {"tokens": toks}, 512)
-        lp, _ = pmodel.prefill(params, {"tokens": toks}, 512)
+        lk, _ = kmodel.prefill(params, {"tokens": toks}, prompt_len)
+        lp, _ = pmodel.prefill(params, {"tokens": toks}, prompt_len)
         logit_err = float((lk - lp).abs().max().item())
     del lk, lp
     agree = sum(a == c for r, p in zip(reqs, preqs) for a, c in zip(r.output, p.output))
@@ -712,7 +842,7 @@ def phase_serve():
         lg, _ = pmodel.prefill(params, {"tokens": seq[None].cuda()}, len(seq))
         top = lg[0, -1].topk(2).values
         first_diffs.append(dict(req=r.req_id, index=j, margin=float(top[0] - top[1])))
-    log(f"  serve (plain route): {pm.tokens_per_s:.1f} tokens/s, prefill "
+    log(f"  serve {cfg.arch_id} (plain route): {pm.tokens_per_s:.1f} tokens/s, prefill "
         f"{pm.prefill_s / pm.prefill_calls * 1e3:.2f} ms/call, decode "
         f"{pm.decode_s / pm.steps * 1e3:.2f} ms/step")
     log(f"  prefill logits kernel vs plain: max_abs_err={logit_err:.3g} (tolerance {LOGIT_TOL}); "
@@ -725,7 +855,6 @@ def phase_serve():
                plain_decode_ms_per_step=pm.decode_s / pm.steps * 1e3,
                prefill_logit_max_abs_err=logit_err, tokens_agree=agree, tokens_total=total,
                first_differences=first_diffs)
-    log(json.dumps({"phase": "serve", **row}))
     return row, params
 
 
@@ -793,13 +922,20 @@ def warm_breakdown(model, params, toks):
                 pos += 1
         d_dev, d_top = _device_ms(prof)
     p_med, d_med = float(np.median(prefill_ms)), float(np.median(decode_ms))
-    # least times: the prefill's matmul and attention FLOPs at the f32 peak;
-    # a decode step's weights and live cache read once at the HBM rate
+    # least times: the prefill's matmul and attention (or SSD) FLOPs at the
+    # f32 peak; a decode step's weights and live cache (or recurrent state,
+    # read and written) once at the HBM rate
     cfg = model.cfg
     mm_params = cfg.param_count() - cfg.vocab * cfg.d_model  # the embedding is a gather
-    attn_flops, _ = flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)
-    prefill_flops = 2 * B * T * mm_params + cfg.n_layers * attn_flops
-    decode_bytes = 4 * (mm_params + 2 * cfg.n_layers * B * (T + 4) * cfg.n_kv_heads * cfg.hd)
+    if cfg.family == "ssm":
+        H, N, dh = 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+        mix_flops, _ = ssd_work(B, T, H, dh, N, min(cfg.ssm_chunk, T))
+        cache_bytes = 2 * cfg.n_layers * B * H * N * dh
+    else:
+        mix_flops, _ = flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)
+        cache_bytes = 2 * cfg.n_layers * B * (T + 4) * cfg.n_kv_heads * cfg.hd
+    prefill_flops = 2 * B * T * mm_params + cfg.n_layers * mix_flops
+    decode_bytes = 4 * (mm_params + cache_bytes)
     bounds = dict(prefill_flops=prefill_flops,
                   prefill_bound_ms=prefill_flops / F32_FLOP_PER_S * 1e3,
                   prefill_tflop_per_s=prefill_flops / p_med / 1e9,
@@ -974,6 +1110,11 @@ def main(argv=None) -> int:
     log("== phase 7: paged decode at full width")
     decode_row = phase_paged_decode(params)
     del params
+    torch.cuda.empty_cache()
+    log("== phase 8: ssd_scan kernel against its plain version")
+    ssd_checks, ssd_row = phase_ssd(args.seed)
+    log("== phase 9: the serve path, mamba2_780m at full width")
+    ssm_row = phase_ssm_serve()
 
     def f32_err(cks, row):
         return max([c["max_abs_err"] for c in cks if c["dtype"] == "float32"]
@@ -1004,12 +1145,22 @@ def main(argv=None) -> int:
         timed_on="Qwen3-0.6B widths, B=4, lengths 512-528, f32, one layer",
         paged_decode=decode_row,
     )
-    summary = {"kernels": [entry, flash_entry, paged_entry]}
+    ssd_entry = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:24",
+        launches=ssm_row["ssd_launches"], max_abs_err=f32_err(ssd_checks, ssd_row),
+        max_abs_err_bf16=bf16_err(ssd_checks), ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
+        bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"], library_ms=None,
+        timed_on="serve shape B=4 L=512 H=48 dh=64 N=128 chunk=128 f32, one layer",
+        serve=ssm_row,
+    )
+    summary = {"kernels": [entry, flash_entry, paged_entry, ssd_entry]}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
-            flash_checks=flash_checks, paged_checks=paged_checks, **summary,
+            flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
+            **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

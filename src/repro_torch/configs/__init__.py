@@ -4,8 +4,8 @@
 Each ``<arch>.py`` exports ``CONFIG`` (the published dims) and
 ``reduced()`` (the same family at tiny dims, for CPU tests); ``get_config``
 maps ``--arch <id>`` to it.  Only the architectures in ``ARCH_IDS`` are
-ported so far; the rest of the JAX package's (moe, ssm, hybrid, vlm,
-encdec) come with ROADMAP queue 1, item 10.
+ported so far (the dense and ssm families); the rest of the JAX package's
+(moe, hybrid, vlm, encdec) come with ROADMAP queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -58,6 +58,9 @@ class ArchConfig:
     # "kernel": the flash_attention CUDA kernel (the JAX package's "pallas");
     # "chunked": plain blockwise attention in torch (its "xla")
     attn_backend: str = "kernel"
+    # "kernel": the ssd_scan CUDA kernel (the JAX package's "pallas");
+    # "chunked": the plain chunked SSD in torch (its "xla")
+    ssm_backend: str = "kernel"
     decode_kv_f32: bool = True  # False: read the cache in its storage dtype
     source: str = ""
 
@@ -95,7 +98,7 @@ class ArchConfig:
         return self.n_layers * (attn + mlp) + 2 * V * D
 
 
-ARCH_IDS = ["qwen3_0_6b"]
+ARCH_IDS = ["qwen3_0_6b", "mamba2_780m"]
 
 
 def _module(arch_id: str):

@@ -1,6 +1,6 @@
 """Serving launcher: continuous batching over the model zoo.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b|mamba2_780m \
         [--reduced] [--device cuda|cpu] [--requests 8] [--max-new 16]
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device;

@@ -17,7 +17,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +30,7 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    transformer._require_dense(cfg)
+    transformer.require_ported(cfg)
     return Model(
         cfg=cfg,
         init=lambda gen: transformer.lm_init(gen, cfg),
@@ -48,15 +48,19 @@ def params_from_numpy(cfg, tree, *, device="cuda"):
     ``tree`` is what ``jax.tree.map(np.asarray, model.init(key))`` gives for
     the same ``cfg``: the same nested dicts, with the layer stack on a
     leading L axis, which is split into a list of per-layer dicts.  Weights
-    stay ``(in, out)``.
+    stay ``(in, out)``.  Leaves become ``cfg.param_dtype``, except those the
+    JAX init fixes in f32 (the ssm's ``A_log`` and ``dt_bias``).
     """
-    transformer._require_dense(cfg)
+    transformer.require_ported(cfg)
 
-    def conv(node, index=None):
+    def conv(node, index=None, name=""):
         if isinstance(node, dict):
-            return {k: conv(v, index) for k, v in node.items()}
+            return {k: conv(v, index, k) for k, v in node.items()}
         a = np.asarray(node) if index is None else np.asarray(node)[index]
-        return torch.tensor(np.ascontiguousarray(a), dtype=cfg.param_dtype, device=device)
+        if a.dtype.kind not in "biuf":  # ml_dtypes' bfloat16: through f32, exactly
+            a = a.astype(np.float32)
+        dtype = torch.float32 if name in ssm.F32_PARAMS else cfg.param_dtype
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [conv(tree["layers"], i) for i in range(cfg.n_layers)]

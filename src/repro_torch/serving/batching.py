@@ -17,6 +17,8 @@ import time
 import numpy as np
 import torch
 
+RECURRENT_STATE = ("S", "conv")  # cache entries a new request starts from zeros
+
 
 @dataclasses.dataclass
 class Request:
@@ -54,7 +56,8 @@ class ContinuousBatcher:
     in one full-sequence ``model.prefill`` call per distinct prompt length;
     admitted slots' cache entries merge into the live cache, other slots
     are untouched.  ``"token"`` feeds prompt tokens one by one through
-    ``decode_step`` (one full-batch decode per prompt token), slot-isolated.
+    ``decode_step`` (one full-batch decode per prompt token), slot-isolated,
+    from a zeroed recurrent state, so it equals ``"batched"``.
     Set ``.model_params`` before ``serve``; the batcher runs on their device.
     """
 
@@ -86,8 +89,14 @@ class ContinuousBatcher:
 
         def admit_token(s: int, req: Request):
             # per-slot prefill: one full-batch decode per prompt token, of
-            # which only slot s's cache entries are kept
+            # which only slot s's cache entries are kept.  The slot's
+            # recurrent state (ssm) starts from zeros, as a prefill does; the
+            # JAX package's token mode carries the previous request's state
+            # over.  KV entries need nothing: the position mask hides them.
             nonlocal cache
+            for key in RECURRENT_STATE:
+                if key in cache:
+                    cache[key][:, s].zero_()
             for t, tok in enumerate(req.prompt):
                 scratch = {k: c.clone() for k, c in cache.items()}
                 logits, scratch = self.model.decode_step(

@@ -116,6 +116,14 @@ def test_backends_agree_and_unknown_backend_raises(ref):
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "encdec"])
 def test_other_families_name_their_roadmap_item(family):
+    """The families not ported yet raise, naming their ROADMAP item; ssm is
+    ported (with the ssd_scan slice) and builds its recurrent cache."""
+    if family == "ssm":
+        cfg = tget("mamba2_780m")
+        tbuild(cfg)
+        cache = ttransformer.decode_cache_init(cfg, 1, 8, device="cpu")
+        assert set(cache) == {"S", "conv"} and cache["S"].dtype == torch.float32
+        return
     cfg = tget("qwen3_0_6b").replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild(cfg)
@@ -133,5 +141,101 @@ def test_configs_match_the_jax_package():
         assert getattr(tget("qwen3_0_6b"), name) == getattr(jget("qwen3_0_6b"), name)
     assert tget_full("qwen3_0_6b").param_count() == jget_full("qwen3_0_6b").param_count()
     assert tget_full("qwen3-0.6b".replace(".", "_")).arch_id == "qwen3_0_6b"
+    for name in ("arch_id", "family", "n_layers", "d_model", "vocab", "ssm_state", "ssm_expand",
+                 "ssm_head_dim", "ssm_chunk", "source"):
+        assert getattr(tget_full("mamba2_780m"), name) == getattr(jget_full("mamba2_780m"), name)
+        assert getattr(tget("mamba2_780m"), name) == getattr(jget("mamba2_780m"), name)
+    assert tget_full("mamba2_780m").param_count() == jget_full("mamba2_780m").param_count()
     with pytest.raises(KeyError, match="ROADMAP"):
-        tget_full("mamba2_780m")
+        tget_full("zamba2_7b")
+
+
+# ------------------------------ ssm family ----------------------------------
+# Reduced mamba2_780m.  Tolerance: 2e-4 of each tensor's largest magnitude
+# (see tests/test_torch_ssm.py: the JAX init's stacked weights make a
+# chunk's cumsum of dt * A reach ~-1600, which f32 keeps to ~1e-4).
+
+SSM_TOL = 2e-4
+SSM_BACKENDS = [("xla", "chunked"), ("pallas_interpret", "kernel")]
+
+
+@pytest.fixture(scope="module")
+def ssm_ref():
+    jcfg, tcfg = jget("mamba2_780m"), tget("mamba2_780m")
+    jparams = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    toks = np.random.default_rng(1).integers(2, jcfg.vocab, (B, T)).astype(np.int32)
+    return jcfg, tcfg, jparams, tparams, toks
+
+
+def _close_scaled(got, want, tol=SSM_TOL):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.detach().cpu().numpy(), want, rtol=0,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("jbackend,tbackend", SSM_BACKENDS)
+def test_ssm_prefill_and_decode_steps_match(ssm_ref, jbackend, tbackend):
+    jcfg, tcfg, jparams, tparams, toks = ssm_ref
+    jm = jbuild(jcfg.replace(ssm_backend=jbackend))
+    tm = tbuild(tcfg.replace(ssm_backend=tbackend))
+    jl, jc = jm.prefill(jparams, {"tokens": jnp.asarray(toks)}, MAX_LEN)
+    tl, tc = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)}, MAX_LEN)
+    L, (d_inner, H) = tcfg.n_layers, (2 * tcfg.d_model, 2 * tcfg.d_model // tcfg.ssm_head_dim)
+    assert tuple(tl.shape) == (B, T, tcfg.vocab)
+    assert tuple(tc["S"].shape) == (L, B, H, tcfg.ssm_state, tcfg.ssm_head_dim)
+    assert tuple(tc["conv"].shape) == (L, B, 3, d_inner + 2 * tcfg.ssm_state)
+    for got, want in ((tl, jl), (tc["S"], jc["S"]), (tc["conv"], jc["conv"])):
+        _close_scaled(got, want)
+    cur = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)
+    for t in range(T, T + 2):
+        pos = np.array([t, t], np.int32)
+        jl, jc = jm.decode_step(jparams, jc, jnp.asarray(cur), jnp.asarray(pos))
+        tl, tc2 = tm.decode_step(tparams, tc, torch.from_numpy(cur), torch.from_numpy(pos))
+        assert tc2 is tc  # the state is written in place
+        assert tuple(tl.shape) == (B, tcfg.vocab)
+        for got, want in ((tl, jl), (tc["S"], jc["S"]), (tc["conv"], jc["conv"])):
+            _close_scaled(got, want)
+        cur = np.asarray(jl).argmax(-1).astype(np.int32)
+
+
+def test_ssm_init_has_the_jax_package_layout(ssm_ref):
+    jcfg, tcfg, jparams, tparams, _ = ssm_ref
+    jshapes = jax.tree.map(lambda a: tuple(a.shape), jparams)
+
+    def shapes(node, n=None):
+        if isinstance(node, dict):
+            return {k: shapes(v, n) for k, v in node.items()}
+        return tuple(node.shape) if n is None else (n,) + tuple(node.shape)
+
+    for params in (tparams, tbuild(tcfg).init(torch.Generator().manual_seed(0))):
+        tshapes = shapes({k: v for k, v in params.items() if k != "layers"})
+        tshapes["layers"] = shapes(params["layers"][0], len(params["layers"]))
+        assert tshapes == jshapes
+
+
+def test_params_from_numpy_keeps_f32_leaves_f32():
+    """Under a bf16 param_dtype the JAX init keeps A_log and dt_bias in f32;
+    so do the port's init and params_from_numpy, which carries every other
+    leaf across exactly (bf16 -> f32 -> bf16)."""
+    jcfg = jget("mamba2_780m").replace(param_dtype=jnp.bfloat16)
+    tcfg = tget("mamba2_780m").replace(param_dtype=torch.bfloat16)
+    jparams = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(0)))
+    tparams = params_from_numpy(tcfg, jparams, device="cpu")
+    own = tbuild(tcfg).init(torch.Generator().manual_seed(0))
+    jssm = jparams["layers"]["ssm"]
+    for lp, own_lp in zip(tparams["layers"], own["layers"]):
+        for name in ("A_log", "dt_bias"):
+            assert jssm[name].dtype == np.float32
+            assert lp["ssm"][name].dtype == torch.float32 == own_lp["ssm"][name].dtype
+        for name in ("conv_w", "D_skip"):
+            assert lp["ssm"][name].dtype == torch.bfloat16 == own_lp["ssm"][name].dtype
+        assert lp["ssm"]["in_proj"]["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tparams["layers"][1]["ssm"]["dt_bias"].numpy(),
+                                  jssm["dt_bias"][1])
+    np.testing.assert_array_equal(tparams["layers"][1]["ssm"]["conv_w"].float().numpy(),
+                                  jssm["conv_w"][1].astype(np.float32))
+    assert tparams["embed"].dtype == torch.bfloat16
+    logits, _ = tbuild(tcfg).prefill(tparams, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+                                     8)
+    assert torch.isfinite(logits).all()
