@@ -26,7 +26,8 @@ Phases (any failure exits non-zero before the last line):
      serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32); tolerance
      2e-5 (f32) and 2e-2 (bf16), absolute and relative; timed beside
      ``scaled_dot_product_attention`` (the library yardstick, never used by
-     the port);
+     the port), with its bound at the f32 FMA peak and, for the 3xTF32
+     products the kernel runs on the tensor cores, at the TF32 peak;
   5. ``paged_attention`` against its plain version on the shapes of
      ``tests/test_kernels.py`` and at Qwen3-0.6B's widths (H=16, Hk=8,
      D=128, page 16, lengths 512-528, f32), same tolerances;
@@ -45,7 +46,8 @@ Phases (any failure exits non-zero before the last line):
      the shapes of ``tests/test_kernels.py``, the reduced mamba2_780m's
      (N 16, dh 16, chunk = prompt length) and the serve shape (B 4, L 512,
      H 48, dh 64, N 128, chunk 128), in f32 and bf16 x; tolerance 1e-4
-     (f32) and 2e-2 (bf16), absolute and relative;
+     (f32) and 2e-2 (bf16), absolute and relative; one call runs three
+     CUDA kernels (``SSD_KERNELS``), timed together and one by one;
   9. the serve path of the full-width ``mamba2_780m`` (seeded weights; 8
      requests, 4 slots, prompt 512, 16 new tokens): every request
      finishes and ``ssd_scan`` launches 48 times per prefill call; then the
@@ -70,10 +72,13 @@ B_MAIN = 65_536  # queries per main-path workload
 ZIPF_S = 0.99  # YCSB's Zipfian constant
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor-core peak, dense
+TF32X3 = 3  # 3xTF32: three TF32 products per f32 one, for f32 accuracy
 TPU_KERNEL = "src/repro/kernels/pulse_chase/kernel.py:38"
 KERNEL_SOURCE = "src/repro_torch/csrc/pulse_chase.cu"
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:133,177
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:201-202
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")  # one ssd_scan call
 LOGIT_TOL = 1e-3  # kernel vs chunked prefill logits, 28 (qwen) or 48 (mamba2) f32 layers
 SERVE_SHAPE = ["--requests", "8", "--max-batch", "4", "--prompt-len", "512", "--max-len",
                "1024", "--max-new", "16"]
@@ -217,12 +222,13 @@ def time_cuda_rotating(fns, rounds: int) -> float:
     return start.elapsed_time(end) / (rounds * len(fns))
 
 
-def kernel_device_ms(fns, rounds: int, name: str):
-    """Mean device time of one launch of the kernel whose name contains
-    ``name``, over ``rounds`` passes of ``fns``, from the profiler's kernel
-    timestamps: unlike CUDA events around a run, it leaves out the gaps
-    where the card waits for the host to launch a short kernel.  None when
-    the profiler saw no such kernel."""
+def kernel_device_ms(fns, rounds: int, *names: str):
+    """Mean device time per call of ``fns`` of the kernels whose names
+    contain any of ``names`` (summed, where one call launches several), over
+    ``rounds`` passes of ``fns``, from the profiler's kernel timestamps:
+    unlike CUDA events around a run, it leaves out the gaps where the card
+    waits for the host to launch a short kernel.  None when the profiler saw
+    no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -236,9 +242,10 @@ def kernel_device_ms(fns, rounds: int, name: str):
                 fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in evs)
-    return sum(e.self_device_time_total for e in evs) / count / 1e3 if count else None
+           if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+    if not sum(e.count for e in evs):
+        return None
+    return sum(e.self_device_time_total for e in evs) / (rounds * len(fns)) / 1e3
 
 
 def max_abs_err(a, b) -> int:
@@ -506,8 +513,15 @@ def flash_work(B, H, Hk, Lq, Lk, D, causal, elem_bytes=4):
     return flops, nbytes
 
 
+def tensor_core_bound_ms(flops):
+    """Least ms of ``flops`` f32 operations done in 3xTF32 on the tensor
+    cores: three TF32 products each at the TF32 peak."""
+    return TF32X3 * flops / TF32_FLOP_PER_S * 1e3
+
+
 def bound(flops, nbytes):
-    """(least ms, what bounds it): the larger of the two times."""
+    """(least ms, what bounds it): the larger of the two times, the
+    operations at the f32 peak outside the tensor cores."""
     t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -561,14 +575,17 @@ def phase_flash(seed):
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 50)
     flops, nbytes = flash_work(B, H, Hk, L, L, D, True)
     bound_ms, bound_by = bound(flops, nbytes)
+    tc_ms = tensor_core_bound_ms(flops)
     row = dict(shape=[B, H, Hk, L, L, D], causal=True, dtype="float32", max_abs_err=err,
                ms=ms, ms_source="events" if device_ms is None else "profiler",
                ms_events=events_ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
-               flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+               flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+               bound_ms_tensor_core=tc_ms)
     log(f"  flash serve shape: kernel {ms:.4f} ms ({row['ms_source']}; CUDA events over 50 "
         f"launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
+        f"{nbytes / 1e6:.1f} MB; 3xTF32 on the tensor cores {tc_ms:.5f} ms), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
     log(json.dumps({"phase": "flash_vs_plain", "name": "flash_attention", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -684,7 +701,7 @@ def ssd_work(Bt, L, H, dh, N, chunk, elem_bytes=4):
 def phase_ssd(seed):
     import torch
 
-    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
 
@@ -726,9 +743,10 @@ def phase_ssd(seed):
     checks.append(dict(row))
     chunk = serve_case[-1]
     events_ms = time_cuda(lambda: ops.ssd_scan(*args, chunk=chunk), 50)
-    device_ms = kernel_device_ms([lambda: ops.ssd_scan(*args, chunk=chunk)], 20,
-                                 "ssd_chunk_scan")
+    call = [lambda: ops.ssd_scan(*args, chunk=chunk)]
+    device_ms = kernel_device_ms(call, 20, *SSD_KERNELS)
     ms = events_ms if device_ms is None else device_ms
+    per_kernel = {name: kernel_device_ms(call, 20, name) for name in SSD_KERNELS}
     plain_ms = time_cuda(lambda: ref.ssd_chunked_batched(*args, chunk=chunk), 10)
     flops, nbytes = ssd_work(*serve_case)
     bound_ms, bound_by = bound(flops, nbytes)
@@ -737,16 +755,22 @@ def phase_ssd(seed):
     full_square = 2 * Bt * nc * Q * Q * N + 2 * Bt * H * nc * (Q * Q * dh + 2 * Q * N * dh)
     per_head = 2 * Bt * H * nc * (Q * Q * N + Q * Q * dh + 2 * Q * N * dh)
     row.update(ms=ms, ms_source="events" if device_ms is None else "profiler",
-               ms_events=events_ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+               ms_events=events_ms, ms_per_kernel=per_kernel,
+               heads_per_block=kernel.default_heads_per_block(Bt, L, H, Q),
+               plain_ms=plain_ms, flops=flops, bytes=nbytes,
                bound_ms=bound_ms, bound_by=bound_by,
+               bound_ms_tensor_core=tensor_core_bound_ms(flops),
                flops_full_square=full_square, flops_per_head_tpu=per_head,
                bound_ms_full_square=full_square / F32_FLOP_PER_S * 1e3,
                bound_ms_per_head_tpu=per_head / F32_FLOP_PER_S * 1e3)
-    log(f"  ssd serve shape: kernel {ms:.4f} ms ({row['ms_source']}; CUDA events over 50 "
-        f"launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by}: {flops / 1e9:.3f} GFLOP over the causal half, {nbytes / 1e6:.1f} MB; "
-        f"{full_square / 1e9:.3f} GFLOP full-square, {per_head / 1e9:.3f} per head as the TPU "
-        f"kernel counts), {flops / ms / 1e9:.1f} TFLOP/s")
+    log(f"  ssd serve shape: {len(SSD_KERNELS)} kernels per call, {ms:.4f} ms "
+        f"({row['ms_source']}; by kernel {per_kernel}; CUDA events over 50 calls "
+        f"{events_ms:.4f} ms; {row['heads_per_block']} heads per block), plain {plain_ms:.4f} "
+        f"ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP over the causal "
+        f"half, {nbytes / 1e6:.1f} MB; 3xTF32 on the tensor cores "
+        f"{row['bound_ms_tensor_core']:.5f} ms; {full_square / 1e9:.3f} GFLOP full-square, "
+        f"{per_head / 1e9:.3f} per head as the TPU kernel counts), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
     log(json.dumps({"phase": "ssd_vs_plain", "name": "ssd_scan", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -1130,6 +1154,7 @@ def main(argv=None) -> int:
         max_abs_err_bf16=bf16_err(flash_checks), ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
+        bound_ms_tensor_core=flash_row["bound_ms_tensor_core"],
         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
         timed_on="serve shape B=4 H=16 Hk=8 L=512 D=128 causal f32", serve=serve_row,
@@ -1151,6 +1176,7 @@ def main(argv=None) -> int:
         launches=ssm_row["ssd_launches"], max_abs_err=f32_err(ssd_checks, ssd_row),
         max_abs_err_bf16=bf16_err(ssd_checks), ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"], library_ms=None,
+        bound_ms_tensor_core=ssd_row["bound_ms_tensor_core"], ms_per_kernel=ssd_row["ms_per_kernel"],
         timed_on="serve shape B=4 L=512 H=48 dh=64 N=128 chunk=128 f32, one layer",
         serve=ssm_row,
     )

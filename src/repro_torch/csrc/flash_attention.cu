@@ -1,5 +1,5 @@
 // flash_attention: GQA forward attention (causal or full) for Hopper
-// (sm_90a), online softmax in f32 on the CUDA cores.
+// (sm_90a), its products on the tensor cores, the online softmax in f32.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel
@@ -8,121 +8,200 @@
 // (q_offset = Lk - Lq), so query row r sees keys <= q_offset + r; masked
 // scores are -1e30 (not -inf); the running max starts at -1e30; a zero
 // denominator becomes 1; key tiles wholly above the diagonal are skipped;
-// the output has the inputs' dtype (f32 or bf16), the arithmetic is f32.
+// the output has the inputs' dtype (f32 or bf16), the softmax is f32.
 //
 // The TPU kernel runs its grid (B, H, q-blocks, k-blocks) in order on one
 // core and carries (m, l, acc) across k-blocks in VMEM scratch.  Here one
-// block of 128 threads owns (b, h, a tile of 64 query rows) and loops over
-// tiles of 64 keys itself, with (m, l, acc) in registers.  Tile sizes are
-// the card's, not the caller's block_q/block_k: only the order of the sums
-// differs.
+// block of four warps owns (b, h, a tile of 64 query rows) and loops over
+// tiles of 64 keys itself; each warp owns 16 query rows, with (m, l, acc)
+// in registers.  Tile sizes are the card's, not the caller's
+// block_q/block_k: only the order of the sums differs.  Causal blocks are
+// issued longest first (the last query tile sees the most keys).
+//
+// Products on mma.sync (mma_tf32x3.cuh):
+//   f32 inputs:  S = Q K^T and O += P V in 3xTF32 on m16n8k8, f32 accuracy
+//                (each operand split into two TF32 parts, three products);
+//   bf16 inputs: S = Q K^T on m16n8k16 in bf16 (its products exact in f32);
+//                O += P V with P split into bf16 hi + lo, two products, so P
+//                keeps ~16 bits (V is exact in bf16).
+// P comes out of S's accumulators in the C-fragment layout.  For bf16 that
+// is m16n8k16's A layout as it stands; for TF32 the product takes k-slot t
+// for key 2t and t + 4 for key 2t + 1 and reads V's rows in that order, so
+// no shuffle is needed.  In Q K^T each thread's two d's are adjacent, so
+// they load as one float2.  Q is copied once, K and V tiles with cp.async: K of
+// the next tile lands while the softmax runs, V of the next tile while the
+// next Q K^T runs.  Rows are padded so each fragment load hits 32 distinct
+// banks.
 //
 // What bounds it on this card: at the serve shape (B=4, H=16, L=512,
-// D=128, causal) the work is ~4.3 GFLOP against ~50 MB of q, k, v and o,
-// so operations bound it: at the f32 (non-tensor) peak of 67 TFLOP/s the
-// least time is ~0.064 ms.  The design keeps the FMA units fed from
-// shared memory: Q^T and K^T tiles are staged transposed so each thread
-// reads float4s of 4 query rows and 2x4 key columns per step of d and does
-// 32 FMAs, and the 4x(D/8) output micro-tile stays in registers across
-// key tiles.  The P tile reuses the K^T buffer, so D=128 takes ~100 KB of
-// shared memory and two blocks fit on an SM.  Tensor cores (wgmma), TMA
-// and a pipelined tile ring are later work.
+// D=128, causal) the work is ~4.3 GFLOP against ~50 MB of q, k, v and o, so
+// operations bound it: ~0.064 ms at the f32 FMA peak of 67 TFLOP/s; 3xTF32
+// issues three TF32 products for each, 12.9 GFLOP at 495 TFLOP/s, ~0.026 ms.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 128;    // 16 row groups x 8 column groups
-constexpr int kLd = kBQ + 4;     // row stride of the transposed tiles; keeps float4 alignment
+constexpr int kBQ = 64;        // query rows per block: 4 warps x 16
+constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 128;
+constexpr int kKT = kBK / 8;   // key n-tiles of S
 constexpr float kNegInf = -1e30f;
-
-static_assert(kBQ == kBK, "Qt, Kt and Pt share the row stride kLd");
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, l;  // in elements; the last dim is contiguous
 };
 
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-}
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + 2));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0], x[1]);
-  *reinterpret_cast<__nv_bfloat162*>(p + 2) = __floats2bfloat162_rn(x[2], x[3]);
-}
-
-__device__ __forceinline__ float group8_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float group8_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// Stage rows [r0, r0 + kBQ) of a (rows, D) matrix transposed into
-// dst[d * kLd + r], times `mul`; rows at or past n become zeros.  Adjacent
-// threads take adjacent rows, so the shared-memory stores do not conflict.
+// Row strides in shared memory, padded so each fragment load hits 32
+// distinct banks: Q and K rows + 8 (f32: float2 loads at 8g + 2t; bf16:
+// words 4g + t); V rows + 4 in f32 (rows 2t and 2t + 1: banks 8t + g),
+// + 8 in bf16.
 template <typename T, int D>
-__device__ __forceinline__ void stage_transposed(float* dst, const T* src, long long ld,
-                                                 int r0, int n, float mul) {
-  for (int idx = threadIdx.x; idx < kBQ * (D / 4); idx += kThreads) {
-    const int r = idx % kBQ, d4 = idx / kBQ;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < n) load4(src + (r0 + r) * ld + d4 * 4, x);
+struct Row {
+  static constexpr int kQK = D + 8;
+  static constexpr int kV = sizeof(T) == 4 ? D + 4 : D + 8;
+};
+
+// s[j] (16 rows x keys 8j..8j+7) = Q K^T over d, for this warp's rows.
+// TF32: k-slot t takes d = k0 + 2t and t + 4 takes k0 + 2t + 1 in both
+// operands (any order of d gives the same sum), so each thread reads its
+// two values as one float2.
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[kKT][4], const float* Qw, const float* Ks, int g,
+                                   int t) {
+  constexpr int L = Row<float, D>::kQK;
+#pragma unroll 2
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    const float2 qa = *reinterpret_cast<const float2*>(Qw + g * L + k0 + 2 * t);
+    const float2 qb = *reinterpret_cast<const float2*>(Qw + (g + 8) * L + k0 + 2 * t);
+    const float av[4] = {qa.x, qb.x, qa.y, qb.y};
+    uint32_t ab[4], as[4];
+    tc::split(av, ab, as);
+    uint32_t bb[kKT][2], bs[kKT][2];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dst[(d4 * 4 + c) * kLd + r] = x[c] * mul;
+    for (int j = 0; j < kKT; ++j) {
+      const float2 kv = *reinterpret_cast<const float2*>(Ks + (8 * j + g) * L + k0 + 2 * t);
+      tc::split(kv.x, bb[j][0], bs[j][0]);
+      tc::split(kv.y, bb[j][1], bs[j][1]);
+    }
+    tc::mma_3xtf32<kKT>(s, ab, as, bb, bs);
   }
 }
 
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[kKT][4], const bf16* Qw, const bf16* Ks, int g,
+                                   int t) {
+  constexpr int L = Row<bf16, D>::kQK;
+#pragma unroll 2
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    const bf16* q0 = Qw + g * L + k0 + 2 * t;
+    const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(q0),
+                           *reinterpret_cast<const uint32_t*>(q0 + 8 * L),
+                           *reinterpret_cast<const uint32_t*>(q0 + 8),
+                           *reinterpret_cast<const uint32_t*>(q0 + 8 * L + 8)};
+#pragma unroll
+    for (int j = 0; j < kKT; ++j) {
+      const bf16* k = Ks + (8 * j + g) * L + k0 + 2 * t;
+      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(k),
+                             *reinterpret_cast<const uint32_t*>(k + 8)};
+      tc::mma_bf16(s[j], a, b);
+    }
+  }
+}
+
+// o (16 rows x d 8n..8n+7) += P V over this tile's keys
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kKT][4],
+                                   const float* Vs, int g, int t) {
+  constexpr int L = Row<float, D>::kV;
+#pragma unroll
+  for (int j = 0; j < kKT; ++j) {
+    // A: k-slot t is key 8j + 2t, k-slot t + 4 is key 8j + 2t + 1
+    const float av[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+    uint32_t ab[4], as[4];
+    tc::split(av, ab, as);
+    const float* v = Vs + (8 * j + 2 * t) * L + g;
+    uint32_t bb[D / 8][2], bs[D / 8][2];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      tc::split(v[8 * n], bb[n][0], bs[n][0]);
+      tc::split(v[L + 8 * n], bb[n][1], bs[n][1]);
+    }
+    tc::mma_3xtf32<D / 8>(o, ab, as, bb, bs);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kKT][4],
+                                   const bf16* Vs, int g, int t) {
+  constexpr int L = Row<bf16, D>::kV;
+#pragma unroll
+  for (int kk = 0; kk < kKT / 2; ++kk) {  // 16 keys: S n-tiles 2kk and 2kk + 1
+    const float* p0 = p[2 * kk];
+    const float* p1 = p[2 * kk + 1];
+    const float hv[8] = {p0[0], p0[1], p0[2], p0[3], p1[0], p1[1], p1[2], p1[3]};
+    float lv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) lv[i] = hv[i] - __bfloat162float(__float2bfloat16_rn(hv[i]));
+    const uint32_t ah[4] = {tc::pack_bf16(hv[0], hv[1]), tc::pack_bf16(hv[2], hv[3]),
+                            tc::pack_bf16(hv[4], hv[5]), tc::pack_bf16(hv[6], hv[7])};
+    const uint32_t al[4] = {tc::pack_bf16(lv[0], lv[1]), tc::pack_bf16(lv[2], lv[3]),
+                            tc::pack_bf16(lv[4], lv[5]), tc::pack_bf16(lv[6], lv[7])};
+    const bf16* v = Vs + (16 * kk + 2 * t) * L + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const bf16* vn = v + 8 * n;
+      const uint32_t b[2] = {tc::pack_bf16(vn[0], vn[L]), tc::pack_bf16(vn[8 * L], vn[9 * L])};
+      tc::mma_bf16(o[n], al, b);
+      tc::mma_bf16(o[n], ah, b);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int G, int Lq,
           int Lk, int causal, int q_offset, float scale) {
-  constexpr int kOC = D / 8;  // output columns per thread
+  constexpr int L = Row<T, D>::kQK, LV = Row<T, D>::kV;
+  constexpr int NO = D / 8;  // output n-tiles
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);     // [D][kLd]   q^T * scale
-  float* Kt = Qt + D * kLd;                         // [D][kLd]   k^T; then p^T [kBK][kLd]
-  float* Pt = Kt;
-  float* Vs = Kt + (D > kBK ? D : kBK) * kLd;       // [kBK][D]
+  T* Qs = reinterpret_cast<T*>(smem4);  // [kBQ][L]
+  T* Ks = Qs + kBQ * L;                 // [kBK][L]
+  T* Vs = Ks + kBK * L;                 // [kBK][LV]
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + (h / G) * sk.h;
   const T* vb = v + b * sv.b + (h / G) * sv.h;
   T* ob = o + b * so.b + h * so.h;
-
-  stage_transposed<T, D>(Qt, qb, sq.l, q0, Lq, scale);
-
-  float m[4], l[4], acc[4][kOC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kOC; ++c) acc[i][c] = 0.f;
-  }
 
   int n_tiles = (Lk + kBK - 1) / kBK;
   if (causal) {  // skip key tiles wholly above the diagonal
@@ -130,110 +209,94 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     n_tiles = last_row < 0 ? 0 : min(n_tiles, last_row / kBK + 1);
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile is done with Pt (= Kt) and Vs
-    stage_transposed<T, D>(Kt, kb, sk.l, k0, Lk, 1.f);
-    for (int idx = tid; idx < kBK * (D / 4); idx += kThreads) {
-      const int r = idx / (D / 4), d4 = idx % (D / 4);
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + r < Lk) load4(vb + (k0 + r) * sv.l + d4 * 4, x);
-      *reinterpret_cast<float4*>(&Vs[r * D + d4 * 4]) = make_float4(x[0], x[1], x[2], x[3]);
-    }
+  tc::load_rows_async(Qs, L, qb + q0 * sq.l, sq.l, D, kBQ, Lq - q0);
+  if (n_tiles > 0) tc::load_rows_async(Ks, L, kb, sk.l, D, kBK, Lk);
+  tc::cp_async_commit();
+  if (n_tiles > 0) tc::load_rows_async(Vs, LV, vb, sv.l, D, kBK, Lk);
+  tc::cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16
+  const int row0 = q_offset + q0 + warp * 16 + g, row1 = row0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kBK;
+    tc::cp_async_wait<1>();  // Q and this tile's K have landed; V may fly
     __syncthreads();
+    float s[kKT][4];
+#pragma unroll
+    for (int j = 0; j < kKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    qk<D>(s, Qs + warp * 16 * L, Ks, g, t);
+    __syncthreads();  // every warp is done with K
+    if (tile + 1 < n_tiles)
+      tc::load_rows_async(Ks, L, kb + (k0 + kBK) * sk.l, sk.l, D, kBK, Lk - k0 - kBK);
+    tc::cp_async_commit();
 
-    // S = (q * scale) k^T on rows ty*4+i, columns tx*4 + 32*(j/4) + j%4
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * kLd + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Kt[d * kLd + tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Kt[d * kLd + tx * 4 + 32]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
+    // scores in log2 units: exp(x) = exp2(x log2(e)), one multiply folded
+    // into the scale, and exp2f is a single hardware op
     const bool edge = k0 + kBK > Lk || (causal && k0 + kBK - 1 > q_offset + q0);
-    if (edge) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q_offset + q0 + ty * 4 + i;
+    for (int j = 0; j < kKT; ++j) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = k0 + tx * 4 + (j / 4) * 32 + (j % 4);
-          if (col >= Lk || (causal && col > row)) s[i][j] = kNegInf;
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (col >= Lk || (causal && col > row)) s[j][e] = kNegInf;
         }
       }
     }
 
-    // online softmax; the 8 threads of a row group are adjacent lanes
+    // online softmax; the four threads of a quad share rows g and g + 8
+    float mx0 = s[0][0], mx1 = s[0][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = s[i][0];
+    for (int j = 0; j < kKT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m[i], group8_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+    for (int j = 0; j < kKT; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn0);
+      s[j][1] = exp2f(s[j][1] - mn0);
+      s[j][2] = exp2f(s[j][2] - mn1);
+      s[j][3] = exp2f(s[j][3] - mn1);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * al0 + quad_sum(rs0);
+    l1 = l1 * al1 + quad_sum(rs1);
+    m0 = mn0;
+    m1 = mn1;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + group8_sum(rs);
-#pragma unroll
-      for (int c = 0; c < kOC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= al0; acc[n][1] *= al0;
+      acc[n][2] *= al1; acc[n][3] *= al1;
     }
 
-    __syncthreads();  // every thread is done reading Kt before Pt overwrites it
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tx * 4 + (j / 4) * 32 + (j % 4);
-      *reinterpret_cast<float4*>(&Pt[col * kLd + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
+    tc::cp_async_wait<1>();  // this tile's V has landed; the next K may fly
     __syncthreads();
-
-    // acc += P V on output columns tx*4 + 32*jj + c
-    const int kmax = min(kBK, Lk - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&Pt[kk * kLd + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int jj = 0; jj < D / 32; ++jj) {
-        const float4 w = *reinterpret_cast<const float4*>(&Vs[kk * D + tx * 4 + jj * 32]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][jj * 4 + 0] = fmaf(pv[i], w.x, acc[i][jj * 4 + 0]);
-          acc[i][jj * 4 + 1] = fmaf(pv[i], w.y, acc[i][jj * 4 + 1]);
-          acc[i][jj * 4 + 2] = fmaf(pv[i], w.z, acc[i][jj * 4 + 2]);
-          acc[i][jj * 4 + 3] = fmaf(pv[i], w.w, acc[i][jj * 4 + 3]);
-        }
-      }
-    }
+    pv<D>(acc, s, Vs, g, t);
+    __syncthreads();  // every warp is done with V
+    if (tile + 1 < n_tiles)
+      tc::load_rows_async(Vs, LV, vb + (k0 + kBK) * sv.l, sv.l, D, kBK, Lk - k0 - kBK);
+    tc::cp_async_commit();
   }
 
+  tc::cp_async_wait<0>();  // nothing is left in flight when the block exits
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Lq) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj) {
-      float out[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) out[c] = acc[i][jj * 4 + c] / denom;
-      store4(ob + row * so.l + tx * 4 + jj * 32, out);
-    }
+  for (int n = 0; n < NO; ++n) {
+    if (r0 < Lq) store2(ob + r0 * so.l + 8 * n + 2 * t, acc[n][0] / d0, acc[n][1] / d0);
+    if (r1 < Lq) store2(ob + r1 * so.l + 8 * n + 2 * t, acc[n][2] / d1, acc[n][3] / d1);
   }
 }
 
@@ -241,11 +304,15 @@ template <typename T, int D>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, Strides sq,
                          Strides sk, Strides sv, Strides so, int B, int H, int G, int Lq,
                          int Lk, int causal, float scale, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (D * kLd + (D > kBK ? D : kBK) * kLd + kBK * D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  const int smem = static_cast<int>(sizeof(T)) *
+                   ((kBQ + kBK) * Row<T, D>::kQK + kBK * Row<T, D>::kV);
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
   const int q_offset = causal ? Lk - Lq : 0;
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
@@ -290,8 +357,7 @@ extern "C" int flash_attention_launch(
   if (dtype == 0)
     return launch_dim<float>(D, q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, st);
   if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(D, q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal,
-                                     scale, st);
+    return launch_dim<bf16>(D, q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 

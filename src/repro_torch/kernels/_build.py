@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one ``.cu`` file under ``src/repro_torch/csrc/`` with a plain
-C entry point.  It is compiled at first use with ``nvcc`` for ``sm_90a``
-into ``build/kernels/`` inside the package (so the package must sit in a
-writable place: a checkout or an editable install), keyed by a hash of the
-source and the flags, and loaded with ``ctypes``.  The compiler's
+C entry point; the ``.cuh`` headers beside them are shared.  It is compiled
+at first use with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` inside the
+package (so the package must sit in a writable place: a checkout or an
+editable install), keyed by a hash of the source, the headers and the
+flags, and loaded with ``ctypes``.  The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
 library as ``.log``.  A build failure raises.
 """
@@ -56,6 +57,8 @@ class KernelSource:
     def library_path(self) -> Path:
         """Where the shared library for the current source and flags lives."""
         digest = hashlib.sha256(self.source.read_bytes() + " ".join(self.flags).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
         return BUILD_DIR / f"{self.name}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:

@@ -4,8 +4,9 @@ The kernel (``src/repro_torch/csrc/flash_attention.cu``) replaces the TPU
 kernel ``src/repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel``.
 What bounds it on the card: operations (about 4*D multiply-adds per
 (query, key) pair it keeps, against each input read once), so its least
-time is its FLOPs over the f32 peak of 67 TFLOP/s.  The design and its
-tiles are described in the source.  Built and loaded by
+time is its FLOPs over the f32 peak of 67 TFLOP/s, or, on the tensor cores
+it runs on, three TF32 products per f32 one (3xTF32) at 495 TFLOP/s.  The
+design and its tiles are described in the source.  Built and loaded by
 ``kernels._build``; a build or launch failure raises.
 """
 
@@ -46,7 +47,8 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: {name} is {t.dtype}, q is {like.dtype}")
     if t.dim() != 4:
         raise ValueError(f"flash_attention: {name} must have 4 dims, got {tuple(t.shape)}")
-    if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+    if (t.stride(3) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3])
+            or t.data_ptr() % 16):
         raise ValueError(
             f"flash_attention: {name} needs a contiguous last dim and 16-byte aligned "
             f"rows, got strides {t.stride()}"

@@ -1,6 +1,8 @@
 """ssd_scan: the CUDA kernel for CUDA tensors, the plain version
 (``ref.ssd_chunked_batched``) for CPU tensors; never one in place of the
-other.  ``ssd_scan.launches`` counts kernel launches.
+other.  ``ssd_scan.launches`` counts the calls that launched the kernels
+(each call launches the three CUDA kernels of one scan: one per layer on the
+prefill path).
 
 Forward only: the training slice brings the ``autograd.Function``.
 """

@@ -9,6 +9,8 @@ JAX package's ``ref.py``.
     kernel computes.
   * ``ssd_chunked_batched``: the same over (batch, heads), written out as
     batch dimensions (the JAX package vmaps ``ssd_chunked``).
+  * ``ssd_chunk_parallel``: the same result in the CUDA kernels' order of
+    work, with the chunk axis parallel; for the tests only.
 
 All arithmetic is f32; y and the state come back in f32.
 """
@@ -85,3 +87,40 @@ def ssd_chunked_batched(x, dt, A, B, C, *, chunk: int):
         B.float()[:, None], C.float()[:, None], chunk, S,
     )
     return y.permute(0, 2, 1, 3), S
+
+
+def ssd_chunk_parallel(x, dt, A, B, C, *, chunk: int):
+    """``ssd_chunked_batched`` in the order of work of the CUDA kernels, for
+    the tests: (a) per (batch, chunk) each head's cs and the chunk's own
+    state s_c = B^T (exp(cs_last - cs) dt x); (b) the state pass S_{c+1} =
+    exp(cs_last,c) S_c + s_c from S_0 = 0, keeping the state that enters
+    each chunk; (c) per (batch, chunk) ``C Bᵀ`` once for all heads, then
+    y = exp(cs) (C S_c) + (C Bᵀ o Lmat o dt) x.  Same arguments and results."""
+    Bt, L, H, dh = x.shape
+    N = B.shape[2]
+    if L % chunk:
+        raise ValueError(f"L={L} must divide chunk={chunk}")
+    nc, Q = L // chunk, chunk
+    xc = x.float().reshape(Bt, nc, Q, H, dh)
+    dtc = dt.float().reshape(Bt, nc, Q, H)
+    Bc, Cc = B.float().reshape(Bt, nc, Q, N), C.float().reshape(Bt, nc, Q, N)
+    cs = torch.cumsum(dtc * A.float(), dim=2)  # (Bt, nc, Q, H)
+    # (a) the chunks' own states
+    w = torch.exp(cs[:, :, -1:] - cs) * dtc
+    s = torch.einsum("bcjn,bcjhd->bchnd", Bc, w[..., None] * xc)
+    # (b) the state pass
+    S = torch.zeros((Bt, H, N, dh), dtype=torch.float32, device=x.device)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S)
+        S = torch.exp(cs[:, c, -1])[..., None, None] * S + s[:, c]
+    S_in = torch.stack(S_in, dim=1)  # (Bt, nc, H, N, dh)
+    # (c) the chunks' outputs; masked before the exp, as in _chunked
+    G = Cc @ Bc.transpose(-1, -2)  # (Bt, nc, Q, Q), shared by the heads
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[..., None]
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (Bt, nc, Q_i, Q_j, H)
+    Lmat = torch.exp(torch.where(tri, diff, torch.full_like(diff, -1e9)))
+    M = G[..., None] * Lmat * dtc[:, :, None]
+    y = (torch.einsum("bcijh,bcjhd->bcihd", M, xc)
+         + torch.exp(cs)[..., None] * torch.einsum("bcin,bchnd->bcihd", Cc, S_in))
+    return y.reshape(Bt, L, H, dh), S

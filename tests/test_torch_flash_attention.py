@@ -78,10 +78,19 @@ def test_lengths_that_do_not_divide_raise(Lq, Lk, bq, bk):
         jflash(*(jnp.asarray(t.numpy()) for t in (q, k, k)), True, bq, bk, True, True)
 
 
-def test_blocks_are_cut_to_short_lengths():
+def test_blocks_are_cut_to_short_lengths(monkeypatch):
+    """Blocks of 128 over length 8 are cut, and the CPU tensor goes to the
+    plain version; two f32 evaluations agree within f32 rounding (1e-6 of
+    the largest magnitude): a CPU GEMM does not promise bit-equal results
+    from call to call when other processes compete for the cores."""
     q, k, v = (torch.from_numpy(x) for x in _inputs((1, 2, 1, 8, 8, 16, True), 3))
+    calls, real = [], tops.mha_reference
+    monkeypatch.setattr(tops, "mha_reference", lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    before = tops.flash_attention.launches
     got = tops.flash_attention(q, k, v, True, 128, 128)
-    torch.testing.assert_close(got, tref.mha_reference(q, k, v, causal=True), rtol=0, atol=0)
+    assert len(calls) == 1 and tops.flash_attention.launches == before
+    want = tref.mha_reference(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * max(1.0, float(want.abs().max())))
 
 
 def test_cuda_tensor_never_runs_the_plain_version(monkeypatch):
@@ -131,7 +140,9 @@ def _card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SHAPES + [(1, 16, 8, 192, 192, 128, True),
-                                            (1, 4, 2, 8, 40, 64, True)])
+                                            (1, 4, 2, 8, 40, 64, True),
+                                            (1, 16, 8, 200, 200, 128, False),
+                                            (4, 16, 8, 512, 512, 128, True)])  # serve shape
 def test_kernel_matches_plain_on_card(shape, dtype):
     _card()
     causal = shape[-1]

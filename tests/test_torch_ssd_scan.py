@@ -12,6 +12,8 @@ The CUDA kernel is held against the plain version on the card by the tests
 marked ``gpu`` (``pytest -m gpu`` there); this file imports without JAX for
 them."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -57,21 +59,71 @@ def _close(got, want, tol=1e-4):
                                atol=tol, rtol=tol)
 
 
+def _spy(monkeypatch, module, name):
+    """Count the calls of ``module.name``; returns the list of calls."""
+    calls, real = [], getattr(module, name)
+
+    def spy(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _same_f32(got, want):
+    """Two f32 evaluations of one function agree within f32 rounding: 1e-6
+    of the largest magnitude (a CPU GEMM does not promise bit-equal results
+    from call to call when other processes compete for the cores)."""
+    tol = 1e-6 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("chunk", [32, 64])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_plain_matches_pallas_interpret_and_reference(shape, chunk):
+def test_plain_matches_pallas_interpret_and_reference(shape, chunk, monkeypatch):
     arrays = _inputs(shape, seed=sum(shape) + chunk)
     jargs = [jnp.asarray(a) for a in arrays]
     jy_ref, jS_ref = jbatched(*jargs, chunk=chunk)
     jy_k, jS_k = jssd(*jargs, chunk=chunk, interpret=True, use_pallas=True)
+    plain_calls = _spy(monkeypatch, tops, "ssd_chunked_batched")
+    before = tops.ssd_scan.launches
     ty, tS = tops.ssd_scan(*_torch(arrays), chunk=chunk)
+    assert len(plain_calls) == 1 and tops.ssd_scan.launches == before  # the plain version ran
     assert ty.dtype == torch.float32 and tuple(ty.shape) == shape[:4]
     assert tS.dtype == torch.float32 and tuple(tS.shape) == (shape[0], shape[2], shape[4], shape[3])
     for got, want in ((ty, jy_ref), (ty, jy_k), (tS, jS_ref), (tS, jS_k)):
         _close(got, want)
     by, bS = tref.ssd_chunked_batched(*_torch(arrays), chunk=chunk)
-    torch.testing.assert_close(by, ty, rtol=0, atol=0)
-    torch.testing.assert_close(bS, tS, rtol=0, atol=0)
+    _same_f32(ty, by)
+    _same_f32(tS, bS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sequential(shape):
+    """Inputs of ``shape`` and the per-token recurrence's (y, S) over every
+    (batch, head); once per shape (the chunk does not enter it)."""
+    x, dt, A, B, C = args = _torch(_inputs(shape, seed=sum(shape) + 1))
+    Bt, _, H, _, _ = shape
+    seq = [[tref.ssd_sequential(x[b, :, h], dt[b, :, h], A[h], B[b], C[b]) for h in range(H)]
+           for b in range(Bt)]
+    return (args, torch.stack([torch.stack([yh for yh, _ in row], dim=1) for row in seq]),
+            torch.stack([torch.stack([Sh for _, Sh in row]) for row in seq]))
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_chunk_parallel_order_matches_chunked_and_sequential(shape, chunk):
+    """The CUDA kernels' order of work (each chunk's own state, the state
+    pass, each chunk's output with ``C Bᵀ`` once per chunk), in plain torch,
+    against the chunk loop and the per-token recurrence: within 1e-4 of the
+    largest magnitude (f32 sums in another order)."""
+    args, sy, sS = _sequential(shape)
+    y, S = tref.ssd_chunk_parallel(*args, chunk=chunk)
+    wy, wS = tref.ssd_chunked_batched(*args, chunk=chunk)
+    for got, want in ((y, wy), (S, wS), (y, sy), (S, sS)):
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 def test_chunked_equals_sequential_recurrence():
@@ -160,6 +212,18 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "kernels").exists()
 
 
+def test_rows_the_kernels_cannot_copy_16_bytes_at_a_time_are_copied_first():
+    """The kernels move rows with 16-byte cp.async: an aligned view (the
+    column slices ssm_apply hands over) goes as it is, a misaligned one as
+    an aligned copy with the same values."""
+    base = torch.arange(2 * 4 * 160, dtype=torch.float32).reshape(2, 4, 160)
+    view = base[..., 32:48]  # B of (Bt, L, N): 128-byte offset, rows 640 bytes apart
+    assert tkernel._aligned(view, 2) is view
+    odd = base[..., 1:17]  # 4-byte offset
+    got = tkernel._aligned(odd, 2)
+    assert got is not odd and got.data_ptr() % 16 == 0 and torch.equal(got, odd)
+
+
 def test_kernel_source_is_its_own_build():
     assert tkernel.SOURCE.source.name == "ssd_scan.cu"
     assert "arch=compute_90a,code=sm_90a" in tkernel.SOURCE.flags
@@ -175,12 +239,13 @@ def _card():
 
 
 CARD_CASES = [  # Bt, L, H, dh, N, chunk
-    *[(*s, c) for s in SHAPES for c in (32, 64)],
+    *[(*s, c) for s in SHAPES for c in (1, 32, 64, 128)],
     (2, 5, 8, 16, 16, 5),  # the reduced mamba2_780m: chunk = prompt length
     (2, 100, 8, 16, 16, 100),
     (2, 256, 8, 16, 16, 128),
     (1, 96, 4, 32, 64, 48),
     (2, 256, 4, 64, 128, 128),  # mamba2_780m's widths
+    (4, 512, 48, 64, 128, 128),  # its serve shape
 ]
 
 
@@ -200,6 +265,21 @@ def test_kernel_matches_plain_on_card(case, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), wy, atol=tol, rtol=tol)
     torch.testing.assert_close(S, wS, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads_per_block", [1, 2, 5, 8])
+def test_heads_sharing_one_chunk_product_on_card(heads_per_block):
+    """One block forms a chunk's C Bᵀ once and runs it over its heads, the
+    next head's operands copied while this one computes; any number of
+    heads per block (ragged last tile included) gives the plain result."""
+    _card()
+    args = _torch(_inputs((2, 256, 8, 64, 128), seed=heads_per_block), "cuda")
+    y, S = tkernel.launch(*args, chunk=128, heads_per_block=heads_per_block)
+    wy, wS = tref.ssd_chunked_batched(*args, chunk=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(S, wS, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu
