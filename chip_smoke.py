@@ -10,27 +10,39 @@ Phases (any failure exits non-zero before the last line):
   1. device and build: the card's name and power limit, then the four
      kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
      started together) with their ``-Xptxas -v`` reports;
-  2. ``pulse_chase`` against its plain version: the four ISA read programs,
-     each on its structure at a small size and at the paper's size, through
-     ``ops.pulse_chase`` (kernel) and ``ref.chase_reference`` (plain) on the
-     same CUDA tensors; every output must be bit-equal (tolerance 0: the
-     state is int32);
+  2. ``pulse_chase`` against its plain versions, bit for bit (tolerance 0:
+     the state is int32), on the same CUDA tensors: the fixed-depth entry
+     point (``ops.pulse_chase`` against ``ref.chase_reference``) with the
+     four ISA read programs and the six native bodies (the structures' own
+     iterators), each at a small size and at the paper's size; then the
+     whole-traversal entry point (``ops.pulse_chase_run`` against
+     ``ref.chase_run_reference``) with every body on a faulting case (a
+     revoked shard, NULL and out-of-range entries) at budgets on and off
+     the depth quantum;
   3. the traversal main path: ``PulseEngine(arena).execute(it, ptr0, scr0,
      max_iters=4096)`` with the default backend ("kernel") on three
      workloads of 65,536 YCSB-Zipfian queries (90% stored keys by rank with
-     p ~ rank^-0.99, 10% absent keys); results must equal
-     ``backend="reference"`` and the structure's ``ref_find`` oracle, and
-     the kernel's launch count must rise;
+     p ~ rank^-0.99, 10% absent keys), once through the ISA iterator and
+     once through the structure's own iterator (its native body); each
+     ``execute`` must launch exactly one kernel and its results must equal
+     ``backend="reference"`` and the structure's ``ref_find`` oracle;
+     lookups/s, the kernel's device ms inside ``execute`` (the profiler's
+     kernel timestamps) and the device's busy share are reported, then one
+     fixed-depth launch of the whole batch to full depth, timed beside its
+     bytes bound (each distinct row the run visits read once);
   4. ``flash_attention`` against its plain version (``mha_reference``) on
-     the shapes of ``tests/test_kernels.py`` in f32 and bf16 and at the
-     serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32); tolerance
-     2e-5 (f32) and 2e-2 (bf16), absolute and relative; timed beside
+     the shapes of ``tests/test_kernels.py``, at head dims 112 (kimi's G =
+     8, zamba2's G = 1) and 16 (the reduced configs), in f32 and bf16, and
+     at the serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32) and a
+     D = 112 shape (B=4, H=64, Hk=8, L=512, causal, f32); tolerance 2e-5
+     (f32) and 2e-2 (bf16), absolute and relative; timed beside
      ``scaled_dot_product_attention`` (the library yardstick, never used by
      the port), with its bound at the f32 FMA peak and, for the 3xTF32
      products the kernel runs on the tensor cores, at the TF32 peak;
   5. ``paged_attention`` against its plain version on the shapes of
-     ``tests/test_kernels.py`` and at Qwen3-0.6B's widths (H=16, Hk=8,
-     D=128, page 16, lengths 512-528, f32), same tolerances;
+     ``tests/test_kernels.py``, at head dims 112 and 16, at Qwen3-0.6B's
+     widths (H=16, Hk=8, D=128, page 16, lengths 512-528, f32) and at
+     kimi's (H=64, Hk=8, D=112), same tolerances;
   6. the serve path: ``repro_torch.launch.serve.main`` on the full-width
      ``qwen3_0_6b`` (seeded weights; 8 requests, 4 slots, prompt 512, 16
      new tokens): every request finishes and ``flash_attention`` launches
@@ -122,10 +134,13 @@ def make_queries(rng, keys, B: int):
 
 
 def build_structure(kind: str, n_keys: int, rng, *, n_buckets: int = 0, B: int = B_MAIN):
-    """(arena on the card, ISA iterator, ptr0, scr0, oracle).
+    """(arena on the card, {route: iterator}, ptr0, scr0, oracle).
 
-    ``oracle(res, idx)`` checks lanes ``idx`` of an ExecResult against the
-    structure's ``ref_find`` (hash table and B+tree; None otherwise)."""
+    The routes are ``"isa"`` (the structure's find as a PULSE ISA program)
+    and ``"native"`` (the structure's own iterator written in torch, which
+    the kernel runs on its native body).  ``oracle(res, idx)`` checks lanes
+    ``idx`` of an ExecResult against the structure's ``ref_find`` (hash
+    table and B+tree; None otherwise)."""
     import numpy as np
     import torch
 
@@ -140,11 +155,13 @@ def build_structure(kind: str, n_keys: int, rng, *, n_buckets: int = 0, B: int =
     oracle = None
     if kind == "list":
         arena, head = linked_list.build(keys, values)
-        ptr0, scr0 = linked_list.find_iterator().init(qt, head)
+        native = linked_list.find_iterator()
+        ptr0, scr0 = native.init(qt, head)
         prog = isa_programs.list_find_program()
     elif kind == "hash":
         arena, heads = hash_table.build(keys, values, n_buckets)
-        ptr0, scr0 = hash_table.find_iterator(n_buckets).init(qt, heads)
+        native = hash_table.find_iterator(n_buckets)
+        ptr0, scr0 = native.init(qt, heads)
         prog = isa_programs.hash_find_program()
 
         def oracle(res, idx):
@@ -152,17 +169,50 @@ def build_structure(kind: str, n_keys: int, rng, *, n_buckets: int = 0, B: int =
             return _check_find(res, idx, want, hops=True)
     elif kind == "bst":
         arena, root, _ = bst.build(keys, values)
-        ptr0, scr0 = bst.find_iterator().init(qt, root)
+        native = bst.find_iterator()
+        ptr0, scr0 = native.init(qt, root)
         prog = isa_programs.bst_find_program()
     else:
         arena, root, _ = btree.build(keys, values)
-        ptr0, scr0 = btree.find_iterator().init(qt, root)
+        native = btree.find_iterator()
+        ptr0, scr0 = native.init(qt, root)
         prog = isa_programs.btree_find_program()
 
         def oracle(res, idx):
             want = btree.ref_find(keys, values, q[idx])
             return _check_find(res, idx, want, hops=False)
-    return arena, isa.as_pulse_iterator(prog), ptr0, scr0, oracle
+    routes = {"isa": isa.as_pulse_iterator(prog), "native": native}
+    return arena, routes, ptr0, scr0, oracle
+
+
+def build_aggregate(kind: str, n_keys: int, rng, *, B: int = B_MAIN):
+    """(arena on the card, iterator, ptr0, scr0) for the two stateful
+    iterators: ``list_sum`` over 64 lists of a pooled heap (lane i sums list
+    i % 64) and ``btree_range_agg`` over windows of up to 4,096 keys; the
+    values span int32, so the sums wrap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.arena import ArenaBuilder
+    from repro_torch.core.structures import btree, linked_list
+
+    keys = make_keys(rng, n_keys)
+    values = rng.integers(-(2**31), 2**31 - 1, n_keys).astype(np.int32)
+    if kind == "list_sum":
+        b = ArenaBuilder(n_keys, linked_list.NODE_WORDS)
+        cuts = np.sort(rng.choice(np.arange(1, n_keys), 63, replace=False))
+        heads = [linked_list.build_into(b, k, v)
+                 for k, v in zip(np.split(keys, cuts), np.split(values, cuts))]
+        it = linked_list.sum_iterator()
+        ptr0, scr0 = it.init(torch.tensor(heads, dtype=torch.int32).cuda().repeat(B // 64 + 1)[:B])
+        return b.finish(device="cuda"), it, ptr0, scr0
+    arena, root, _ = btree.build(keys, values)
+    it = btree.range_aggregate_iterator()
+    top = min(2**31 // n_keys * 512, 2**30)  # windows of up to ~512 keys
+    lo = torch.from_numpy(rng.integers(0, 2**31 - 1 - top, B).astype(np.int32)).cuda()
+    span = torch.from_numpy(rng.integers(0, top, B).astype(np.int32)).cuda()
+    ptr0, scr0 = it.init(lo, lo + span, root)
+    return arena, it, ptr0, scr0
 
 
 def _check_find(res, idx, want, *, hops: bool) -> bool:
@@ -180,11 +230,30 @@ def _check_find(res, idx, want, *, hops: bool) -> bool:
 # ------------------------------ measurement ---------------------------------
 
 
-def work_bytes(lane_steps: int, B: int, W: int, S: int, T: int) -> int:
-    """Bytes the work must move: W*4 per executed lane-step, the lane state
+def work_bytes(rows: int, B: int, W: int, S: int, T: int) -> int:
+    """Bytes the work must move: W*4 per node row read, the lane state
     (ptr, status, iters, scratch) in and out once and the program once.
-    The work is all gathers and integer compares, so bytes bound it."""
-    return lane_steps * W * 4 + 2 * B * (3 + S) * 4 + T * 16
+    The work is all gathers and integer compares, so bytes bound it.
+    ``rows`` is the distinct rows the run visits (each input read once), or
+    its executed lane-steps for the count that gives no row a second use."""
+    return rows * W * 4 + 2 * B * (3 + S) * 4 + T * 16
+
+
+def visited_rows(arena, logic, ptr0, scr0, depth: int) -> int:
+    """Distinct arena rows a run of ``depth`` steps loads: one step at a
+    time, the clamped pointer of every lane still active."""
+    import torch
+
+    from repro_torch.kernels.pulse_chase import ops
+
+    cap = arena.capacity
+    p, s, st = ptr0, scr0, torch.zeros_like(ptr0)
+    seen = []
+    for _ in range(depth):
+        seen.append(torch.where(st == 0, p.clamp(0, cap - 1), -1))
+        p, s, st, _ = ops.pulse_chase(arena.data, p, s, st, logic_fn=logic, num_steps=1)
+    rows = torch.unique(torch.cat(seen))
+    return int((rows >= 0).sum().item())
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -248,13 +317,24 @@ def kernel_device_ms(fns, rounds: int, *names: str):
     return sum(e.self_device_time_total for e in evs) / (rounds * len(fns)) / 1e3
 
 
+def profiled_ms(fns, rounds: int, *names: str, tries: int = 3):
+    """``kernel_device_ms``, taken again when a profiled window shows none
+    of the kernels (the profiler can drop a window's kernel records);
+    None when every try misses."""
+    for _ in range(tries):
+        ms = kernel_device_ms(fns, rounds, *names)
+        if ms is not None:
+            return ms
+    return None
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
 def kernel_vs_plain(arena, it, ptr0, scr0, num_steps: int):
-    """One launch of the kernel and one of the plain version on the same
-    CUDA tensors; returns (outputs equal?, max |diff|)."""
+    """One launch of the fixed-depth kernel and one of its plain version on
+    the same CUDA tensors; returns (outputs equal?, max |diff|)."""
     import torch
 
     from repro_torch.kernels.pulse_chase import ops, ref
@@ -268,6 +348,35 @@ def kernel_vs_plain(arena, it, ptr0, scr0, num_steps: int):
     err = max(max_abs_err(a, b) for a, b in zip(want, got))
     same = all(torch.equal(a, b) for a, b in zip(want, got))
     return same, err
+
+
+def run_vs_plain(arena, it, ptr0, scr0, max_steps: int, quantum: int):
+    """``pulse_chase_run`` (one launch) against ``chase_run_reference`` on
+    the same CUDA tensors, with a fault check that revokes the arena's
+    first quarter and lanes that enter NULL or past the arena's end;
+    returns (outputs equal?, max |diff|, faulted lanes)."""
+    import torch
+
+    from repro_torch.kernels.pulse_chase import ops, ref
+
+    logic = ops.iterator_logic(it)
+    cap = arena.capacity
+    check = ops.FaultCheck(torch.tensor([0, cap // 4, cap], dtype=torch.int32, device="cuda"),
+                           torch.tensor([0, 1], dtype=torch.int32, device="cuda"), cap)
+    ptr0 = ptr0.clone()
+    ptr0[1], ptr0[5] = -1, cap + 3
+    st0 = torch.zeros_like(ptr0)
+    st0[7] = 1
+    p, s, st, stats = ops.pulse_chase_run(arena.data, ptr0, scr0, st0, logic_fn=logic,
+                                          max_steps=max_steps, depth_quantum=quantum,
+                                          fault_fn=check)
+    want = ref.chase_run_reference(arena.data, ptr0, scr0, st0, logic, max_steps, quantum,
+                                   check)
+    got = (p, s, st, stats.retire_step, stats.faulted)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(want, got))
+    same = all(torch.equal(a, b) for a, b in zip(want, got))
+    return same, err, int(stats.faulted.sum().item())
 
 
 # --------------------------------- phases -----------------------------------
@@ -311,31 +420,59 @@ def phase_device():
 
 
 def phase_kernel_vs_plain(rng):
-    """The four read programs, small and at the paper's size."""
+    """Both entry points, every body: the four ISA read programs and the six
+    native bodies, small and at the paper's size."""
     from repro_torch.kernels.pulse_chase import ops
 
     cases = [
-        # (program, structure, keys, buckets, lanes, steps)
-        ("list_find", "list", 64, 0, 256, 80),
-        ("list_find", "list", 4096, 0, B_MAIN, 64),
-        ("hash_find", "hash", 256, 32, 256, 64),
-        ("hash_find", "hash", 200_000, 4096, B_MAIN, 64),
-        ("bst_find", "bst", 512, 0, 256, 16),
-        ("bst_find", "bst", 500_000, 0, B_MAIN, 24),
-        ("btree_find", "btree", 512, 0, 256, 8),
-        ("btree_find", "btree", 500_000, 0, B_MAIN, 8),
+        # (structure, keys, buckets, lanes, steps)
+        ("list", 64, 0, 256, 80),
+        ("list", 4096, 0, B_MAIN, 64),
+        ("hash", 256, 32, 256, 64),
+        ("hash", 200_000, 4096, B_MAIN, 64),
+        ("bst", 512, 0, 256, 16),
+        ("bst", 500_000, 0, B_MAIN, 24),
+        ("btree", 512, 0, 256, 8),
+        ("btree", 500_000, 0, B_MAIN, 8),
+        ("list_sum", 512, 0, 256, 40),
+        ("list_sum", 200_000, 0, B_MAIN, 64),
+        ("btree_range_agg", 512, 0, 256, 16),
+        ("btree_range_agg", 500_000, 0, B_MAIN, 24),
     ]
+    # whole runs: budgets on and off the depth quantum (small); at the
+    # paper's size the default quantum, and for the native bodies a budget
+    # the lanes finish within (the interpreter's plain version, the ISA VM
+    # in torch, takes ~70 ms a step there)
+    runs = {(256, "isa"): ((13, 4), (10, 8), (64, 8)), (256, "native"): ((13, 4), (10, 8), (64, 8)),
+            (B_MAIN, "isa"): ((64, 8),), (B_MAIN, "native"): ((64, 8), (4096, 8))}
     before = ops.pulse_chase.launches
     checks = []
-    for prog, kind, n, nb, B, steps in cases:
-        arena, it, ptr0, scr0, _ = build_structure(kind, n, rng, n_buckets=nb, B=B)
-        same, err = kernel_vs_plain(arena, it, ptr0, scr0, steps)
-        checks.append(dict(program=prog, keys=n, lanes=B, num_steps=steps,
-                           bit_equal=same, max_abs_err=err))
-        log(f"  {prog:10s} keys={n:>7d} lanes={B:>6d} steps={steps:>3d} "
-            f"bit_equal={same} max_abs_err={err}")
+
+    def record(entry, body, n, B, steps, quantum, same, err, faulted=None):
+        row = dict(entry=entry, body=body, keys=n, lanes=B, num_steps=steps, quantum=quantum,
+                   bit_equal=same, max_abs_err=err, faulted_lanes=faulted)
+        checks.append(row)
+        log(f"  {entry:16s} {body:16s} keys={n:>7d} lanes={B:>6d} steps={steps:>4d} "
+            f"quantum={quantum} bit_equal={same} max_abs_err={err}"
+            + ("" if faulted is None else f" faulted={faulted}"))
         if not same:
-            raise AssertionError(f"pulse_chase kernel disagrees with its plain version on {prog}")
+            raise AssertionError(f"pulse_chase {entry} disagrees with its plain version "
+                                 f"on {body}")
+
+    for kind, n, nb, B, steps in cases:
+        if kind in ("list_sum", "btree_range_agg"):
+            arena, it, ptr0, scr0 = build_aggregate(kind, n, rng, B=B)
+            routes = {"native": it}
+        else:
+            arena, routes, ptr0, scr0, _ = build_structure(kind, n, rng, n_buckets=nb, B=B)
+        for route, it in routes.items():
+            body = f"{it.name} ({route})"
+            same, err = kernel_vs_plain(arena, it, ptr0, scr0, steps)
+            record("pulse_chase", body, n, B, steps, None, same, err)
+            for max_steps, quantum in runs[B, route]:
+                same, err, faulted = run_vs_plain(arena, it, ptr0, scr0, max_steps, quantum)
+                record("pulse_chase_run", body, n, B, max_steps, quantum, same, err, faulted)
+        del arena
     n_launch = ops.pulse_chase.launches - before
     log(json.dumps({"phase": "kernel_vs_plain", "name": "pulse_chase",
                     "launches": n_launch, "mismatches": 0, "checks": checks}))
@@ -374,111 +511,147 @@ def phase_main(rng, workloads):
 
     from repro_torch.core.engine import PulseEngine
     from repro_torch.core.iterator import STATUS_DONE, STATUS_FAULT
-    from repro_torch.kernels.pulse_chase import ops, ref
+    from repro_torch.kernels.pulse_chase import kernel, ops, ref
 
     l2_size = torch.cuda.get_device_properties(0).L2_cache_size
     rows = []
     for wl in workloads:
         t0 = time.perf_counter()
-        arena, it, ptr0, scr0, oracle = build_structure(
+        arena, routes, ptr0, scr0, oracle = build_structure(
             wl["structure"], wl["n_keys"], rng, n_buckets=wl["n_buckets"])
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         eng = PulseEngine(arena)
-        decision = eng.dispatch(it)
         log(f"[{wl['name']}] {wl['n_keys']} keys, arena {arena.capacity} x {arena.node_words} "
             f"words ({arena.capacity * arena.node_words * 4 / 1e6:.1f} MB), set-up "
-            f"{setup_s:.1f} s; dispatch model: {decision.reason} (an arena on the card "
-            f"is traversed on the card)")
+            f"{setup_s:.1f} s")
         run = dict(max_iters=4096)
-
-        # the main path, with the launch count read around it
-        torch.cuda.reset_peak_memory_stats()
-        ops.pulse_chase.launches = 0
-        res = eng.execute(it, ptr0, scr0, **run)
-        torch.cuda.synchronize()
-        launches = ops.pulse_chase.launches
-        peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        if launches == 0 or not res.offloaded:
-            raise AssertionError(f"{wl['name']}: the main path launched no kernel")
-        for f in ("ptr", "scratch", "status", "iters"):
-            t = getattr(res, f)
-            if not (t.is_cuda and t.dtype == torch.int32 and t.shape[0] == B_MAIN):
-                raise AssertionError(f"{wl['name']}: bad {f} {t.dtype} {tuple(t.shape)}")
-
-        ref_res = eng.execute(it, ptr0, scr0, backend="reference", **run)
-        torch.cuda.synchronize()
-        for f in ("ptr", "scratch", "status", "iters"):
-            if not torch.equal(getattr(res, f), getattr(ref_res, f)):
-                raise AssertionError(f"{wl['name']}: kernel and reference backends differ on {f}")
-        sample = np.sort(np.random.default_rng(1).choice(B_MAIN, 1024, replace=False))
-        if not oracle(res, sample):
-            raise AssertionError(f"{wl['name']}: results disagree with ref_find")
-        status = res.status.cpu().numpy()
-        if not np.all((status == STATUS_DONE) | (status == STATUS_FAULT)):
-            raise AssertionError(f"{wl['name']}: lanes left unfinished")
-
-        # end-to-end rate: host clock around work that ends in a synchronise
-        secs = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            eng.execute(it, ptr0, scr0, **run)
+        first = None
+        for route, it in routes.items():
+            decision = eng.dispatch(it)
+            # the main path, with the launch count read around it
+            torch.cuda.reset_peak_memory_stats()
+            ops.pulse_chase.launches = 0
+            res = eng.execute(it, ptr0, scr0, **run)
             torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        _, per_launch = _timed_launches(lambda: eng.execute(it, ptr0, scr0, **run))
+            launches = ops.pulse_chase.launches
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            if launches != 1 or not res.offloaded:
+                raise AssertionError(f"{wl['name']} ({route}): execute launched {launches} "
+                                     f"kernels, not exactly one")
+            for f in ("ptr", "scratch", "status", "iters"):
+                t = getattr(res, f)
+                if not (t.is_cuda and t.dtype == torch.int32 and t.shape[0] == B_MAIN):
+                    raise AssertionError(f"{wl['name']}: bad {f} {t.dtype} {tuple(t.shape)}")
 
-        # one launch over the whole batch to full depth: kernel, plain, bound
-        iters = res.iters.long()
-        depth = int(iters.max().item())
-        logic = ops.iterator_logic(it)
-        st0 = torch.zeros_like(ptr0)
-        scr0c = scr0.reshape(B_MAIN, it.scratch_words).contiguous()
-        one = ops.pulse_chase(arena.data, ptr0, scr0c, st0, logic_fn=logic, num_steps=depth)
-        torch.cuda.synchronize()
-        lane_steps = int(one[3].long().sum().item())
-        k_ms = time_cuda(lambda: ops.pulse_chase(arena.data, ptr0, scr0c, st0,
-                                                 logic_fn=logic, num_steps=depth), 10)
-        p_ms = time_cuda(lambda: ref.chase_reference(arena.data, ptr0, scr0c, st0,
-                                                     torch.zeros_like(ptr0), logic, depth), 1)
-        nbytes = work_bytes(lane_steps, B_MAIN, arena.node_words, it.scratch_words,
-                            len(logic.program))
-        arena_bytes = arena.capacity * arena.node_words * 4
-        in_l2 = arena_bytes < l2_size
-        done = res.status == STATUS_DONE
-        row = dict(
-            workload=wl["name"], keys=wl["n_keys"], lanes=B_MAIN,
-            arena_mb=arena.capacity * arena.node_words * 4 / 1e6,
-            launches=launches, chunks=res.stats.chunks,
-            lanes_per_chunk=res.stats.lanes_per_chunk,
-            kernel_ms_per_launch_mean=float(np.mean(per_launch)),
-            kernel_ms_per_launch_max=float(np.max(per_launch)),
-            kernel_ms_in_execute=float(np.sum(per_launch)),
-            execute_s=secs, lookups_per_s=B_MAIN / min(secs),
-            iters_mean=float(iters[done].float().mean().item()),
-            iters_max=int(iters.max().item()),
-            faulted_lanes=int((res.status == STATUS_FAULT).sum().item()),
-            peak_mb=peak_mb,
-            full_depth_steps=depth, full_depth_lane_steps=lane_steps,
-            ms=k_ms, plain_ms=p_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", bound_rate="HBM", arena_in_l2=in_l2,
-            # an arena that fits in L2 is never read from HBM: its least time
-            # at the L2 rate lies below this HBM bound, so kernel/bound
-            # understates how far the kernel is from the card's limit
-            bound_note=("HBM bound; the arena is L2-resident, so the least time is "
-                        "below it" if in_l2 else "HBM bound; the gathers come from HBM"),
-            dispatch_offload=decision.offload, offloaded=res.offloaded,
-        )
-        log(f"[{wl['name']}] launches={launches} chunks={row['chunks']} "
-            f"lookups/s={row['lookups_per_s']:.4g} (execute s {secs}) "
-            f"kernel ms/launch mean={row['kernel_ms_per_launch_mean']:.4f} "
-            f"max={row['kernel_ms_per_launch_max']:.4f} "
-            f"iters mean={row['iters_mean']:.2f} max={row['iters_max']} "
-            f"peak={peak_mb:.1f} MiB")
-        log(f"[{wl['name']}] one launch, {depth} steps, {lane_steps} lane-steps: "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bytes bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_note']})")
-        rows.append(row)
-        del arena, eng, res, ref_res
+            ref_res = eng.execute(it, ptr0, scr0, backend="reference", **run)
+            torch.cuda.synchronize()
+            for f in ("ptr", "scratch", "status", "iters"):
+                if not torch.equal(getattr(res, f), getattr(ref_res, f)):
+                    raise AssertionError(f"{wl['name']} ({route}): kernel and reference "
+                                         f"backends differ on {f}")
+                if first is not None and not torch.equal(getattr(res, f), getattr(first, f)):
+                    raise AssertionError(f"{wl['name']}: the ISA and native routes differ on {f}")
+            first = first or res
+            sample = np.sort(np.random.default_rng(1).choice(B_MAIN, 1024, replace=False))
+            if not oracle(res, sample):
+                raise AssertionError(f"{wl['name']} ({route}): results disagree with ref_find")
+            status = res.status.cpu().numpy()
+            if not np.all((status == STATUS_DONE) | (status == STATUS_FAULT)):
+                raise AssertionError(f"{wl['name']} ({route}): lanes left unfinished")
+
+            # end-to-end rate: host clock around work that ends in a synchronise
+            secs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.execute(it, ptr0, scr0, **run)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            # the kernel's device time inside execute (the profiler's kernel
+            # timestamps) over execute's wall time: the device's busy share;
+            # CUDA events around the launch also hold the wrapper's host time
+            in_execute = profiled_ms(
+                [lambda: eng.execute(it, ptr0, scr0, **run)], 5, "chase_kernel")
+            if in_execute is None:
+                raise AssertionError(f"{wl['name']}: the profiler saw no pulse_chase kernel")
+            busy = in_execute / (float(np.median(secs)) * 1e3)
+            _, per_launch = _timed_launches(lambda: eng.execute(it, ptr0, scr0, **run))
+            grid = kernel.launch.last_grid
+
+            # one fixed-depth launch over the whole batch to full depth:
+            # kernel, plain, bound
+            iters = res.iters.long()
+            depth = int(iters.max().item())
+            logic = ops.iterator_logic(it)
+            st0 = torch.zeros_like(ptr0)
+            scr0c = scr0.reshape(B_MAIN, it.scratch_words).contiguous()
+            one = ops.pulse_chase(arena.data, ptr0, scr0c, st0, logic_fn=logic,
+                                  num_steps=depth)
+            torch.cuda.synchronize()
+            lane_steps = int(one[3].long().sum().item())
+            full = [lambda: ops.pulse_chase(arena.data, ptr0, scr0c, st0, logic_fn=logic,
+                                            num_steps=depth)]
+            k_events = time_cuda(full[0], 10)
+            k_ms = profiled_ms(full, 10, "chase_kernel")
+            ms_source = "events" if k_ms is None else "profiler"
+            k_ms = k_events if k_ms is None else k_ms
+            p_ms = time_cuda(lambda: ref.chase_reference(arena.data, ptr0, scr0c, st0,
+                                                         torch.zeros_like(ptr0), logic, depth), 1)
+            n_code = len(logic.program) if logic.program is not None else 0
+            rows_seen = visited_rows(arena, logic, ptr0, scr0c, depth)
+            nbytes = work_bytes(rows_seen, B_MAIN, arena.node_words, it.scratch_words, n_code)
+            nbytes_steps = work_bytes(lane_steps, B_MAIN, arena.node_words, it.scratch_words,
+                                      n_code)
+            arena_bytes = arena.capacity * arena.node_words * 4
+            in_l2 = arena_bytes < l2_size
+            done = res.status == STATUS_DONE
+            body = "isa" if logic.program is not None else logic.native.name
+            row = dict(
+                workload=wl["name"], route=route, body=body, keys=wl["n_keys"], lanes=B_MAIN,
+                arena_mb=arena_bytes / 1e6, setup_s=setup_s,
+                launches=launches, chunks=res.stats.chunks, grid_blocks=grid,
+                blocks_per_sm=kernel.blocks_per_sm(
+                    body, T=n_code, S=it.scratch_words, W=arena.node_words,
+                    n_fault_words=arena.bounds.shape[0] + arena.perms.shape[0]),
+                kernel_ms_in_execute=in_execute, device_busy_in_execute=busy,
+                kernel_ms_in_execute_events=float(np.sum(per_launch)),
+                execute_s=secs, lookups_per_s=B_MAIN / min(secs),
+                lookups_per_s_each=[B_MAIN / x for x in secs],
+                iters_mean=float(iters[done].float().mean().item()),
+                iters_max=int(iters.max().item()),
+                faulted_lanes=int((res.status == STATUS_FAULT).sum().item()),
+                peak_mb=peak_mb,
+                full_depth_steps=depth, full_depth_lane_steps=lane_steps,
+                full_depth_rows=rows_seen, ms=k_ms, ms_source=ms_source, ms_events=k_events,
+                plain_ms=p_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_ms_lane_steps=nbytes_steps / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bound_rate="HBM", arena_in_l2=in_l2,
+                # an arena that fits in L2 is never read from HBM: its least
+                # time at the L2 rate lies below this HBM bound, so
+                # kernel/bound understates how far the kernel is from the
+                # card's limit
+                bound_note=("HBM bound; the arena is L2-resident, so the least time is "
+                            "below it" if in_l2 else "HBM bound; the gathers come from HBM"),
+                dispatch_offload=decision.offload, dispatch_reason=decision.reason,
+                offloaded=res.offloaded,
+            )
+            log(f"[{wl['name']}] {route} ({body}): launches={launches} grid={grid} blocks "
+                f"({row['blocks_per_sm']}/SM) lookups/s={row['lookups_per_s']:.4g} "
+                f"(execute s {[round(x, 6) for x in secs]}) kernel ms in execute "
+                f"{in_execute:.5f} (profiler; CUDA events {row['kernel_ms_in_execute_events']:.4f}), "
+                f"device busy {100 * busy:.1f}% iters mean={row['iters_mean']:.2f} "
+                f"max={row['iters_max']} peak={peak_mb:.1f} MiB; dispatch model: "
+                f"{decision.reason}")
+            log(f"[{wl['name']}] {route}: one fixed-depth launch, {depth} steps, {lane_steps} "
+                f"lane-steps over {rows_seen} distinct rows: kernel {k_ms:.5f} ms ({ms_source}; "
+                f"CUDA events {k_events:.5f}), plain {p_ms:.4f} ms, bytes bound {row['bound_ms']:.5f} "
+                f"ms ({row['bound_note']}; {row['bound_ms_lane_steps']:.5f} ms counting every "
+                f"lane-step's row)")
+            rows.append(row)
+            del res, ref_res
+        del arena, eng, first
         torch.cuda.empty_cache()
     return rows
 
@@ -526,9 +699,49 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def time_flash(gen, B, H, Hk, L, D):
+    """Kernel, plain version and SDPA at one causal f32 shape: a prefill
+    call's attention in one layer."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q = _randn(gen, (B, H, L, D), "float32")
+    k, v = _randn(gen, (B, Hk, L, D), "float32"), _randn(gen, (B, Hk, L, D), "float32")
+    got = ops.flash_attention(q, k, v, True, 128, 128)
+    want = ref.mha_reference(q, k, v, causal=True)
+    ok, err = _close(got, want, "float32")
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    _, lib_err = _close(lib, want, "float32")
+    log(f"  flash B={B} H={H} Hk={Hk} L={L} D={D} causal f32: max_abs_err={err:.3g} ok={ok} "
+        f"(SDPA vs plain {lib_err:.3g})")
+    if not ok:
+        raise AssertionError("flash_attention kernel disagrees with its plain version")
+    events_ms = time_cuda(lambda: ops.flash_attention(q, k, v, True, 128, 128), 50)
+    device_ms = kernel_device_ms([lambda: ops.flash_attention(q, k, v, True, 128, 128)], 20,
+                                 "flash_fwd")
+    ms = events_ms if device_ms is None else device_ms
+    plain_ms = time_cuda(lambda: ref.mha_reference(q, k, v, causal=True), 10)
+    library_ms = time_cuda(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 50)
+    flops, nbytes = flash_work(B, H, Hk, L, L, D, True)
+    bound_ms, bound_by = bound(flops, nbytes)
+    tc_ms = tensor_core_bound_ms(flops)
+    row = dict(shape=[B, H, Hk, L, L, D], causal=True, dtype="float32", max_abs_err=err,
+               ms=ms, ms_source="events" if device_ms is None else "profiler",
+               ms_events=events_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_max_abs_err=lib_err, flops=flops, bytes=nbytes, bound_ms=bound_ms,
+               bound_by=bound_by, bound_ms_tensor_core=tc_ms)
+    log(f"  flash B={B} H={H} Hk={Hk} L={L} D={D}: kernel {ms:.4f} ms ({row['ms_source']}; "
+        f"CUDA events over 50 launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; 3xTF32 on the tensor cores {tc_ms:.5f} ms), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return row
+
+
 def phase_flash(seed):
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -538,6 +751,11 @@ def phase_flash(seed):
         (1, 4, 4, 256, 256, 32, True, 64),
         (2, 2, 1, 128, 256, 64, True, 64),
         (1, 4, 2, 128, 128, 64, False, 64),
+        # head dims 112 (kimi_k2_1t_a32b: G = 8; zamba2_7b: G = 1) and 16
+        (1, 64, 8, 200, 200, 112, True, 8),
+        (2, 4, 4, 136, 136, 112, False, 8),
+        (2, 4, 2, 128, 128, 16, True, 64),
+        (1, 4, 4, 64, 200, 16, True, 8),
     ]
     checks = []
     for dtype in ("float32", "bfloat16"):
@@ -553,39 +771,10 @@ def phase_flash(seed):
             if not ok:
                 raise AssertionError("flash_attention kernel disagrees with its plain version")
 
-    # the serve shape: one prefill call's attention in one layer
-    B, H, Hk, L, D = 4, 16, 8, 512, 128
-    q = _randn(gen, (B, H, L, D), "float32")
-    k, v = _randn(gen, (B, Hk, L, D), "float32"), _randn(gen, (B, Hk, L, D), "float32")
-    got = ops.flash_attention(q, k, v, True, 128, 128)
-    want = ref.mha_reference(q, k, v, causal=True)
-    ok, err = _close(got, want, "float32")
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    _, lib_err = _close(lib, want, "float32")
-    log(f"  flash serve shape B={B} H={H} Hk={Hk} L={L} D={D} causal f32: "
-        f"max_abs_err={err:.3g} ok={ok} (SDPA vs plain {lib_err:.3g})")
-    if not ok:
-        raise AssertionError("flash_attention kernel disagrees with its plain version")
-    events_ms = time_cuda(lambda: ops.flash_attention(q, k, v, True, 128, 128), 50)
-    device_ms = kernel_device_ms([lambda: ops.flash_attention(q, k, v, True, 128, 128)], 20,
-                                 "flash_fwd")
-    ms = events_ms if device_ms is None else device_ms
-    plain_ms = time_cuda(lambda: ref.mha_reference(q, k, v, causal=True), 10)
-    library_ms = time_cuda(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 50)
-    flops, nbytes = flash_work(B, H, Hk, L, L, D, True)
-    bound_ms, bound_by = bound(flops, nbytes)
-    tc_ms = tensor_core_bound_ms(flops)
-    row = dict(shape=[B, H, Hk, L, L, D], causal=True, dtype="float32", max_abs_err=err,
-               ms=ms, ms_source="events" if device_ms is None else "profiler",
-               ms_events=events_ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
-               flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
-               bound_ms_tensor_core=tc_ms)
-    log(f"  flash serve shape: kernel {ms:.4f} ms ({row['ms_source']}; CUDA events over 50 "
-        f"launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; 3xTF32 on the tensor cores {tc_ms:.5f} ms), "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    rows = [time_flash(gen, *shape) for shape in ((4, 16, 8, 512, 128),  # the serve shape
+                                                  (4, 64, 8, 512, 112))]  # kimi's heads
+    row = rows[0]
+    row["d112"] = rows[1]
     log(json.dumps({"phase": "flash_vs_plain", "name": "flash_attention", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -621,13 +810,53 @@ def paged_work(H, Hk, D, lengths, B, P, elem_bytes=4):
     return flops, nbytes
 
 
+def time_paged(gen, B, H, Hk, D, page=16, lengths=(528, 523, 517, 512)):
+    """Kernel and plain version at one decode step's shape, f32, every call
+    reading its pages from HBM."""
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    lengths = list(lengths)
+    q, kp, vp, pt, ln = paged_inputs(gen, B, H, Hk, D, page, lengths, "float32")
+    got = ops.paged_attention(q, kp, vp, pt, ln)
+    ok, err = _close(got, ref.paged_attention_reference(q, kp, vp, pt, ln), "float32")
+    log(f"  paged H={H} Hk={Hk} D={D}, lengths {lengths}: max_abs_err={err:.3g} ok={ok}")
+    if not ok:
+        raise AssertionError("paged_attention kernel disagrees with its plain version")
+    # a decode step reads each layer's pages once: time over 8 copies of the
+    # pools (beyond the L2) so that every call reads from HBM
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(7)]
+    launches = [lambda k=k, v=v: ops.paged_attention(q, k, v, pt, ln) for k, v in pools]
+    events_ms = time_cuda_rotating(launches, 20)
+    device_ms = kernel_device_ms(launches, 10, "paged_decode")
+    ms = events_ms if device_ms is None else device_ms
+    warm_ms = kernel_device_ms([lambda: ops.paged_attention(q, kp, vp, pt, ln)], 80,
+                               "paged_decode")
+    plain_ms = time_cuda_rotating(
+        [lambda k=k, v=v: ref.paged_attention_reference(q, k, v, pt, ln) for k, v in pools], 2)
+    del pools
+    flops, nbytes = paged_work(H, Hk, D, lengths, B, pt.shape[1])
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(shape=[B, H, Hk, D, page], lengths=lengths, dtype="float32", max_abs_err=err,
+               ms=ms, ms_source="events" if device_ms is None else "profiler",
+               ms_events=events_ms, ms_l2_warm=warm_ms, plain_ms=plain_ms, flops=flops,
+               bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  paged H={H} Hk={Hk} D={D}: kernel {ms:.4f} ms from HBM ({row['ms_source']}; "
+        f"{warm_ms} ms with the pools in L2; CUDA events over the rotation {events_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s")
+    return row
+
+
 def phase_paged(seed):
     import torch
 
     from repro_torch.kernels.paged_attention import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    cases = [(2, 4, 2, 64, 16, 4, 32), (1, 8, 8, 32, 8, 8, 64), (3, 4, 1, 64, 16, 3, 16)]
+    cases = [(2, 4, 2, 64, 16, 4, 32), (1, 8, 8, 32, 8, 8, 64), (3, 4, 1, 64, 16, 3, 16),
+             # head dims 112 (kimi: G = 8; zamba2: G = 1) and 16
+             (2, 64, 8, 112, 16, 9, 40), (2, 32, 32, 112, 16, 5, 12),
+             (3, 4, 2, 16, 16, 9, 40), (2, 8, 1, 16, 8, 6, 20)]
     checks = []
     for dtype in ("float32", "bfloat16"):
         for B, H, Hk, D, page, P, N in cases:
@@ -645,37 +874,10 @@ def phase_paged(seed):
             if not ok:
                 raise AssertionError("paged_attention kernel disagrees with its plain version")
 
-    # Qwen3-0.6B's widths, one decode step of 4 sequences of 512-528 tokens
-    B, H, Hk, D, page, lengths = 4, 16, 8, 128, 16, [528, 523, 517, 512]
-    q, kp, vp, pt, ln = paged_inputs(gen, B, H, Hk, D, page, lengths, "float32")
-    got = ops.paged_attention(q, kp, vp, pt, ln)
-    ok, err = _close(got, ref.paged_attention_reference(q, kp, vp, pt, ln), "float32")
-    log(f"  paged Qwen3-0.6B widths, lengths {lengths}: max_abs_err={err:.3g} ok={ok}")
-    if not ok:
-        raise AssertionError("paged_attention kernel disagrees with its plain version")
-    # a decode step reads each layer's pages once: time over 8 copies of the
-    # pools (139 MB, beyond the L2) so that every call reads from HBM
-    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(7)]
-    launches = [lambda k=k, v=v: ops.paged_attention(q, k, v, pt, ln) for k, v in pools]
-    events_ms = time_cuda_rotating(launches, 20)
-    device_ms = kernel_device_ms(launches, 10, "paged_decode")
-    ms = events_ms if device_ms is None else device_ms
-    warm_ms = kernel_device_ms([lambda: ops.paged_attention(q, kp, vp, pt, ln)], 80,
-                               "paged_decode")
-    plain_ms = time_cuda_rotating(
-        [lambda k=k, v=v: ref.paged_attention_reference(q, k, v, pt, ln) for k, v in pools], 2)
-    del pools
-    flops, nbytes = paged_work(H, Hk, D, lengths, B, pt.shape[1])
-    bound_ms, bound_by = bound(flops, nbytes)
-    row = dict(shape=[B, H, Hk, D, page], lengths=lengths, dtype="float32", max_abs_err=err,
-               ms=ms, ms_source="events" if device_ms is None else "profiler",
-               ms_events=events_ms, ms_l2_warm=warm_ms, plain_ms=plain_ms, flops=flops,
-               bytes=nbytes,
-               bound_ms=bound_ms, bound_by=bound_by)
-    log(f"  paged Qwen3-0.6B widths: kernel {ms:.4f} ms from HBM ({row['ms_source']}; "
-        f"{warm_ms} ms with the pools in L2; CUDA events over the rotation {events_ms:.4f} "
-        f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s")
+    # one decode step of 4 sequences of 512-528 tokens at Qwen3-0.6B's widths,
+    # then at kimi's heads (64 of 112, G = 8)
+    row = time_paged(gen, 4, 16, 8, 128)
+    row["d112"] = time_paged(gen, 4, 64, 8, 112)
     log(json.dumps({"phase": "paged_vs_plain", "name": "paged_attention", "checks": checks,
                     "qwen_widths": row}))
     return checks, row
@@ -1116,13 +1318,18 @@ def main(argv=None) -> int:
 
     # the headline is the workload whose gathers come from HBM, where the
     # bytes bound at the HBM rate is the card's own
-    head = next(r for r in rows if not r["arena_in_l2"])
+    head = {r["route"]: r for r in rows if not r["arena_in_l2"]}
     entry = dict(
         name="pulse_chase", route="cuda", source=KERNEL_SOURCE, replaces=TPU_KERNEL,
         launches=sum(r["launches"] for r in rows),
         max_abs_err=max(c["max_abs_err"] for c in checks), mismatches=0,
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by="bytes", library_ms=None, timed_on=head["workload"],
+        ms=head["isa"]["ms"], plain_ms=head["isa"]["plain_ms"],
+        bound_ms=head["isa"]["bound_ms"], bound_by="bytes", library_ms=None,
+        ms_native=head["native"]["ms"], plain_ms_native=head["native"]["plain_ms"],
+        bound_ms_native=head["native"]["bound_ms"],
+        timed_on=f"{head['isa']['workload']}, one fixed-depth launch of the whole batch "
+                 f"(ms: the interpreter; ms_native: the native btree_find body)",
+        launches_note="one per PulseEngine.execute: three workloads x two routes",
         workloads=rows,
     )
     log("== phase 4: flash_attention kernel against its plain version")
@@ -1158,6 +1365,9 @@ def main(argv=None) -> int:
         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
         timed_on="serve shape B=4 H=16 Hk=8 L=512 D=128 causal f32", serve=serve_row,
+        **{f"{k}_d112": flash_row["d112"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "library_ms", "bound_ms_tensor_core")},
+        timed_on_d112="B=4 H=64 Hk=8 L=512 D=112 causal f32 (kimi_k2_1t_a32b's heads)",
     )
     paged_entry = dict(
         name="paged_attention", route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
@@ -1169,6 +1379,8 @@ def main(argv=None) -> int:
         bound_by=paged_row["bound_by"], library_ms=None,
         timed_on="Qwen3-0.6B widths, B=4, lengths 512-528, f32, one layer",
         paged_decode=decode_row,
+        **{f"{k}_d112": paged_row["d112"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        timed_on_d112="B=4 H=64 Hk=8 D=112 (kimi_k2_1t_a32b's heads), lengths 512-528, f32",
     )
     ssd_entry = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",

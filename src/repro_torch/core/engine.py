@@ -2,9 +2,9 @@
 single memory node, read path.
 
 Execution paths:
-  * ``backend="kernel"``    -- the pulse_chase CUDA kernel under the
-                               variable-depth wave scheduler (the default
-                               when the arena is on the card).
+  * ``backend="kernel"``    -- the pulse_chase CUDA kernel, one launch per
+                               call (the default when the arena is on the
+                               card).
   * ``backend="reference"`` -- the plain torch executor
                                (``iterator.execute_batched``), the oracle the
                                kernel path is held against.
@@ -159,8 +159,11 @@ class PulseEngine:
         # test hook with the reference's FaultInjector interface
         # (begin_call / kill_step / fire); every execute() counts as one call
         self.fault_injector = fault_injector
-        # the kernel path's logic (and its code tensor) per iterator
+        # the kernel path's logic (and its code tensor) per iterator, and the
+        # dispatch model's decision per (iterator, eta): counting an ISA
+        # program's longest path is Python work on every call otherwise
         self._logic: dict = {}
+        self._decisions: dict = {}
 
     def _local_fault_check(self):
         """Register the engine call with the fault injector and fire its
@@ -172,9 +175,13 @@ class PulseEngine:
                 inj.fire(k)
 
     def dispatch(self, it: PulseIterator) -> dispatch_mod.OffloadDecision:
-        return dispatch_mod.offload_decision(
-            it, self.arena.node_words, self.accel, eta=self.eta
-        )
+        key = (it, self.accel, self.eta)
+        decision = self._decisions.get(key)
+        if decision is None:
+            decision = self._decisions[key] = dispatch_mod.offload_decision(
+                it, self.arena.node_words, self.accel, eta=self.eta
+            )
+        return decision
 
     def execute(
         self,
@@ -190,12 +197,12 @@ class PulseEngine:
         """Dispatch + execute a batch of traversals on one memory node.
 
         ``backend`` selects the executor: ``"kernel"`` runs the pulse_chase
-        kernel under the variable-depth wave scheduler (the plain version of
-        the kernel when the arena is on the CPU); ``"reference"`` runs the
+        kernel, one launch for the whole batch (the plain version of the
+        kernel when the arena is on the CPU); ``"reference"`` runs the
         plain executor.  The default is ``"kernel"`` for an arena on the
         card and ``"reference"`` otherwise.  Both give bit-identical
         ``ptr``, ``scratch``, ``status`` and ``iters``, except that the
-        kernel path detects translation faults between depth quanta.
+        kernel path detects translation faults every depth quantum.
 
         ``force_offload=None`` follows the dispatch model only for an arena
         on the CPU.  An arena on the card is always traversed on the card:
@@ -254,15 +261,18 @@ class PulseEngine:
     def _execute_kernel(
         self, it: PulseIterator, ptr0, scratch0, *, max_iters: int
     ) -> ExecResult:
-        """Single-node path on the pulse_chase kernel (variable-depth waves).
+        """Single-node path on the pulse_chase kernel: one launch runs the
+        batch to its end (``pulse_chase_run``; its plain version on the CPU).
 
         Translation/protection faults (NULL or out-of-range pointers,
-        perm-revoked ranges) are enforced by a device-side ``fault_fn``
-        between depth quanta, so detection is quantum-granular rather than
-        per-iteration like the reference executor -- a faulting lane may
-        execute a few extra clamped (harmless) loads first, and its
-        iteration count includes them.  Lanes still active after
-        ``max_iters`` report MAXED (resumable).
+        perm-revoked ranges) are checked by the kernel against a
+        ``FaultCheck`` every depth quantum of a lane's iterations, as the
+        JAX package's wave scheduler checks them between chunks, so
+        detection is quantum-granular rather than per-iteration like the
+        reference executor -- a faulting lane may execute a few extra
+        clamped (harmless) loads first, and its iteration count includes
+        them.  Lanes still active after ``max_iters`` report MAXED
+        (resumable).
         """
         from repro_torch.kernels.pulse_chase import ops as chase_ops
 
@@ -276,16 +286,10 @@ class PulseEngine:
         if logic is None:
             logic = self._logic[it] = chase_ops.iterator_logic(it)
         max_steps = int(min(max_iters, 1 << 20))
-        bounds, perms, cap = arena.bounds, arena.perms, arena.capacity
-
-        def fault_fn(p):
-            shard = torch.searchsorted(bounds, p, right=True) - 1
-            ok = perms[shard.clamp(0, perms.shape[0] - 1)] & PERM_READ
-            return (p < 0) | (p >= cap) | (ok != PERM_READ)
-
-        ptr, scratch, st, wstats = chase_ops.pulse_chase_waves(
+        fault = chase_ops.FaultCheck(arena.bounds, arena.perms, arena.capacity, PERM_READ)
+        ptr, scratch, st, wstats = chase_ops.pulse_chase_run(
             arena.data, ptr0, scratch0, torch.zeros(B, dtype=torch.int32, device=dev),
-            logic_fn=logic, max_steps=max_steps, fault_fn=fault_fn,
+            logic_fn=logic, max_steps=max_steps, fault_fn=fault,
         )
         status = torch.where(st == 1, STATUS_DONE, STATUS_MAXED).to(torch.int32)
         status = torch.where(wstats.faulted, STATUS_FAULT, status).to(torch.int32)

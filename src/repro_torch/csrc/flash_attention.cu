@@ -33,6 +33,12 @@
 // next Q K^T runs.  Rows are padded so each fragment load hits 32 distinct
 // banks.
 //
+// Head dims: 16, 32, 64, 112 and 128.  Each is a multiple of the TF32
+// k-step (8) and the bf16 one (16), its rows are multiples of the 16 bytes a
+// cp.async moves, and D % 16 == 0 keeps the padded strides conflict-free:
+// (D + 8) words per Q/K row put the float2 loads of a half-warp's rows g at
+// banks 8g or 24g (mod 32), (D + 4) per V row puts rows 2t at banks 8t.
+//
 // What bounds it on this card: at the serve shape (B=4, H=16, L=512,
 // D=128, causal) the work is ~4.3 GFLOP against ~50 MB of q, k, v and o, so
 // operations bound it: ~0.064 ms at the f32 FMA peak of 67 TFLOP/s; 3xTF32
@@ -188,6 +194,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int G, int Lq,
           int Lk, int causal, int q_offset, float scale) {
+  static_assert(D % 16 == 0 && D <= 128, "head dims are multiples of 16 up to 128");
   constexpr int L = Row<T, D>::kQK, LV = Row<T, D>::kV;
   constexpr int NO = D / 8;  // output n-tiles
   extern __shared__ float4 smem4[];
@@ -326,10 +333,14 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
                        Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int G,
                        int Lq, int Lk, int causal, float scale, cudaStream_t stream) {
   switch (D) {
+    case 16:
+      return launch_typed<T, 16>(q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, stream);
     case 32:
       return launch_typed<T, 32>(q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, stream);
     case 64:
       return launch_typed<T, 64>(q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, stream);
+    case 112:
+      return launch_typed<T, 112>(q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, stream);
     case 128:
       return launch_typed<T, 128>(q, k, v, o, sq, sk, sv, so, B, H, G, Lq, Lk, causal, scale, stream);
     default:

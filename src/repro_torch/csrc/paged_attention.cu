@@ -16,8 +16,22 @@
 // (b, kv-head): warp w walks pages w, w+8, w+16, ... with its own (m, l,
 // acc), loads 8 tokens' K and V rows before it uses any of them, and the
 // warps' partial softmaxes are merged once at the end through shared
-// memory.  Lane j holds elements [j*D/32, (j+1)*D/32) of every row, so one
-// token row is one coalesced 128-512 byte load per warp.
+// memory.
+//
+// Lane mapping (struct Lanes): a token row is held by GROUP lanes of E
+// elements each, and a warp loads 32 / GROUP tokens at once.
+//   * D = 32, 64, 128: E = D/32, one group of 32 lanes; one token row is
+//     one coalesced 128-512 byte load per warp (f32).
+//   * D = 112: E = 4 (one 16-byte f32 load a lane), 28 lanes hold the row
+//     and 4 stay idle (their elements are zero and they store nothing):
+//     a 12.5% idle share of the lanes, against a split into 3.5 elements
+//     that no vector load takes.
+//   * D = 16: E = 4 and groups of 4 lanes, so one warp load covers 8
+//     tokens (512 contiguous bytes of a page in f32 when Hk = 1).  Each
+//     group keeps its own (m, l, acc) over its tokens; the dot product sums
+//     over the group only (shuffles within 4 lanes), and the 8 groups'
+//     partial softmaxes join the warps' in the final merge.  One group of
+//     32 lanes would leave 28 lanes idle on every load.
 //
 // What bounds it on this card: each K and V element is read once and used
 // for G multiply-adds, so bytes bound it: at Qwen3-0.6B's widths (Hk=8,
@@ -70,23 +84,39 @@ __device__ __forceinline__ __nv_bfloat16 to_out(float x, __nv_bfloat16*) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// the sum over the GROUP lanes of a token group (GROUP a power of two)
+template <int GROUP>
+__device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  for (int off = GROUP / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
+
+// how a warp's lanes hold token rows of D elements (see the header)
+template <int D>
+struct Lanes {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 112 || D == 128, "unsupported head dim");
+  static constexpr int E = D % 32 == 0 ? D / 32 : 4;  // elements of a row per lane
+  static constexpr int HOLD = D / E;                  // lanes that hold a row
+  static constexpr int GROUP = HOLD < 32 && 32 % HOLD == 0 ? HOLD : 32;  // lanes per token
+  static constexpr int TPW = 32 / GROUP;              // tokens a warp loads at once
+};
 
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
              const int* __restrict__ page_table, const int* __restrict__ lengths,
              T* __restrict__ o, int Hk, int N, int page, int P, float scale) {
-  constexpr int E = D / 32;  // elements of a row per lane
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
+  constexpr int E = Lanes<D>::E, GROUP = Lanes<D>::GROUP, TPW = Lanes<D>::TPW;
+  constexpr int kParts = kWarps * TPW;  // partial softmaxes merged at the end
+  __shared__ float sm_m[kParts][G], sm_l[kParts][G];
+  __shared__ float sm_acc[kParts][G][D];
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / GROUP, gl = lane % GROUP;  // token group, lane within it
+  const bool holds = gl < Lanes<D>::HOLD;
+  const int part = warp * TPW + grp;
   const int H = Hk * G;
   const int length = lengths[b];
   const long long tok = static_cast<long long>(Hk) * D;  // between a page's tokens
@@ -94,7 +124,12 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
   float qr[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load_vec<E>(q + (static_cast<long long>(b) * H + h * G + g) * D + lane * E, qr[g]);
+    if (holds) {
+      load_vec<E>(q + (static_cast<long long>(b) * H + h * G + g) * D + gl * E, qr[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < E; ++e) qr[g][e] *= scale;
   }
@@ -109,15 +144,16 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
 
   for (int p = warp; p < P && p * page < length; p += kWarps) {
     const int pid = min(max(page_table[static_cast<long long>(b) * P + p], 0), N - 1);
-    const long long base = (static_cast<long long>(pid) * page * Hk + h) * D + lane * E;
+    const long long base = (static_cast<long long>(pid) * page * Hk + h) * D + gl * E;
     const int n = min(page, length - p * page);  // valid tokens of this page
-    for (int t0 = 0; t0 < n; t0 += kChunk) {
+    for (int t0 = 0; t0 < n; t0 += kChunk * TPW) {
       float kr[kChunk][E], vr[kChunk][E];
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        if (t0 + u < n) {
-          load_vec<E>(kp + base + (t0 + u) * tok, kr[u]);
-          load_vec<E>(vp + base + (t0 + u) * tok, vr[u]);
+        const int t = t0 + u * TPW + grp;  // this group's token
+        if (t < n && holds) {
+          load_vec<E>(kp + base + t * tok, kr[u]);
+          load_vec<E>(vp + base + t * tok, vr[u]);
         } else {
 #pragma unroll
           for (int e = 0; e < E; ++e) kr[u][e] = vr[u][e] = 0.f;
@@ -132,8 +168,8 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
           float dot = 0.f;
 #pragma unroll
           for (int e = 0; e < E; ++e) dot = fmaf(qr[g][e], kr[u][e], dot);
-          dot = warp_sum(dot);
-          s[u] = t0 + u < n ? dot : kNegInf;
+          dot = group_sum<GROUP>(dot);
+          s[u] = t0 + u * TPW + grp < n ? dot : kNegInf;
           mx = fmaxf(mx, s[u]);
         }
         const float m_new = fmaxf(m[g], mx);
@@ -156,24 +192,26 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
 
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    if (holds) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+      for (int e = 0; e < E; ++e) sm_acc[part][g][gl * E + e] = acc[g][e];
+    }
+    if (gl == 0) {
+      sm_m[part][g] = m[g];
+      sm_l[part][g] = l[g];
     }
   }
   __syncthreads();
 
-  // merge the warps' partial softmaxes
+  // merge the partial softmaxes of the warps (and of their token groups)
   for (int idx = threadIdx.x; idx < G * D; idx += kWarps * 32) {
     const int g = idx / D, d = idx % D;
     float M = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
+    for (int w = 0; w < kParts; ++w) M = fmaxf(M, sm_m[w][g]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kParts; ++w) {
       const float f = expf(sm_m[w][g] - M);
       L = fmaf(sm_l[w][g], f, L);
       A = fmaf(sm_acc[w][g][d], f, A);
@@ -212,8 +250,10 @@ cudaError_t launch_dim(int D, int G, const void* q, const void* kp, const void* 
                        const int* pt, const int* lengths, void* o, int B, int Hk, int N,
                        int page, int P, float scale, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch_group<T, 16>(G, q, kp, vp, pt, lengths, o, B, Hk, N, page, P, scale, stream);
     case 32: return launch_group<T, 32>(G, q, kp, vp, pt, lengths, o, B, Hk, N, page, P, scale, stream);
     case 64: return launch_group<T, 64>(G, q, kp, vp, pt, lengths, o, B, Hk, N, page, P, scale, stream);
+    case 112: return launch_group<T, 112>(G, q, kp, vp, pt, lengths, o, B, Hk, N, page, P, scale, stream);
     case 128: return launch_group<T, 128>(G, q, kp, vp, pt, lengths, o, B, Hk, N, page, P, scale, stream);
     default: return cudaErrorInvalidValue;
   }

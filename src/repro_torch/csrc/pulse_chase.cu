@@ -3,46 +3,101 @@
 //
 // Replaces the TPU kernel src/repro/kernels/pulse_chase/kernel.py::_chase_kernel.
 // That kernel takes the iterator's logic as a traced closure; a CUDA kernel
-// cannot, so this one takes it as PULSE ISA code -- a (T, 4) int32 array of
-// [op, a, b, imm] rows -- and interprets it, which is the paper's own logic
-// pipeline.  Semantics are those of repro_torch.kernels.pulse_chase.ref
-// (chase_reference) with repro_torch.core.isa.run_iteration as the logic,
-// bit for bit.
+// cannot, so this one has one step loop, templated on the body that runs one
+// iteration of a lane:
+//   * IsaBody interprets PULSE ISA code -- a (T, 4) int32 array of
+//     [op, a, b, imm] rows -- which is the paper's own logic pipeline, with
+//     the semantics of repro_torch.core.isa.run_iteration;
+//   * the native bodies compute what the structures' iterators written in
+//     torch compute (repro_torch.core.structures: list_find, list_sum,
+//     hash_find, bst_find, btree_find, btree_range_agg), bit for bit,
+//     including the int32 wraps.
+// The node-word offsets, FANOUT, NULL and KEY_NOT_FOUND of each structure,
+// the opcodes of the ISA and the body ids reach this file as -D defines
+// built from the Python modules (repro_torch/kernels/pulse_chase/kernel.py),
+// so the kernel keeps no copy of its own.
+//
+// Two modes, one loop:
+//   * fixed depth (run == 0): num_steps iterations for every active lane,
+//     counts accumulated on top of it_in; the semantics of
+//     repro_torch.kernels.pulse_chase.ref.chase_reference;
+//   * one whole traversal (run == 1): a lane entering active with a negative
+//     pointer faults at once; a live lane is checked against the fault table
+//     (pointer in range, its shard readable) whenever its iteration count is
+//     a multiple of `quantum` and once more if it is still live at
+//     num_steps; a lane retired on a negative pointer is a fault too.  These
+//     are the semantics of the variable-depth wave scheduler of the JAX
+//     package with the same depth quantum (ref.chase_run_reference), in one
+//     launch and with no host work between steps.
 //
 // What bounds it on this card: every step of a lane is a gather whose
 // address depends on the previous step's result, so a lane is a chain of
 // dependent memory latencies (device memory, or L2 when the arena fits in
-// its 50 MB).  The least time for the same work is the bytes it must move
-// -- W*4 bytes per executed lane-step plus the lane state in and out once --
-// over 3.35 TB/s; a dependent chain runs far above that bound.  The design
-// answers with many resident lanes: one thread per lane, 128-thread blocks,
-// and no synchronisation between lanes after the program is staged, so the
-// warp scheduler overlaps the gathers of many warps on each SM (the paper's
-// m:n multiplexing of memory and logic pipelines).
-//
-// Per step, an active lane copies its node row (W <= 64 words) from the
-// arena at clamp(ptr, 0, cap-1) into its own slice of shared memory (the
-// single aggregated load; 16-byte loads when the rows allow it), then runs
-// one iteration of the program with 16 int32 registers, zeroed every
-// iteration, and its scratch pad (S <= 32 words).
+// its 50 MB).  The least time for the same work is the bytes it must move --
+// the words a body reads per executed lane-step plus the lane state in and
+// out once -- over 3.35 TB/s; a dependent chain runs above that bound.  The
+// design:
+//   * one thread per lane and as many resident blocks as the card holds
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); lanes beyond that are
+//     taken from a device-side counter, so a thread whose lane retires
+//     starts the next one; the warp scheduler overlaps the gathers of the
+//     resident lanes (the paper's m:n multiplexing);
+//   * a native body keeps its scratch pad and the row words it reads in
+//     registers and loads its row with independent 16-byte loads;
+//   * the interpreter keeps its 16 registers, its scratch pad (S <= 32) and
+//     its node row (W <= 64) in shared memory laid out [slot][thread], so a
+//     warp's accesses at one slot hit 32 distinct banks and no dynamically
+//     indexed array falls into local memory; the program (decoded: its
+//     operands clamped and turned into slot offsets, one int4 a row) and
+//     the fault table are staged in shared memory once per block.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
+
+#if !defined(PULSE_OP_HALT) || !defined(PULSE_OP_GETPTR) || !defined(PULSE_LAST_OP)
+#error "build through repro_torch.kernels.pulse_chase.kernel, which defines the opcodes"
+#endif
+#if !defined(PULSE_NULL) || !defined(BTREE_FANOUT) || !defined(PULSE_BODY_ISA)
+#error "build through repro_torch.kernels.pulse_chase.kernel, which defines the layouts"
+#endif
+
+// The launch's arguments; kernel.py mirrors this layout as a ctypes
+// Structure (pointers first, then ints: no padding on either side).
+struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
+  const int* arena;        // (cap, W) rows
+  const int* code;         // IsaBody: (T, 4) program rows
+  const int* ptr_in;
+  const int* scr_in;       // (B, S)
+  const int* st_in;
+  const int* it_in;        // fixed depth: counts accumulate on top of these
+  int* ptr_out;
+  int* scr_out;
+  int* st_out;
+  int* it_out;
+  unsigned char* faulted_out;  // run mode
+  const int* bounds;       // fault table: (n_bounds,) sorted shard bases
+  const int* perms;        // (n_perms,) permission bits per shard
+  int* next_lane;          // work counter (zeroed by the launcher)
+  int cap, W, T, B, S;
+  int num_steps;           // steps (fixed depth) or the budget (run)
+  int quantum;             // run: a fault check every `quantum` iterations
+  int run;                 // 1: one whole traversal, 0: fixed depth
+  int n_bounds;            // 0: no fault check
+  int n_perms;
+  int check_cap;           // the fault check's capacity
+  int need;                // the permission bits a read needs
+};
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kNumRegs = 16;
-constexpr int kMaxScratch = 32;
 
-// opcodes of repro_torch.core.isa, passed by the build in
-// repro_torch/kernels/pulse_chase/kernel.py as -DPULSE_OP_<NAME>=<code>;
-// the store class (STOREN..FREE) stages nothing on the read path
-#if !defined(PULSE_OP_HALT) || !defined(PULSE_OP_GETPTR) || !defined(PULSE_LAST_OP)
-#error "build through repro_torch.kernels.pulse_chase.kernel, which defines the opcodes"
-#endif
+// opcodes of repro_torch.core.isa; the store class (STOREN..FREE) stages
+// nothing on the read path
 constexpr int HALT = PULSE_OP_HALT, LOADN = PULSE_OP_LOADN,
               LOADS = PULSE_OP_LOADS, STORES = PULSE_OP_STORES,
               ADD = PULSE_OP_ADD, SUB = PULSE_OP_SUB, MUL = PULSE_OP_MUL,
@@ -53,12 +108,13 @@ constexpr int HALT = PULSE_OP_HALT, LOADN = PULSE_OP_LOADN,
               JMP = PULSE_OP_JMP, NEXT_ITER = PULSE_OP_NEXT_ITER,
               RETURN = PULSE_OP_RETURN, GETPTR = PULSE_OP_GETPTR,
               LAST_OP = PULSE_LAST_OP;
+constexpr int kNull = PULSE_NULL;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// ADD/SUB/MUL wrap in int32: compute in uint32 (signed overflow is undefined)
+// int32 arithmetic that wraps: computed in uint32 (signed overflow is undefined)
 __device__ __forceinline__ int wrap_add(int x, int y) {
   return static_cast<int>(static_cast<uint32_t>(x) + static_cast<uint32_t>(y));
 }
@@ -79,127 +135,442 @@ __device__ __forceinline__ int floor_div(int x, int y) {
   return q;
 }
 
-__global__ void __launch_bounds__(kThreads) pulse_chase_kernel(
-    const int* __restrict__ arena, int cap, int W, int vec,
-    const int* __restrict__ code, int T,
-    const int* __restrict__ ptr_in, const int* __restrict__ scr_in,
-    const int* __restrict__ st_in, const int* __restrict__ it_in,
-    int* __restrict__ ptr_out, int* __restrict__ scr_out,
-    int* __restrict__ st_out, int* __restrict__ it_out,
-    int B, int S, int num_steps) {
-  extern __shared__ int4 smem[];
-  int4* s_code = smem;                              // T program rows
-  int* s_nodes = reinterpret_cast<int*>(smem + T);  // kThreads rows of W
-  int* s_code_words = reinterpret_cast<int*>(s_code);
-  for (int i = threadIdx.x; i < 4 * T; i += blockDim.x) s_code_words[i] = code[i];
-  __syncthreads();
-
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  int* node = s_nodes + threadIdx.x * W;
-
-  int p = ptr_in[lane];
-  int st = st_in[lane];
-  int iters = it_in[lane];
-  int scr[kMaxScratch];
-  for (int s = 0; s < S; ++s) scr[s] = scr_in[static_cast<size_t>(lane) * S + s];
-
-  // a retired lane never changes again, so it leaves the step loop
-  for (int step = 0; step < num_steps && st == 0; ++step) {
-    // the single aggregated load of this iteration
-    const int* src = arena + static_cast<size_t>(clampi(p, 0, cap - 1)) * W;
+// Words [0, NW) of one node row, in registers: 16-byte loads when the
+// arena's rows allow it (W % 4 == 0, aligned base), all issued before any
+// is used.
+template <int NW>
+struct Row {
+  static constexpr int kVec = (NW + 3) / 4;
+  int w[4 * kVec];
+  __device__ __forceinline__ void load(const int* __restrict__ src, bool vec) {
     if (vec) {
-      const int4* src4 = reinterpret_cast<const int4*>(src);
-      int4* dst4 = reinterpret_cast<int4*>(node);
-      for (int w = 0; w < W / 4; ++w) dst4[w] = src4[w];
+      const int4* s4 = reinterpret_cast<const int4*>(src);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const int4 v = __ldg(s4 + i);
+        w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z; w[4 * i + 3] = v.w;
+      }
     } else {
-      for (int w = 0; w < W; ++w) node[w] = src[w];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) w[i] = __ldg(src + i);
     }
+  }
+};
 
-    // one iteration of the program; jumps go forward only, so T rounds end it
-    int regs[kNumRegs];
-    for (int r = 0; r < kNumRegs; ++r) regs[r] = 0;
+// ------------------------------ native bodies -------------------------------
+// Each Impl has kScratch (its scratch-pad words), kRowWords (the row words
+// it reads) and logic(r, row, s, p, np) -> done, which updates the scratch
+// pad and sets the next pointer as the iterator's torch end_fn then next_fn
+// do (repro_torch.kernels.pulse_chase.ops.ChaseLogic).  `r` holds the row's
+// words in registers; a word picked by an index known only at run time (a
+// B+tree child, value or last key) is read again through `row`, from the
+// L1 line the row load just filled, so that no register array is indexed
+// at run time.  (Picking it out of the registers with an unrolled chain of
+// compares, nvcc 12.8 -O3 summed two neighbouring children on full B+tree
+// nodes; the tests on the card hold every body against its torch version.)
+
+// list_find and hash_find: [search_key, value, found]; done on a hit or at
+// the chain's tail
+template <int KEY, int VALUE, int NEXT, int KNF, int WORDS, int ROW>
+struct ChainFind {
+  static constexpr int kScratch = WORDS, kRowWords = ROW;
+  __device__ __forceinline__ static bool logic(const int* r, const int* __restrict__, int* s, int, int& np) {
+    const bool hit = r[KEY] == s[0];
+    s[1] = hit ? r[VALUE] : KNF;
+    s[2] = hit ? 1 : 0;
+    np = r[NEXT];
+    return hit || r[NEXT] == kNull;
+  }
+};
+
+// list_sum: [running_sum, count], both wrapping in int32
+struct ListSum {
+  static constexpr int kScratch = LIST_SUM_WORDS, kRowWords = LIST_SUM_ROW;
+  __device__ __forceinline__ static bool logic(const int* r, const int* __restrict__, int* s, int, int& np) {
+    s[0] = wrap_add(s[0], r[LIST_VALUE]);
+    s[1] = wrap_add(s[1], 1);
+    np = r[LIST_NEXT];
+    return r[LIST_NEXT] == kNull;
+  }
+};
+
+// bst_find (lower-bound descent): remember y when going left; done when the
+// next hop would be NULL
+struct BstFind {
+  static constexpr int kScratch = BST_SCRATCH_WORDS, kRowWords = BST_ROW;
+  __device__ __forceinline__ static bool logic(const int* r, const int* __restrict__, int* s, int p, int& np) {
+    const bool left = s[BST_S_KEY] <= r[BST_KEY];
+    np = left ? r[BST_LEFT] : r[BST_RIGHT];
+    if (left) {
+      s[BST_S_Y] = p;
+      s[BST_S_YKEY] = r[BST_KEY];
+      s[BST_S_YVAL] = r[BST_VALUE];
+    }
+    return np == kNull;
+  }
+};
+
+constexpr int kFanout = BTREE_FANOUT;
+
+// the slot of children[i], i wrapped once from the end and clamped (btree._take)
+__device__ __forceinline__ int btree_child_slot(int i) {
+  return clampi(i < 0 ? i + kFanout + 1 : i, 0, kFanout);
+}
+
+// first i < num_keys with key <= keys[i], else num_keys (btree._descend_index)
+__device__ __forceinline__ int btree_descend(const int* r, int key) {
+  const int nk = r[BTREE_NUM_KEYS];
+  int idx = nk;
+#pragma unroll
+  for (int i = kFanout - 1; i >= 0; --i)
+    if (i < nk && key <= r[BTREE_KEYS0 + i]) idx = i;
+  return idx;
+}
+
+// btree_find: descend; at a leaf probe its keys and finish
+struct BtreeFind {
+  static constexpr int kScratch = BTREE_FIND_WORDS, kRowWords = BTREE_ROW;
+  __device__ __forceinline__ static bool logic(const int* r, const int* __restrict__ row, int* s,
+                                               int, int& np) {
+    const int key = s[0], nk = r[BTREE_NUM_KEYS];
+    const bool leaf = r[BTREE_IS_LEAF] == 1;
+    int slot = -1;  // the first key equal to the search key
+#pragma unroll
+    for (int i = kFanout - 1; i >= 0; --i)
+      if (i < nk && r[BTREE_KEYS0 + i] == key) slot = i;
+    if (leaf) {
+      s[1] = slot >= 0 ? __ldg(row + BTREE_VAL0 + slot) : BTREE_KEY_NOT_FOUND;
+      s[2] = slot >= 0 ? 1 : 0;
+      np = r[BTREE_CHILD0];  // unused: the lane is done
+    } else {
+      np = __ldg(row + BTREE_CHILD0 + btree_child_slot(btree_descend(r, key)));
+    }
+    return leaf;
+  }
+};
+
+// btree_range_agg: descend to the first leaf >= lo, then walk the leaf
+// chain accumulating sum/min/max/count of the values with key in [lo, hi]
+// (sum and count wrap in int32)
+struct BtreeRangeAgg {
+  static constexpr int kScratch = BTREE_RA_WORDS, kRowWords = BTREE_ROW;
+  __device__ __forceinline__ static bool logic(const int* r, const int* __restrict__ row, int* s,
+                                               int, int& np) {
+    const int nk = r[BTREE_NUM_KEYS], lo = s[BTREE_RA_LO], hi = s[BTREE_RA_HI];
+    const bool leaf = r[BTREE_IS_LEAF] == 1;
+    uint32_t sum = 0;
+    int mn = BTREE_INT_MAX, mx = BTREE_INT_MIN, count = 0;
+#pragma unroll
+    for (int i = 0; i < kFanout; ++i) {
+      const int k = r[BTREE_KEYS0 + i], v = r[BTREE_VAL0 + i];
+      if (leaf && i < nk && k >= lo && k <= hi) {
+        sum += static_cast<uint32_t>(v);
+        mn = min(mn, v);
+        mx = max(mx, v);
+        ++count;
+      }
+    }
+    s[BTREE_RA_SUM] = static_cast<int>(static_cast<uint32_t>(s[BTREE_RA_SUM]) + sum);
+    s[BTREE_RA_MIN] = min(s[BTREE_RA_MIN], mn);
+    s[BTREE_RA_MAX] = max(s[BTREE_RA_MAX], mx);
+    s[BTREE_RA_COUNT] = wrap_add(s[BTREE_RA_COUNT], count);
+    if (!leaf) {
+      np = __ldg(row + BTREE_CHILD0 + btree_child_slot(btree_descend(r, lo)));
+      return false;
+    }
+    // keys[min(num_keys - 1, FANOUT - 1)], or INT_MAX for an empty leaf
+    const int last = nk > 0 ? __ldg(row + BTREE_KEYS0 + min(nk - 1, kFanout - 1)) : BTREE_INT_MAX;
+    np = r[BTREE_NEXT_LEAF];
+    return last > hi || r[BTREE_NEXT_LEAF] == kNull;
+  }
+};
+
+// A native body: the scratch pad and the row in registers.
+template <class Impl>
+struct NativeBody {
+  int s[Impl::kScratch];
+  __device__ __forceinline__ NativeBody(const ChaseArgs&, const int4*, int*) {}
+  __device__ __forceinline__ void begin(const int* __restrict__ src) {
+#pragma unroll
+    for (int i = 0; i < Impl::kScratch; ++i) s[i] = src[i];
+  }
+  __device__ __forceinline__ void finish(int* __restrict__ dst) const {
+#pragma unroll
+    for (int i = 0; i < Impl::kScratch; ++i) dst[i] = s[i];
+  }
+  __device__ __forceinline__ bool step(const int* __restrict__ row, bool vec, int p, int& np) {
+    Row<Impl::kRowWords> r;
+    r.load(row, vec);
+    return Impl::logic(r.w, row, s, p, np);
+  }
+};
+
+// ------------------------------ the interpreter -----------------------------
+
+// One program row, decoded once per block when the program is staged: the
+// operands clamped as the VM clamps them and turned into offsets into the
+// [slot][thread] arrays, packed into one int4 so that an instruction costs
+// one shared-memory load:
+//   x = op | a * kThreads << 8 | b * kThreads << 20   (offsets < 2048)
+//   y = imm
+//   z = regs offset of imm | node offset of imm << 16
+//   w = scratch offset of imm, or -1 when there is no scratch pad
+__device__ __forceinline__ int4 decode_row(const int* __restrict__ row, int W, int S) {
+  const int imm = row[3];
+  return make_int4(clampi(row[0], 0, LAST_OP) | clampi(row[1], 0, kNumRegs - 1) * kThreads << 8 |
+                       clampi(row[2], 0, kNumRegs - 1) * kThreads << 20,
+                   imm,
+                   clampi(imm, 0, kNumRegs - 1) * kThreads | clampi(imm, 0, W - 1) * kThreads << 16,
+                   S > 0 ? clampi(imm, 0, S - 1) * kThreads : -1);
+}
+static_assert(kNumRegs * kThreads <= 2048, "register offsets must fit in 11 bits");
+
+struct IsaBody {
+  const int4* code;  // decoded rows (decode_row)
+  int T, S, W;
+  int* regs;  // slot r of this thread at regs[r * kThreads]
+  int* scr;
+  int* node;
+
+  // shared memory after the program and the fault table: registers, scratch
+  // pad and node row, each [slot][thread]
+  __device__ __forceinline__ IsaBody(const ChaseArgs& a, const int4* s_code, int* room)
+      : code(s_code), T(a.T), S(a.S), W(a.W) {
+    regs = room + threadIdx.x;
+    scr = regs + kNumRegs * kThreads;
+    node = scr + a.S * kThreads;
+  }
+  __device__ __forceinline__ void begin(const int* __restrict__ src) {
+    for (int i = 0; i < S; ++i) scr[i * kThreads] = src[i];
+  }
+  __device__ __forceinline__ void finish(int* __restrict__ dst) const {
+    for (int i = 0; i < S; ++i) dst[i] = scr[i * kThreads];
+  }
+  __device__ __forceinline__ bool step(const int* __restrict__ row, bool vec, int p, int& np) {
+    // the single aggregated load of this iteration, all loads issued first
+    if (vec) {
+      const int4* src4 = reinterpret_cast<const int4*>(row);
+      for (int w = 0; w < W / 4; ++w) {
+        const int4 v = __ldg(src4 + w);
+        node[(4 * w) * kThreads] = v.x;
+        node[(4 * w + 1) * kThreads] = v.y;
+        node[(4 * w + 2) * kThreads] = v.z;
+        node[(4 * w + 3) * kThreads] = v.w;
+      }
+    } else {
+      for (int w = 0; w < W; ++w) node[w * kThreads] = __ldg(row + w);
+    }
+#pragma unroll
+    for (int r = 0; r < kNumRegs; ++r) regs[r * kThreads] = 0;
+
+    // one iteration of the program; jumps go forward only, so T rounds end
+    // it.  The row after this one is fetched before this one runs, so a
+    // fall-through costs no wait on shared memory.
     bool done = false;
-    int out_ptr = p;
+    np = p;
     int pc = 0;
+    int4 ins = code[0];
     for (int n = 0; n < T && pc < T; ++n) {
-      const int4 ins = s_code[clampi(pc, 0, T - 1)];
-      const int op = clampi(ins.x, 0, LAST_OP);
-      const int a = clampi(ins.y, 0, kNumRegs - 1);
-      const int b = clampi(ins.z, 0, kNumRegs - 1);
-      const int imm = ins.w;
-      const int ra = regs[a];
-      const int rb = regs[b];
-      const int rimm = regs[clampi(imm, 0, kNumRegs - 1)];
+      const int4 after = code[clampi(pc + 1, 0, T - 1)];
+      const int op = ins.x & 0xff, a = (ins.x >> 8) & 0xfff, b = ins.x >> 20, imm = ins.y;
+      const int ri = ins.z & 0xffff, ni = ins.z >> 16, si = ins.w;
       int next = pc + 1;
       bool halt = false;
       switch (op) {
         case HALT: halt = true; break;
-        case LOADN: regs[a] = node[clampi(imm, 0, W - 1)]; break;
-        case LOADS: regs[a] = S > 0 ? scr[clampi(imm, 0, S - 1)] : 0; break;
-        case STORES: if (S > 0) scr[clampi(imm, 0, S - 1)] = ra; break;
-        case ADD: regs[a] = wrap_add(rb, rimm); break;
-        case SUB: regs[a] = wrap_sub(rb, rimm); break;
-        case MUL: regs[a] = wrap_mul(rb, rimm); break;
-        case DIV: regs[a] = floor_div(rb, rimm); break;
-        case AND: regs[a] = rb & rimm; break;
-        case OR: regs[a] = rb | rimm; break;
-        case NOT: regs[a] = ~rb; break;
-        case MOVE: regs[a] = rb; break;
+        case LOADN: regs[a] = node[ni]; break;
+        case LOADS: regs[a] = si >= 0 ? scr[si] : 0; break;
+        case STORES: if (si >= 0) scr[si] = regs[a]; break;
+        case ADD: regs[a] = wrap_add(regs[b], regs[ri]); break;
+        case SUB: regs[a] = wrap_sub(regs[b], regs[ri]); break;
+        case MUL: regs[a] = wrap_mul(regs[b], regs[ri]); break;
+        case DIV: regs[a] = floor_div(regs[b], regs[ri]); break;
+        case AND: regs[a] = regs[b] & regs[ri]; break;
+        case OR: regs[a] = regs[b] | regs[ri]; break;
+        case NOT: regs[a] = ~regs[b]; break;
+        case MOVE: regs[a] = regs[b]; break;
         case MOVI: regs[a] = imm; break;
-        case JEQ: if (ra == rb) next = imm; break;
-        case JNE: if (ra != rb) next = imm; break;
-        case JLT: if (ra < rb) next = imm; break;
-        case JLE: if (ra <= rb) next = imm; break;
-        case JGT: if (ra > rb) next = imm; break;
-        case JGE: if (ra >= rb) next = imm; break;
+        case JEQ: if (regs[a] == regs[b]) next = imm; break;
+        case JNE: if (regs[a] != regs[b]) next = imm; break;
+        case JLT: if (regs[a] < regs[b]) next = imm; break;
+        case JLE: if (regs[a] <= regs[b]) next = imm; break;
+        case JGT: if (regs[a] > regs[b]) next = imm; break;
+        case JGE: if (regs[a] >= regs[b]) next = imm; break;
         case JMP: next = imm; break;
-        case NEXT_ITER: out_ptr = ra; halt = true; break;
+        case NEXT_ITER: np = regs[a]; halt = true; break;
         case RETURN: done = true; halt = true; break;
         case GETPTR: regs[a] = p; break;
         default: break;
       }
       if (halt) break;
+      ins = next == pc + 1 ? after : code[clampi(next, 0, T - 1)];
       pc = next;
     }
-
-    // masked update of kernel.py::_chase_kernel (logic_wave)
-    if (!done) p = out_ptr;
-    ++iters;
-    if (done || p < 0) st = 1;
+    return done;
   }
+};
 
-  ptr_out[lane] = p;
-  st_out[lane] = st;
-  it_out[lane] = iters;
-  for (int s = 0; s < S; ++s) scr_out[static_cast<size_t>(lane) * S + s] = scr[s];
+// ------------------------------- the step loop ------------------------------
+
+// the fault check of ops.FaultCheck: out of range, or a shard (found by
+// counting the bases <= p, as searchsorted(right) - 1 does) lacking `need`
+__device__ __forceinline__ bool faults(int p, const ChaseArgs& a, const int* s_bounds,
+                                       const int* s_perms) {
+  if (p < 0 || p >= a.check_cap) return true;
+  int shard = -1;
+  for (int i = 0; i < a.n_bounds; ++i) shard += s_bounds[i] <= p ? 1 : 0;
+  return (s_perms[clampi(shard, 0, a.n_perms - 1)] & a.need) != a.need;
+}
+
+template <class Body>
+__device__ __forceinline__ void run_lane(Body& body, const ChaseArgs& a, const int* s_bounds,
+                                         const int* s_perms, bool vec, int lane) {
+  int p = a.ptr_in[lane];
+  int st = a.st_in[lane];
+  int iters = a.run ? 0 : a.it_in[lane];
+  bool faulted = false;
+  const size_t so = static_cast<size_t>(lane) * a.S;
+  body.begin(a.scr_in + so);
+  if (a.run && st == 0 && p < 0) {  // NULL entry: a fault on arrival
+    st = 1;
+    faulted = true;
+  }
+  const bool check = a.n_bounds > 0;
+  // n counts this call's steps; in run mode it is the lane's iteration count
+  for (int n = 0, to_check = 0; st == 0; ++n, --to_check) {
+    if (check && (to_check == 0 || n == a.num_steps)) {
+      to_check = a.quantum;
+      if (faults(p, a, s_bounds, s_perms)) {
+        st = 1;
+        faulted = true;
+        break;
+      }
+    }
+    if (n == a.num_steps) break;
+    const int* row = a.arena + static_cast<size_t>(clampi(p, 0, a.cap - 1)) * a.W;
+    int np;
+    const bool done = body.step(row, vec, p, np);
+    if (!done) p = np;
+    ++iters;
+    if (done || p < 0) {  // walking off the structure (NULL) retires too
+      st = 1;
+      faulted = p < 0;
+    }
+  }
+  a.ptr_out[lane] = p;
+  a.st_out[lane] = st;
+  a.it_out[lane] = iters;
+  if (a.faulted_out != nullptr) a.faulted_out[lane] = faulted ? 1 : 0;
+  body.finish(a.scr_out + so);
+}
+
+template <class Body>
+__global__ void __launch_bounds__(kThreads) chase_kernel(const ChaseArgs a) {
+  extern __shared__ int4 smem[];
+  int4* s_code = smem;  // the program's rows, decoded
+  int* s_bounds = reinterpret_cast<int*>(smem + a.T);
+  int* s_perms = s_bounds + a.n_bounds;
+  int* room = s_perms + a.n_perms;
+  for (int i = threadIdx.x; i < a.T; i += kThreads) s_code[i] = decode_row(a.code + 4 * i, a.W, a.S);
+  for (int i = threadIdx.x; i < a.n_bounds; i += kThreads) s_bounds[i] = a.bounds[i];
+  for (int i = threadIdx.x; i < a.n_perms; i += kThreads) s_perms[i] = a.perms[i];
+  __syncthreads();
+
+  Body body(a, s_code, room);
+  const bool vec = (a.W % 4 == 0) && (reinterpret_cast<uintptr_t>(a.arena) % 16 == 0);
+  int lane = blockIdx.x * kThreads + threadIdx.x;
+  const int resident = gridDim.x * kThreads;
+  while (lane < a.B) {
+    run_lane(body, a, s_bounds, s_perms, vec, lane);
+    if (a.next_lane == nullptr) break;
+    lane = resident + atomicAdd(a.next_lane, 1);
+  }
+}
+
+// shared memory of one block: the program, the fault table and, for the
+// interpreter, its registers, scratch pads and node rows
+size_t smem_bytes(bool isa, const ChaseArgs& a) {
+  size_t words = static_cast<size_t>(a.n_bounds) + a.n_perms;
+  if (isa) words += static_cast<size_t>(4) * a.T + static_cast<size_t>(kNumRegs + a.S + a.W) * kThreads;
+  return words * sizeof(int);
+}
+
+template <class Body>
+cudaError_t blocks_per_sm(size_t smem, int* per_sm) {
+  static size_t configured = 0;  // the largest dynamic shared memory allowed so far
+  if (smem > 48 * 1024 && smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chase_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, chase_kernel<Body>, kThreads,
+                                                        smem);
+}
+
+template <class Body>
+cudaError_t launch_body(const ChaseArgs& a, size_t smem, cudaStream_t stream, int* grid_out) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = blocks_per_sm<Body>(smem, &per_sm);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  const int blocks = (a.B + kThreads - 1) / kThreads;
+  const int grid = blocks < per_sm * sms ? blocks : per_sm * sms;
+  ChaseArgs args = a;
+  if (grid < blocks) {  // more lanes than resident threads: a work counter
+    if (args.next_lane == nullptr) return cudaErrorInvalidValue;
+    if ((e = cudaMemsetAsync(args.next_lane, 0, sizeof(int), stream)) != cudaSuccess) return e;
+  } else {
+    args.next_lane = nullptr;
+  }
+  chase_kernel<Body><<<grid, kThreads, smem, stream>>>(args);
+  if (grid_out != nullptr) *grid_out = grid;
+  return cudaGetLastError();
+}
+
+using ListFind = ChainFind<LIST_KEY, LIST_VALUE, LIST_NEXT, LIST_KEY_NOT_FOUND,
+                           LIST_FIND_WORDS, LIST_FIND_ROW>;
+using HashFind = ChainFind<HASH_KEY, HASH_VALUE, HASH_NEXT, HASH_KEY_NOT_FOUND,
+                           HASH_FIND_WORDS, HASH_FIND_ROW>;
+
+template <class F>
+cudaError_t with_body(int body, F&& f) {
+  switch (body) {
+    case PULSE_BODY_ISA: return f(static_cast<IsaBody*>(nullptr));
+    case PULSE_BODY_LIST_FIND: return f(static_cast<NativeBody<ListFind>*>(nullptr));
+    case PULSE_BODY_LIST_SUM: return f(static_cast<NativeBody<ListSum>*>(nullptr));
+    case PULSE_BODY_HASH_FIND: return f(static_cast<NativeBody<HashFind>*>(nullptr));
+    case PULSE_BODY_BST_FIND: return f(static_cast<NativeBody<BstFind>*>(nullptr));
+    case PULSE_BODY_BTREE_FIND: return f(static_cast<NativeBody<BtreeFind>*>(nullptr));
+    case PULSE_BODY_BTREE_RANGE_AGG: return f(static_cast<NativeBody<BtreeRangeAgg>*>(nullptr));
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int pulse_chase_launch(
-    const void* arena, int cap, int W, const void* code, int T,
-    const void* ptr_in, const void* scr_in, const void* st_in, const void* it_in,
-    void* ptr_out, void* scr_out, void* st_out, void* it_out,
-    int B, int S, int num_steps, void* stream) {
-  if (B <= 0) return 0;
-  const int vec = (W % 4 == 0) && (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
-  const size_t smem = static_cast<size_t>(T) * sizeof(int4) +
-                      static_cast<size_t>(kThreads) * W * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pulse_chase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = (B + kThreads - 1) / kThreads;
-  pulse_chase_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(arena), cap, W, vec, static_cast<const int*>(code), T,
-      static_cast<const int*>(ptr_in), static_cast<const int*>(scr_in),
-      static_cast<const int*>(st_in), static_cast<const int*>(it_in),
-      static_cast<int*>(ptr_out), static_cast<int*>(scr_out),
-      static_cast<int*>(st_out), static_cast<int*>(it_out), B, S, num_steps);
-  return static_cast<int>(cudaGetLastError());
+// One launch with the body `body` (a PULSE_BODY_* id) on `stream`; writes
+// the grid it chose to *grid (may be null).  Returns a CUDA error code (0 on
+// a clean launch); does not synchronise.
+extern "C" int pulse_chase_launch(int body, const ChaseArgs* a, void* stream, int* grid) {
+  if (a->B <= 0) return 0;
+  const size_t smem = smem_bytes(body == PULSE_BODY_ISA, *a);
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_body(body, [&](auto* tag) {
+    return launch_body<std::remove_pointer_t<decltype(tag)>>(*a, smem, st, grid);
+  }));
+}
+
+// Resident blocks of `kThreads` threads per SM for `body` at the shared
+// memory a launch with these arguments takes.
+extern "C" int pulse_chase_blocks_per_sm(int body, const ChaseArgs* a, int* per_sm) {
+  const size_t smem = smem_bytes(body == PULSE_BODY_ISA, *a);
+  return static_cast<int>(with_body(body, [&](auto* tag) {
+    return blocks_per_sm<std::remove_pointer_t<decltype(tag)>>(smem, per_sm);
+  }));
 }
 
 extern "C" const char* pulse_chase_error_string(int err) {

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = _build.KernelSource("flash_attention", _build.CSRC / "flash_attention.cu")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = _build.KernelSource("paged_attention", _build.CSRC / "paged_attention.cu")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 GROUPS = (1, 2, 4, 8)  # query heads per KV head
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

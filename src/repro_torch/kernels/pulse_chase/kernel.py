@@ -1,57 +1,161 @@
 """pulse_chase on Hopper: build, bind and launch the CUDA kernel.
 
 The kernel (``src/repro_torch/csrc/pulse_chase.cu``) replaces the TPU
-kernel ``src/repro/kernels/pulse_chase/kernel.py::_chase_kernel``.  It
-interprets the iterator's PULSE ISA program per lane instead of taking a
-traced closure.  What bounds it on the card: dependent gathers, one per
-lane-step, so it is latency-bound; its least time is the bytes bound
-(``W*4`` bytes per executed lane-step plus the lane state in and out once,
-over 3.35 TB/s).  What the design does about it: one thread per lane and
-many resident lanes per SM, so the warp scheduler overlaps the gathers of
-independent lanes.
+kernel ``src/repro/kernels/pulse_chase/kernel.py::_chase_kernel``.  It has
+one step loop, templated on the body of one iteration: the interpreter of
+the iterator's PULSE ISA program, or the native body of one of the
+structures' iterators written in torch (``NATIVE_BODIES``).  What bounds
+it on the card: dependent gathers, one per lane-step, so it is
+latency-bound; its least time is the bytes bound (the row words a body
+reads per executed lane-step plus the lane state in and out once, over
+3.35 TB/s).  What the design does about it: one thread per lane and as
+many resident lanes as the card holds, so the warp scheduler overlaps the
+gathers of independent lanes; one launch runs a whole batch to its end.
 
 The source is built and loaded by ``kernels._build`` (``nvcc`` for
 ``sm_90a``, a hashed library under ``build/kernels/``, ``ctypes``).  The
-opcode numbering is passed to the compiler from ``core.isa`` as
-``-DPULSE_OP_<NAME>`` defines, so the kernel has no copy of its own.  A
-build or launch failure raises.
+opcode numbering comes from ``core.isa`` and the structures' node layouts
+from their modules, as ``-D`` defines, so the kernel has no copy of its
+own.  A build or launch failure raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import types
 
 import torch
 
+from repro_torch.core import arena as _arena
 from repro_torch.core import isa
 from repro_torch.core.arena import MAX_NODE_WORDS
+from repro_torch.core.structures import bst, btree, hash_table, linked_list
 from repro_torch.kernels import _build
 
+
+@dataclasses.dataclass(frozen=True)
+class NativeBody:
+    """A structure's iterator written in torch that the kernel runs as a
+    native body: the iterator's name, the module and factory that make it,
+    its scratch-pad words and the words of a node row it reads."""
+
+    name: str
+    module: types.ModuleType
+    factory: str
+    scratch_words: int
+    row_words: int
+
+
+def _row(*offsets: int) -> int:
+    return max(offsets) + 1
+
+
+_BTREE_ROW = _row(btree.IS_LEAF, btree.NUM_KEYS, btree.KEYS0 + btree.FANOUT - 1,
+                  btree.CHILD0 + btree.FANOUT, btree.VAL0 + btree.FANOUT - 1, btree.NEXT_LEAF)
+
+NATIVE_BODIES = {
+    b.name: b
+    for b in (
+        NativeBody("list_find", linked_list, "find_iterator", linked_list.SCRATCH_WORDS,
+                   _row(linked_list.KEY, linked_list.VALUE, linked_list.NEXT)),
+        NativeBody("list_sum", linked_list, "sum_iterator",
+                   linked_list.sum_iterator().scratch_words,
+                   _row(linked_list.VALUE, linked_list.NEXT)),
+        NativeBody("hash_find", hash_table, "find_iterator", hash_table.SCRATCH_WORDS,
+                   _row(hash_table.KEY, hash_table.VALUE, hash_table.NEXT)),
+        NativeBody("bst_find", bst, "find_iterator", bst.SCRATCH_WORDS,
+                   _row(bst.KEY, bst.VALUE, bst.LEFT, bst.RIGHT)),
+        NativeBody("btree_find", btree, "find_iterator", btree.find_iterator().scratch_words,
+                   _BTREE_ROW),
+        NativeBody("btree_range_agg", btree, "range_aggregate_iterator", btree.RA_WORDS,
+                   _BTREE_ROW),
+    )
+}
+BODIES = ("isa", *NATIVE_BODIES)  # the kernel's body ids, in this order
+
+
+def native_body(it) -> NativeBody | None:
+    """The native body of a structure's iterator written in torch, or None.
+
+    An iterator qualifies by its name and by its ``next_fn``/``end_fn``
+    being the ones its structure's factory makes, so an ad-hoc iterator
+    that borrows a name does not."""
+    body = NATIVE_BODIES.get(it.name)
+    if body is None or it.step_fn is not None or it.scratch_words != body.scratch_words:
+        return None
+    prefix = f"{body.factory}.<locals>."
+    for fn in (it.next_fn, it.end_fn):
+        if (getattr(fn, "__module__", None) != body.module.__name__
+                or not getattr(fn, "__qualname__", "").startswith(prefix)):
+            return None
+    return body
+
+
+def _layout_defines() -> dict[str, int]:
+    L, H, T, B = linked_list, hash_table, bst, btree
+    nb = NATIVE_BODIES
+    return dict(
+        PULSE_NULL=_arena.NULL,
+        LIST_KEY=L.KEY, LIST_VALUE=L.VALUE, LIST_NEXT=L.NEXT,
+        LIST_KEY_NOT_FOUND=L.KEY_NOT_FOUND,
+        LIST_FIND_WORDS=nb["list_find"].scratch_words, LIST_FIND_ROW=nb["list_find"].row_words,
+        LIST_SUM_WORDS=nb["list_sum"].scratch_words, LIST_SUM_ROW=nb["list_sum"].row_words,
+        HASH_KEY=H.KEY, HASH_VALUE=H.VALUE, HASH_NEXT=H.NEXT,
+        HASH_KEY_NOT_FOUND=H.KEY_NOT_FOUND,
+        HASH_FIND_WORDS=nb["hash_find"].scratch_words, HASH_FIND_ROW=nb["hash_find"].row_words,
+        BST_KEY=T.KEY, BST_VALUE=T.VALUE, BST_LEFT=T.LEFT, BST_RIGHT=T.RIGHT,
+        BST_S_KEY=T.S_KEY, BST_S_Y=T.S_Y, BST_S_YKEY=T.S_YKEY, BST_S_YVAL=T.S_YVAL,
+        BST_SCRATCH_WORDS=nb["bst_find"].scratch_words, BST_ROW=nb["bst_find"].row_words,
+        BTREE_FANOUT=B.FANOUT, BTREE_IS_LEAF=B.IS_LEAF, BTREE_NUM_KEYS=B.NUM_KEYS,
+        BTREE_KEYS0=B.KEYS0, BTREE_CHILD0=B.CHILD0, BTREE_VAL0=B.VAL0,
+        BTREE_NEXT_LEAF=B.NEXT_LEAF, BTREE_KEY_NOT_FOUND=B.KEY_NOT_FOUND,
+        BTREE_INT_MIN=B.INT_MIN, BTREE_INT_MAX=B.INT_MAX,
+        BTREE_FIND_WORDS=nb["btree_find"].scratch_words, BTREE_ROW=_BTREE_ROW,
+        BTREE_RA_LO=B.RA_LO, BTREE_RA_HI=B.RA_HI, BTREE_RA_SUM=B.RA_SUM,
+        BTREE_RA_MIN=B.RA_MIN, BTREE_RA_MAX=B.RA_MAX, BTREE_RA_COUNT=B.RA_COUNT,
+        BTREE_RA_WORDS=nb["btree_range_agg"].scratch_words,
+        **{f"PULSE_BODY_{name.upper()}": i for i, name in enumerate(BODIES)},
+    )
+
+
+LAYOUT_DEFINES = _layout_defines()
 OPCODE_DEFINES = tuple(
     f"-DPULSE_OP_{name}={op}" for op, name in sorted(isa.OP_NAMES.items())
 ) + (f"-DPULSE_LAST_OP={max(isa.ALL_OPS)}",)
-SOURCE = _build.KernelSource("pulse_chase", _build.CSRC / "pulse_chase.cu", OPCODE_DEFINES)
+SOURCE = _build.KernelSource(
+    "pulse_chase", _build.CSRC / "pulse_chase.cu",
+    OPCODE_DEFINES + tuple(f"-D{k}={v}" for k, v in LAYOUT_DEFINES.items()),
+)
 _SRC = SOURCE.source
 NVCC_FLAGS = SOURCE.flags
 
 MAX_SCRATCH_WORDS = 32
-MAX_PROGRAM_ROWS = 1024  # 16 KB of shared memory
+MAX_PROGRAM_ROWS = 1024  # 16 KB of shared memory, decoded
+MAX_FAULT_TABLE = 1024  # shard bases and permission words held in shared memory
+
+
+class ChaseArgs(ctypes.Structure):
+    """``ChaseArgs`` of the source: pointers first, then ints."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "arena", "code", "ptr_in", "scr_in", "st_in", "it_in", "ptr_out", "scr_out",
+        "st_out", "it_out", "faulted_out", "bounds", "perms", "next_lane")] + [
+        (n, ctypes.c_int) for n in (
+            "cap", "W", "T", "B", "S", "num_steps", "quantum", "run", "n_bounds", "n_perms",
+            "check_cap", "need")]
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = SOURCE.load()
-    fn = lib.pulse_chase_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # arena, cap, W
-        ctypes.c_void_p, ctypes.c_int,  # code, T
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, num_steps
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
+    args = ctypes.POINTER(ChaseArgs)
+    lib.pulse_chase_launch.argtypes = [ctypes.c_int, args, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.pulse_chase_launch.restype = ctypes.c_int
+    lib.pulse_chase_blocks_per_sm.argtypes = [ctypes.c_int, args, ctypes.POINTER(ctypes.c_int)]
+    lib.pulse_chase_blocks_per_sm.restype = ctypes.c_int
     lib.pulse_chase_error_string.argtypes = [ctypes.c_int]
     lib.pulse_chase_error_string.restype = ctypes.c_char_p
     return lib
@@ -68,44 +172,118 @@ def _check(name: str, t: torch.Tensor, device: torch.device, ndim: int) -> None:
         raise ValueError(f"pulse_chase: {name} must be contiguous")
 
 
-def launch(arena, ptr, scratch, status, iters, code, num_steps: int):
-    """Launch the kernel once on PyTorch's current stream; returns new
-    ``(ptr, scratch, status, iters)``.  Does not synchronise."""
+def _raise(lib, what: str, err: int) -> None:
+    raise RuntimeError(f"pulse_chase {what} failed: CUDA error {err} "
+                       f"({lib.pulse_chase_error_string(err).decode()})")
+
+
+def launch(arena, ptr, scratch, status, iters, code, num_steps: int, *, body: str = "isa",
+           quantum: int = 1, fault=None):
+    """Launch the kernel once on PyTorch's current stream.  Does not
+    synchronise.
+
+    ``body`` is ``"isa"`` (``code`` is the program's ``(T, 4)`` code) or the
+    name of a native body (``code`` is None).  With ``iters`` given, runs
+    ``num_steps`` steps with the counts accumulated on top of ``iters`` and
+    returns new ``(ptr, scratch, status, iters)``.  With ``iters=None``, runs
+    every lane to its end within a budget of ``num_steps`` iterations (a
+    NULL entry faults; ``fault``, an ``ops.FaultCheck`` or None, is checked
+    every ``quantum`` iterations and at the budget) and returns new
+    ``(ptr, scratch, status, iters, faulted)``."""
     dev = arena.device
     if dev.type != "cuda":
         raise ValueError(f"pulse_chase kernel needs CUDA tensors, got {dev}")
-    for name, t, nd in (("arena", arena, 2), ("ptr", ptr, 1), ("scratch", scratch, 2),
-                        ("status", status, 1), ("iters", iters, 1), ("code", code, 2)):
+    run = iters is None
+    lanes = [("arena", arena, 2), ("ptr", ptr, 1), ("scratch", scratch, 2),
+             ("status", status, 1)]
+    if not run:
+        lanes.append(("iters", iters, 1))
+    if body == "isa":
+        lanes.append(("code", code, 2))
+    for name, t, nd in lanes:
         _check(name, t, dev, nd)
+    if body not in BODIES:
+        raise ValueError(f"pulse_chase: unknown body {body!r}; known: {BODIES}")
     cap, W = arena.shape
     B, S = scratch.shape
-    T = code.shape[0]
     if W > MAX_NODE_WORDS:
         raise ValueError(f"pulse_chase: node_words {W} > {MAX_NODE_WORDS}")
     if S > MAX_SCRATCH_WORDS:
         raise ValueError(f"pulse_chase: scratch_words {S} > {MAX_SCRATCH_WORDS}")
-    if not 0 < T <= MAX_PROGRAM_ROWS or code.shape[1] != 4:
-        raise ValueError(
-            f"pulse_chase: program must be (T, 4) with 0 < T <= {MAX_PROGRAM_ROWS}, "
-            f"got {tuple(code.shape)}"
-        )
+    T = 0
+    if body == "isa":
+        T = code.shape[0]
+        if not 0 < T <= MAX_PROGRAM_ROWS or code.shape[1] != 4:
+            raise ValueError(
+                f"pulse_chase: program must be (T, 4) with 0 < T <= {MAX_PROGRAM_ROWS}, "
+                f"got {tuple(code.shape)}"
+            )
+    else:
+        nb = NATIVE_BODIES[body]
+        if S != nb.scratch_words or W < nb.row_words:
+            raise ValueError(
+                f"pulse_chase: body {body} takes {nb.scratch_words} scratch words and rows "
+                f"of at least {nb.row_words} words, got {S} and {W}")
     if cap == 0:
         raise ValueError("pulse_chase: empty arena")
-    if not ptr.shape[0] == status.shape[0] == iters.shape[0] == B:
+    if not ptr.shape[0] == status.shape[0] == B or (not run and iters.shape[0] != B):
         raise ValueError("pulse_chase: lane tensors disagree on the batch size")
-    outs = (torch.empty_like(ptr), torch.empty_like(scratch),
-            torch.empty_like(status), torch.empty_like(iters))
+    if run and quantum < 1:
+        raise ValueError(f"pulse_chase: depth quantum must be >= 1, got {quantum}")
+    if not 0 <= num_steps < 2**31:
+        raise ValueError(f"pulse_chase: num_steps {num_steps} out of range")
+
+    a = ChaseArgs(cap=cap, W=W, T=T, B=B, S=S, num_steps=int(num_steps), run=int(run),
+                  quantum=int(quantum) if run else 1)
+    if fault is not None:
+        if not run:
+            raise ValueError("pulse_chase: a fault check needs iters=None (one whole run)")
+        bounds, perms = fault.bounds, fault.perms
+        for name, t in (("bounds", bounds), ("perms", perms)):
+            _check(name, t, dev, 1)
+        if not 0 < bounds.shape[0] <= MAX_FAULT_TABLE or not 0 < perms.shape[0] <= MAX_FAULT_TABLE:
+            raise ValueError(f"pulse_chase: fault table of {bounds.shape[0]} bases and "
+                             f"{perms.shape[0]} permission words (1-{MAX_FAULT_TABLE} each)")
+        a.bounds, a.perms = bounds.data_ptr(), perms.data_ptr()
+        a.n_bounds, a.n_perms = bounds.shape[0], perms.shape[0]
+        a.check_cap, a.need = int(fault.cap), int(fault.need)
+    outs = [torch.empty_like(ptr), torch.empty_like(scratch), torch.empty_like(status),
+            torch.empty_like(ptr)]
+    if run:
+        outs.append(torch.empty(B, dtype=torch.bool, device=dev))
+        iters_ptr, faulted_ptr = None, outs[4].data_ptr()
+    else:
+        iters_ptr, faulted_ptr = iters.data_ptr(), None
+    counter = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the launcher
+    a.arena, a.code = arena.data_ptr(), code.data_ptr() if body == "isa" else None
+    a.ptr_in, a.scr_in, a.st_in, a.it_in = (ptr.data_ptr(), scratch.data_ptr(),
+                                            status.data_ptr(), iters_ptr)
+    a.ptr_out, a.scr_out, a.st_out, a.it_out = (o.data_ptr() for o in outs[:4])
+    a.faulted_out, a.next_lane = faulted_ptr, counter.data_ptr()
     lib = _library()
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = lib.pulse_chase_launch(
-            arena.data_ptr(), cap, W, code.data_ptr(), T,
-            ptr.data_ptr(), scratch.data_ptr(), status.data_ptr(), iters.data_ptr(),
-            *(o.data_ptr() for o in outs),
-            B, S, int(num_steps), torch.cuda.current_stream(dev).cuda_stream,
-        )
+        err = lib.pulse_chase_launch(BODIES.index(body), ctypes.byref(a),
+                                     torch.cuda.current_stream(dev).cuda_stream,
+                                     ctypes.byref(grid))
     if err != 0:
-        raise RuntimeError(
-            f"pulse_chase launch failed: CUDA error {err} "
-            f"({lib.pulse_chase_error_string(err).decode()})"
-        )
-    return outs
+        _raise(lib, "launch", err)
+    launch.last_grid = grid.value
+    return tuple(outs)
+
+
+launch.last_grid = 0  # blocks of the last launch (the card's resident blocks, or fewer)
+
+
+def blocks_per_sm(body: str, *, T: int = 0, S: int = 0, W: int = 0, n_fault_words: int = 0,
+                  device=None) -> int:
+    """Resident blocks (of 128 threads) per SM the card allows for ``body``
+    at the shared memory a launch with these sizes takes."""
+    lib = _library()
+    a = ChaseArgs(T=T, S=S, W=W, n_bounds=n_fault_words)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = lib.pulse_chase_blocks_per_sm(BODIES.index(body), ctypes.byref(a), ctypes.byref(n))
+    if err != 0:
+        _raise(lib, "occupancy query", err)
+    return n.value

@@ -1,10 +1,14 @@
-"""Wrappers for the pulse_chase kernel + the PulseIterator adapter and the
+"""Wrappers for the pulse_chase kernel, the PulseIterator adapter, the
+whole-traversal run that ``PulseEngine.execute`` uses and the
 variable-depth wave scheduler.
 
-``pulse_chase`` launches the CUDA kernel for CUDA tensors and runs the
-plain version (``ref.chase_reference``) for CPU tensors; it never falls
-back from one to the other.  ``pulse_chase.launches`` counts kernel
-launches.
+``pulse_chase`` (fixed depth) and ``pulse_chase_run`` (one traversal to
+its end, one launch) launch the CUDA kernel for CUDA tensors and run their
+plain versions (``ref.chase_reference``, ``ref.chase_run_reference``) for
+CPU tensors; they never fall back from one to the other.
+``pulse_chase.launches`` counts the kernel's launches from both.
+``pulse_chase_waves`` is the counterpart of the JAX package's wave
+scheduler, held against it; it launches ``pulse_chase`` once per chunk.
 """
 
 from __future__ import annotations
@@ -13,26 +17,32 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.arena import PERM_READ
 from repro_torch.core.iterator import PulseIterator
 from repro_torch.kernels.pulse_chase import kernel as _kernel
-from repro_torch.kernels.pulse_chase.ref import chase_reference
+from repro_torch.kernels.pulse_chase.ref import chase_reference, chase_run_reference
 
 
 class ChaseLogic:
-    """The batched fused next+end body of a PulseIterator, plus -- for an
-    ISA-backed iterator -- the program the kernel interprets.
+    """The batched fused next+end body of a PulseIterator, and the body the
+    kernel runs for it.
 
     Calling it runs the body in torch: ``(nodes (B,W), ptr (B,), scratch
     (B,S)) -> (done, new_ptr, new_scratch)``.  ``program`` is the iterator's
-    ``Program`` or None for an iterator written in torch; for an ISA
-    iterator ``code_on(device)`` gives the program's code tensor
-    (``core.isa.IsaStep.code_on``)."""
+    ``Program`` for an ISA iterator (``code_on(device)`` gives its code
+    tensor, ``core.isa.IsaStep.code_on``), else None.  ``native`` is the
+    kernel's native body (``kernel.NATIVE_BODIES``) for a structure's
+    iterator written in torch, else None.  The kernel runs a logic that has
+    either; any other raises on a CUDA tensor."""
 
     def __init__(self, it: PulseIterator):
         self.it = it
         self.program = getattr(it.step_fn, "__wrapped_program__", None)
+        self.native = None
         if self.program is not None:
             self.code_on = it.step_fn.code_on
+        else:
+            self.native = _kernel.native_body(it)
 
     def __call__(self, nodes, ptr, scratch):
         it = self.it
@@ -56,6 +66,22 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _kernel_body(logic_fn, device):
+    """(body name, code tensor or None) the kernel runs for ``logic_fn``."""
+    if getattr(logic_fn, "program", None) is not None:
+        return "isa", logic_fn.code_on(device)
+    native = getattr(logic_fn, "native", None)
+    if native is not None:
+        return native.name, None
+    raise ValueError(
+        "the pulse_chase CUDA kernel runs PULSE ISA programs and the native bodies "
+        f"of the structures' own iterators ({', '.join(_kernel.NATIVE_BODIES)}); this "
+        "logic has neither.  Use the ISA route (core.isa.as_pulse_iterator of a "
+        "program from core.structures.isa_programs), a structure's iterator, or "
+        "PulseEngine.execute(..., backend='reference')"
+    )
+
+
 def pulse_chase(
     arena_data: torch.Tensor,
     ptr: torch.Tensor,
@@ -72,33 +98,107 @@ def pulse_chase(
     per-lane iteration count accumulated on top of the passed-in counts
     (zeros when omitted).  The inputs are not modified.
 
-    On CUDA tensors this launches the kernel, which runs ISA programs only:
-    ``logic_fn`` must come from ``iterator_logic`` of an ISA-backed
-    iterator, otherwise ``ValueError``.  On CPU tensors it runs the plain
-    version with ``logic_fn`` as the body.
+    On CUDA tensors this launches the kernel, with the interpreter for an
+    ISA iterator's logic or the native body of a structure's iterator;
+    ``logic_fn`` must come from ``iterator_logic`` of one of those, otherwise
+    ``ValueError``.  On CPU tensors it runs the plain version with
+    ``logic_fn`` as the body.
     """
     if iters is None:
         iters = torch.zeros_like(ptr)
     if not _on_cuda(arena_data):
         return chase_reference(arena_data, ptr, scratch, status, iters, logic_fn, num_steps)
-    if getattr(logic_fn, "program", None) is None:
-        raise ValueError(
-            "the pulse_chase CUDA kernel runs PULSE ISA programs only; this "
-            "logic has none.  Use the ISA route (core.isa.as_pulse_iterator of "
-            "a program from core.structures.isa_programs) or "
-            "PulseEngine.execute(..., backend='reference')"
-        )
+    body, code = _kernel_body(logic_fn, arena_data.device)
     if ptr.shape[0] == 0:
         return ptr.clone(), scratch.clone(), status.clone(), iters.clone()
-    out = _kernel.launch(
-        arena_data, ptr, scratch, status, iters,
-        logic_fn.code_on(arena_data.device), num_steps,
-    )
+    out = _kernel.launch(arena_data, ptr, scratch, status, iters, code, num_steps, body=body)
     pulse_chase.launches += 1
     return out
 
 
 pulse_chase.launches = 0
+
+
+@dataclasses.dataclass(eq=False)
+class FaultCheck:
+    """The engine's translation/protection check as data: a pointer faults
+    when it lies outside ``[0, cap)`` or its shard (``bounds``, sorted
+    shard bases) lacks the permission bits ``need`` (``perms``).
+
+    Calling it gives the mask for a batch of pointers, so it serves as a
+    ``fault_fn``; the kernel reads its tensors and searches the shards
+    itself."""
+
+    bounds: torch.Tensor
+    perms: torch.Tensor
+    cap: int
+    need: int = PERM_READ
+
+    def __call__(self, p: torch.Tensor) -> torch.Tensor:
+        shard = torch.searchsorted(self.bounds, p, right=True) - 1
+        ok = self.perms[shard.clamp(0, self.perms.shape[0] - 1)] & self.need
+        return (p < 0) | (p >= self.cap) | (ok != self.need)
+
+
+def pulse_chase_run(
+    arena_data: torch.Tensor,
+    ptr,
+    scratch,
+    status,
+    *,
+    logic_fn,
+    max_steps: int,
+    depth_quantum: int = 8,
+    fault_fn: FaultCheck | None = None,
+):
+    """Run every lane to its end within ``max_steps`` iterations: one
+    kernel launch on CUDA tensors, with faults checked on the device.
+
+    The results equal ``pulse_chase_waves`` (and the JAX package's wave
+    scheduler) with the same ``depth_quantum`` and ``fault_fn``: a lane
+    entering active with a negative pointer faults; a live lane is checked
+    by ``fault_fn`` whenever its iteration count is a multiple of
+    ``depth_quantum`` and once more if it is live at ``max_steps``; a lane
+    retired on a negative pointer is a fault too; a lane live at
+    ``max_steps`` keeps status 0.
+
+    On CUDA tensors ``fault_fn`` must be a ``FaultCheck`` or None (any other
+    callable raises ``ValueError``) and ``logic_fn`` must have a kernel body
+    (see ``pulse_chase``); the host reads nothing.  On CPU tensors the plain
+    version runs (``ref.chase_run_reference``).
+
+    Returns ``(ptr, scratch, status, stats)`` in the original lane order;
+    ``stats`` is a ``WaveStats`` of one chunk whose ``lane_steps`` (a
+    tensor) counts the executed lane-steps.
+    """
+    dev = arena_data.device
+    ptr = torch.as_tensor(ptr, dtype=torch.int32).to(dev).contiguous()
+    scratch = torch.as_tensor(scratch, dtype=torch.int32).to(dev).contiguous()
+    status = torch.as_tensor(status, dtype=torch.int32).to(dev).contiguous()
+    if depth_quantum < 1:
+        raise ValueError(f"depth_quantum must be >= 1, got {depth_quantum}")
+    B = ptr.shape[0]
+    if not _on_cuda(arena_data):
+        p, s, st, it, faulted = chase_run_reference(
+            arena_data, ptr, scratch, status, logic_fn, max_steps, depth_quantum, fault_fn)
+    else:
+        if fault_fn is not None and not isinstance(fault_fn, FaultCheck):
+            raise ValueError(
+                "pulse_chase_run on the card checks faults in the kernel: fault_fn must be "
+                f"a FaultCheck or None, got {type(fault_fn).__name__}")
+        body, code = _kernel_body(logic_fn, dev)
+        if B == 0:
+            p, s, st = ptr.clone(), scratch.clone(), status.clone()
+            it, faulted = torch.zeros_like(ptr), torch.zeros(0, dtype=torch.bool, device=dev)
+        else:
+            p, s, st, it, faulted = _kernel.launch(
+                arena_data, ptr, scratch, status, None, code, max_steps, body=body,
+                quantum=depth_quantum, fault=fault_fn)
+            pulse_chase.launches += 1
+    stats = WaveStats(chunks=1 if B else 0, lane_steps=it.sum(), dense_lane_steps=B * max_steps,
+                      steps_per_chunk=[max_steps] if B else [],
+                      lanes_per_chunk=[B] if B else [], retire_step=it, faulted=faulted)
+    return p, s, st, stats
 
 
 # ------------------------- variable-depth scheduling -------------------------
@@ -109,7 +209,9 @@ class WaveStats:
     """Accounting for the variable-depth wave scheduler.
 
     ``lane_steps`` is the work actually executed (surviving+padding lanes x
-    steps, summed over chunks); ``dense_lane_steps`` is what the fixed-depth
+    steps, summed over chunks; for ``pulse_chase_run``, one chunk, the
+    executed lane-steps as a tensor on the arena's device, so that the host
+    reads nothing); ``dense_lane_steps`` is what the fixed-depth
     scheduler would have executed (every lane runs every step).
     ``retire_step`` is the exact per-lane iteration count and ``faulted``
     marks lanes retired by ``fault_fn`` or a NULL/negative pointer; both are
@@ -164,6 +266,10 @@ def pulse_chase_waves(
     ``fault_fn`` is the translation/protection hook: ``(ptrs int32 tensor)
     -> bool tensor`` applied to live lanes on entry and between chunks;
     ``True`` lanes retire as faults, so detection is quantum-granular.
+
+    The counterpart of the JAX package's ``pulse_chase_waves``, held
+    against it; ``PulseEngine.execute`` runs ``pulse_chase_run``, which gives
+    the same results in one launch.
 
     Returns ``(ptr, scratch, status, stats)`` in the original lane order.
     """

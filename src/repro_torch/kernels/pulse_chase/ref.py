@@ -1,5 +1,7 @@
-"""Plain torch version of the pulse_chase kernel: K traversal steps for a
-batch of lanes over an arena, with the kernel's masked-update semantics."""
+"""Plain torch versions of the pulse_chase kernel: K traversal steps for a
+batch of lanes over an arena, with the kernel's masked-update semantics
+(``chase_reference``), and a whole traversal with the wave scheduler's
+fault semantics (``chase_run_reference``)."""
 
 from __future__ import annotations
 
@@ -25,3 +27,35 @@ def chase_reference(arena, ptr, scratch, status, iters, logic_fn, num_steps: int
         status = torch.where((status == 0) & (ptr < 0), 1, status).to(torch.int32)
         iters = torch.where(active, iters + 1, iters).to(torch.int32)
     return ptr, scratch, status, iters
+
+
+def chase_run_reference(arena, ptr, scratch, status, logic_fn, max_steps: int,
+                        quantum: int, fault_fn=None):
+    """Every lane to its end within ``max_steps`` iterations, with the
+    semantics of the JAX package's ``pulse_chase_waves`` at depth quantum
+    ``quantum``: a lane entering with status 0 and a negative pointer
+    faults (status 1, no iteration); a live lane is checked by ``fault_fn``
+    (``(ptrs) -> bool``; True retires it as a fault, status 1) whenever its
+    iteration count is a multiple of ``quantum`` and once more if it is live
+    at ``max_steps``; a step retires a lane on done or on a negative pointer,
+    the latter a fault; a lane live at ``max_steps`` keeps status 0.
+
+    Every live lane has run the same number of steps, so the step number is
+    each live lane's iteration count.  Returns new ``(ptr, scratch, status,
+    iters, faulted)``."""
+    faulted = (status == 0) & (ptr < 0)
+    status = torch.where(faulted, 1, status).to(torch.int32)
+    iters = torch.zeros_like(ptr)
+    for n in range(max_steps + 1):
+        live = status == 0
+        if fault_fn is not None and (n % quantum == 0 or n == max_steps):
+            bad = live & fault_fn(ptr).to(torch.bool)
+            faulted = faulted | bad
+            status = torch.where(bad, 1, status).to(torch.int32)
+            live = live & ~bad
+        if n == max_steps or not bool(live.any()):
+            break
+        ptr, scratch, status, iters = chase_reference(arena, ptr, scratch, status, iters,
+                                                      logic_fn, 1)
+        faulted = faulted | (live & (status == 1) & (ptr < 0))
+    return ptr, scratch, status, iters, faulted

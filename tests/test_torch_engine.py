@@ -312,13 +312,61 @@ def test_revoked_shard_faults_on_both():
         tisa.as_pulse_iterator(tprogs.hash_find_program()), _carry(jar, [1, 3]))
 
 
+@pytest.mark.parametrize("max_iters", [10, 16, 4096])
+def test_faults_and_budget_cut_match_jax_kernel_backend(max_iters):
+    """A revoked shard, a NULL entry and a budget cut off the depth quantum
+    (max_iters 10, quantum 8): the port's kernel backend (one run, its plain
+    version here) equals the JAX engine's kernel backend, for the torch
+    iterator and the ISA one."""
+    rng = np.random.default_rng(1)
+    keys = rng.choice(np.arange(10**5), size=96, replace=False).astype(np.int32)
+    jar, heads = jhash.build(keys, keys + 1, 5, num_shards=2)
+    jar = _with_perms(jar, [0, 3])
+    p0, s0 = jhash.find_iterator(5).init(jnp.asarray(keys[:32]), jnp.asarray(heads))
+    p0, s0 = np.array(p0), np.array(s0)
+    p0[3] = -1
+    jk = jengine.PulseEngine(jar).execute(jhash.find_iterator(5), p0, s0, max_iters=max_iters,
+                                          backend="kernel")
+    statuses = set(np.asarray(jk.status).tolist())
+    assert jiter.STATUS_FAULT in statuses
+    if max_iters == 10:
+        assert jiter.STATUS_MAXED in statuses
+    teng = tengine.PulseEngine(_carry(jar))
+    for ti in (thash.find_iterator(5), tisa.as_pulse_iterator(tprogs.hash_find_program())):
+        _assert_same(jk, teng.execute(ti, p0, s0, max_iters=max_iters, backend="kernel",
+                                      force_offload=True), f"{ti.name} at {max_iters}")
+
+
 def test_kernel_backend_with_torch_iterator_on_cuda_raises(monkeypatch):
-    """The kernel backend on a CUDA arena takes ISA iterators only; checked
-    with a fake CUDA test (no card)."""
-    jar, ji, ti, prog, p0, s0 = _case("list")
+    """The kernel backend on a CUDA arena runs a structure's own iterator on
+    its native body, in one launch with the fault check on the device, and
+    raises for an ad-hoc torch iterator that has no body; checked with a
+    fake CUDA test (no card)."""
+    jar, ji, ti, prog, p0, s0 = _case("hash")
     monkeypatch.setattr(tops, "_on_cuda", lambda t: True)
+    calls = []
+
+    def spy(arena, ptr, scratch, status, iters, code, num_steps, *, body="isa", quantum=1,
+            fault=None):
+        calls.append(dict(body=body, code=code, iters=iters, steps=num_steps,
+                          quantum=quantum, fault=fault))
+        z = torch.zeros_like(ptr)
+        return ptr, scratch, status + 1, z, z.bool()
+
+    monkeypatch.setattr(tops._kernel, "launch", spy)
+    eng = tengine.PulseEngine(_carry(jar))
+    before = tops.pulse_chase.launches
+    res = eng.execute(thash.find_iterator(8), p0, s0, max_iters=4096, backend="kernel")
+    assert tops.pulse_chase.launches == before + 1 and len(calls) == 1
+    call = calls[0]
+    assert (call["body"], call["code"], call["iters"]) == ("hash_find", None, None)
+    assert (call["steps"], call["quantum"]) == (4096, 8)
+    assert isinstance(call["fault"], tops.FaultCheck) and call["fault"].cap == jar.capacity
+    assert (res.status.numpy() == titer.STATUS_DONE).all() and res.stats.chunks == 1
+    adhoc = dataclasses.replace(ti, name="hash_find_adhoc")
     with pytest.raises(ValueError, match="ISA"):
-        tengine.PulseEngine(_carry(jar)).execute(ti, p0, s0, backend="kernel")
+        eng.execute(adhoc, p0, s0, backend="kernel")
+    assert len(calls) == 1
 
 
 def test_deferred_paths_raise():

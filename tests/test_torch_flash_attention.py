@@ -31,6 +31,13 @@ SHAPES = [  # B, H, Hk, Lq, Lk, D, causal (tests/test_kernels.py:113-122)
     (2, 2, 1, 128, 256, 64, True),  # decode-style Lq < Lk
     (1, 4, 2, 128, 128, 64, False),  # bidirectional (encoder)
 ]
+# head dims 112 (zamba2_7b, kimi_k2_1t_a32b) and 16 (every reduced config)
+NEW_DIM_SHAPES = [
+    (1, 8, 1, 64, 64, 112, True),  # kimi's G = 8
+    (1, 2, 2, 64, 128, 112, False),  # zamba2's G = 1
+    (2, 4, 2, 64, 64, 16, True),
+    (1, 4, 4, 64, 128, 16, True),
+]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,7 +59,7 @@ def _np(t):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + NEW_DIM_SHAPES)
 def test_plain_matches_pallas_interpret_and_reference(shape, dtype):
     causal = shape[-1]
     q, k, v = _inputs(shape, seed=sum(shape[:6]))
@@ -139,7 +146,10 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES + [(1, 16, 8, 192, 192, 128, True),
+@pytest.mark.parametrize("shape", SHAPES + NEW_DIM_SHAPES + [(1, 16, 8, 192, 192, 128, True),
+                                            (2, 64, 8, 256, 256, 112, True),
+                                            (1, 32, 32, 136, 136, 112, True),
+                                            (2, 4, 2, 200, 200, 16, False),
                                             (1, 4, 2, 8, 40, 64, True),
                                             (1, 16, 8, 200, 200, 128, False),
                                             (4, 16, 8, 512, 512, 128, True)])  # serve shape
@@ -173,6 +183,19 @@ def test_kernel_takes_strided_views_on_card():
 @pytest.mark.gpu
 def test_kernel_refuses_unsupported_head_dims_on_card():
     _card()
-    q = torch.zeros((1, 2, 64, 16), device="cuda")
+    q = torch.zeros((1, 2, 64, 20), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         tops.flash_attention(q, q, q, True, 64, 64)
+
+
+def test_head_dims_cover_every_config():
+    """Both attention kernels take the head dim of every config the JAX
+    package serves, full and reduced, and refuse others."""
+    from repro.configs import ARCH_IDS, get_config, get_reduced_config
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+
+    dims = {get(a).hd for a in ARCH_IDS if a != "pulse_paper"
+            for get in (get_config, get_reduced_config)}
+    assert {16, 112} <= dims
+    assert dims <= set(tkernel.HEAD_DIMS) and dims <= set(paged_kernel.HEAD_DIMS)
+    assert 20 not in tkernel.HEAD_DIMS and 20 not in paged_kernel.HEAD_DIMS

@@ -31,6 +31,14 @@ SHAPES = [  # B, H, Hk, D, page, P, N (tests/test_kernels.py:156-163)
     (1, 8, 8, 32, 8, 8, 64),
     (3, 4, 1, 64, 16, 3, 16),
 ]
+# head dims 112 (zamba2_7b G = 1, kimi_k2_1t_a32b G = 8) and 16 (every
+# reduced config)
+NEW_DIM_SHAPES = [
+    (2, 8, 1, 112, 16, 4, 24),
+    (2, 4, 4, 112, 8, 5, 20),
+    (3, 4, 2, 16, 16, 4, 32),
+    (2, 8, 1, 16, 8, 6, 40),
+]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,7 +67,7 @@ def _jax(arrays, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + NEW_DIM_SHAPES)
 def test_plain_matches_pallas_interpret_and_reference(shape, dtype):
     arrays = _inputs(shape, seed=sum(shape))
     j = _jax(arrays, dtype)
@@ -125,7 +133,10 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES + [(4, 16, 8, 128, 16, 33, 140),
+@pytest.mark.parametrize("shape", SHAPES + NEW_DIM_SHAPES + [(4, 16, 8, 128, 16, 33, 140),
+                                            (4, 64, 8, 112, 16, 33, 140),
+                                            (2, 32, 32, 112, 16, 9, 20),
+                                            (4, 4, 2, 16, 16, 33, 140),
                                             (2, 16, 2, 128, 16, 5, 12)])
 def test_kernel_matches_plain_on_card(shape, dtype):
     _card()

@@ -33,6 +33,7 @@ except ImportError:  # the card's machine has no JAX; its gpu test needs none
     jnp = None
 from repro_torch.core import arena as tarena
 from repro_torch.core import isa as tisa
+from repro_torch.core import iterator as titer
 from repro_torch.core.structures import btree as tbtree
 from repro_torch.core.structures import hash_table as thash
 from repro_torch.core.structures import isa_programs as tprogs
@@ -188,23 +189,26 @@ def _assert_waves_equal(jres, tres):
     assert js.savings == ts.savings
 
 
-@pytest.mark.parametrize("use_isa", [False, True])
-def test_waves_with_fault_fn_match_reference(use_isa):
-    """Skewed chain depths, a revoked shard, NULL and out-of-range entries:
-    ptr, scratch, status and every WaveStats field must agree."""
+def _faulting_case():
+    """The skewed, faulting case: hash chains over two shards with shard 0
+    revoked, a NULL entry and one past the arena's end."""
     rng = np.random.default_rng(11)
     keys = rng.choice(np.arange(10**5), size=96, replace=False).astype(np.int32)
     vals = rng.integers(0, 10**6, 96).astype(np.int32)
     jar, heads = jhash.build(keys, vals, 5, num_shards=2)
-    # shard 0 revoked: chains start in shard 1 (the newest keys) and fault
-    # when they walk into shard 0
     perms = np.array([0, 1], np.int32)
     q = np.concatenate([keys[:30], rng.integers(10**5, 10**6, 10).astype(np.int32)])
     ptr0, scr0 = jhash.find_iterator(5).init(jnp.asarray(q), jnp.asarray(heads))
     ptr0 = np.asarray(ptr0).copy()
     ptr0[[0, 3]] = [-1, 500]
-    scr0 = np.asarray(scr0)
-    st0 = np.zeros(40, np.int32)
+    return jar, perms, ptr0, np.asarray(scr0), np.zeros(40, np.int32)
+
+
+@pytest.mark.parametrize("use_isa", [False, True])
+def test_waves_with_fault_fn_match_reference(use_isa):
+    """Skewed chain depths, a revoked shard, NULL and out-of-range entries:
+    ptr, scratch, status and every WaveStats field must agree."""
+    jar, perms, ptr0, scr0, st0 = _faulting_case()
     jfault, tfault = _fault_masks(jar.capacity, np.asarray(jar.bounds), perms)
     if use_isa:
         jlogic = jops.iterator_logic(jisa.as_pulse_iterator(jprogs.hash_find_program()))
@@ -225,6 +229,128 @@ def test_waves_with_fault_fn_match_reference(use_isa):
                                       depth_quantum=quantum, fault_fn=tfault)
         _assert_waves_equal(jres, tres)
         assert tres[3].chunks > 1 and tres[3].faulted.any()
+
+
+@pytest.mark.parametrize("max_steps,quantum", [(64, 8), (13, 4), (10, 8), (16, 8), (0, 8)])
+@pytest.mark.parametrize("use_isa", [False, True])
+def test_run_reference_matches_jax_waves(use_isa, max_steps, quantum):
+    """``pulse_chase_run`` (its plain version on the CPU) equals the JAX wave
+    scheduler bit for bit: ptr, scratch, status, iters and faulted, with
+    budgets on and off the quantum."""
+    jar, perms, ptr0, scr0, st0 = _faulting_case()
+    jfault, _ = _fault_masks(jar.capacity, np.asarray(jar.bounds), perms)
+    tar = _to_torch_arena(jar)
+    check = tops.FaultCheck(tar.bounds, torch.from_numpy(perms), tar.capacity)
+    if use_isa:
+        jlogic = jops.iterator_logic(jisa.as_pulse_iterator(jprogs.hash_find_program()))
+        tlogic = tops.iterator_logic(tisa.as_pulse_iterator(tprogs.hash_find_program()))
+        kw = dict(use_pallas=False)
+    else:
+        jlogic = jops.iterator_logic(jhash.find_iterator(5))
+        tlogic = tops.iterator_logic(thash.find_iterator(5))
+        kw = dict(use_pallas=True, interpret=True)
+    jres = jops.pulse_chase_waves(jar.data, ptr0, scr0, st0, logic_fn=jlogic,
+                                  max_steps=max_steps, depth_quantum=quantum,
+                                  fault_fn=jfault, **kw)
+    tres = tops.pulse_chase_run(tar.data, _t(ptr0), _t(scr0), _t(st0), logic_fn=tlogic,
+                                max_steps=max_steps, depth_quantum=quantum, fault_fn=check)
+    for name, a, b in zip(FIELDS[:3], jres[:3], tres[:3]):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    js, ts = jres[3], tres[3]
+    np.testing.assert_array_equal(js.retire_step, ts.retire_step.numpy(), err_msg="iters")
+    np.testing.assert_array_equal(js.faulted, ts.faulted.numpy(), err_msg="faulted")
+    assert ts.chunks == 1 and int(ts.lane_steps) == int(js.retire_step.sum())
+    assert ts.faulted.any()
+    if max_steps == 10:  # a budget cut: lanes left live keep status 0
+        assert (tres[2] == 0).any()
+
+
+def test_fault_check_gives_the_closure_mask():
+    """``FaultCheck`` is the engine's old closure as data: the same mask on
+    pointers that are negative, past the end, in a revoked shard or fine."""
+    bounds = torch.tensor([0, 40, 100, 160], dtype=torch.int32)
+    perms = torch.tensor([3, 0, 1], dtype=torch.int32)
+    cap = 160
+    p = torch.arange(-5, 170, dtype=torch.int32)
+
+    def closure(p):  # the engine's fault_fn before it became data
+        shard = torch.searchsorted(bounds, p, right=True) - 1
+        ok = perms[shard.clamp(0, perms.shape[0] - 1)] & tarena.PERM_READ
+        return (p < 0) | (p >= cap) | (ok != tarena.PERM_READ)
+
+    got = tops.FaultCheck(bounds, perms, cap)(p)
+    assert got.dtype == torch.bool and torch.equal(got, closure(p))
+    assert got[5:45].logical_not().all() and got[45:105].all()
+    write = tops.FaultCheck(bounds, perms, cap, need=tarena.PERM_WRITE)(p)
+    assert write[5:45].logical_not().all() and write[105:165].all()
+
+
+def _structure_iterators():
+    """Every iterator the read-path structure modules make, by factory."""
+    import inspect
+
+    from repro_torch.core import structures
+
+    out = []
+    for mod_name in ("linked_list", "hash_table", "bst", "btree"):
+        mod = getattr(structures, mod_name)
+        for name, fn in inspect.getmembers(mod, inspect.isfunction):
+            if name.endswith("_iterator") and fn.__module__ == mod.__name__:
+                args = [8] * sum(p.default is inspect.Parameter.empty
+                                 for p in inspect.signature(fn).parameters.values())
+                out.append((mod, name, fn(*args)))
+    return out
+
+
+def test_native_bodies_cover_every_structure_iterator():
+    """Each non-mutating iterator of ``core/structures/`` has a native body,
+    found from the iterator itself, and the body's sizes are the module's."""
+    from repro_torch.kernels.pulse_chase import kernel
+
+    found = {}
+    for mod, factory, it in _structure_iterators():
+        if it.mutates:
+            continue
+        body = kernel.native_body(it)
+        assert body is not None, f"{mod.__name__}.{factory}"
+        assert (body.module, body.factory) == (mod, factory)
+        assert body.scratch_words == it.scratch_words
+        assert tops.iterator_logic(it).native is body
+        found[it.name] = body
+    assert set(found) == set(kernel.NATIVE_BODIES)
+    assert kernel.BODIES == ("isa", *kernel.NATIVE_BODIES)
+    isa_it = tisa.as_pulse_iterator(tprogs.hash_find_program())
+    assert kernel.native_body(isa_it) is None and tops.iterator_logic(isa_it).native is None
+
+
+def test_kernel_takes_its_layouts_from_the_structure_modules():
+    """The node-word offsets, FANOUT, NULL and KEY_NOT_FOUND reach the
+    kernel as -D defines equal to the modules' constants, and the source
+    names every define it is given."""
+    from repro_torch.core.structures import bst as tbst
+    from repro_torch.kernels.pulse_chase import kernel
+
+    d = kernel.LAYOUT_DEFINES
+    assert d["PULSE_NULL"] == tarena.NULL == -1
+    for prefix, mod in (("LIST", tlist), ("HASH", thash)):
+        assert (d[f"{prefix}_KEY"], d[f"{prefix}_VALUE"], d[f"{prefix}_NEXT"]) == (
+            mod.KEY, mod.VALUE, mod.NEXT)
+        assert d[f"{prefix}_KEY_NOT_FOUND"] == mod.KEY_NOT_FOUND
+    assert d["LIST_FIND_WORDS"] == tlist.SCRATCH_WORDS and d["LIST_SUM_WORDS"] == 2
+    assert (d["BST_KEY"], d["BST_VALUE"], d["BST_LEFT"], d["BST_RIGHT"]) == (
+        tbst.KEY, tbst.VALUE, tbst.LEFT, tbst.RIGHT)
+    assert (d["BST_S_KEY"], d["BST_S_Y"], d["BST_S_YKEY"], d["BST_S_YVAL"]) == (
+        tbst.S_KEY, tbst.S_Y, tbst.S_YKEY, tbst.S_YVAL)
+    for name in ("FANOUT", "IS_LEAF", "NUM_KEYS", "KEYS0", "CHILD0", "VAL0", "NEXT_LEAF",
+                 "KEY_NOT_FOUND", "INT_MIN", "INT_MAX", "RA_LO", "RA_HI", "RA_SUM", "RA_MIN",
+                 "RA_MAX", "RA_COUNT", "RA_WORDS"):
+        assert d[f"BTREE_{name}"] == getattr(tbtree, name), name
+    assert d["BTREE_ROW"] == tbtree.NEXT_LEAF + 1 <= tbtree.NODE_WORDS
+    assert {d[f"PULSE_BODY_{b.upper()}"] for b in kernel.BODIES} == set(range(len(kernel.BODIES)))
+    flags = set(kernel.NVCC_FLAGS)
+    assert all(f"-D{k}={v}" in flags for k, v in d.items())
+    src = kernel._SRC.read_text()
+    assert all(re.search(rf"\b{k}\b", src) for k in d), "a define the source never reads"
 
 
 def _walk_program(asm_mod):
@@ -259,22 +385,38 @@ def test_pad_ladder_matches():
 
 
 def test_cuda_tensor_with_torch_logic_raises_and_never_runs_plain(monkeypatch):
-    """On a CUDA tensor the wrapper launches the kernel or raises: logic
-    without an ISA program raises (checked with a fake CUDA test, no card)."""
+    """On a CUDA tensor the wrapper launches the kernel or raises: a
+    structure's own iterator reaches the launch with its native body, and
+    logic with neither an ISA program nor a native body raises (checked with
+    a fake CUDA test, no card)."""
     monkeypatch.setattr(tops, "_on_cuda", lambda t: True)
 
     def no_plain(*a, **k):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
     monkeypatch.setattr(tops, "chase_reference", no_plain)
+    monkeypatch.setattr(tops, "chase_run_reference", no_plain)
+    bodies = []
+
+    def spy(arena, ptr, scratch, status, iters, code, num_steps, *, body="isa", **kw):
+        bodies.append((body, code))
+        return ptr, scratch, status, iters
+
+    monkeypatch.setattr(tops._kernel, "launch", spy)
     ar, head = tlist.build(np.arange(8), np.arange(8), device=CPU)
     it = tlist.find_iterator()
     p0, s0 = it.init(torch.arange(4, dtype=torch.int32), head)
+    st0 = torch.zeros(4, dtype=torch.int32)
     before = tops.pulse_chase.launches
-    with pytest.raises(ValueError, match="ISA"):
-        tops.pulse_chase(ar.data, p0, s0, torch.zeros(4, dtype=torch.int32),
-                         logic_fn=tops.iterator_logic(it), num_steps=2)
-    assert tops.pulse_chase.launches == before
+    tops.pulse_chase(ar.data, p0, s0, st0, logic_fn=tops.iterator_logic(it), num_steps=2)
+    assert bodies == [("list_find", None)] and tops.pulse_chase.launches == before + 1
+    borrowed = titer.PulseIterator(3, lambda n, p, s: (n[:, 2], s),
+                                   lambda n, p, s: (n[:, 2] < 0, s), name="list_find")
+    for adhoc in (dataclasses.replace(it, name="adhoc"), borrowed):
+        with pytest.raises(ValueError, match="ISA"):
+            tops.pulse_chase(ar.data, p0, s0, st0, logic_fn=tops.iterator_logic(adhoc),
+                             num_steps=2)
+    assert tops.pulse_chase.launches == before + 1
 
 
 def test_kernel_launch_refuses_cpu_tensors():
@@ -302,45 +444,69 @@ def test_kernel_takes_its_opcodes_from_the_isa():
 
 
 def _port_case(name, rng, device):
-    """The port's own structure and lanes for an ISA find, with lanes that
-    start NULL, past the arena's end, or retired."""
+    """The port's own structure, iterator and lanes for a read iterator,
+    with lanes that start NULL, past the arena's end, or retired."""
     from repro_torch.core.structures import bst as tbst
 
     keys = rng.choice(np.arange(10**5), size=300, replace=False).astype(np.int32)
-    vals = rng.integers(0, 10**6, 300).astype(np.int32)
+    vals = rng.integers(-(2**31), 2**31 - 1, 300).astype(np.int32)
     q = torch.from_numpy(
         np.concatenate([keys[:40], rng.integers(10**5, 10**6, 24).astype(np.int32)]))
     if name == "list_find":
         ar, head = tlist.build(keys[:60], vals[:60], device=device)
-        p0, s0 = tlist.find_iterator().init(q, head)
+        it = tlist.find_iterator()
+        p0, s0 = it.init(q, head)
+    elif name == "list_sum":
+        b = tarena.ArenaBuilder(300, 4)
+        heads = [tlist.build_into(b, keys[i:i + n], vals[i:i + n])
+                 for i, n in ((0, 1), (1, 5), (6, 90), (96, 200))]
+        ar, it = b.finish(device=device), tlist.sum_iterator()
+        p0, s0 = it.init(torch.tensor(heads * 16, dtype=torch.int32))
     elif name == "hash_find":
         ar, heads = thash.build(keys, vals, 16, device=device)
-        p0, s0 = thash.find_iterator(16).init(q, heads)
+        it = thash.find_iterator(16)
+        p0, s0 = it.init(q, heads)
     elif name == "bst_find":
         ar, root, _ = tbst.build(keys, vals, device=device)
-        p0, s0 = tbst.find_iterator().init(q, root)
-    else:
+        it = tbst.find_iterator()
+        p0, s0 = it.init(q, root)
+    elif name == "btree_find":
         ar, root, _ = tbtree.build(keys, vals, device=device)
-        p0, s0 = tbtree.find_iterator().init(q, root)
+        it = tbtree.find_iterator()
+        p0, s0 = it.init(q, root)
+    else:  # btree_range_agg
+        ar, root, _ = tbtree.build(keys, vals, device=device)
+        it = tbtree.range_aggregate_iterator()
+        lo = torch.from_numpy(rng.integers(0, 10**5, 64).astype(np.int32))
+        p0, s0 = it.init(lo, lo + torch.from_numpy(rng.integers(0, 3000, 64).astype(np.int32)),
+                         root)
     p0[1], p0[5] = -1, ar.capacity + 3
     st0 = torch.zeros_like(p0)
     st0[7] = 1
-    return ar, [x.to(device) for x in (p0, s0, st0)]
+    return ar, it, [x.to(device) for x in (p0, s0, st0)]
+
+
+NATIVE = ["list_find", "list_sum", "hash_find", "bst_find", "btree_find", "btree_range_agg"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["list_find", "hash_find", "bst_find", "btree_find", "walk"])
+@pytest.mark.parametrize("name", ["list_find", "hash_find", "bst_find", "btree_find", "walk"]
+                         + [f"native_{n}" for n in NATIVE])
 def test_kernel_matches_plain_on_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; run on the card with pytest -m gpu")
     if name == "walk":
-        ar, lanes = _port_case("list_find", np.random.default_rng(4), "cuda")
+        ar, _, lanes = _port_case("list_find", np.random.default_rng(4), "cuda")
         lanes[1] = lanes[1][:, :1].contiguous()
-        prog = _walk_program(tisa)
+        it = tisa.as_pulse_iterator(_walk_program(tisa))
+    elif name.startswith("native_"):
+        ar, it, lanes = _port_case(name[len("native_"):], np.random.default_rng(len(name)),
+                                   "cuda")
     else:
-        ar, lanes = _port_case(name, np.random.default_rng(len(name)), "cuda")
-        prog = tprogs.all_programs()[name]
-    logic = tops.iterator_logic(tisa.as_pulse_iterator(prog))
+        ar, _, lanes = _port_case(name, np.random.default_rng(len(name)), "cuda")
+        it = tisa.as_pulse_iterator(tprogs.all_programs()[name])
+    logic = tops.iterator_logic(it)
+    assert (logic.program is None) == name.startswith("native_")
     for steps in (1, 4, 70):
         before = tops.pulse_chase.launches
         got = tops.pulse_chase(ar.data, *lanes, logic_fn=logic, num_steps=steps)
@@ -350,3 +516,38 @@ def test_kernel_matches_plain_on_card(name):
         torch.cuda.synchronize()
         for f, a, b in zip(FIELDS, want, got):
             assert torch.equal(a, b), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_steps,quantum", [(64, 8), (13, 4), (10, 8), (0, 8)])
+@pytest.mark.parametrize("name", ["hash_find", "native_hash_find", "btree_find",
+                                  "native_btree_range_agg"])
+def test_run_matches_reference_on_card(name, max_steps, quantum):
+    """``pulse_chase_run``: one launch, the fault check on the card, equal
+    to its plain version on a faulting case (shard 0 revoked, NULL and
+    out-of-range entries) with budgets on and off the quantum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; run on the card with pytest -m gpu")
+    base = name[len("native_"):] if name.startswith("native_") else name
+    ar, it, lanes = _port_case(base, np.random.default_rng(3), "cpu")
+    data = ar.data.cuda()
+    quarter = ar.capacity // 4  # revoked: chains walk into it, B+tree leaves lie in it
+    check = tops.FaultCheck(torch.tensor([0, quarter, ar.capacity], dtype=torch.int32).cuda(),
+                            torch.tensor([0, 1], dtype=torch.int32).cuda(), ar.capacity)
+    if not name.startswith("native_"):
+        it = tisa.as_pulse_iterator(tprogs.all_programs()[name])
+    logic = tops.iterator_logic(it)
+    lanes = [x.cuda() for x in lanes]
+    before = tops.pulse_chase.launches
+    got = tops.pulse_chase_run(data, *lanes, logic_fn=logic, max_steps=max_steps,
+                               depth_quantum=quantum, fault_fn=check)
+    assert tops.pulse_chase.launches == before + 1
+    want = tref.chase_run_reference(data, *lanes, logic, max_steps, quantum, check)
+    torch.cuda.synchronize()
+    for f, a, b in zip(FIELDS[:3], want[:3], got[:3]):
+        assert torch.equal(a, b), f
+    assert torch.equal(want[3], got[3].retire_step) and torch.equal(want[4], got[3].faulted)
+    assert got[3].faulted.any()
+    with pytest.raises(ValueError, match="FaultCheck"):
+        tops.pulse_chase_run(data, *lanes, logic_fn=logic, max_steps=max_steps,
+                             fault_fn=lambda p: p < 0)
