@@ -9,7 +9,8 @@ Run from the root of the repository, on a machine with a CUDA card and
 Phases (any failure exits non-zero before the last line):
   1. device and build: the card's name and power limit, then the four
      kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
-     started together) with their ``-Xptxas -v`` reports;
+     started together) with their ``-Xptxas -v`` reports (registers, and
+     stack frame and spills of every ``paged_decode*`` instantiation);
   2. ``pulse_chase`` against its plain versions, bit for bit (tolerance 0:
      the state is int32), on the same CUDA tensors: the fixed-depth entry
      point (``ops.pulse_chase`` against ``ref.chase_reference``) with the
@@ -39,10 +40,16 @@ Phases (any failure exits non-zero before the last line):
      ``scaled_dot_product_attention`` (the library yardstick, never used by
      the port), with its bound at the f32 FMA peak and, for the 3xTF32
      products the kernel runs on the tensor cores, at the TF32 peak;
-  5. ``paged_attention`` against its plain version on the shapes of
-     ``tests/test_kernels.py``, at head dims 112 and 16, at Qwen3-0.6B's
-     widths (H=16, Hk=8, D=128, page 16, lengths 512-528, f32) and at
-     kimi's (H=64, Hk=8, D=112), same tolerances;
+  5. ``paged_attention`` (two CUDA kernels a call when it splits:
+     ``paged_decode_split`` and ``paged_decode_merge``, timed together)
+     against its plain version on the shapes of ``tests/test_kernels.py``,
+     at head dims 112 and 16, G = H/Hk of 3 and 6, page 8 with lengths on
+     split boundaries, a length of 0 among long sequences and one sequence
+     over 512 page slots, then timed at Qwen3-0.6B's widths (H=16, Hk=8,
+     D=128, page 16, lengths 512-528, f32), at kimi's (H=64, Hk=8, D=112)
+     and at one sequence of 8,192 tokens of Qwen's widths, with the split
+     count, the blocks launched and the merge kernel's share; same
+     tolerances;
   6. the serve path: ``repro_torch.launch.serve.main`` on the full-width
      ``qwen3_0_6b`` (seeded weights; 8 requests, 4 slots, prompt 512, 16
      new tokens): every request finishes and ``flash_attention`` launches
@@ -74,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -412,11 +420,27 @@ def phase_device():
                 entry = line.split("'")[1] if "'" in line else line
             elif "ptxas info" in line and "Used" in line:
                 report[src.name].append((entry, line.split(":", 1)[1].strip()))
-            elif "spill" in line and not line.strip().endswith("0 bytes spill loads"):
+            elif "spill" in line and ("paged_decode" in entry
+                                      or not line.strip().endswith("0 bytes spill loads")):
                 report[src.name].append((entry, line.strip()))
         for entry, info in report[src.name]:
             log(f"    {entry}: {info}")
     return name, smi, report
+
+
+def ptxas_summary(report, name: str):
+    """Registers (least, most) and the largest stack frame and spill bytes
+    over the entries of a build report whose names contain ``name``."""
+    regs, worst = [], 0
+    for entry, info in report:
+        if name not in entry:
+            continue
+        if "registers" in info:
+            regs.append(int(info.split("Used")[1].split()[0]))
+        if "stack frame" in info:
+            worst = max([worst] + [int(n) for n in re.findall(r"(\d+) bytes", info)])
+    return dict(instantiations=len(regs), registers=[min(regs), max(regs)] if regs else None,
+                max_stack_or_spill_bytes=worst)
 
 
 def phase_kernel_vs_plain(rng):
@@ -812,38 +836,49 @@ def paged_work(H, Hk, D, lengths, B, P, elem_bytes=4):
 
 def time_paged(gen, B, H, Hk, D, page=16, lengths=(528, 523, 517, 512)):
     """Kernel and plain version at one decode step's shape, f32, every call
-    reading its pages from HBM."""
-    from repro_torch.kernels.paged_attention import ops, ref
+    reading its pages from HBM; with the split plan (S splits per sequence
+    and KV head, the blocks launched) and the merge kernel's share of the
+    call where the kernel splits."""
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
 
     lengths = list(lengths)
     q, kp, vp, pt, ln = paged_inputs(gen, B, H, Hk, D, page, lengths, "float32")
     got = ops.paged_attention(q, kp, vp, pt, ln)
     ok, err = _close(got, ref.paged_attention_reference(q, kp, vp, pt, ln), "float32")
-    log(f"  paged H={H} Hk={Hk} D={D}, lengths {lengths}: max_abs_err={err:.3g} ok={ok}")
+    log(f"  paged B={B} H={H} Hk={Hk} D={D}, lengths {lengths}: max_abs_err={err:.3g} ok={ok}")
     if not ok:
         raise AssertionError("paged_attention kernel disagrees with its plain version")
-    # a decode step reads each layer's pages once: time over 8 copies of the
-    # pools (beyond the L2) so that every call reads from HBM
-    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(7)]
+    # a decode step reads each layer's pages once: time over copies of the
+    # pools that together exceed the L2 (8, or 2 where one pool does) so
+    # that every call reads from HBM
+    copies = 2 if kp.numel() * kp.element_size() > 50e6 else 8
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(copies - 1)]
     launches = [lambda k=k, v=v: ops.paged_attention(q, k, v, pt, ln) for k, v in pools]
     events_ms = time_cuda_rotating(launches, 20)
     device_ms = kernel_device_ms(launches, 10, "paged_decode")
+    merge_ms = kernel_device_ms(launches, 10, "paged_decode_merge")
     ms = events_ms if device_ms is None else device_ms
     warm_ms = kernel_device_ms([lambda: ops.paged_attention(q, kp, vp, pt, ln)], 80,
                                "paged_decode")
     plain_ms = time_cuda_rotating(
         [lambda k=k, v=v: ref.paged_attention_reference(q, k, v, pt, ln) for k, v in pools], 2)
     del pools
+    plan = getattr(kernel, "launch_plan", None)  # None for a source without a split plan
+    S = plan(q.device, B, H, Hk, D, pt.shape[1], q.dtype) if plan else None
     flops, nbytes = paged_work(H, Hk, D, lengths, B, pt.shape[1])
     bound_ms, bound_by = bound(flops, nbytes)
     row = dict(shape=[B, H, Hk, D, page], lengths=lengths, dtype="float32", max_abs_err=err,
                ms=ms, ms_source="events" if device_ms is None else "profiler",
                ms_events=events_ms, ms_l2_warm=warm_ms, plain_ms=plain_ms, flops=flops,
-               bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
-    log(f"  paged H={H} Hk={Hk} D={D}: kernel {ms:.4f} ms from HBM ({row['ms_source']}; "
+               bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by, splits=S,
+               blocks=None if S is None else Hk * B * S + (Hk * B if S > 1 else 0),
+               merge_ms=merge_ms,
+               merge_share=None if merge_ms is None or device_ms is None else merge_ms / device_ms)
+    log(f"  paged B={B} H={H} Hk={Hk} D={D}: kernel {ms:.4f} ms from HBM ({row['ms_source']}; "
         f"{warm_ms} ms with the pools in L2; CUDA events over the rotation {events_ms:.4f} "
         f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s")
+        f"{nbytes / 1e6:.2f} MB), {nbytes / ms / 1e6:.1f} GB/s; S={S}, blocks {row['blocks']}, "
+        f"merge {merge_ms} ms")
     return row
 
 
@@ -856,28 +891,44 @@ def phase_paged(seed):
     cases = [(2, 4, 2, 64, 16, 4, 32), (1, 8, 8, 32, 8, 8, 64), (3, 4, 1, 64, 16, 3, 16),
              # head dims 112 (kimi: G = 8; zamba2: G = 1) and 16
              (2, 64, 8, 112, 16, 9, 40), (2, 32, 32, 112, 16, 5, 12),
-             (3, 4, 2, 16, 16, 9, 40), (2, 8, 1, 16, 8, 6, 20)]
+             (3, 4, 2, 16, 16, 9, 40), (2, 8, 1, 16, 8, 6, 20),
+             # G = 3 and 6; one sequence over 512 page slots (many splits)
+             (2, 6, 2, 64, 16, 9, 40), (2, 48, 8, 112, 16, 9, 40),
+             (1, 16, 8, 128, 16, 512, 520),
+             # page 8 with lengths on split boundaries; a length 0 among long ones
+             (4, 8, 2, 64, 8, 12, 60, (8, 16, 40, 96)),
+             (4, 16, 8, 128, 16, 64, 300, (1024, 0, 1000, 517))]
     checks = []
     for dtype in ("float32", "bfloat16"):
-        for B, H, Hk, D, page, P, N in cases:
+        for case in cases:
+            B, H, Hk, D, page, P, N = case[:7]
             q = _randn(gen, (B, H, D), dtype)
             kp, vp = _randn(gen, (N, page, Hk, D), dtype), _randn(gen, (N, page, Hk, D), dtype)
             pt = torch.randint(0, N, (B, P), generator=gen, device="cuda", dtype=torch.int32)
-            ln = torch.randint(1, P * page + 1, (B,), generator=gen, device="cuda",
-                               dtype=torch.int32)
+            if len(case) > 7:
+                ln = torch.tensor(case[7], device="cuda", dtype=torch.int32)
+            else:
+                ln = torch.randint(1, P * page + 1, (B,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
             got = ops.paged_attention(q, kp, vp, pt, ln)
-            ok, err = _close(got, ref.paged_attention_reference(q, kp, vp, pt, ln), dtype)
+            live = ln > 0  # length 0: the kernel gives 0, the plain version NaN
+            ok, err = _close(got[live], ref.paged_attention_reference(q, kp, vp, pt, ln)[live],
+                             dtype)
+            ok = ok and bool((got[~live] == 0).all().item())
             checks.append(dict(shape=[B, H, Hk, D, page, P, N], dtype=dtype, within_tol=ok,
-                               max_abs_err=err))
-            log(f"  paged {dtype:8s} B={B} H={H} Hk={Hk} D={D} page={page} P={P} N={N}: "
+                               max_abs_err=err, lengths=list(case[7]) if len(case) > 7 else None))
+            log(f"  paged {dtype:8s} B={B} H={H} Hk={Hk} D={D} page={page} P={P} N={N}"
+                f"{' lengths ' + str(list(case[7])) if len(case) > 7 else ''}: "
                 f"max_abs_err={err:.3g} ok={ok}")
             if not ok:
                 raise AssertionError("paged_attention kernel disagrees with its plain version")
 
     # one decode step of 4 sequences of 512-528 tokens at Qwen3-0.6B's widths,
-    # then at kimi's heads (64 of 112, G = 8)
+    # then at kimi's heads (64 of 112, G = 8), then one sequence of 8,192
+    # tokens at Qwen3-0.6B's widths
     row = time_paged(gen, 4, 16, 8, 128)
     row["d112"] = time_paged(gen, 4, 64, 8, 112)
+    row["long"] = time_paged(gen, 1, 16, 8, 128, lengths=(8192,))
     log(json.dumps({"phase": "paged_vs_plain", "name": "paged_attention", "checks": checks,
                     "qwen_widths": row}))
     return checks, row
@@ -1381,6 +1432,12 @@ def main(argv=None) -> int:
         paged_decode=decode_row,
         **{f"{k}_d112": paged_row["d112"][k] for k in ("ms", "plain_ms", "bound_ms")},
         timed_on_d112="B=4 H=64 Hk=8 D=112 (kimi_k2_1t_a32b's heads), lengths 512-528, f32",
+        **{f"{k}_long": paged_row["long"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        timed_on_long="B=1 H=16 Hk=8 D=128 (Qwen3-0.6B widths), 8,192 tokens, f32",
+        splits={k: paged_row[k]["splits"] for k in ("d112", "long")} | {"qwen": paged_row["splits"]},
+        merge_share={k: paged_row[k]["merge_share"] for k in ("d112", "long")}
+        | {"qwen": paged_row["merge_share"]},
+        ptxas=ptxas_summary(build_report["paged_attention"], "paged_decode"),
     )
     ssd_entry = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
