@@ -14,8 +14,9 @@ Phases (any failure exits non-zero before the last line):
   2. ``pulse_chase`` against its plain versions, bit for bit (tolerance 0:
      the state is int32), on the same CUDA tensors: the fixed-depth entry
      point (``ops.pulse_chase`` against ``ref.chase_reference``) with the
-     four ISA read programs and the six native bodies (the structures' own
-     iterators), each at a small size and at the paper's size; then the
+     four ISA read programs and the seven native bodies (the structures' own
+     iterators, ``skiplist_find`` among them), each at a small size and at
+     the paper's size (65,536 keys for the skip list); then the
      whole-traversal entry point (``ops.pulse_chase_run`` against
      ``ref.chase_run_reference``) with every body on a faulting case (a
      revoked shard, NULL and out-of-range entries) at budgets on and off
@@ -71,7 +72,25 @@ Phases (any failure exits non-zero before the last line):
      requests, 4 slots, prompt 512, 16 new tokens): every request
      finishes and ``ssd_scan`` launches 48 times per prefill call; then the
      same requests on the plain ``ssm_backend="chunked"``: prefill logits
-     agree within 1e-3 absolute, and the emitted tokens are compared.
+     agree within 1e-3 absolute, and the emitted tokens are compared;
+ 10. the write path: ``PulseEngine(arena).execute`` (default backend) of
+     mutating iterators on a CUDA arena, then the same call on a CPU copy
+     of the input arena: ``webservice_rw`` (the writable hash table, 200,000
+     keys in 4,096 buckets; 65,536 ops: 90% YCSB-Zipfian finds, 5% inserts
+     of fresh keys, 5% deletes of stored keys, one per bucket and never a
+     chain's tail), ``wiredtiger_update`` (the B+tree of 500,000 keys;
+     65,536 updates of distinct keys) and ``skiplist_rw`` (65,536 keys; 4,096
+     inserts, then 4,096 deletes of non-adjacent level-0 keys).  Gates: the
+     card's and the CPU's records, ``RoutingStats`` and final ``data`` and
+     ``heap`` bit-equal; the input arena unchanged; every record DONE and
+     every found value right; the committed arena read back through
+     ``execute`` on the kernel's native body (``hash_find``, ``btree_find``,
+     ``skiplist_find``; exactly one launch each) finds every inserted and
+     updated key with its value, no deleted key, and 1,024 untouched keys
+     with their old values.  Reported: ops/s, supersteps, commits, epochs,
+     the chase's and the commit's wall time, bytes between host and device
+     per superstep, peak device memory, the read-back's lookups/s, and the
+     ``skiplist_find`` body's full-depth time beside its bound.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -221,6 +240,22 @@ def build_aggregate(kind: str, n_keys: int, rng, *, B: int = B_MAIN):
     span = torch.from_numpy(rng.integers(0, top, B).astype(np.int32)).cuda()
     ptr0, scr0 = it.init(lo, lo + span, root)
     return arena, it, ptr0, scr0
+
+
+def build_skiplist(n_keys: int, rng, *, B: int = B_MAIN):
+    """(arena on the card, find iterator, ptr0, scr0, (keys, values)) of a
+    skip list of ``n_keys`` keys and ``B`` YCSB-Zipfian queries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.structures import skiplist
+
+    keys = make_keys(rng, n_keys)
+    values = rng.integers(0, 2**31 - 1, n_keys).astype(np.int32)
+    arena, head = skiplist.build(keys, values)
+    it = skiplist.find_iterator()
+    ptr0, scr0 = it.init(torch.from_numpy(make_queries(rng, keys, B)).cuda(), head)
+    return arena, it, ptr0, scr0, (keys, values)
 
 
 def _check_find(res, idx, want, *, hops: bool) -> bool:
@@ -462,6 +497,8 @@ def phase_kernel_vs_plain(rng):
         ("list_sum", 200_000, 0, B_MAIN, 64),
         ("btree_range_agg", 512, 0, 256, 16),
         ("btree_range_agg", 500_000, 0, B_MAIN, 24),
+        ("skiplist_find", 512, 0, 256, 40),
+        ("skiplist_find", 65_536, 0, B_MAIN, 64),
     ]
     # whole runs: budgets on and off the depth quantum (small); at the
     # paper's size the default quantum, and for the native bodies a budget
@@ -486,6 +523,9 @@ def phase_kernel_vs_plain(rng):
     for kind, n, nb, B, steps in cases:
         if kind in ("list_sum", "btree_range_agg"):
             arena, it, ptr0, scr0 = build_aggregate(kind, n, rng, B=B)
+            routes = {"native": it}
+        elif kind == "skiplist_find":
+            arena, it, ptr0, scr0, _ = build_skiplist(n, rng, B=B)
             routes = {"native": it}
         else:
             arena, routes, ptr0, scr0, _ = build_structure(kind, n, rng, n_buckets=nb, B=B)
@@ -678,6 +718,423 @@ def phase_main(rng, workloads):
         del arena, eng, first
         torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------- write path ---------------------------------
+
+READBACK_SAMPLE = 1024  # untouched keys read back per batch
+SKIP_KEYS, SKIP_OPS = 65_536, 4_096  # skiplist_rw: keys, then inserts and deletes
+
+
+def _digest(arena) -> str:
+    """A checksum of an arena's data and heap (read on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (arena.data, arena.heap):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _stats_diff(a, b):
+    """The names of the RoutingStats fields on which two runs differ."""
+    import dataclasses
+
+    import numpy as np
+
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+        if not same:
+            out.append(f.name)
+    return out
+
+
+def _lookup(keys_sorted, vals_sorted, q):
+    """(found, value) of each query in a sorted key table."""
+    import numpy as np
+
+    i = np.clip(np.searchsorted(keys_sorted, q), 0, len(keys_sorted) - 1)
+    found = keys_sorted[i] == q
+    return found, np.where(found, vals_sorted[i], 0)
+
+
+def _arena_fields(b):
+    """The host arrays of a builder's arena (data, bounds, perms, heap)."""
+    ar = b.finish(device="cpu")
+    return [t.numpy().copy() for t in (ar.data, ar.bounds, ar.perms, ar.heap)]
+
+
+def _untouched(rng, pool, n):
+    import numpy as np
+
+    return rng.choice(pool, min(n, len(pool)), replace=False).astype(np.int32)
+
+
+def _webservice_rw(rng):
+    """The writable hash table (the paper's Table 3 size) under 90% YCSB
+    finds, 5% inserts of fresh keys and 5% deletes of stored keys (one per
+    bucket, never a chain's tail)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core.arena import ArenaBuilder
+    from repro_torch.core.structures import hash_table, linked_list
+
+    ws = pulse_paper.WEBSERVICE
+    n, NB, B = ws.n_keys, ws.n_buckets, B_MAIN
+    n_ins = n_del = int(round(0.05 * B))
+    allk = make_keys(rng, n + 2 * n_ins)
+    stored = allk[:n]
+    values = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    finds = make_queries(rng, stored, B - n_ins - n_del)
+    fresh = allk[n:][~np.isin(allk[n:], finds)][:n_ins]
+    fresh_vals = rng.integers(0, 2**31 - 1, n_ins).astype(np.int32)
+    # victims: one per bucket, never the chain's tail (the bucket's first
+    # key in build order: the build pushes each key in front)
+    kb = hash_table._np_hash(stored, NB)
+    order = np.argsort(kb, kind="stable")
+    starts = np.flatnonzero(np.r_[True, kb[order][1:] != kb[order][:-1]])
+    counts = np.diff(np.r_[starts, n])
+    pick = rng.choice(np.flatnonzero(counts >= 2), n_del, replace=False)
+    offs = 1 + (rng.random(n_del) * (counts[pick] - 1)).astype(np.int64)
+    victims = stored[order[starts[pick] + offs]]
+    ops = np.concatenate([np.zeros(len(finds)), np.ones(n_ins), np.full(n_del, 2)])
+    qk = np.concatenate([finds, fresh, victims]).astype(np.int32)
+    qv = np.concatenate([np.zeros(len(finds)), fresh_vals, np.zeros(n_del)]).astype(np.int32)
+    perm = rng.permutation(B)
+    ops, qk, qv = ops[perm].astype(np.int32), qk[perm], qv[perm]
+    b = ArenaBuilder(NB + n + n_ins, hash_table.NODE_WORDS)
+    sent = hash_table.build_writable(b, stored, values, NB)
+    it = hash_table.rw_iterator(NB)
+    p0, s0 = it.init(ops, qk, qv, sent)
+    srt = np.argsort(stored)
+    ks, vs = stored[srt], values[srt]
+
+    def check(st, scr):
+        bad = []
+        if not (st == 1).all():
+            bad.append(f"{int((st != 1).sum())} records not DONE")
+        f = ops == linked_list.OP_FIND
+        hit = f & (scr[:, linked_list.RW_RES] == 1)
+        known, want = _lookup(ks, vs, qk[hit])
+        if not known.all() or not (scr[hit, linked_list.RW_VAL] == want).all():
+            bad.append("a find reported a wrong value")
+        if not (scr[ops == linked_list.OP_DELETE, linked_list.RW_RES] == 1).all():
+            bad.append("a delete of a stored key missed")
+        if not (scr[ops == linked_list.OP_INSERT, linked_list.RW_RES] >= 0).all():
+            bad.append("an insert holds no address")
+        return bad, dict(finds_found=int(hit.sum()), finds=int(f.sum()))
+
+    sample = _untouched(rng, np.setdiff1d(stored, victims), READBACK_SAMPLE)
+    rq = np.concatenate([fresh, victims, sample])
+    rwant = (np.r_[np.ones(n_ins), np.zeros(n_del), np.ones(len(sample))].astype(bool),
+             np.r_[fresh_vals, np.zeros(n_del, np.int32), _lookup(ks, vs, sample)[1]])
+    fit = hash_table.find_iterator(NB)
+    return dict(name="webservice_rw", structure="hash", keys=n, fields=_arena_fields(b),
+                steps=[("rw", it, p0, s0)], check=[check],
+                readback=(fit, *fit.init(torch.from_numpy(rq), sent), rwant),
+                traffic=dict(finds=len(finds), inserts=n_ins, deletes=n_del))
+
+
+def _wiredtiger_update(rng):
+    """The B+tree (the paper's Table 3 size) under in-place value updates of
+    distinct keys, drawn uniformly without replacement."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core.arena import ArenaBuilder
+    from repro_torch.core.structures import btree
+
+    n = pulse_paper.WIREDTIGER.n_keys
+    keys = make_keys(rng, n)
+    values = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    b = ArenaBuilder(btree.node_estimate(n), btree.NODE_WORDS)
+    root, height = btree.build_into(b, keys, values)
+    upd = rng.choice(n, B_MAIN, replace=False)
+    q, nv = keys[upd], rng.integers(0, 2**31 - 1, B_MAIN).astype(np.int32)
+    it = btree.update_iterator()
+    p0, s0 = it.init(torch.from_numpy(q), torch.from_numpy(nv), root)
+
+    def check(st, scr):
+        bad = []
+        if not (st == 1).all():
+            bad.append("records not DONE")
+        if not (scr[:, btree.U_FOUND] == 1).all():
+            bad.append("an update missed its key")
+        return bad, {}
+
+    sample = _untouched(rng, np.setdiff1d(np.arange(n), upd), READBACK_SAMPLE)
+    rq = np.concatenate([q, keys[sample]])
+    rwant = (np.ones(len(rq), bool), np.concatenate([nv, values[sample]]))
+    fit = btree.find_iterator()
+    return dict(name="wiredtiger_update", structure="btree", keys=n, fields=_arena_fields(b),
+                steps=[("update", it, p0, s0)], check=[check],
+                readback=(fit, *fit.init(torch.from_numpy(rq), root), rwant),
+                traffic=dict(updates=B_MAIN, height=height))
+
+
+def _skiplist_rw(rng):
+    """A skip list of SKIP_KEYS keys: SKIP_OPS inserts of fresh keys, then
+    SKIP_OPS deletes of build-time level-0 keys, no two of them neighbours."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.arena import ArenaBuilder
+    from repro_torch.core.structures import skiplist
+
+    n, n_op = SKIP_KEYS, SKIP_OPS
+    allk = make_keys(rng, n + n_op)
+    stored, fresh = allk[:n], allk[n:]
+    values = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    fresh_vals = rng.integers(0, 2**31 - 1, n_op).astype(np.int32)
+    b = ArenaBuilder(n + 1 + n_op, skiplist.NODE_WORDS)
+    head = skiplist.build_into(b, stored, values)
+    srt = np.argsort(stored)
+    ks, vs = stored[srt], values[srt]
+    # level-0 keys at even ranks: no two victims are neighbours
+    rank = np.flatnonzero((skiplist._level_of(np.arange(n)) == 0) & (np.arange(n) % 2 == 0))
+    victims = ks[rng.choice(rank, n_op, replace=False)]
+    ins, dele = skiplist.insert_iterator(), skiplist.delete_iterator()
+    pi, si = ins.init(torch.from_numpy(fresh), torch.from_numpy(fresh_vals), head)
+    pd, sd = dele.init(torch.from_numpy(victims), head)
+
+    def check_insert(st, scr):
+        return ([] if (st == 1).all() else ["insert: records not DONE"]), {}
+
+    def check_delete(st, scr):
+        bad = [] if (st == 1).all() else ["delete: records not DONE"]
+        if not (scr[:, skiplist.SD_RES] == 1).all():
+            bad.append("delete: a delete missed")
+        return bad, {}
+
+    sample = _untouched(rng, np.setdiff1d(stored, victims), READBACK_SAMPLE)
+    rq = np.concatenate([fresh, victims, sample])
+    rwant = (np.r_[np.ones(n_op), np.zeros(n_op), np.ones(len(sample))].astype(bool),
+             np.r_[fresh_vals, np.zeros(n_op, np.int32), _lookup(ks, vs, sample)[1]])
+    fit = skiplist.find_iterator()
+    return dict(name="skiplist_rw", structure="skiplist", keys=n, fields=_arena_fields(b),
+                steps=[("insert", ins, pi, si), ("delete", dele, pd, sd)],
+                check=[check_insert, check_delete],
+                readback=(fit, *fit.init(torch.from_numpy(rq), head), rwant),
+                traffic=dict(inserts=n_op, deletes=n_op))
+
+
+def write_batches(rng):
+    """The three batches of phase 10, each a dict with the host arrays of
+    its input arena (``fields``), its steps (``steps``: name, iterator,
+    ptr0, scr0 on the host), a check per step (``check``) and its read-back
+    (``readback``: iterator, ptr0, scr0, the (found, value) wanted per
+    lane)."""
+    return [_webservice_rw(rng), _wiredtiger_update(rng), _skiplist_rw(rng)]
+
+
+def _run_batch(wb, device: str):
+    """Every step of a batch through ``PulseEngine.execute`` on a fresh
+    engine over the batch's input arena on ``device``; returns (input
+    arena, its digest before, [(ExecResult, seconds, peak MiB, kernel
+    launches)], the engine's final arena)."""
+    import torch
+
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.engine import PulseEngine
+    from repro_torch.kernels.pulse_chase import ops
+
+    arena = arena_from_numpy(*wb["fields"], device=device)
+    digest = _digest(arena)
+    eng = PulseEngine(arena)
+    runs = []
+    for _, it, p0, s0 in wb["steps"]:
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = ops.pulse_chase.launches
+        t0 = time.perf_counter()
+        res = eng.execute(it, p0.to(device), s0.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20 if device == "cuda" else None
+        runs.append((res, secs, peak, ops.pulse_chase.launches - before))
+    return arena, digest, runs, eng.arena
+
+
+def _store_class_on_card():
+    """The store class on the card: the raw int32 shift past the word
+    (reported), and the VM's staged mutation of a W = 40 program equal to
+    the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isa
+    from repro_torch.core.arena import bit32
+
+    k = torch.tensor([0, 31, 32, 33, 40, 63], dtype=torch.int32)
+    raw = (torch.ones(6, dtype=torch.int32, device="cuda") << k.cuda()).cpu().tolist()
+    raw_cpu = (torch.ones(6, dtype=torch.int32) << k).tolist()
+    mask = bit32(k.cuda()).cpu().tolist()
+    if mask != [1, -(2**31), 0, 0, 0, 0]:
+        raise AssertionError(f"bit32 on the card gives {mask}")
+    a = isa.Asm(scratch_words=2, node_words=40, name="wide")
+    a.loadn(1, 33)
+    for w in (3, 31, 32, 39):
+        a.storen(w, 1)
+    a.setptr(35, 1, 1)
+    a.alloc(1)
+    a.getptr(2)
+    a.next_iter(2)
+    code = a.finish().code
+    g = np.random.default_rng(0)
+    nodes = torch.from_numpy(g.integers(-9, 9, (64, 40)).astype(np.int32))
+    ptr = torch.arange(64, dtype=torch.int32)
+    scr = torch.zeros((64, 2), dtype=torch.int32)
+    cpu = isa.run_iteration_mut(code, nodes, ptr, scr)
+    card = isa.run_iteration_mut(code, nodes.cuda(), ptr.cuda(), scr.cuda())
+    def flat(out):
+        return [*out[:3], *out[3]]
+
+    if not all(torch.equal(x, y.cpu()) for x, y in zip(flat(cpu), flat(card))):
+        raise AssertionError("the store-class VM differs between the card and the CPU")
+    row = dict(cuda_int32_shift=dict(zip(map(int, k), raw)),
+               cpu_int32_shift=dict(zip(map(int, k), raw_cpu)), bit32=mask, vm_equal=True)
+    log(f"  int32 1 << k on the card for k = {k.tolist()}: {raw} (CPU {raw_cpu}); "
+        f"arena.bit32: {mask}; W = 40 store-class VM card == CPU")
+    return row
+
+
+def phase_write(rng):
+    """Phase 10: the write path on the card, held against the CPU, then the
+    committed arenas read back on the kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import PulseEngine
+    from repro_torch.kernels.pulse_chase import ops, ref
+
+    t_phase = time.perf_counter()
+    shift_row = _store_class_on_card()
+    rows, readback_launches = [], 0
+    body = None
+    for wb in write_batches(rng):
+        name = wb["name"]
+        arena, digest, card, final = _run_batch(wb, "cuda")
+        cpu_arena, _, host, cpu_final = _run_batch(wb, "cpu")
+        if _digest(arena) != digest or _digest(cpu_arena) != digest:
+            raise AssertionError(f"{name}: the input arena changed")
+        if not (final.data.is_cuda and final.heap.is_cuda):
+            raise AssertionError(f"{name}: the committed arena left the card")
+        if not (torch.equal(final.data.cpu(), cpu_final.data)
+                and torch.equal(final.heap.cpu(), cpu_final.heap)):
+            raise AssertionError(f"{name}: the card's and the CPU's final arenas differ")
+        steps = []
+        for (sname, *_), check, (g, g_s, peak, g_launch), (c, c_s, _, _) in zip(
+                wb["steps"], wb["check"], card, host):
+            for f in ("ptr", "scratch", "status", "iters"):
+                if not (getattr(g, f).is_cuda and torch.equal(getattr(g, f).cpu(),
+                                                              getattr(c, f))):
+                    raise AssertionError(f"{name}/{sname}: card and CPU differ on {f}")
+            diff = _stats_diff(g.stats, c.stats)
+            if diff:
+                raise AssertionError(f"{name}/{sname}: RoutingStats differ on {diff}")
+            if g_launch != 0:
+                raise AssertionError(f"{name}/{sname}: the write path launched the read-only "
+                                     f"kernel {g_launch} times")
+            bad, extra = check(g.status.cpu().numpy(), g.scratch.cpu().numpy())
+            if bad:
+                raise AssertionError(f"{name}/{sname}: {'; '.join(bad)}")
+            tr = g.commit_trace
+            B = g.ptr.shape[0]
+            st = dict(step=sname, ops=B, execute_s=g_s, ops_per_s=B / g_s, cpu_execute_s=c_s,
+                      supersteps=g.stats.supersteps, commits=g.stats.commits,
+                      epochs=g.stats.epochs, chase_s=float(np.sum(tr.chase_s)),
+                      commit_s=float(np.sum(tr.commit_s)),
+                      h2d_bytes_per_superstep=float(np.mean(tr.h2d_bytes)),
+                      d2h_bytes_per_superstep=float(np.mean(tr.d2h_bytes)),
+                      rows_written=int(np.sum(tr.rows_written)), peak_mib=peak,
+                      iters_max=int(g.iters.max().item()), **extra)
+            steps.append(st)
+            log(f"[{name}] {sname}: {B} ops in {g_s:.4f} s on the card ({B / g_s:.4g} ops/s; "
+                f"CPU copy {c_s:.4f} s): supersteps {st['supersteps']}, commits "
+                f"{st['commits']}, epochs {st['epochs']}; chase {st['chase_s']:.4f} s, commit "
+                f"{st['commit_s']:.4f} s; host->device {st['h2d_bytes_per_superstep'] / 1e6:.3f} "
+                f"MB and device->host {st['d2h_bytes_per_superstep'] / 1e6:.3f} MB per "
+                f"superstep, {st['rows_written']} rows written back; peak {peak:.1f} MiB; "
+                f"card == CPU (records, stats, arena)")
+
+        # the committed arena read back on the kernel's native body
+        fit, rp, rs, (want_found, want_val) = wb["readback"]
+        eng = PulseEngine(final)
+        rp, rs = rp.cuda(), rs.cuda()
+        ops.pulse_chase.launches = 0
+        res = eng.execute(fit, rp, rs, max_iters=4096)
+        torch.cuda.synchronize()
+        launches = ops.pulse_chase.launches
+        readback_launches += launches
+        if launches != 1:
+            raise AssertionError(f"{name}: the read-back launched {launches} kernels, not one")
+        found = res.scratch[:, 2].cpu().numpy() == 1
+        val = res.scratch[:, 1].cpu().numpy()
+        if not (np.array_equal(found, want_found)
+                and np.array_equal(val[want_found], want_val[want_found])):
+            raise AssertionError(f"{name}: the read-back disagrees with the batch "
+                                 f"({int((found != want_found).sum())} lanes found wrong)")
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.execute(fit, rp, rs, max_iters=4096)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        lanes = rp.shape[0]
+        body_name = ops.iterator_logic(fit).native.name
+        row = dict(batch=name, structure=wb["structure"], keys=wb["keys"], traffic=wb["traffic"],
+                   steps=steps, readback_body=body_name, readback_lanes=lanes,
+                   readback_launches=launches, readback_s=secs,
+                   readback_lookups_per_s=lanes / min(secs),
+                   readback_iters_max=int(res.iters.max().item()))
+        log(f"[{name}] read-back of {lanes} keys on {body_name}: 1 launch, inserted/updated "
+            f"found with their values, deleted gone, untouched unchanged; "
+            f"{row['readback_lookups_per_s']:.4g} lookups/s (execute s "
+            f"{[round(x, 6) for x in secs]})")
+
+        if body_name == "skiplist_find":
+            # the body at full depth: one fixed-depth launch over the lanes
+            logic = ops.iterator_logic(fit)
+            depth = int(res.iters.max().item())
+            st0 = torch.zeros_like(rp)
+            one = ops.pulse_chase(final.data, rp, rs, st0, logic_fn=logic, num_steps=depth)
+            torch.cuda.synchronize()
+            lane_steps = int(one[3].long().sum().item())
+            full = [lambda: ops.pulse_chase(final.data, rp, rs, st0, logic_fn=logic,
+                                            num_steps=depth)]
+            k_events = time_cuda(full[0], 10)
+            k_ms = profiled_ms(full, 10, "chase_kernel")
+            p_ms = time_cuda(lambda: ref.chase_reference(final.data, rp, rs, st0,
+                                                         torch.zeros_like(rp), logic, depth), 1)
+            rows_seen = visited_rows(final, logic, rp, rs, depth)
+            nbytes = work_bytes(rows_seen, lanes, final.node_words, fit.scratch_words, 0)
+            body = dict(name=body_name, lanes=lanes, full_depth_steps=depth,
+                        full_depth_lane_steps=lane_steps, full_depth_rows=rows_seen,
+                        ms=k_events if k_ms is None else k_ms,
+                        ms_source="events" if k_ms is None else "profiler", ms_events=k_events,
+                        plain_ms=p_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                        bound_by="bytes", launches=launches)
+            log(f"[{name}] skiplist_find, one fixed-depth launch, {depth} steps, {lane_steps} "
+                f"lane-steps over {rows_seen} distinct rows: kernel {body['ms']:.5f} ms "
+                f"({body['ms_source']}; CUDA events {k_events:.5f}), plain {p_ms:.4f} ms, bytes "
+                f"bound {body['bound_ms']:.5f} ms (the arena is L2-resident: the least time "
+                f"is below it)")
+        rows.append(row)
+        del arena, cpu_arena, final, cpu_final, eng, res, card, host
+        torch.cuda.empty_cache()
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s (CPU runs and read-backs "
+        f"included)")
+    log(json.dumps({"phase": "write_path", "batches": rows, "store_class": shift_row,
+                    "skiplist_find": body}))
+    return rows, body, readback_launches, shift_row
 
 
 # --------------------------- attention kernels ------------------------------
@@ -1331,6 +1788,35 @@ def phase_paged_decode(params):
     return row
 
 
+def native_bodies(checks, rows, write_rows, skip_body):
+    """Each native body of ``pulse_chase``: its checks against the plain
+    version (phase 2), its launches on the main paths (phases 3 and 10) and,
+    where a full-depth launch was timed, its time beside its bound."""
+    from repro_torch.kernels.pulse_chase import kernel
+
+    out = []
+    for name in kernel.NATIVE_BODIES:
+        errs = [c["max_abs_err"] for c in checks if c["body"] == f"{name} (native)"]
+        timed = [r for r in rows if r["body"] == name]
+        timed = [r for r in timed if not r["arena_in_l2"]] or timed
+        row = dict(name=name, checks=len(errs), max_abs_err=max(errs) if errs else None,
+                   launches=sum(r["launches"] for r in rows if r["body"] == name)
+                   + sum(w["readback_launches"] for w in write_rows
+                         if w["readback_body"] == name),
+                   ms=None, plain_ms=None, bound_ms=None, timed_on=None)
+        if timed:
+            r = timed[0]
+            row.update(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                       timed_on=f"{r['workload']}, full depth ({r['full_depth_steps']} steps)")
+        elif skip_body is not None and skip_body["name"] == name:
+            row.update(ms=skip_body["ms"], plain_ms=skip_body["plain_ms"],
+                       bound_ms=skip_body["bound_ms"],
+                       timed_on=f"skiplist_rw read-back, {skip_body['lanes']} lanes, full "
+                                f"depth ({skip_body['full_depth_steps']} steps)")
+        out.append(row)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1397,6 +1883,12 @@ def main(argv=None) -> int:
     ssd_checks, ssd_row = phase_ssd(args.seed)
     log("== phase 9: the serve path, mamba2_780m at full width")
     ssm_row = phase_ssm_serve()
+    log("== phase 10: the write path on the card, against the CPU; read-back on the kernel")
+    write_rows, skip_body, write_launches, store_class = phase_write(rng)
+    entry["launches"] += write_launches
+    entry["launches_note"] = ("one per PulseEngine.execute: three workloads x two routes "
+                              "(phase 3) and one read-back per write batch (phase 10)")
+    entry["native_bodies"] = native_bodies(checks, rows, write_rows, skip_body)
 
     def f32_err(cks, row):
         return max([c["max_abs_err"] for c in cks if c["dtype"] == "float32"]
@@ -1455,7 +1947,7 @@ def main(argv=None) -> int:
         args.json.write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
-            **summary,
+            write_path=dict(batches=write_rows, store_class=store_class), **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

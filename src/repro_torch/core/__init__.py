@@ -1,4 +1,4 @@
-"""PULSE core, read path, on torch tensors.
+"""PULSE core, single memory node, on torch tensors.
 
 Layers (paper section in parens):
   arena        flat disaggregated heap + allocation policies (S2, App. Fig 5)
@@ -7,6 +7,7 @@ Layers (paper section in parens):
   isa          restricted RISC ISA + batched VM (S4.1, Table 2)
   verify       pulse-verify static verifier (S4.1)
   dispatch     offload cost model t_c <= eta * t_d (S4.1)
+  commit       the write path's sequential commit (staged mutations)
   engine       PulseEngine front door + the cpu_node baseline (S6)
   structures   ported data structures (S3, Table 5, Appendix B)
 """

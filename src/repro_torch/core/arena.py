@@ -39,9 +39,16 @@ M_CAS = 2  # conditional store (link swing)
 M_ALLOC = 3  # claim a free-list slot on the record's home shard
 M_FREE = 4  # push a node onto its owning shard's free list
 
+MUT_EXTRA = 4  # payload words beyond node data: [m_op, m_tgt, m_mask, m_expect]
+
 # Per-shard heap registers: [free_head, bump, epoch, commits]
 HEAP_WORDS = 4
 H_FREE, H_BUMP, H_EPOCH, H_COMMITS = 0, 1, 2, 3
+
+
+def mut_width(node_words: int) -> int:
+    """Mutation-payload words a write-capable record carries."""
+    return MUT_EXTRA + node_words
 
 
 def f2i(x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +65,16 @@ def wrap32(x: torch.Tensor) -> torch.Tensor:
     """Integer tensor -> int32 with two's-complement wrap-around (int32
     arithmetic is carried out in int64 and wrapped back explicitly)."""
     return (((x.long() + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def bit32(k: torch.Tensor) -> torch.Tensor:
+    """``1 << k`` as an int32 tensor, as XLA's int32 ``shift_left`` gives it:
+    bit 31 is INT_MIN, and a shift of 32 or more (or below 0) gives 0.  It is
+    computed in int64 and wrapped, so it does not rest on what a device's
+    int32 shift does past the word."""
+    k = k.long()
+    inside = (k >= 0) & (k < 32)
+    return wrap32(torch.where(inside, torch.ones_like(k) << k.clamp(0, 31), 0))
 
 
 def nf2i(x) -> np.ndarray:

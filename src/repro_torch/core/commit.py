@@ -1,0 +1,439 @@
+"""The write path's executor: the sequential commit (the determinism
+contract).
+
+``sequential_commit_execute`` runs a batch under the superstep schedule of
+the multi-shard engine -- placement, local chase, commit, the capacity
+ladder, parking, exchange, merge -- as a *sequential* host program: shards
+are visited one at a time and every staged mutation is applied strictly one
+at a time, in the canonical (class, slot, id) order.  It runs at any shard
+count P with no mesh, and with P = 1 it is the single-node write executor
+that ``PulseEngine.execute`` runs mutating iterators through.
+
+Where the work runs:
+  * the chase (``iterator.mut_step_batch``, ``k_local`` steps a superstep)
+    runs on the arena's device, over a private copy of ``data`` made once
+    per call;
+  * the commits run on a host mirror of ``data`` and ``heap``, copied down
+    once per call, in plain numpy stores (a Python loop over the eligible
+    records, as the JAX package's executor does);
+  * after each shard's commit phase, only the rows it wrote go back to the
+    device copy, in one scatter;
+  * each shard's pool of records (L x R int32) crosses the bus once each
+    way per superstep.
+So no superstep moves the whole arena.  The input arena is never modified.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import routing
+from repro_torch.core.arena import (
+    H_BUMP,
+    H_COMMITS,
+    H_EPOCH,
+    H_FREE,
+    M_ALLOC,
+    M_CAS,
+    M_FREE,
+    M_NONE,
+    M_STORE,
+    NULL,
+    PERM_READ,
+    PERM_WRITE,
+    Arena,
+    mut_width,
+)
+from repro_torch.core.iterator import (
+    STATUS_ACTIVE,
+    STATUS_EMPTY,
+    STATUS_FAULT,
+    PulseIterator,
+    mut_step_batch,
+    step_batch,
+)
+from repro_torch.core.routing import (
+    F_HOME,
+    F_HOPS,
+    F_ID,
+    F_ITERS,
+    F_PTR,
+    F_SCRATCH,
+    F_STATUS,
+)
+
+
+@dataclasses.dataclass
+class CommitTrace:
+    """Where one call's wall time went, per superstep (host clock): the
+    chase (the pools' upload, ``k_local`` steps on the device, their
+    download) and the commit (the host commits and the scatter of the
+    written rows), and the bytes it moved each way between host and device
+    (on a CPU arena the same counts, though nothing crosses a bus)."""
+
+    chase_s: list = dataclasses.field(default_factory=list)
+    commit_s: list = dataclasses.field(default_factory=list)
+    h2d_bytes: list = dataclasses.field(default_factory=list)
+    d2h_bytes: list = dataclasses.field(default_factory=list)
+    rows_written: list = dataclasses.field(default_factory=list)
+
+
+def _owner_of(bounds: np.ndarray, ptr: np.ndarray) -> np.ndarray:
+    shard = np.searchsorted(bounds, ptr, side="right").astype(np.int64) - 1
+    P = len(bounds) - 1
+    valid = (ptr >= 0) & (ptr < bounds[-1]) & (shard >= 0) & (shard < P)
+    return np.where(valid, shard, NULL).astype(np.int32)
+
+
+def _commit_shard(pool, data, heap, s, lo, hi, perm_w, written, *, S, W, MB):
+    """Apply shard ``s``'s eligible commits one at a time, in the canonical
+    (class, slot, id) order.  Mutates pool/data/heap in place and appends
+    the rows it writes to ``written``; returns the number of commit slots
+    consumed (CAS misses included)."""
+    m_op = pool[:, MB]
+    m_tgt = pool[:, MB + 1]
+    pend = (m_op != M_NONE) & (pool[:, F_STATUS] != STATUS_EMPTY)
+    is_alloc = m_op == M_ALLOC
+    eligible = pend & np.where(
+        is_alloc, pool[:, F_HOME] == s, (m_tgt >= lo) & (m_tgt < hi)
+    )
+    idx = np.flatnonzero(eligible)
+    if not len(idx):
+        return 0
+    if not perm_w:
+        pool[idx, F_STATUS] = STATUS_FAULT
+        pool[idx, MB] = M_NONE
+        return 0
+    klass = np.where(is_alloc, 2, np.where(m_op == M_FREE, 1, 0))[idx]
+    slot_key = np.where(is_alloc, 0, m_tgt)[idx]
+    order = idx[np.lexsort((pool[idx, F_ID], slot_key, klass))]
+    applied = 0
+    for r in order:
+        op = int(pool[r, MB])
+        tgt = int(pool[r, MB + 1])
+        # a Python int from the int32 word: widened by sign, so a mask with
+        # bit 31 set also selects words 32..W-1 (the JAX package's commit)
+        mask = int(pool[r, MB + 2])
+        expect = int(pool[r, MB + 3])
+        mdata = pool[r, MB + 4 : MB + 4 + W]
+        maskb = ((mask >> np.arange(W)) & 1).astype(bool)
+        if op in (M_STORE, M_CAS):
+            old = data[tgt]
+            if op == M_STORE or int(old[int(np.argmax(maskb))]) == expect:
+                data[tgt] = np.where(maskb, mdata, old)
+                written.append(tgt)
+        elif op == M_FREE:
+            row = np.zeros(W, np.int32)
+            row[0] = heap[s, H_FREE]
+            data[tgt] = row
+            heap[s, H_FREE] = tgt
+            written.append(tgt)
+        elif op == M_ALLOC:
+            if heap[s, H_FREE] != NULL:
+                slot = int(heap[s, H_FREE])
+                heap[s, H_FREE] = data[slot, 0]
+            elif heap[s, H_BUMP] < hi:
+                slot = int(heap[s, H_BUMP])
+                heap[s, H_BUMP] += 1
+            else:
+                pool[r, F_STATUS] = STATUS_FAULT
+                pool[r, MB] = M_NONE
+                applied += 1
+                continue
+            data[slot] = np.where(maskb, mdata, 0)
+            written.append(slot)
+            pool[r, F_SCRATCH + min(max(tgt, 0), S - 1)] = slot
+        pool[r, MB] = M_NONE
+        applied += 1
+    heap[s, H_EPOCH] += int(applied > 0)
+    heap[s, H_COMMITS] += applied
+    return applied
+
+
+def _decide_and_send(pool, bounds, s, P, *, capacity, drain_done, MB):
+    """The switch decision: fault-mark, compute destinations (staged
+    mutations route to their commit shard), park overflow, extract leavers.
+    Returns the per-destination send blocks and blanks leavers in place."""
+    status = pool[:, F_STATUS]
+    valid = status != STATUS_EMPTY
+    active = status == STATUS_ACTIVE
+
+    if MB is not None:
+        m_op = pool[:, MB]
+        pendm = m_op != M_NONE
+        is_alloc = m_op == M_ALLOC
+        towner = _owner_of(bounds, pool[:, MB + 1])
+    else:
+        pendm = np.zeros(len(pool), bool)
+
+    owner = _owner_of(bounds, pool[:, F_PTR])
+    bad = active & (owner == NULL) & ~pendm
+    if MB is not None:
+        bad_mut = active & pendm & ~is_alloc & (towner == NULL)
+        bad = bad | bad_mut
+        pool[bad_mut, MB] = M_NONE
+        pendm = pendm & ~bad_mut
+    pool[bad, F_STATUS] = STATUS_FAULT
+    active = pool[:, F_STATUS] == STATUS_ACTIVE
+
+    if drain_done:
+        dest = np.where(active, owner, s)
+    else:
+        dest = np.where(active, owner, pool[:, F_HOME])
+    if MB is not None:
+        cdest = np.where(is_alloc, pool[:, F_HOME], towner)
+        dest = np.where(active & pendm, cdest, dest)
+    dest = np.where(valid, dest, s).astype(np.int32)
+
+    # each destination takes its first `capacity` movers in pool order;
+    # the overflow parks in place for the next superstep
+    movers = np.flatnonzero(valid & (dest != s))
+    send, n_routed = [], 0
+    for d in range(P):
+        r = movers[dest[movers] == d][:capacity]
+        pool[r, F_HOPS] += 1
+        send.append(pool[r].copy())
+        pool[r, F_STATUS] = STATUS_EMPTY
+        n_routed += len(r)
+    return send, n_routed
+
+
+def _merge(kept, arrivals, L):
+    both = np.concatenate([kept, arrivals], axis=0) if len(arrivals) else kept
+    is_empty = both[:, F_STATUS] == STATUS_EMPTY
+    order = np.argsort(is_empty, kind="stable")
+    merged = both[order][:L]
+    dropped = int((~is_empty).sum()) - int(
+        (merged[:, F_STATUS] != STATUS_EMPTY).sum()
+    )
+    return merged, dropped
+
+
+def _remote_count(pool, bounds, s, MB):
+    active = pool[:, F_STATUS] == STATUS_ACTIVE
+    owner = _owner_of(bounds, pool[:, F_PTR])
+    if MB is not None:
+        m_op = pool[:, MB]
+        towner = np.where(
+            m_op == M_ALLOC, pool[:, F_HOME], _owner_of(bounds, pool[:, MB + 1])
+        )
+        owner = np.where(m_op != M_NONE, towner, owner)
+    return int((active & (owner != s)).sum())
+
+
+def _chase(it, rows, pool_t, *, S, MB, lo, hi, readable, max_iters, k_local):
+    """``k_local`` steps of one shard's pool (an (L, R) tensor on the
+    arena's device) over its rows; returns the new pool tensor."""
+    ptr = pool_t[:, F_PTR]
+    scr = pool_t[:, F_SCRATCH : F_SCRATCH + S]
+    st = pool_t[:, F_STATUS]
+    iters = pool_t[:, F_ITERS]
+    args = dict(max_iters=max_iters, local_lo=lo, local_hi=hi, perm_ok=readable)
+    if MB is None:
+        for _ in range(k_local):
+            ptr, scr, st, iters = step_batch(it, rows, ptr, scr, st, iters, **args)
+        tail = []
+    else:
+        mut = pool_t[:, MB:]
+        for _ in range(k_local):
+            ptr, scr, st, iters, mut = mut_step_batch(
+                it, rows, ptr, scr, st, iters, mut, **args)
+        tail = [mut]
+    return torch.cat([pool_t[:, :F_PTR], ptr[:, None], st[:, None], iters[:, None],
+                      pool_t[:, F_HOPS : F_SCRATCH], scr, *tail], 1)
+
+
+def sequential_commit_execute(
+    it: PulseIterator,
+    arena: Arena,
+    ptr0,
+    scratch0,
+    *,
+    max_iters: int = 1 << 30,
+    k_local: int = 4,
+    max_supersteps: int = 1 << 16,
+    compact: bool = True,
+    min_link_capacity: int = 8,
+    fault_injector=None,
+    replication=None,
+    trace: CommitTrace | None = None,
+):
+    """Run a batch to completion under the sequential-commit schedule.
+
+    Returns ``(records (B, R) int32 numpy ordered by id, RoutingStats, new
+    Arena)`` for mutating iterators, or ``(records, RoutingStats)`` for
+    read-only ones, as the JAX package's executor does.  The new arena lives
+    on the input arena's device; the input arena is never modified.
+
+    ``fault_injector`` (the JAX package's ``FaultInjector`` interface:
+    ``begin_call``, ``kill_step``, ``fire``): a targeted kill raises before
+    the named (1-based) superstep runs, and the mutated copies are
+    discarded, so the input arena stays as it was.  ``replication`` (the
+    read fan-out to replicas) comes with ROADMAP queue 1, item 6(d).
+    ``trace``, when given, is filled with the split of the wall time and
+    the bytes moved (``CommitTrace``).
+    """
+    kill_at = None
+    if fault_injector is not None:
+        kill_at = fault_injector.kill_step(fault_injector.begin_call())
+    if replication is not None:
+        raise NotImplementedError(
+            "replicated reads (ReplicaContext) come with ROADMAP queue 1, item 6(d)"
+        )
+    P = arena.num_shards
+    dev = arena.data.device
+    bounds = arena.bounds.cpu().numpy()
+    perms = arena.perms.cpu().numpy()
+    dev_data = arena.data.clone()  # the chase's private copy
+    data = arena.data.cpu().numpy().copy()  # the commits' host mirror
+    heap = arena.heap.cpu().numpy().copy()
+    commits0 = int(heap[:, H_COMMITS].sum())
+    epochs0 = int(heap[:, H_EPOCH].sum())
+    mutate = it.mutates
+    S = it.scratch_words
+    W = data.shape[1]
+    MB = F_SCRATCH + S if mutate else None
+    R = routing.record_width(S, mut_width(W) if mutate else 0)
+
+    ptr0 = torch.as_tensor(ptr0).cpu().numpy().astype(np.int32)
+    B = len(ptr0)
+    scratch0 = torch.as_tensor(scratch0).cpu().numpy().astype(np.int32).reshape(B, S)
+    Bp = ((B + P - 1) // P) * P
+    L = Bp
+    rec = np.zeros((Bp, R), np.int32)
+    rec[:, F_STATUS] = STATUS_EMPTY
+    rec[:B, F_ID] = np.arange(B)
+    rec[:B, F_PTR] = ptr0
+    rec[:B, F_STATUS] = STATUS_ACTIVE
+    rec[:B, F_SCRATCH : F_SCRATCH + S] = scratch0
+    home = np.arange(Bp, dtype=np.int32) % P
+    rec[:, F_HOME] = home
+    rec_sorted = rec[np.argsort(home, kind="stable")]
+    counts = np.bincount(home, minlength=P)
+    pools = np.zeros((P, L, R), np.int32)
+    pools[:, :, F_STATUS] = STATUS_EMPTY
+    off = 0
+    for s in range(P):
+        c = int(counts[s])
+        pools[s, :c] = rec_sorted[off : off + c]
+        off += c
+
+    base_capacity = L // P
+    readable = (perms & PERM_READ) == PERM_READ
+    writable = (perms & PERM_WRITE) == PERM_WRITE
+    pool_bytes = L * R * 4
+
+    routed_per_step, active_per_step = [], []
+    wire_words_per_step, capacity_per_step = [], []
+    local_only_steps = 0
+    steps = 0
+    n_active, n_remote = B, B
+    for _ in range(max_supersteps):
+        # an injected shard death fires before the targeted (1-based)
+        # superstep: the mutated copies are dropped, never published
+        if kill_at is not None and steps + 1 >= kill_at:
+            fault_injector.fire(steps + 1)
+        # ---- local phase: chase then commit, shard by shard ---------------
+        chase_s = commit_s = 0.0
+        n_written = 0
+        for s in range(P):
+            t0 = time.perf_counter()
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            pool_t = _chase(
+                it, dev_data[lo:hi], torch.from_numpy(pools[s]).to(dev), S=S, MB=MB,
+                lo=lo, hi=hi, readable=bool(readable[s]), max_iters=max_iters,
+                k_local=k_local)
+            pools[s] = pool_t.cpu().numpy()
+            t1 = time.perf_counter()
+            chase_s += t1 - t0
+            if mutate:
+                written: list = []
+                _commit_shard(pools[s], data, heap, s, lo, hi, bool(writable[s]), written,
+                              S=S, W=W, MB=MB)
+                if written:
+                    rows = np.unique(np.asarray(written, np.int64))
+                    dev_data[torch.from_numpy(rows).to(dev)] = torch.from_numpy(
+                        data[rows]).to(dev)
+                    n_written += len(rows)
+                commit_s += time.perf_counter() - t1
+        if trace is not None:
+            trace.chase_s.append(chase_s)
+            trace.commit_s.append(commit_s)
+            trace.h2d_bytes.append(P * pool_bytes + n_written * (W * 4 + 8))
+            trace.d2h_bytes.append(P * pool_bytes)
+            trace.rows_written.append(n_written)
+
+        # ---- switch phase: the capacity ladder, sequentially --------------
+        if compact:
+            demand = (n_active + P - 1) // P
+            capacity = min(
+                base_capacity,
+                max(min_link_capacity, routing._pow2_at_least(demand)),
+            )
+            do_route = n_remote > 0
+        else:
+            capacity, do_route = base_capacity, True
+        if do_route:
+            sends = []
+            n_routed = 0
+            for s in range(P):
+                send, routed = _decide_and_send(
+                    pools[s], bounds, s, P,
+                    capacity=capacity, drain_done=compact, MB=MB,
+                )
+                sends.append(send)
+                n_routed += routed
+            for d in range(P):
+                arrivals = np.concatenate([sends[s][d] for s in range(P)], axis=0)
+                pools[d], dropped = _merge(pools[d], arrivals, L)
+                if dropped:
+                    raise RuntimeError(f"sequential commit: pool overflow of {dropped}")
+        else:
+            n_routed = 0
+
+        steps += 1
+        n_active = int((pools[:, :, F_STATUS] == STATUS_ACTIVE).sum())
+        n_remote = sum(_remote_count(pools[s], bounds, s, MB) for s in range(P))
+        routed_per_step.append(n_routed)
+        active_per_step.append(n_active)
+        capacity_per_step.append(capacity if do_route else 0)
+        wire_words_per_step.append(P * (P - 1) * capacity * R if do_route else 0)
+        local_only_steps += int(not do_route)
+        if n_active == 0:
+            break
+    else:
+        raise RuntimeError(
+            f"sequential_commit_execute: {n_active} records still ACTIVE "
+            f"after max_supersteps={max_supersteps}"
+        )
+
+    all_rec = pools.reshape(-1, R)
+    all_rec = all_rec[all_rec[:, F_STATUS] != STATUS_EMPTY]
+    all_rec = all_rec[all_rec[:, F_ID] < B]
+    all_rec = all_rec[np.argsort(all_rec[:, F_ID], kind="stable")]
+    stats = routing.RoutingStats(
+        supersteps=steps,
+        crossings=all_rec[:, F_HOPS].copy(),
+        routed_per_step=routed_per_step,
+        active_per_step=active_per_step,
+        wire_words_per_step=wire_words_per_step,
+        capacity_per_step=capacity_per_step,
+        local_only_steps=local_only_steps,
+        schedule="sequential-oracle",
+        commits=int(heap[:, H_COMMITS].sum()) - commits0,
+        epochs=int(heap[:, H_EPOCH].sum()) - epochs0,
+        _num_shards=P,
+    )
+    if not mutate:
+        return all_rec, stats
+    new_arena = Arena(
+        data=dev_data,
+        bounds=arena.bounds,
+        perms=arena.perms,
+        heap=torch.from_numpy(heap).to(dev),
+    )
+    return all_rec, stats, new_arena

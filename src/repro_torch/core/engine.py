@@ -15,9 +15,13 @@ Execution paths:
                                and only on request (``force_offload=False``)
                                when it is on the card.
 
+Mutating iterators (the write path) run through the sequential commit
+(``core.commit``): the chase on the arena's device, the commits on the
+host, and the engine swaps in the committed arena.
+
 The dispatch engine's offload decision (t_c <= eta * t_d, S4.1) lives in
-``core.dispatch``.  Multi-shard routing over a mesh and mutating iterators
-come with later slices (ROADMAP queue 1, items 6 and 5).
+``core.dispatch``.  Multi-shard routing over a mesh comes with a later
+slice (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.core import commit as commit_mod
 from repro_torch.core import dispatch as dispatch_mod
 from repro_torch.core import routing
 from repro_torch.core.arena import NULL, PERM_READ, Arena
@@ -138,6 +143,12 @@ class ExecResult:
     stats: object | None = None
     offloaded: bool = True
     decision: dispatch_mod.OffloadDecision | None = None
+    # write path: the post-commit arena (mutating iterators only).  The
+    # engine already swapped its own arena to it; a caller holding the
+    # pre-call Arena keeps an intact snapshot.
+    arena: Arena | None = None
+    # write path: where the call's wall time went, and the bytes it moved
+    commit_trace: object | None = None
 
 
 class PulseEngine:
@@ -209,16 +220,30 @@ class PulseEngine:
         the model's decision is still made and returned in
         ``ExecResult.decision``, and the host-side ``cpu_node`` baseline
         runs only when the caller asks for it with ``force_offload=False``.
+
+        A mutating iterator runs on the write path whatever the device
+        (``_execute_mut``); the kernel backend is read-only
+        (``backend="kernel"`` raises), and so is the CPU node
+        (``force_offload=False`` raises): the commits live with the data.
         """
-        if it.mutates:
-            raise NotImplementedError(
-                f"iterator {it.name!r} mutates: the write path comes with "
-                f"ROADMAP queue 1, item 5"
-            )
         if self.mesh is not None and self.arena.num_shards > 1:
             raise NotImplementedError(
                 "distributed execution over a mesh comes with ROADMAP queue 1, item 6"
             )
+        if it.mutates:
+            if backend == "kernel":
+                raise ValueError(
+                    "mutating iterators are not supported on the pulse_chase "
+                    "kernel backend: it is read-only"
+                )
+            if force_offload is False:
+                raise ValueError(
+                    "mutating iterators cannot run at the CPU node "
+                    "(force_offload=False): commits live with the data"
+                )
+            if backend not in (None, *BACKENDS):
+                raise ValueError(f"unknown backend {backend!r}; choose one of {BACKENDS}")
+            return self._execute_mut(it, ptr0, scratch0, max_iters=max_iters)
         on_card = _on_card(self.arena.data)
         if backend is None:
             backend = "kernel" if on_card else "reference"
@@ -257,6 +282,28 @@ class PulseEngine:
             max_iters=min(max_iters, (1 << 31) - 1), elide_access_check=elide,
         )
         return ExecResult(ptr, scratch, status, iters, decision=decision)
+
+    def _execute_mut(self, it: PulseIterator, ptr0, scratch0, *, max_iters: int) -> ExecResult:
+        """Write path: run a mutating iterator through the sequential commit
+        and swap the engine's arena to the post-commit state.  The input
+        Arena object is never modified, so a caller can replay a snapshot."""
+        trace = commit_mod.CommitTrace()
+        rec, stats, new_arena = commit_mod.sequential_commit_execute(
+            it, self.arena, ptr0, scratch0, max_iters=max_iters,
+            fault_injector=self.fault_injector, trace=trace,
+        )
+        self.arena = new_arena
+        S = it.scratch_words
+        rec = torch.from_numpy(rec).to(new_arena.data.device)
+        return ExecResult(
+            ptr=rec[:, routing.F_PTR].contiguous(),
+            scratch=rec[:, routing.F_SCRATCH : routing.F_SCRATCH + S].contiguous(),
+            status=rec[:, routing.F_STATUS].contiguous(),
+            iters=rec[:, routing.F_ITERS].contiguous(),
+            stats=stats,
+            arena=new_arena,
+            commit_trace=trace,
+        )
 
     def _execute_kernel(
         self, it: PulseIterator, ptr0, scratch0, *, max_iters: int

@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.arena import wrap32
+from repro_torch.core.arena import M_ALLOC, M_CAS, M_FREE, M_STORE, bit32, wrap32
 from repro_torch.core.iterator import PulseIterator
 
 # opcodes (Table 2, extended with the store class of the write path)
@@ -272,20 +272,10 @@ def floor_div32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return wrap32(torch.where(y64 == 0, 0, q))
 
 
-def run_iteration(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.Tensor):
-    """One iteration of one program for a batch of lanes.
-
-    ``code`` is the ``(T, 4)`` program (numpy or tensor), ``nodes`` ``(B,W)``,
-    ``ptr`` ``(B,)`` and ``scratch`` ``(B,S)``, all int32.  Returns
-    ``(done (B,) bool, new_ptr (B,), new_scratch (B,S))``.
-
-    Each lane keeps its own ``pc``.  Jumps go forward only, so after at most
-    ``T`` rounds every lane has halted or run past the end.  Each round
-    applies every opcode's effect under a mask (``torch.where``); store-class
-    opcodes stage nothing on the read path and only advance the pc.
-    Arithmetic wraps in int32; register, node and scratch indices are
-    clipped into range.
-    """
+def _run_vm(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.Tensor,
+            mutating: bool):
+    """One iteration of one program for a batch of lanes; with ``mutating``
+    it also stages the store class into each lane's mutation payload."""
     dev = nodes.device
     code = torch.as_tensor(code).to(device=dev, dtype=torch.int32)
     T = code.shape[0]
@@ -300,6 +290,11 @@ def run_iteration(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.T
     halted = torch.zeros((B,), dtype=torch.bool, device=dev)
     reg_ids = torch.arange(NUM_REGS, device=dev)
     scr_ids = torch.arange(S, device=dev)
+    if mutating:
+        mop, mtgt, mmask, mexp = (torch.zeros((B,), dtype=torch.int32, device=dev)
+                                  for _ in range(4))
+        mdata = torch.zeros((B, W), dtype=torch.int32, device=dev)
+        word_ids = torch.arange(W, device=dev)
 
     def col(t, idx):
         return t.gather(1, idx.long()[:, None])[:, 0]
@@ -345,6 +340,29 @@ def run_iteration(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.T
                 ra[:, None],
                 scr,
             )
+        if mutating:
+            # STOREN accumulates a masked write-back image of the current
+            # node (an ALLOC staged before keeps its op and target: the
+            # image is the new node); ALLOC retargets the image at a fresh
+            # slot whose address the commit deposits in SP[imm]; SETPTR
+            # stages a CAS of NODE[imm] (expect rs2); FREE stages the
+            # release of the node addressed by rs1
+            storen, alloc = live & (op == STOREN), live & (op == ALLOC)
+            setptr, free = live & (op == SETPTR), live & (op == FREE)
+            word = imm.clamp(0, W - 1)
+            bit = bit32(word)
+            mdata = torch.where(
+                (storen | setptr)[:, None] & (word_ids[None, :] == word[:, None]),
+                ra[:, None], mdata)
+            fresh_store = storen & (mop != M_ALLOC)
+            mop = torch.where(fresh_store, M_STORE, mop)
+            mtgt = torch.where(fresh_store, ptr, mtgt)
+            mmask = torch.where(storen, mmask | bit, mmask)
+            mop = torch.where(alloc, M_ALLOC,
+                              torch.where(setptr, M_CAS, torch.where(free, M_FREE, mop)))
+            mtgt = torch.where(alloc, imm, torch.where(setptr, ptr, torch.where(free, ra, mtgt)))
+            mmask = torch.where(setptr, bit, torch.where(free, 0, mmask))
+            mexp = torch.where(setptr, rb, torch.where(free, 0, mexp))
 
         taken = (
             ((op == JEQ) & (ra == rb)) | ((op == JNE) & (ra != rb))
@@ -357,7 +375,35 @@ def run_iteration(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.T
         out_ptr = torch.where(live & (op == NEXT_ITER), ra, out_ptr)
         done = done | (live & (op == RETURN))
         halted = halted | (live & ((op == HALT) | (op == NEXT_ITER) | (op == RETURN)))
+    if mutating:
+        return done, out_ptr, scr, (mop, mtgt, mmask, mexp, mdata)
     return done, out_ptr, scr
+
+
+def run_iteration(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.Tensor):
+    """One iteration of one program for a batch of lanes.
+
+    ``code`` is the ``(T, 4)`` program (numpy or tensor), ``nodes`` ``(B,W)``,
+    ``ptr`` ``(B,)`` and ``scratch`` ``(B,S)``, all int32.  Returns
+    ``(done (B,) bool, new_ptr (B,), new_scratch (B,S))``.
+
+    Each lane keeps its own ``pc``.  Jumps go forward only, so after at most
+    ``T`` rounds every lane has halted or run past the end.  Each round
+    applies every opcode's effect under a mask (``torch.where``); store-class
+    opcodes stage nothing on the read path and only advance the pc.
+    Arithmetic wraps in int32; register, node and scratch indices are
+    clipped into range.
+    """
+    return _run_vm(code, nodes, ptr, scratch, False)
+
+
+def run_iteration_mut(code, nodes: torch.Tensor, ptr: torch.Tensor, scratch: torch.Tensor):
+    """The write path's VM: ``run_iteration`` that also returns each lane's
+    staged mutation ``(m_op, m_tgt, m_mask, m_expect, m_data (B, W))``
+    (M_NONE and zeros where a lane stages nothing).  The mask bit of word
+    ``k`` is ``1 << k`` in int32, which is 0 for ``k >= 32``
+    (``arena.bit32``)."""
+    return _run_vm(code, nodes, ptr, scratch, True)
 
 
 # NOTE on ALU encoding: rows are [op, rd, rs1, rs2-as-imm-field]; the
@@ -369,6 +415,8 @@ class IsaStep:
     -> (done, new_ptr, new_scratch)`` through the batched VM.  Carries the
     program as ``__wrapped_program__`` (the dispatch model's exact N and
     the code the ``pulse_chase`` kernel interprets)."""
+
+    vm = staticmethod(run_iteration)
 
     def __init__(self, prog: Program):
         self.__wrapped_program__ = prog
@@ -385,7 +433,15 @@ class IsaStep:
         return t
 
     def __call__(self, nodes, ptr, scratch):
-        return run_iteration(self.code_on(nodes.device), nodes, ptr, scratch)
+        return self.vm(self.code_on(nodes.device), nodes, ptr, scratch)
+
+
+class IsaMutStep(IsaStep):
+    """The mutating step of an ISA program (``PulseIterator.mut_fn``):
+    ``(nodes, ptr, scratch) -> (done, new_ptr, new_scratch, staged)``
+    through ``run_iteration_mut``."""
+
+    vm = staticmethod(run_iteration_mut)
 
 
 def as_pulse_iterator(
@@ -402,8 +458,9 @@ def as_pulse_iterator(
     accepted ones carry their ``ProgramFacts`` certificate.  ``verify=False``
     falls back to the conservative opcode scan (``Program.mutates``).
 
-    Programs that can stage a mutation need the write path, which this
-    package does not carry yet (ROADMAP queue 1, item 5).
+    Read-only programs supply the fused ``step_fn``; programs that can
+    reach the store class supply ``mut_fn`` instead, so the executors route
+    them through the commit path (``core.commit``).
     """
     facts = None
     if verify:
@@ -415,12 +472,6 @@ def as_pulse_iterator(
             scratch_ptr_slots=scratch_ptr_slots,
         )
     mutates = facts.mutates if facts is not None else prog.mutates
-    if mutates:
-        raise NotImplementedError(
-            f"program {prog.name!r} stages mutations: the write path (store-"
-            f"class staging and the commit phase) comes with ROADMAP queue 1, "
-            f"item 5"
-        )
     step_fn = IsaStep(prog)
 
     def next_fn(node, ptr, scratch):
@@ -431,6 +482,15 @@ def as_pulse_iterator(
         done, new_ptr, scr = step_fn(node, ptr, scratch)
         return done, scr
 
+    if mutates:
+        return PulseIterator(
+            scratch_words=prog.scratch_words,
+            next_fn=next_fn,
+            end_fn=end_fn,
+            mut_fn=IsaMutStep(prog),
+            name=prog.name,
+            facts=facts,
+        )
     return PulseIterator(
         scratch_words=prog.scratch_words,
         next_fn=next_fn,

@@ -27,7 +27,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import translation
-from repro_torch.core.arena import NULL, PERM_READ, Arena, load_node
+from repro_torch.core.arena import M_NONE, NULL, PERM_READ, Arena, load_node
 
 # Request status codes (wire format field; identical for request & response).
 STATUS_ACTIVE = 0  # still traversing
@@ -55,7 +55,12 @@ class PulseIterator:
                 (the ISA VM, whose single pass yields both answers).  An
                 ISA-backed step_fn carries its program as
                 ``step_fn.__wrapped_program__``.
-      mut_fn:   optional mutating fused step (the write path).
+      mut_fn:   optional mutating fused step (the write path):
+                (node, ptr, scratch) -> (done, new_ptr, scratch,
+                                         (m_op, m_tgt, m_mask, m_expect,
+                                          m_data (B, W)))
+                -- a step that stages a mutation (m_op != M_NONE) stalls its
+                record until the commit phase applies it (core.commit).
       name:     for dispatch-engine reports.
       facts:    optional ``verify.ProgramFacts`` certificate.
       n_instructions: the dispatch model's instruction count N for an
@@ -151,6 +156,75 @@ def step_batch(
     # a finished-by-NULL-dereference is a fault too (walked off the structure)
     status = torch.where(active & null, STATUS_FAULT, status)
     return ptr, scratch, status, iters
+
+
+def mut_step_batch(
+    it: PulseIterator,
+    arena_data: torch.Tensor,
+    ptr: torch.Tensor,  # (B,) int32 global addresses
+    scratch: torch.Tensor,  # (B, S) int32
+    status: torch.Tensor,  # (B,) int32
+    iters: torch.Tensor,  # (B,) int32
+    mut: torch.Tensor,  # (B, MUT_EXTRA + W) staged-mutation payload block
+    *,
+    max_iters: int,
+    local_lo: int = 0,
+    local_hi: int | None = None,
+    perm_ok: torch.Tensor | bool = True,
+):
+    """Advance every runnable request of a *mutating* iterator by one step.
+
+    The write-path twin of ``step_batch``, with its rules (core.commit):
+
+      * a record with a staged mutation (``mut[:, 0] != M_NONE``) is
+        stalled: it runs nothing until its commit phase applies the
+        mutation and clears the payload;
+      * a step that stages a mutation cannot also finish: ``done`` is
+        forced off, so a program ends on a clean iteration after it has
+        observed its commit;
+      * a record never goes MAXED while a mutation is staged, so a MAXED
+        continuation resumes from ``(cur_ptr, scratch)`` alone;
+      * a record whose budget is spent (``iters >= max_iters``) takes no
+        further step; it MAXes once its commit has cleared.
+
+    Returns new ``(ptr, scratch, status, iters, mut)``.
+    """
+    if local_hi is None:
+        local_hi = arena_data.shape[0]
+    stalled = mut[:, 0] != M_NONE
+    exhausted = iters >= max_iters
+    local = (ptr >= local_lo) & (ptr < local_hi)
+    null = ptr == NULL
+    active = status == STATUS_ACTIVE
+    grant = torch.as_tensor(perm_ok, dtype=torch.bool, device=ptr.device)
+    fault = active & local & ~grant & ~null & ~stalled
+    runnable = active & local & ~fault & ~null & ~stalled & ~exhausted
+
+    node = load_node(arena_data, torch.where(runnable, ptr - local_lo, 0))
+    done, nptr, nscr, staged = it.mut_fn(node, ptr, scratch)
+    m_op, m_tgt, m_mask, m_expect, m_data = (
+        torch.as_tensor(x, dtype=torch.int32, device=ptr.device) for x in staged
+    )
+    stages = m_op != M_NONE
+    done = done & ~stages  # the commit is part of the traversal
+    new_ptr = torch.where(done, ptr, nptr).to(torch.int32)
+
+    ptr = torch.where(runnable, new_ptr, ptr)
+    scratch = torch.where(runnable[:, None], nscr.to(torch.int32), scratch)
+    iters = torch.where(runnable, iters + 1, iters)
+    payload = torch.cat([torch.stack([m_op, m_tgt, m_mask, m_expect], 1), m_data], 1)
+    mut = torch.where((runnable & stages)[:, None], payload, mut)
+    pending = mut[:, 0] != M_NONE
+
+    status = torch.where(runnable & done, STATUS_DONE, status)
+    status = torch.where(fault, STATUS_FAULT, status)
+    status = torch.where(
+        (status == STATUS_ACTIVE) & (iters >= max_iters) & ~pending,
+        STATUS_MAXED,
+        status,
+    )
+    status = torch.where(active & null & ~stalled, STATUS_FAULT, status)
+    return ptr, scratch, status, iters, mut
 
 
 def execute_batched(

@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.core.arena import NULL, ArenaBuilder
+from repro_torch.core.arena import M_NONE, M_STORE, NULL, ArenaBuilder
 from repro_torch.core.iterator import PulseIterator
 
 NODE_WORDS = 4
@@ -24,8 +24,9 @@ KEY_NOT_FOUND = -(2**31) + 1
 S_KEY, S_Y, S_YKEY, S_YVAL = 0, 1, 2, 3
 SCRATCH_WORDS = 4
 
-# the dispatch model's instruction count N of find_iterator's body
+# the dispatch model's instruction count N of each iterator body below
 FIND_INSTRUCTIONS = 9
+UPDATE_INSTRUCTIONS = 9
 
 # update scratch: [key, new_value, state, found] (the write path's layout)
 U_KEY, U_VAL, U_ST, U_FOUND = range(4)
@@ -124,6 +125,64 @@ def find_iterator() -> PulseIterator:
     return PulseIterator(
         SCRATCH_WORDS, next_fn, end_fn, init, name="bst_find",
         n_instructions=FIND_INSTRUCTIONS,
+    )
+
+
+# ------------------------------ write path ---------------------------------
+
+
+def update_iterator() -> PulseIterator:
+    """``map::operator[]``-style update in place: the BST search descent; on
+    the matching node, stage a masked STORE of the VALUE word, then validate
+    on the post-commit iteration (a racing writer to the same node
+    serializes through the commit phase's (slot, id) order -- the loser
+    observes the foreign value and restages, so the last committed write
+    wins deterministically).  ``init(keys, values, root)``; scratch[U_FOUND]
+    reports whether the key existed."""
+
+    def init(keys, values, root_ptr):
+        keys = torch.as_tensor(keys, dtype=torch.int32)
+        B = keys.shape[0]
+        scratch = torch.zeros((B, U_WORDS), dtype=torch.int32, device=keys.device)
+        scratch[:, U_KEY] = keys
+        scratch[:, U_VAL] = torch.as_tensor(values, dtype=torch.int32).to(keys.device)
+        return torch.full((B,), int(root_ptr), dtype=torch.int32, device=keys.device), scratch
+
+    def mut_fn(node, ptr, scratch):
+        key, val, st = scratch[:, U_KEY], scratch[:, U_VAL], scratch[:, U_ST]
+        zeros = torch.zeros_like(node)
+        hit = node[:, KEY] == key
+        nxt = torch.where(key < node[:, KEY], node[:, LEFT], node[:, RIGHT])
+        s0, s1 = st == 0, st == 1
+        stage = (s0 & hit) | (s1 & (node[:, VALUE] != val))  # write or restage
+        updated = s1 & (node[:, VALUE] == val)
+        miss = s0 & ~hit & (nxt == NULL)
+        done = miss | updated
+        advance = s0 & ~hit & ~miss
+        new_ptr = torch.where(advance, nxt, ptr)
+        new_scratch = scratch.clone()
+        new_scratch[:, U_ST] = torch.where(stage & s0, 1, st)
+        new_scratch[:, U_FOUND] = torch.where(
+            updated, 1, torch.where(miss, 0, scratch[:, U_FOUND]))
+        m_op = torch.where(stage, M_STORE, M_NONE)
+        m_tgt = torch.where(stage, ptr, 0)
+        m_mask = torch.where(stage, 1 << VALUE, 0)
+        data = zeros.clone()
+        data[:, VALUE] = val
+        m_data = torch.where(stage[:, None], data, zeros)
+        return done, new_ptr, new_scratch, (m_op, m_tgt, m_mask, torch.zeros_like(ptr), m_data)
+
+    return PulseIterator(
+        scratch_words=U_WORDS,
+        next_fn=lambda node, ptr, scratch: (
+            torch.where(scratch[:, U_KEY] < node[:, KEY], node[:, LEFT], node[:, RIGHT]),
+            scratch,
+        ),
+        end_fn=lambda node, ptr, scratch: (node[:, KEY] == scratch[:, U_KEY], scratch),
+        init_fn=init,
+        mut_fn=mut_fn,
+        name="bst_update",
+        n_instructions=UPDATE_INSTRUCTIONS,
     )
 
 

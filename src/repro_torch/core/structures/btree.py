@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.arena import NULL, ArenaBuilder, wrap32
+from repro_torch.core.arena import M_NONE, M_STORE, NULL, ArenaBuilder, bit32, wrap32
 from repro_torch.core.iterator import PulseIterator
 
 FANOUT = 8  # kNodeValues in Listing 8
@@ -27,6 +27,7 @@ INT_MAX = 2**31 - 1
 # the dispatch model's instruction count N of each iterator body below
 FIND_INSTRUCTIONS = 14
 RANGE_AGGREGATE_INSTRUCTIONS = 14
+UPDATE_INSTRUCTIONS = 16
 
 
 def node_estimate(n: int) -> int:
@@ -172,6 +173,74 @@ def find_iterator() -> PulseIterator:
 
     return PulseIterator(
         S, next_fn, end_fn, init, name="btree_find", n_instructions=FIND_INSTRUCTIONS
+    )
+
+
+# ------------------------------ write path ---------------------------------
+
+# update scratch: [key, new_value, state, found]
+U_KEY, U_VAL, U_ST, U_FOUND = range(4)
+U_WORDS = 4
+
+
+def update_iterator() -> PulseIterator:
+    """Leaf-slot update in place: the ``internal_locate`` descent to the
+    leaf, a masked STORE of the matching slot's value word, then post-commit
+    validation (racing writers to one slot serialize through the commit
+    phase; the last committed write wins and the losers restage).
+    ``init(keys, values, root)``; scratch[U_FOUND] reports whether the key
+    existed."""
+
+    def init(keys, values, root_ptr):
+        keys = torch.as_tensor(keys, dtype=torch.int32)
+        B = keys.shape[0]
+        scratch = torch.zeros((B, U_WORDS), dtype=torch.int32, device=keys.device)
+        scratch[:, U_KEY] = keys
+        scratch[:, U_VAL] = torch.as_tensor(values, dtype=torch.int32).to(keys.device)
+        return torch.full((B,), int(root_ptr), dtype=torch.int32, device=keys.device), scratch
+
+    def mut_fn(node, ptr, scratch):
+        key, val, st = scratch[:, U_KEY], scratch[:, U_VAL], scratch[:, U_ST]
+        zeros = torch.zeros_like(node)
+        leaf = node[:, IS_LEAF] == 1
+        child = _child(node, _descend_index(node, key))
+        keys = node[:, KEYS0 : KEYS0 + FANOUT]
+        vals = node[:, VAL0 : VAL0 + FANOUT]
+        idx = torch.arange(FANOUT, device=node.device)
+        hitvec = (idx[None, :] < node[:, NUM_KEYS, None]) & (keys == key[:, None])
+        hit = hitvec.any(dim=1)
+        slot = hitvec.to(torch.int32).argmax(dim=1).to(torch.int32)
+        slot_val = _take(vals, slot)
+        s0, s1 = st == 0, st == 1
+        stage = (s0 & leaf & hit) | (s1 & (slot_val != val))
+        updated = s1 & (slot_val == val)
+        miss = s0 & leaf & ~hit
+        done = miss | updated
+        advance = s0 & ~leaf
+        new_ptr = torch.where(advance, child, ptr)
+        new_scratch = scratch.clone()
+        new_scratch[:, U_ST] = torch.where(stage & s0, 1, st)
+        new_scratch[:, U_FOUND] = torch.where(
+            updated, 1, torch.where(miss, 0, scratch[:, U_FOUND]))
+        word = VAL0 + slot
+        m_op = torch.where(stage, M_STORE, M_NONE)
+        m_tgt = torch.where(stage, ptr, 0)
+        m_mask = torch.where(stage, bit32(word), 0)
+        data = torch.where(
+            torch.arange(node.shape[1], device=node.device)[None, :] == word[:, None],
+            val[:, None], zeros)
+        m_data = torch.where(stage[:, None], data, zeros)
+        return done, new_ptr, new_scratch, (m_op, m_tgt, m_mask, torch.zeros_like(ptr), m_data)
+
+    return PulseIterator(
+        scratch_words=U_WORDS,
+        next_fn=lambda node, ptr, scratch: (
+            _child(node, _descend_index(node, scratch[:, U_KEY])), scratch),
+        end_fn=lambda node, ptr, scratch: (node[:, IS_LEAF] == 1, scratch),
+        init_fn=init,
+        mut_fn=mut_fn,
+        name="btree_update",
+        n_instructions=UPDATE_INSTRUCTIONS,
     )
 
 

@@ -7,11 +7,14 @@ head pointer.  The chain walk is the offloaded traversal.  Node layout
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.core.arena import NULL, ArenaBuilder
 from repro_torch.core.iterator import PulseIterator
+from repro_torch.core.structures import linked_list
 
 NODE_WORDS = 4
 KEY, VALUE, NEXT = 0, 1, 2
@@ -43,6 +46,26 @@ def _np_hash(keys: np.ndarray, n_buckets: int) -> np.ndarray:
     return (h % np.uint32(n_buckets)).astype(np.int32)
 
 
+def _push_front(buckets: np.ndarray, ptrs: np.ndarray, heads: np.ndarray) -> np.ndarray:
+    """Push-front insertion per bucket, in input order: each node links to
+    the previous node of its bucket (the bucket's entry in ``heads`` for
+    the first), and ``heads`` is updated in place to each bucket's last
+    node.  Returns the nodes' NEXT words."""
+    n = len(ptrs)
+    order = np.argsort(buckets, kind="stable")
+    sb = buckets[order]
+    first = np.ones(n, bool)
+    first[1:] = sb[1:] != sb[:-1]
+    prev = np.empty(n, np.int32)
+    prev[1:] = ptrs[order[:-1]]
+    nxt = np.empty(n, np.int32)
+    nxt[order] = np.where(first, heads[sb], prev)
+    last = np.ones(n, bool)
+    last[:-1] = first[1:]
+    heads[sb[last]] = ptrs[order[last]]
+    return nxt
+
+
 def build_into(
     b: ArenaBuilder, keys: np.ndarray, values: np.ndarray, n_buckets: int
 ) -> np.ndarray:
@@ -56,19 +79,7 @@ def build_into(
     rec = np.zeros((n, NODE_WORDS), np.int32)
     rec[:, KEY] = keys
     rec[:, VALUE] = values
-    buckets = _np_hash(keys, n_buckets)
-    # push-front insertion per bucket: each node links to the previous key
-    # of its bucket in input order, and the head is the bucket's last key
-    order = np.argsort(buckets, kind="stable")
-    sb = buckets[order]
-    first = np.ones(n, bool)
-    first[1:] = sb[1:] != sb[:-1]
-    prev = np.empty(n, np.int32)
-    prev[1:] = ptrs[order[:-1]]
-    rec[order, NEXT] = np.where(first, NULL, prev)
-    last = np.ones(n, bool)
-    last[:-1] = first[1:]
-    heads[sb[last]] = ptrs[order[last]]
+    rec[:, NEXT] = _push_front(_np_hash(keys, n_buckets), ptrs, heads)
     b.write(ptrs, rec)
     return heads
 
@@ -123,6 +134,88 @@ def find_iterator(n_buckets: int) -> PulseIterator:
         init_fn=init,
         name="hash_find",
         n_instructions=FIND_INSTRUCTIONS,
+    )
+
+
+# ------------------------------ write path ---------------------------------
+
+# sentinel bucket-head key: never matches a real key (real keys are >= 0 in
+# the write-path workloads); the sentinel gives every chain a stable first
+# node, so inserts into empty buckets and deletes of the first real node
+# both have a predecessor to CAS.
+SENTINEL_KEY = -(2**31)
+
+
+def build_writable(
+    b: ArenaBuilder, keys: np.ndarray, values: np.ndarray, n_buckets: int
+) -> np.ndarray:
+    """Writable-table build: every bucket head is an arena-resident sentinel
+    node (key = SENTINEL_KEY) whose NEXT starts the chain.  Returns the
+    sentinel addresses (n_buckets,) -- these never move, so the host-side
+    bucket table stays valid across inserts and deletes."""
+    sent = b.alloc(n_buckets)
+    rec = np.zeros((n_buckets, NODE_WORDS), np.int32)
+    rec[:, KEY] = SENTINEL_KEY
+    rec[:, NEXT] = NULL
+    b.write(sent, rec)
+    keys = np.asarray(keys, np.int32)
+    values = np.asarray(values, np.int32)
+    n = len(keys)
+    if n:
+        ptrs = b.alloc(n)
+        recs = np.zeros((n, NODE_WORDS), np.int32)
+        recs[:, KEY] = keys
+        recs[:, VALUE] = values
+        heads = np.asarray(b.data[sent, NEXT])
+        recs[:, NEXT] = _push_front(_np_hash(keys, n_buckets), ptrs, heads)
+        b.write(ptrs, recs)
+        b.data[sent, NEXT] = heads
+    return sent.astype(np.int32)
+
+
+def _bucket_init(n_buckets, ops, keys, values, sentinels):
+    keys = torch.as_tensor(keys, dtype=torch.int32)
+    sent = torch.as_tensor(sentinels, dtype=torch.int32).to(keys.device)
+    ptr0 = sent[hash_fn(keys, n_buckets).long()]
+    _, scratch = linked_list._rw_init(ops, keys, values, 0)
+    return ptr0, scratch
+
+
+def rw_iterator(n_buckets: int) -> PulseIterator:
+    """Mixed find/insert/delete over the writable (sentinel-headed) table:
+    one batch, one iterator program, per-record op in scratch[RW_OP].
+    ``init(ops, keys, values, sentinels)``."""
+    def init(ops, keys, values, sentinels):
+        return _bucket_init(n_buckets, ops, keys, values, sentinels)
+
+    return dataclasses.replace(
+        linked_list.rw_iterator(), init_fn=init, name="hash_rw"
+    )
+
+
+def insert_iterator(n_buckets: int) -> PulseIterator:
+    """``unordered_map::insert`` as chain tail-append under the bucket's
+    sentinel.  ``init(keys, values, sentinels)``."""
+    def init(keys, values, sentinels):
+        keys = torch.as_tensor(keys, dtype=torch.int32)
+        ops = torch.full_like(keys, linked_list.OP_INSERT)
+        return _bucket_init(n_buckets, ops, keys, values, sentinels)
+
+    return dataclasses.replace(
+        linked_list.rw_iterator(), init_fn=init, name="hash_insert"
+    )
+
+
+def delete_iterator(n_buckets: int) -> PulseIterator:
+    """``unordered_map::erase``: unlink under the sentinel + FREE the slot.
+    ``init(keys, sentinels)``."""
+    def init(keys, sentinels):
+        keys = torch.as_tensor(keys, dtype=torch.int32)
+        ops = torch.full_like(keys, linked_list.OP_DELETE)
+        return _bucket_init(n_buckets, ops, keys, torch.zeros_like(keys), sentinels)
+
+    return dataclasses.replace(
+        linked_list.rw_iterator(), init_fn=init, name="hash_delete"
     )
 
 

@@ -10,8 +10,8 @@
 //     the semantics of repro_torch.core.isa.run_iteration;
 //   * the native bodies compute what the structures' iterators written in
 //     torch compute (repro_torch.core.structures: list_find, list_sum,
-//     hash_find, bst_find, btree_find, btree_range_agg), bit for bit,
-//     including the int32 wraps.
+//     hash_find, bst_find, btree_find, btree_range_agg, skiplist_find), bit
+//     for bit, including the int32 wraps.
 // The node-word offsets, FANOUT, NULL and KEY_NOT_FOUND of each structure,
 // the opcodes of the ISA and the body ids reach this file as -D defines
 // built from the Python modules (repro_torch/kernels/pulse_chase/kernel.py),
@@ -285,6 +285,30 @@ struct BtreeRangeAgg {
   }
 };
 
+// skiplist_find (fat pointers): [target, value, found]; jump along the
+// highest level whose cached successor key is <= the target; done on a hit
+// or when no level can advance.  Every word index is known at compile time.
+struct SkiplistFind {
+  static constexpr int kScratch = SKIP_FIND_WORDS, kRowWords = SKIP_ROW;
+  __device__ __forceinline__ static bool logic(const int* r, const int* __restrict__, int* s, int,
+                                               int& np) {
+    const int target = s[0];
+    const bool hit = r[SKIP_KEY] == target;
+    bool can = false;
+    np = kNull;
+#pragma unroll
+    for (int l = 0; l < SKIP_LEVELS; ++l) {  // ascending: the last level that fits is the highest
+      if (r[SKIP_NPTR0 + 2 * l + 1] <= target) {
+        can = true;
+        np = r[SKIP_NPTR0 + 2 * l];
+      }
+    }
+    s[1] = hit ? r[SKIP_VALUE] : SKIP_KEY_NOT_FOUND;
+    s[2] = hit ? 1 : 0;
+    return hit || !can;
+  }
+};
+
 // A native body: the scratch pad and the row in registers.
 template <class Impl>
 struct NativeBody {
@@ -546,6 +570,7 @@ cudaError_t with_body(int body, F&& f) {
     case PULSE_BODY_BST_FIND: return f(static_cast<NativeBody<BstFind>*>(nullptr));
     case PULSE_BODY_BTREE_FIND: return f(static_cast<NativeBody<BtreeFind>*>(nullptr));
     case PULSE_BODY_BTREE_RANGE_AGG: return f(static_cast<NativeBody<BtreeRangeAgg>*>(nullptr));
+    case PULSE_BODY_SKIPLIST_FIND: return f(static_cast<NativeBody<SkiplistFind>*>(nullptr));
     default: return cudaErrorInvalidValue;
   }
 }

@@ -31,7 +31,7 @@ import torch
 from repro_torch.core import arena as _arena
 from repro_torch.core import isa
 from repro_torch.core.arena import MAX_NODE_WORDS
-from repro_torch.core.structures import bst, btree, hash_table, linked_list
+from repro_torch.core.structures import bst, btree, hash_table, linked_list, skiplist
 from repro_torch.kernels import _build
 
 
@@ -71,6 +71,9 @@ NATIVE_BODIES = {
                    _BTREE_ROW),
         NativeBody("btree_range_agg", btree, "range_aggregate_iterator", btree.RA_WORDS,
                    _BTREE_ROW),
+        NativeBody("skiplist_find", skiplist, "find_iterator", skiplist.SCRATCH_WORDS,
+                   _row(skiplist.KEY, skiplist.VALUE,
+                        skiplist.NPTR0 + 2 * skiplist.LEVELS - 1)),
     )
 }
 BODIES = ("isa", *NATIVE_BODIES)  # the kernel's body ids, in this order
@@ -94,7 +97,7 @@ def native_body(it) -> NativeBody | None:
 
 
 def _layout_defines() -> dict[str, int]:
-    L, H, T, B = linked_list, hash_table, bst, btree
+    L, H, T, B, K = linked_list, hash_table, bst, btree, skiplist
     nb = NATIVE_BODIES
     return dict(
         PULSE_NULL=_arena.NULL,
@@ -116,6 +119,9 @@ def _layout_defines() -> dict[str, int]:
         BTREE_RA_LO=B.RA_LO, BTREE_RA_HI=B.RA_HI, BTREE_RA_SUM=B.RA_SUM,
         BTREE_RA_MIN=B.RA_MIN, BTREE_RA_MAX=B.RA_MAX, BTREE_RA_COUNT=B.RA_COUNT,
         BTREE_RA_WORDS=nb["btree_range_agg"].scratch_words,
+        SKIP_LEVELS=K.LEVELS, SKIP_KEY=K.KEY, SKIP_VALUE=K.VALUE, SKIP_NPTR0=K.NPTR0,
+        SKIP_KEY_NOT_FOUND=K.KEY_NOT_FOUND,
+        SKIP_FIND_WORDS=nb["skiplist_find"].scratch_words, SKIP_ROW=nb["skiplist_find"].row_words,
         **{f"PULSE_BODY_{name.upper()}": i for i, name in enumerate(BODIES)},
     )
 

@@ -1,7 +1,14 @@
 """Plain torch versions of the pulse_chase kernel: K traversal steps for a
 batch of lanes over an arena, with the kernel's masked-update semantics
 (``chase_reference``), and a whole traversal with the wave scheduler's
-fault semantics (``chase_run_reference``)."""
+fault semantics (``chase_run_reference``).
+
+The kernel's body is ``logic_fn`` here: an ISA program's is the batched VM
+(``core.isa.run_iteration``), and a native body's is the structure's own
+iterator that the body computes (``ops.ChaseLogic`` of it, see
+``kernel.NATIVE_BODIES``): ``list_find``, ``list_sum``, ``hash_find``,
+``bst_find``, ``btree_find``, ``btree_range_agg`` and ``skiplist_find``
+(``core.structures.skiplist.find_iterator``)."""
 
 from __future__ import annotations
 

@@ -370,16 +370,25 @@ def test_kernel_backend_with_torch_iterator_on_cuda_raises(monkeypatch):
 
 
 def test_deferred_paths_raise():
+    """An unknown backend and a mesh (item 6) raise; a mutating iterator
+    takes the write path, whose read-only exits (the kernel backend, the
+    CPU node) raise as in the JAX package."""
     jar, ji, ti, prog, p0, s0 = _case("list")
     eng = tengine.PulseEngine(_carry(jar))
     with pytest.raises(ValueError, match="backend"):
         eng.execute(ti, p0, s0, backend="xla")
-    mut = dataclasses.replace(ti, mut_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.execute(mut, p0, s0)
+    mut = tlist.insert_iterator()
+    with pytest.raises(ValueError, match="read-only"):
+        eng.execute(mut, p0, s0, backend="kernel")
+    with pytest.raises(ValueError, match="force_offload=False"):
+        eng.execute(mut, p0, s0, force_offload=False)
+    with pytest.raises(ValueError, match="backend"):
+        eng.execute(mut, p0, s0, backend="xla")
     two = tarena.make_arena(np.zeros((8, 4), np.int32), num_shards=2, device=CPU)
     with pytest.raises(NotImplementedError, match="item 6"):
         tengine.PulseEngine(two, mesh=object()).execute(ti, p0[:2], s0[:2])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tengine.PulseEngine(two, mesh=object()).execute(mut, p0[:2], s0[:2])
 
 
 def test_arena_entry_points_default_to_the_card():

@@ -23,6 +23,7 @@ from repro.core.structures import btree as jbtree
 from repro.core.structures import hash_table as jhash
 from repro.core.structures import isa_programs as jprogs
 from repro.core.structures import linked_list as jlist
+from repro.core.structures import skiplist as jskip
 from repro_torch.core import dispatch as tdispatch
 from repro_torch.core import isa as tisa
 from repro_torch.core import verify as tverify
@@ -31,6 +32,7 @@ from repro_torch.core.structures import btree as tbtree
 from repro_torch.core.structures import hash_table as thash
 from repro_torch.core.structures import isa_programs as tprogs
 from repro_torch.core.structures import linked_list as tlist
+from repro_torch.core.structures import skiplist as tskip
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "pulse_verify"
 INT_MIN, INT_MAX = -(2**31), 2**31 - 1
@@ -227,11 +229,17 @@ def test_validate_and_assembler_reject_alike():
 
 
 def test_as_pulse_iterator_read_path_and_write_path_deferred():
+    """Read programs get the fused ``step_fn``; a program that can reach the
+    store class gets ``mut_fn`` (the write path), carrying its program."""
     it = tisa.as_pulse_iterator(tprogs.list_find_program())
     assert it.facts is not None and it.facts.read_only and not it.mutates
     assert it.step_fn.__wrapped_program__.name == "list_find_isa"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tisa.as_pulse_iterator(tprogs.bst_update_program())
+    upd = tisa.as_pulse_iterator(tprogs.bst_update_program())
+    jupd = jisa.as_pulse_iterator(jprogs.bst_update_program())
+    assert upd.mutates and upd.step_fn is None and upd.facts.mutates
+    assert upd.mut_fn.__wrapped_program__.name == jupd.mut_fn.__wrapped_program__.name
+    np.testing.assert_array_equal(upd.mut_fn.__wrapped_program__.code,
+                                  jupd.mut_fn.__wrapped_program__.code)
     with pytest.raises(tverify.VerifyError):
         code = tprogs.list_find_program().code.copy()
         code[9] = [0, 0, 0, 0]
@@ -247,6 +255,18 @@ def test_declared_instruction_counts_match_traced_counts():
         (jbst.find_iterator(), tbst.find_iterator(), 4),
         (jbtree.find_iterator(), tbtree.find_iterator(), 20),
         (jbtree.range_aggregate_iterator(), tbtree.range_aggregate_iterator(), 20),
+        (jskip.find_iterator(), tskip.find_iterator(), 12),
+        # the write path's iterators: the reference counts their mut_fn
+        (jlist.rw_iterator(), tlist.rw_iterator(), 4),
+        (jlist.insert_iterator(), tlist.insert_iterator(), 4),
+        (jlist.delete_iterator(), tlist.delete_iterator(), 4),
+        (jhash.rw_iterator(64), thash.rw_iterator(64), 4),
+        (jhash.insert_iterator(64), thash.insert_iterator(64), 4),
+        (jhash.delete_iterator(64), thash.delete_iterator(64), 4),
+        (jbst.update_iterator(), tbst.update_iterator(), 4),
+        (jbtree.update_iterator(), tbtree.update_iterator(), 20),
+        (jskip.insert_iterator(), tskip.insert_iterator(), 12),
+        (jskip.delete_iterator(), tskip.delete_iterator(), 12),
     ]
     for jit_, tit, w in pairs:
         for words in (w, 64):
@@ -255,7 +275,7 @@ def test_declared_instruction_counts_match_traced_counts():
             jd = jdispatch.offload_decision(jit_, words)
             td = tdispatch.offload_decision(tit, words)
             assert dataclasses.asdict(jd) == dataclasses.asdict(td)
-    for name in PROGRAMS[:4]:
+    for name in PROGRAMS:
         jit_ = jisa.as_pulse_iterator(jprogs.all_programs()[name])
         tit = tisa.as_pulse_iterator(tprogs.all_programs()[name])
         assert tdispatch.count_instructions(tit, 20) == jdispatch.count_instructions(jit_, 20)

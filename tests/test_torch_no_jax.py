@@ -40,7 +40,8 @@ def test_port_files_exist():
                  "models/common.py", "models/attention.py", "models/transformer.py",
                  "models/model_zoo.py", "serving/batching.py", "serving/kv_cache.py",
                  "launch/serve.py", "configs/mamba2_780m.py", "kernels/ssd_scan/kernel.py",
-                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py", "models/ssm.py"):
+                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py", "models/ssm.py",
+                 "core/commit.py", "core/structures/skiplist.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu"):
         assert (PORT / "csrc" / cu).is_file()

@@ -292,7 +292,7 @@ def _structure_iterators():
     from repro_torch.core import structures
 
     out = []
-    for mod_name in ("linked_list", "hash_table", "bst", "btree"):
+    for mod_name in ("linked_list", "hash_table", "bst", "btree", "skiplist"):
         mod = getattr(structures, mod_name)
         for name, fn in inspect.getmembers(mod, inspect.isfunction):
             if name.endswith("_iterator") and fn.__module__ == mod.__name__:
@@ -346,6 +346,12 @@ def test_kernel_takes_its_layouts_from_the_structure_modules():
                  "RA_MAX", "RA_COUNT", "RA_WORDS"):
         assert d[f"BTREE_{name}"] == getattr(tbtree, name), name
     assert d["BTREE_ROW"] == tbtree.NEXT_LEAF + 1 <= tbtree.NODE_WORDS
+    from repro_torch.core.structures import skiplist as tskip
+
+    for name in ("LEVELS", "KEY", "VALUE", "NPTR0", "KEY_NOT_FOUND"):
+        assert d[f"SKIP_{name}"] == getattr(tskip, name), name
+    assert d["SKIP_FIND_WORDS"] == tskip.SCRATCH_WORDS
+    assert d["SKIP_ROW"] == tskip.NPTR0 + 2 * tskip.LEVELS <= tskip.NODE_WORDS
     assert {d[f"PULSE_BODY_{b.upper()}"] for b in kernel.BODIES} == set(range(len(kernel.BODIES)))
     flags = set(kernel.NVCC_FLAGS)
     assert all(f"-D{k}={v}" in flags for k, v in d.items())
@@ -474,6 +480,12 @@ def _port_case(name, rng, device):
         ar, root, _ = tbtree.build(keys, vals, device=device)
         it = tbtree.find_iterator()
         p0, s0 = it.init(q, root)
+    elif name == "skiplist_find":
+        from repro_torch.core.structures import skiplist as tskip
+
+        ar, head = tskip.build(keys, vals, device=device)
+        it = tskip.find_iterator()
+        p0, s0 = it.init(q, head)
     else:  # btree_range_agg
         ar, root, _ = tbtree.build(keys, vals, device=device)
         it = tbtree.range_aggregate_iterator()
@@ -486,7 +498,8 @@ def _port_case(name, rng, device):
     return ar, it, [x.to(device) for x in (p0, s0, st0)]
 
 
-NATIVE = ["list_find", "list_sum", "hash_find", "bst_find", "btree_find", "btree_range_agg"]
+NATIVE = ["list_find", "list_sum", "hash_find", "bst_find", "btree_find", "btree_range_agg",
+          "skiplist_find"]
 
 
 @pytest.mark.gpu
