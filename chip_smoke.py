@@ -90,7 +90,26 @@ Phases (any failure exits non-zero before the last line):
      with their old values.  Reported: ops/s, supersteps, commits, epochs,
      the chase's and the commit's wall time, bytes between host and device
      per superstep, peak device memory, the read-back's lookups/s, and the
-     ``skiplist_find`` body's full-depth time beside its bound.
+     ``skiplist_find`` body's full-depth time beside its bound;
+ 11. routing over the paper's four memory nodes (``pulse_paper.MEM_NODES``)
+     emulated on the card: ``PulseEngine(arena, mesh=EmulatedMesh(4,
+     "cuda")).execute(it, ptr0, scr0, max_iters=4096, k_local=4,
+     compact=True)`` on ``webservice`` (the hash table, 200,000 keys, 4,096
+     buckets, placed ``interleaved``: nearly every hop crosses a link),
+     ``wiredtiger`` (the B+tree of 500,000 keys, placed ``sequential``:
+     range partitioning, crossings rare) and ``wiredtiger`` again with
+     ``return_to_cpu=True`` (Fig. 9's ablation), 65,536 YCSB-Zipfian
+     queries each.  Gates: exactly one ``pulse_chase`` launch (its
+     superstep mode) per superstep; the card's results and every
+     ``RoutingStats`` field equal the same call on a CPU copy (the plain
+     chase); equal to ``sequential_commit_execute`` on the card but for the
+     ``schedule`` field (the ablation: equal results to the compacted run);
+     1,024 sampled queries equal the structure's ``ref_find``; the kernel
+     equal to its plain version on one superstep of each batch.  Reported:
+     lookups/s over the median call, supersteps and local-only steps,
+     routed records and wire words, mean crossings, the chase kernel's
+     device ms per superstep beside its bound, its share of the call's
+     wall time, peak device memory.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1137,6 +1156,282 @@ def phase_write(rng):
     return rows, body, readback_launches, shift_row
 
 
+# ------------------------------ routing -------------------------------------
+
+ROUTE_RUN = dict(max_iters=4096, k_local=4, compact=True)  # phase 11's execute arguments
+
+
+def routing_batches(rng, *, B: int = B_MAIN):
+    """The batches of phase 11 on the paper's ``MEM_NODES`` memory nodes,
+    each a dict with the host arrays of its arena (``fields``), its
+    iterator, queries, ptr0, scr0 (on the host), the execute arguments and
+    an oracle ``want(q) -> (value, found)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core.structures import btree, hash_table
+
+    P = pulse_paper.MEM_NODES
+    ws, wt = pulse_paper.WEBSERVICE, pulse_paper.WIREDTIGER
+    out = []
+    keys = make_keys(rng, ws.n_keys)
+    values = rng.integers(0, 2**31 - 1, ws.n_keys).astype(np.int32)
+    q = make_queries(rng, keys, B)
+    arena, heads = hash_table.build(keys, values, ws.n_buckets, num_shards=P,
+                                    policy="interleaved", device="cpu")
+    it = hash_table.find_iterator(ws.n_buckets)
+    p0, s0 = it.init(torch.from_numpy(q), torch.as_tensor(heads))
+    out.append(dict(name=ws.name, structure="hash", keys=ws.n_keys, policy="interleaved",
+                    arena=arena, it=it, q=q, p0=p0, s0=s0, run=dict(ROUTE_RUN),
+                    want=lambda x, k=keys, v=values: [
+                        w[:2] for w in hash_table.ref_find(k, v, ws.n_buckets, x)]))
+    keys = make_keys(rng, wt.n_keys)
+    values = rng.integers(0, 2**31 - 1, wt.n_keys).astype(np.int32)
+    q = make_queries(rng, keys, B)
+    arena, root, _ = btree.build(keys, values, num_shards=P, policy="sequential", device="cpu")
+    it = btree.find_iterator()
+    p0, s0 = it.init(torch.from_numpy(q), root)
+    want = lambda x, k=keys, v=values: [tuple(w[:2]) for w in btree.ref_find(k, v, x)]  # noqa: E731
+    base = dict(structure="btree", keys=wt.n_keys, policy="sequential", arena=arena, it=it,
+                q=q, p0=p0, s0=s0, want=want)
+    out.append(dict(base, name=wt.name, run=dict(ROUTE_RUN)))
+    out.append(dict(base, name=f"{wt.name}_return_to_cpu", run=dict(ROUTE_RUN, return_to_cpu=True)))
+    return P, out
+
+
+def superstep_vs_plain(arena, it, p0, s0, P: int, *, advance: int = 2):
+    """One superstep's local chase, after ``advance`` routed supersteps from
+    the placement, on the kernel and on its plain version (the same CUDA
+    tensors), both timed; returns a dict."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_chase import ops, ref
+
+    pools, _ = routing.place_requests(p0, s0, P)
+    step = routing.make_superstep(it, P, k_local=ROUTE_RUN["k_local"],
+                                  max_iters=ROUTE_RUN["max_iters"], drain_done=True)
+    for _ in range(advance):
+        pools = step(pools, arena.data, arena.bounds, arena.perms)[0]
+    logic = ops.iterator_logic(it)
+    args = (arena.data, pools, arena.bounds, arena.perms)
+
+    def kern():
+        return ops.pulse_chase_superstep(*args, logic_fn=logic, k_local=ROUTE_RUN["k_local"],
+                                         max_iters=ROUTE_RUN["max_iters"])
+
+    def plain():
+        return ref.chase_superstep_reference(*args, logic, ROUTE_RUN["k_local"],
+                                             scratch_words=it.scratch_words,
+                                             max_iters=ROUTE_RUN["max_iters"])
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    active = int((pools[..., routing.F_STATUS] == 0).sum().item())
+    k_ms = profiled_ms([kern], 10, "chase_kernel")
+    return dict(bit_equal=same, max_abs_err=max_abs_err(got, want), active_records=active,
+                pool_records=int(pools.shape[0] * pools.shape[1]),
+                ms=time_cuda(kern, 10) if k_ms is None else k_ms,
+                ms_source="events" if k_ms is None else "profiler",
+                plain_ms=time_cuda(plain, 3))
+
+
+def call_breakdown(fn, n_ops: int = 8):
+    """One profiled call of ``fn``: its wall ms (host clock, ending in a
+    synchronise), the device ms of all its kernels and their share of the
+    wall time, the top kernels, the host operators with the most self
+    time (ms and calls), and the host ms and calls of each ``routing.*``
+    span (``distributed_execute``'s placement, supersteps and decode)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, top = _device_ms(prof)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    spans = {e.key: dict(ms=e.cpu_time_total / 1e3, calls=e.count) for e in host
+             if e.key.startswith("routing.")}
+    host = [e for e in host if not e.key.startswith("routing.")]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:n_ops]
+    return dict(wall_ms=wall_ms, device_ms=device_ms or 0.0, spans=spans,
+                device_busy=(device_ms or 0.0) / wall_ms, top_kernels=top, host_op_ms=host_ms,
+                host_ops=[dict(op=e.key[:60], self_cpu_ms=e.self_cpu_time_total / 1e3,
+                               calls=e.count) for e in host])
+
+
+def phase_routing(rng):
+    """Phase 11: PulseEngine.execute on an EmulatedMesh of the paper's four
+    memory nodes, on the card (one pulse_chase launch per superstep) and on
+    a CPU copy, held against each other, against the sequential executor
+    and against the structures' oracles."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import commit, routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.engine import PulseEngine
+    from repro_torch.core.iterator import STATUS_DONE, STATUS_FAULT
+    from repro_torch.kernels.pulse_chase import ops
+
+    t_phase = time.perf_counter()
+    P, batches = routing_batches(rng)
+    rows, launches_total, seq_by_arena = [], 0, {}
+    for b in batches:
+        name, it, run = b["name"], b["it"], b["run"]
+        fields = [t.numpy() for t in (b["arena"].data, b["arena"].bounds, b["arena"].perms,
+                                      b["arena"].heap)]
+        card = arena_from_numpy(*fields, device="cuda")
+        p0, s0 = b["p0"].cuda(), b["s0"].cuda()
+        eng = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"))
+        # the main path, with the launch count read around it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.pulse_chase.launches = 0
+        t0 = time.perf_counter()
+        res = eng.execute(it, p0, s0, **run)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = ops.pulse_chase.launches
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        st = res.stats
+        launches_total += launches
+        if launches != st.supersteps:
+            raise AssertionError(f"{name}: {launches} pulse_chase launches in "
+                                 f"{st.supersteps} supersteps")
+        B = res.ptr.shape[0]
+        for f in ("ptr", "scratch", "status", "iters"):
+            t = getattr(res, f)
+            if not (t.is_cuda and t.dtype == torch.int32 and t.shape[0] == B):
+                raise AssertionError(f"{name}: bad {f} {t.dtype} {tuple(t.shape)}")
+
+        # the same call on a CPU copy (the plain chase, step_batch per shard)
+        cpu = arena_from_numpy(*fields, device="cpu")
+        t0 = time.perf_counter()
+        res_cpu = PulseEngine(cpu, mesh=routing.EmulatedMesh(P, "cpu")).execute(
+            it, b["p0"], b["s0"], **run)
+        cpu_s = time.perf_counter() - t0
+        for f in ("ptr", "scratch", "status", "iters"):
+            if not torch.equal(getattr(res, f).cpu(), getattr(res_cpu, f)):
+                raise AssertionError(f"{name}: card and CPU copy differ on {f}")
+        diff = _stats_diff(st, res_cpu.stats)
+        if diff:
+            raise AssertionError(f"{name}: RoutingStats of card and CPU copy differ on {diff}")
+
+        # the sequential executor on the card: equal but for the schedule
+        seq_note = None
+        if not run.get("return_to_cpu"):
+            srec, sst = commit.sequential_commit_execute(
+                it, card, p0, s0, max_iters=run["max_iters"], k_local=run["k_local"],
+                compact=run["compact"])
+            diff = _stats_diff(st, sst)
+            if diff != ["schedule"]:
+                raise AssertionError(f"{name}: against the sequential executor the stats "
+                                     f"differ on {diff}")
+            for f, col in (("ptr", routing.F_PTR), ("status", routing.F_STATUS),
+                           ("iters", routing.F_ITERS)):
+                if not np.array_equal(getattr(res, f).cpu().numpy(), srec[:, col]):
+                    raise AssertionError(f"{name}: {f} differs from the sequential executor")
+            if not np.array_equal(res.scratch.cpu().numpy(), srec[:, routing.F_SCRATCH:]):
+                raise AssertionError(f"{name}: scratch differs from the sequential executor")
+            seq_by_arena[id(b["arena"])] = res
+            seq_note = "equal but for schedule"
+        else:  # the ablation changes where records go, never their results
+            other = seq_by_arena[id(b["arena"])]
+            for f in ("ptr", "scratch", "status", "iters"):
+                if not torch.equal(getattr(res, f), getattr(other, f)):
+                    raise AssertionError(f"{name}: results differ from the compacted run")
+            seq_note = "results equal to the compacted run; crossings differ"
+
+        # the structure's oracle on 1,024 sampled queries
+        sample = np.sort(np.random.default_rng(1).choice(B, 1024, replace=False))
+        want = b["want"](b["q"][sample])
+        scr = res.scratch.cpu().numpy()[sample]
+        got = [(int(x[1]), int(x[2])) for x in scr]
+        if got != [(int(w[0]), int(w[1])) for w in want]:
+            raise AssertionError(f"{name}: results disagree with ref_find")
+        status = res.status.cpu().numpy()
+        if not np.all((status == STATUS_DONE) | (status == STATUS_FAULT)):
+            raise AssertionError(f"{name}: records left unfinished")
+
+        # end-to-end rate over the median call; the chase kernel's device
+        # time in a call (the profiler's timestamps) over its wall time
+        secs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.execute(it, p0, s0, **run)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = float(np.median(secs))
+        k_call = profiled_ms([lambda: eng.execute(it, p0, s0, **run)], 1, "chase_kernel")
+        if k_call is None:
+            raise AssertionError(f"{name}: the profiler saw no pulse_chase kernel")
+        breakdown = call_breakdown(lambda: eng.execute(it, p0, s0, **run))
+
+        # the bound of a superstep's chase: each distinct row the call reads
+        # once, and the records active at a superstep's start read and
+        # written once, over the HBM rate, shared out over the supersteps
+        logic = ops.iterator_logic(it)
+        depth = int(res.iters.max().item())
+        rows_seen = visited_rows(card, logic, p0, s0.reshape(B, -1).contiguous(), depth)
+        R = routing.record_width(it.scratch_words)
+        starts = [B] + st.active_per_step[:-1]
+        nbytes = rows_seen * card.node_words * 4 + sum(starts) * R * 4 * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3 / st.supersteps
+        one = superstep_vs_plain(card, it, p0, s0, P)
+        if not one["bit_equal"]:
+            raise AssertionError(f"{name}: the superstep kernel disagrees with its plain version")
+        row = dict(
+            batch=name, structure=b["structure"], keys=b["keys"], policy=b["policy"],
+            memory_nodes=P, lanes=B, execute_args=run, arena_mb=card.capacity * card.node_words
+            * 4 / 1e6, launches=launches, supersteps=st.supersteps,
+            local_only_steps=st.local_only_steps, routed_records=int(sum(st.routed_per_step)),
+            wire_words=st.total_wire_words, mean_crossings=float(st.crossings.mean()),
+            execute_s=secs, first_execute_s=first_s, cpu_copy_s=cpu_s,
+            lookups_per_s=B / med, kernel_ms_per_call=k_call,
+            kernel_ms_per_superstep=k_call / st.supersteps, bound_ms_per_superstep=bound_ms,
+            bound_by="bytes", distinct_rows=rows_seen, kernel_share_of_call=k_call / (med * 1e3),
+            peak_mib=peak, iters_max=depth, card_equals_cpu=True, sequential=seq_note,
+            superstep_check=one, profiled_call=breakdown)
+        rows.append(row)
+        log(f"[{name}] P={P} ({b['policy']}): {B / med:.4g} lookups/s (median of "
+            f"{[round(x, 4) for x in secs]} s; first call {first_s:.3f} s, CPU copy {cpu_s:.2f} s); "
+            f"supersteps {st.supersteps} ({st.local_only_steps} local-only), {launches} launches; "
+            f"routed {row['routed_records']} records, {st.total_wire_words} wire words, mean "
+            f"crossings {row['mean_crossings']:.3f}; chase kernel {row['kernel_ms_per_superstep']:.5f} "
+            f"ms a superstep (profiler; bound {bound_ms:.5f}), {100 * row['kernel_share_of_call']:.1f}% "
+            f"of the call; peak {peak:.1f} MiB; card == CPU copy; sequential executor: {seq_note}")
+        log(f"[{name}] one superstep ({one['active_records']} active of {one['pool_records']} "
+            f"records): kernel {one['ms']:.5f} ms ({one['ms_source']}), plain {one['plain_ms']:.3f} "
+            f"ms, bit_equal={one['bit_equal']}")
+        log(f"[{name}] a profiled call: {breakdown['wall_ms']:.2f} ms wall, kernels "
+            f"{breakdown['device_ms']:.3f} ms (device busy {100 * breakdown['device_busy']:.1f}%), "
+            f"host operators {breakdown['host_op_ms']:.2f} ms; the most self time: " + ", ".join(
+                f"{o['op']} {o['self_cpu_ms']:.2f} ms/{o['calls']}" for o in breakdown["host_ops"]))
+        spans = breakdown["spans"]
+        if sorted(spans) != ["routing.decode", "routing.place", "routing.superstep"]:
+            raise AssertionError(f"{name}: the profiled call shows the spans {sorted(spans)}")
+        rest = breakdown["wall_ms"] - sum(v["ms"] for v in spans.values())
+        log(f"[{name}] the profiled call's spans: placement {spans['routing.place']['ms']:.3f} "
+            f"ms, {spans['routing.superstep']['calls']} supersteps "
+            f"{spans['routing.superstep']['ms']:.3f} ms, decode "
+            f"{spans['routing.decode']['ms']:.3f} ms, the rest of the call {rest:.3f} ms")
+        del card, cpu, eng, res, res_cpu
+        torch.cuda.empty_cache()
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s (CPU copies included)")
+    log(json.dumps({"phase": "routing", "batches": rows}))
+    return rows, launches_total
+
+
 # --------------------------- attention kernels ------------------------------
 
 
@@ -1595,10 +1890,13 @@ def serve_and_compare(serve_args, kernel_op, backend_field):
 def _device_ms(prof):
     """(kernel ms summed over the profiled window, the top 6 kernels by
     time); (None, []) when the profiler saw no kernel.  Only the kernels'
-    own events count: an operator's device time is its kernels' again."""
+    own events count: an operator's device time is its kernels' again, and
+    a ``record_function`` span's device range (``routing.*``) spans them."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("routing.")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total <= 0:
         return None, []
@@ -1889,6 +2187,24 @@ def main(argv=None) -> int:
     entry["launches_note"] = ("one per PulseEngine.execute: three workloads x two routes "
                               "(phase 3) and one read-back per write batch (phase 10)")
     entry["native_bodies"] = native_bodies(checks, rows, write_rows, skip_body)
+    log("== phase 11: routing over four emulated memory nodes, card against a CPU copy")
+    route_rows, route_launches = phase_routing(rng)
+    entry["launches"] += route_launches
+    entry["launches_note"] = ("one per PulseEngine.execute: three workloads x two routes "
+                              "(phase 3) and one read-back per write batch (phase 10); one "
+                              "superstep-mode launch per superstep of each routed batch "
+                              "(phase 11)")
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [r["superstep_check"]["max_abs_err"] for r in route_rows])
+    entry["superstep"] = dict(
+        timed_on="one superstep's local chase of each phase-11 batch (4 shards x 65,536 "
+                 "records), kernel vs plain; per superstep in a call from the profiler",
+        **{r["batch"]: dict(ms=r["superstep_check"]["ms"],
+                            plain_ms=r["superstep_check"]["plain_ms"],
+                            ms_per_superstep_in_call=r["kernel_ms_per_superstep"],
+                            bound_ms_per_superstep=r["bound_ms_per_superstep"],
+                            launches=r["launches"], supersteps=r["supersteps"])
+           for r in route_rows})
 
     def f32_err(cks, row):
         return max([c["max_abs_err"] for c in cks if c["dtype"] == "float32"]
@@ -1947,7 +2263,8 @@ def main(argv=None) -> int:
         args.json.write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
-            write_path=dict(batches=write_rows, store_class=store_class), **summary,
+            write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
+            **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,5 +1,4 @@
-"""PulseEngine: the user-facing traversal engine (dispatch + execute),
-single memory node, read path.
+"""PulseEngine: the user-facing traversal engine (dispatch + execute).
 
 Execution paths:
   * ``backend="kernel"``    -- the pulse_chase CUDA kernel, one launch per
@@ -8,6 +7,13 @@ Execution paths:
   * ``backend="reference"`` -- the plain torch executor
                                (``iterator.execute_batched``), the oracle the
                                kernel path is held against.
+  * a mesh                  -- with ``mesh=routing.EmulatedMesh(P, ...)`` and
+                               a P-shard arena, a read batch is routed across
+                               the P memory nodes in supersteps
+                               (``routing.distributed_execute``, the
+                               dispatched schedule); the backend picks the
+                               local chase: one ``pulse_chase`` launch per
+                               superstep, or the plain chase.
   * ``cpu_node``            -- the Cache-based baseline: the traversal runs at
                                the CPU node with an LRU trace of node fetches;
                                chosen by the dispatch model for iterators it
@@ -20,8 +26,7 @@ Mutating iterators (the write path) run through the sequential commit
 host, and the engine swaps in the committed arena.
 
 The dispatch engine's offload decision (t_c <= eta * t_d, S4.1) lives in
-``core.dispatch``.  Multi-shard routing over a mesh comes with a later
-slice (ROADMAP queue 1, item 6).
+``core.dispatch``.
 """
 
 from __future__ import annotations
@@ -202,10 +207,15 @@ class PulseEngine:
         *,
         max_iters: int = 1 << 20,
         force_offload: bool | None = None,
+        return_to_cpu: bool = False,
+        k_local: int = 4,
         cache_nodes: int = 0,
+        compact: bool = True,
         backend: str | None = None,
+        schedule: str = "auto",
+        fabric: str = "dense",
     ) -> ExecResult:
-        """Dispatch + execute a batch of traversals on one memory node.
+        """Dispatch + execute a batch of traversals.
 
         ``backend`` selects the executor: ``"kernel"`` runs the pulse_chase
         kernel, one launch for the whole batch (the plain version of the
@@ -225,12 +235,31 @@ class PulseEngine:
         (``_execute_mut``); the kernel backend is read-only
         (``backend="kernel"`` raises), and so is the CPU node
         (``force_offload=False`` raises): the commits live with the data.
+
+        On a mesh (``mesh=routing.EmulatedMesh(P, device)`` and an arena of P
+        > 1 shards) an offloaded read batch runs through
+        ``routing.distributed_execute`` on the dispatched schedule, with
+        ``k_local``, ``compact``, ``return_to_cpu`` and ``fabric`` passed on;
+        ``backend="kernel"`` runs each superstep's local chase as one
+        ``pulse_chase`` launch, ``"reference"`` as the plain chase.
+        ``schedule="auto"`` resolves to ``"dispatched"`` (results and wire
+        words do not depend on the schedule; the overlap model that picks
+        the pipelined schedule is item 6(d)); ``"fused"`` and
+        ``"pipelined"`` are item 6(c), a mutating iterator on a mesh 6(b).
         """
-        if self.mesh is not None and self.arena.num_shards > 1:
+        on_mesh = self.mesh is not None and self.arena.num_shards > 1
+        if on_mesh and not isinstance(self.mesh, routing.EmulatedMesh):
             raise NotImplementedError(
-                "distributed execution over a mesh comes with ROADMAP queue 1, item 6"
+                "a mesh other than routing.EmulatedMesh (torch.distributed as a "
+                "fabric) comes with ROADMAP queue 1, item 6(e)"
             )
         if it.mutates:
+            if on_mesh:
+                raise NotImplementedError(
+                    "a mutating iterator on a mesh (the commit phase on the fabric) "
+                    "comes with ROADMAP queue 1, item 6(b); "
+                    "core.commit.sequential_commit_execute runs it at any shard count"
+                )
             if backend == "kernel":
                 raise ValueError(
                     "mutating iterators are not supported on the pulse_chase "
@@ -270,6 +299,25 @@ class PulseEngine:
                 trace,
                 False,
                 decision,
+            )
+
+        if on_mesh:
+            if schedule == "auto":
+                schedule = "dispatched"
+            rec, stats = routing.distributed_execute(
+                it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
+                k_local=k_local, return_to_cpu=return_to_cpu, compact=compact,
+                schedule=schedule, fabric=fabric, local_backend=backend,
+                fault_injector=self.fault_injector,
+            )
+            S = it.scratch_words
+            return ExecResult(
+                ptr=rec[:, routing.F_PTR].contiguous(),
+                scratch=rec[:, routing.F_SCRATCH : routing.F_SCRATCH + S].contiguous(),
+                status=rec[:, routing.F_STATUS].contiguous(),
+                iters=rec[:, routing.F_ITERS].contiguous(),
+                stats=stats,
+                decision=decision,
             )
 
         self._local_fault_check()

@@ -17,18 +17,30 @@
 // built from the Python modules (repro_torch/kernels/pulse_chase/kernel.py),
 // so the kernel keeps no copy of its own.
 //
-// Two modes, one loop:
-//   * fixed depth (run == 0): num_steps iterations for every active lane,
+// Three modes, one body:
+//   * fixed depth (mode 0): num_steps iterations for every active lane,
 //     counts accumulated on top of it_in; the semantics of
 //     repro_torch.kernels.pulse_chase.ref.chase_reference;
-//   * one whole traversal (run == 1): a lane entering active with a negative
+//   * one whole traversal (mode 1): a lane entering active with a negative
 //     pointer faults at once; a live lane is checked against the fault table
 //     (pointer in range, its shard readable) whenever its iteration count is
 //     a multiple of `quantum` and once more if it is still live at
 //     num_steps; a lane retired on a negative pointer is a fault too.  These
 //     are the semantics of the variable-depth wave scheduler of the JAX
 //     package with the same depth quantum (ref.chase_run_reference), in one
-//     launch and with no host work between steps.
+//     launch and with no host work between steps;
+//   * one routing superstep (mode 2): the local chase of every memory node
+//     of a mesh emulated on this card, over the request records of all P
+//     shards' pools at once, (P * L, R) int32 read with stride R.  Lane i
+//     belongs to shard i / L, which serves rows [bounds[s], bounds[s + 1])
+//     and reads them when perms[s] grants `need` (or always, with `elide`).
+//     Up to num_steps (k_local) times, as iterator.step_batch does: a lane
+//     whose pointer lies in its shard's range steps (or faults when its
+//     shard does not grant the read); then a lane still active is MAXED at
+//     max_iters, and a lane that came in with a NULL pointer faults.  A
+//     lane leaves its loop only once nothing can change it: it is no longer
+//     active, or its pointer is another shard's and its budget is not
+//     spent.  The semantics of ref.chase_superstep_reference.
 //
 // What bounds it on this card: every step of a lane is a gather whose
 // address depends on the previous step's result, so a lane is a chain of
@@ -60,7 +72,8 @@
 #if !defined(PULSE_OP_HALT) || !defined(PULSE_OP_GETPTR) || !defined(PULSE_LAST_OP)
 #error "build through repro_torch.kernels.pulse_chase.kernel, which defines the opcodes"
 #endif
-#if !defined(PULSE_NULL) || !defined(BTREE_FANOUT) || !defined(PULSE_BODY_ISA)
+#if !defined(PULSE_NULL) || !defined(BTREE_FANOUT) || !defined(PULSE_BODY_ISA) || \
+    !defined(REC_SCRATCH) || !defined(STATUS_FAULT)
 #error "build through repro_torch.kernels.pulse_chase.kernel, which defines the layouts"
 #endif
 
@@ -78,23 +91,37 @@ struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
   int* st_out;
   int* it_out;
   unsigned char* faulted_out;  // run mode
-  const int* bounds;       // fault table: (n_bounds,) sorted shard bases
+  const int* bounds;       // fault table / superstep: (n_bounds,) sorted shard bases
   const int* perms;        // (n_perms,) permission bits per shard
   int* next_lane;          // work counter (zeroed by the launcher)
+  const int* pool_in;      // superstep: (B, R) request records
+  int* pool_out;
   int cap, W, T, B, S;
-  int num_steps;           // steps (fixed depth) or the budget (run)
+  int num_steps;           // steps (fixed depth, superstep) or the budget (run)
   int quantum;             // run: a fault check every `quantum` iterations
-  int run;                 // 1: one whole traversal, 0: fixed depth
-  int n_bounds;            // 0: no fault check
+  int mode;                // 0: fixed depth, 1: one whole traversal, 2: superstep
+  int n_bounds;            // run: 0 for no fault check; superstep: P + 1
   int n_perms;
   int check_cap;           // the fault check's capacity
   int need;                // the permission bits a read needs
+  int R;                   // superstep: words of a record
+  int L;                   // superstep: records of one shard's pool
+  int max_iters;           // superstep: a lane's iteration budget
+  int elide;               // superstep: 1 when every shard's grant is known true
 };
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kNumRegs = 16;
+constexpr int kRun = 1, kSuperstep = 2;  // ChaseArgs::mode (0: fixed depth)
+
+// the record format of repro_torch.core.routing and the status codes of
+// repro_torch.core.iterator
+constexpr int kRecPtr = REC_PTR, kRecStatus = REC_STATUS, kRecIters = REC_ITERS,
+              kRecScratch = REC_SCRATCH;
+constexpr int kActive = STATUS_ACTIVE, kDone = STATUS_DONE, kMaxed = STATUS_MAXED,
+              kFault = STATUS_FAULT;
 
 // opcodes of repro_torch.core.isa; the store class (STOREN..FREE) stages
 // nothing on the read path
@@ -449,13 +476,14 @@ __device__ __forceinline__ bool faults(int p, const ChaseArgs& a, const int* s_b
 template <class Body>
 __device__ __forceinline__ void run_lane(Body& body, const ChaseArgs& a, const int* s_bounds,
                                          const int* s_perms, bool vec, int lane) {
+  const bool run = a.mode == kRun;
   int p = a.ptr_in[lane];
   int st = a.st_in[lane];
-  int iters = a.run ? 0 : a.it_in[lane];
+  int iters = run ? 0 : a.it_in[lane];
   bool faulted = false;
   const size_t so = static_cast<size_t>(lane) * a.S;
   body.begin(a.scr_in + so);
-  if (a.run && st == 0 && p < 0) {  // NULL entry: a fault on arrival
+  if (run && st == 0 && p < 0) {  // NULL entry: a fault on arrival
     st = 1;
     faulted = true;
   }
@@ -488,6 +516,50 @@ __device__ __forceinline__ void run_lane(Body& body, const ChaseArgs& a, const i
   body.finish(a.scr_out + so);
 }
 
+// One superstep of one record (mode 2): iterator.step_batch, k_local times,
+// over the record's shard's range.  Every word of the record is copied
+// through; ptr, status, iters and the scratch pad are written as they end.
+template <class Body>
+__device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
+                                               const int* s_bounds, const int* s_perms,
+                                               bool vec, int lane) {
+  const int* __restrict__ rec = a.pool_in + static_cast<size_t>(lane) * a.R;
+  int* __restrict__ out = a.pool_out + static_cast<size_t>(lane) * a.R;
+  for (int j = 0; j < a.R; ++j) out[j] = rec[j];
+  int st = rec[kRecStatus];
+  if (st != kActive) return;
+  const int shard = lane / a.L;
+  const int lo = s_bounds[shard], hi = s_bounds[shard + 1];
+  const bool granted = a.elide != 0 || (s_perms[shard] & a.need) == a.need;
+  int p = rec[kRecPtr];
+  int iters = rec[kRecIters];
+  body.begin(rec + kRecScratch);
+  for (int k = 0; k < a.num_steps && st == kActive; ++k) {
+    const bool null_ptr = p == kNull;
+    const bool local = p >= lo && p < hi;
+    // another shard's pointer, budget left: the router moves it, unchanged
+    if (!local && !null_ptr && iters < a.max_iters) break;
+    if (local && !null_ptr) {
+      if (!granted) {
+        st = kFault;
+      } else {
+        const int* row = a.arena + static_cast<size_t>(clampi(p, 0, a.cap - 1)) * a.W;
+        int np;
+        const bool done = body.step(row, vec, p, np);
+        if (!done) p = np;
+        ++iters;
+        if (done) st = kDone;
+      }
+    }
+    if (st == kActive && iters >= a.max_iters) st = kMaxed;
+    if (null_ptr) st = kFault;  // walked off the structure on an earlier step
+  }
+  out[kRecPtr] = p;
+  out[kRecStatus] = st;
+  out[kRecIters] = iters;
+  body.finish(out + kRecScratch);
+}
+
 template <class Body>
 __global__ void __launch_bounds__(kThreads) chase_kernel(const ChaseArgs a) {
   extern __shared__ int4 smem[];
@@ -504,8 +576,12 @@ __global__ void __launch_bounds__(kThreads) chase_kernel(const ChaseArgs a) {
   const bool vec = (a.W % 4 == 0) && (reinterpret_cast<uintptr_t>(a.arena) % 16 == 0);
   int lane = blockIdx.x * kThreads + threadIdx.x;
   const int resident = gridDim.x * kThreads;
+  const bool superstep = a.mode == kSuperstep;
   while (lane < a.B) {
-    run_lane(body, a, s_bounds, s_perms, vec, lane);
+    if (superstep)
+      superstep_lane(body, a, s_bounds, s_perms, vec, lane);
+    else
+      run_lane(body, a, s_bounds, s_perms, vec, lane);
     if (a.next_lane == nullptr) break;
     lane = resident + atomicAdd(a.next_lane, 1);
   }

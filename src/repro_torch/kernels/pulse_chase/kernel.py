@@ -29,8 +29,9 @@ import types
 import torch
 
 from repro_torch.core import arena as _arena
-from repro_torch.core import isa
-from repro_torch.core.arena import MAX_NODE_WORDS
+from repro_torch.core import isa, routing
+from repro_torch.core import iterator as _iterator
+from repro_torch.core.arena import MAX_NODE_WORDS, PERM_READ
 from repro_torch.core.structures import bst, btree, hash_table, linked_list, skiplist
 from repro_torch.kernels import _build
 
@@ -122,6 +123,10 @@ def _layout_defines() -> dict[str, int]:
         SKIP_LEVELS=K.LEVELS, SKIP_KEY=K.KEY, SKIP_VALUE=K.VALUE, SKIP_NPTR0=K.NPTR0,
         SKIP_KEY_NOT_FOUND=K.KEY_NOT_FOUND,
         SKIP_FIND_WORDS=nb["skiplist_find"].scratch_words, SKIP_ROW=nb["skiplist_find"].row_words,
+        REC_PTR=routing.F_PTR, REC_STATUS=routing.F_STATUS, REC_ITERS=routing.F_ITERS,
+        REC_SCRATCH=routing.F_SCRATCH,
+        **{f"STATUS_{k}": getattr(_iterator, f"STATUS_{k}")
+           for k in ("ACTIVE", "DONE", "MAXED", "FAULT")},
         **{f"PULSE_BODY_{name.upper()}": i for i, name in enumerate(BODIES)},
     )
 
@@ -147,10 +152,14 @@ class ChaseArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "arena", "code", "ptr_in", "scr_in", "st_in", "it_in", "ptr_out", "scr_out",
-        "st_out", "it_out", "faulted_out", "bounds", "perms", "next_lane")] + [
+        "st_out", "it_out", "faulted_out", "bounds", "perms", "next_lane", "pool_in",
+        "pool_out")] + [
         (n, ctypes.c_int) for n in (
-            "cap", "W", "T", "B", "S", "num_steps", "quantum", "run", "n_bounds", "n_perms",
-            "check_cap", "need")]
+            "cap", "W", "T", "B", "S", "num_steps", "quantum", "mode", "n_bounds", "n_perms",
+            "check_cap", "need", "R", "L", "max_iters", "elide")]
+
+
+MODE_FIXED, MODE_RUN, MODE_SUPERSTEP = 0, 1, 2  # ChaseArgs.mode
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,30 +217,9 @@ def launch(arena, ptr, scratch, status, iters, code, num_steps: int, *, body: st
         lanes.append(("code", code, 2))
     for name, t, nd in lanes:
         _check(name, t, dev, nd)
-    if body not in BODIES:
-        raise ValueError(f"pulse_chase: unknown body {body!r}; known: {BODIES}")
     cap, W = arena.shape
     B, S = scratch.shape
-    if W > MAX_NODE_WORDS:
-        raise ValueError(f"pulse_chase: node_words {W} > {MAX_NODE_WORDS}")
-    if S > MAX_SCRATCH_WORDS:
-        raise ValueError(f"pulse_chase: scratch_words {S} > {MAX_SCRATCH_WORDS}")
-    T = 0
-    if body == "isa":
-        T = code.shape[0]
-        if not 0 < T <= MAX_PROGRAM_ROWS or code.shape[1] != 4:
-            raise ValueError(
-                f"pulse_chase: program must be (T, 4) with 0 < T <= {MAX_PROGRAM_ROWS}, "
-                f"got {tuple(code.shape)}"
-            )
-    else:
-        nb = NATIVE_BODIES[body]
-        if S != nb.scratch_words or W < nb.row_words:
-            raise ValueError(
-                f"pulse_chase: body {body} takes {nb.scratch_words} scratch words and rows "
-                f"of at least {nb.row_words} words, got {S} and {W}")
-    if cap == 0:
-        raise ValueError("pulse_chase: empty arena")
+    T = _check_body(body, code, W, S, cap)
     if not ptr.shape[0] == status.shape[0] == B or (not run and iters.shape[0] != B):
         raise ValueError("pulse_chase: lane tensors disagree on the batch size")
     if run and quantum < 1:
@@ -239,8 +227,8 @@ def launch(arena, ptr, scratch, status, iters, code, num_steps: int, *, body: st
     if not 0 <= num_steps < 2**31:
         raise ValueError(f"pulse_chase: num_steps {num_steps} out of range")
 
-    a = ChaseArgs(cap=cap, W=W, T=T, B=B, S=S, num_steps=int(num_steps), run=int(run),
-                  quantum=int(quantum) if run else 1)
+    a = ChaseArgs(cap=cap, W=W, T=T, B=B, S=S, num_steps=int(num_steps),
+                  mode=MODE_RUN if run else MODE_FIXED, quantum=int(quantum) if run else 1)
     if fault is not None:
         if not run:
             raise ValueError("pulse_chase: a fault check needs iters=None (one whole run)")
@@ -260,12 +248,91 @@ def launch(arena, ptr, scratch, status, iters, code, num_steps: int, *, body: st
         iters_ptr, faulted_ptr = None, outs[4].data_ptr()
     else:
         iters_ptr, faulted_ptr = iters.data_ptr(), None
-    counter = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the launcher
     a.arena, a.code = arena.data_ptr(), code.data_ptr() if body == "isa" else None
     a.ptr_in, a.scr_in, a.st_in, a.it_in = (ptr.data_ptr(), scratch.data_ptr(),
                                             status.data_ptr(), iters_ptr)
     a.ptr_out, a.scr_out, a.st_out, a.it_out = (o.data_ptr() for o in outs[:4])
-    a.faulted_out, a.next_lane = faulted_ptr, counter.data_ptr()
+    a.faulted_out = faulted_ptr
+    _go(a, body, dev)
+    return tuple(outs)
+
+
+launch.last_grid = 0  # blocks of the last launch (the card's resident blocks, or fewer)
+
+
+def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: str = "isa",
+                     scratch_words: int, max_iters: int, elide: bool):
+    """Launch one routing superstep (mode 2) on PyTorch's current stream:
+    ``k_local`` steps of every record of ``pool`` ((P, L, R) int32, shard
+    ``s``'s records at ``pool[s]``) over the rows of its shard, ``bounds``
+    ((P + 1,) shard bases) and ``perms`` ((P,) permission bits; a shard
+    reads when it grants PERM_READ, or always with ``elide``) on the card.
+    Returns the new pool; reads nothing on the host and does not
+    synchronise.  An empty pool raises: every call launches."""
+    dev = arena.device
+    if dev.type != "cuda":
+        raise ValueError(f"pulse_chase kernel needs CUDA tensors, got {dev}")
+    checks = [("arena", arena, 2), ("pool", pool, 3), ("bounds", bounds, 1), ("perms", perms, 1)]
+    if body == "isa":
+        checks.append(("code", code, 2))
+    for name, t, nd in checks:
+        _check(name, t, dev, nd)
+    cap, W = arena.shape
+    P, L, R = pool.shape
+    S = int(scratch_words)
+    T = _check_body(body, code, W, S, cap)
+    if R < routing.F_SCRATCH + S:
+        raise ValueError(f"pulse_chase: records of {R} words cannot hold {S} scratch words")
+    if not 0 < P < MAX_FAULT_TABLE or bounds.shape[0] != P + 1 or perms.shape[0] != P:
+        raise ValueError(f"pulse_chase: {P} shards need {P + 1} bounds and {P} permission "
+                         f"words (1-{MAX_FAULT_TABLE - 1} shards), got {bounds.shape[0]} and "
+                         f"{perms.shape[0]}")
+    if not 0 < P * L or P * L * R >= 2**31 or not 0 <= k_local < 2**31:
+        raise ValueError(f"pulse_chase: pool {tuple(pool.shape)} or k_local {k_local} out of "
+                         "range")
+    out = torch.empty_like(pool)
+    a = ChaseArgs(cap=cap, W=W, T=T, B=P * L, S=S, num_steps=int(k_local), mode=MODE_SUPERSTEP,
+                  quantum=1, n_bounds=P + 1, n_perms=P, need=PERM_READ, R=R, L=L,
+                  max_iters=int(min(max_iters, 2**31 - 1)), elide=int(bool(elide)))
+    a.arena, a.code = arena.data_ptr(), code.data_ptr() if body == "isa" else None
+    a.bounds, a.perms = bounds.data_ptr(), perms.data_ptr()
+    a.pool_in, a.pool_out = pool.data_ptr(), out.data_ptr()
+    _go(a, body, dev)
+    return out
+
+
+def _check_body(body: str, code, W: int, S: int, cap: int) -> int:
+    """Check that ``body`` takes rows of ``W`` words and ``S`` scratch
+    words; returns the program's rows (0 for a native body)."""
+    if body not in BODIES:
+        raise ValueError(f"pulse_chase: unknown body {body!r}; known: {BODIES}")
+    if W > MAX_NODE_WORDS:
+        raise ValueError(f"pulse_chase: node_words {W} > {MAX_NODE_WORDS}")
+    if S > MAX_SCRATCH_WORDS:
+        raise ValueError(f"pulse_chase: scratch_words {S} > {MAX_SCRATCH_WORDS}")
+    if cap == 0:
+        raise ValueError("pulse_chase: empty arena")
+    if body != "isa":
+        nb = NATIVE_BODIES[body]
+        if S != nb.scratch_words or W < nb.row_words:
+            raise ValueError(
+                f"pulse_chase: body {body} takes {nb.scratch_words} scratch words and rows "
+                f"of at least {nb.row_words} words, got {S} and {W}")
+        return 0
+    T = code.shape[0]
+    if not 0 < T <= MAX_PROGRAM_ROWS or code.shape[1] != 4:
+        raise ValueError(
+            f"pulse_chase: program must be (T, 4) with 0 < T <= {MAX_PROGRAM_ROWS}, "
+            f"got {tuple(code.shape)}"
+        )
+    return T
+
+
+def _go(a: ChaseArgs, body: str, dev) -> None:
+    """Launch with ``a`` on the current stream (a work counter of its own);
+    raises on a refused launch."""
+    counter = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the launcher
+    a.next_lane = counter.data_ptr()
     lib = _library()
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -275,10 +342,6 @@ def launch(arena, ptr, scratch, status, iters, code, num_steps: int, *, body: st
     if err != 0:
         _raise(lib, "launch", err)
     launch.last_grid = grid.value
-    return tuple(outs)
-
-
-launch.last_grid = 0  # blocks of the last launch (the card's resident blocks, or fewer)
 
 
 def blocks_per_sm(body: str, *, T: int = 0, S: int = 0, W: int = 0, n_fault_words: int = 0,

@@ -1,12 +1,14 @@
 """Wrappers for the pulse_chase kernel, the PulseIterator adapter, the
-whole-traversal run that ``PulseEngine.execute`` uses and the
-variable-depth wave scheduler.
+whole-traversal run that ``PulseEngine.execute`` uses, the local chase of
+a routing superstep and the variable-depth wave scheduler.
 
-``pulse_chase`` (fixed depth) and ``pulse_chase_run`` (one traversal to
-its end, one launch) launch the CUDA kernel for CUDA tensors and run their
-plain versions (``ref.chase_reference``, ``ref.chase_run_reference``) for
-CPU tensors; they never fall back from one to the other.
-``pulse_chase.launches`` counts the kernel's launches from both.
+``pulse_chase`` (fixed depth), ``pulse_chase_run`` (one traversal to its
+end, one launch) and ``pulse_chase_superstep`` (one superstep of every
+shard's pool, one launch) launch the CUDA kernel for CUDA tensors and run
+their plain versions (``ref.chase_reference``, ``ref.chase_run_reference``,
+``ref.chase_superstep_reference``) for CPU tensors; they never fall back
+from one to the other.  ``pulse_chase.launches`` counts the kernel's
+launches from all three.
 ``pulse_chase_waves`` is the counterpart of the JAX package's wave
 scheduler, held against it; it launches ``pulse_chase`` once per chunk.
 """
@@ -20,7 +22,11 @@ import torch
 from repro_torch.core.arena import PERM_READ
 from repro_torch.core.iterator import PulseIterator
 from repro_torch.kernels.pulse_chase import kernel as _kernel
-from repro_torch.kernels.pulse_chase.ref import chase_reference, chase_run_reference
+from repro_torch.kernels.pulse_chase.ref import (
+    chase_reference,
+    chase_run_reference,
+    chase_superstep_reference,
+)
 
 
 class ChaseLogic:
@@ -199,6 +205,45 @@ def pulse_chase_run(
                       steps_per_chunk=[max_steps] if B else [],
                       lanes_per_chunk=[B] if B else [], retire_step=it, faulted=faulted)
     return p, s, st, stats
+
+
+def pulse_chase_superstep(
+    arena_data: torch.Tensor,
+    pool: torch.Tensor,
+    bounds: torch.Tensor,
+    perms: torch.Tensor,
+    *,
+    logic_fn,
+    k_local: int,
+    max_iters: int,
+    elide_access_check: bool = False,
+):
+    """The local chase of one routing superstep, every shard at once.
+
+    ``pool`` is ``(P, L, R)`` int32 request records (``core.routing``'s
+    format), shard ``s``'s pool at ``pool[s]``; ``bounds`` ``(P + 1,)`` and
+    ``perms`` ``(P,)`` are the arena's.  Each record takes up to
+    ``k_local`` steps of ``iterator.step_batch`` over its shard's range
+    (``ref.chase_superstep_reference`` says how).  Returns the new pool;
+    the input is not modified.
+
+    On CUDA tensors this is one launch of the kernel (the interpreter for
+    an ISA iterator's logic, or the native body of a structure's iterator;
+    any other logic raises ``ValueError``), and the host reads nothing.  On
+    CPU tensors the plain version runs.  An empty pool launches nothing."""
+    S = logic_fn.it.scratch_words
+    if not _on_cuda(arena_data):
+        return chase_superstep_reference(
+            arena_data, pool, bounds, perms, logic_fn, k_local, scratch_words=S,
+            max_iters=max_iters, elide=elide_access_check)
+    body, code = _kernel_body(logic_fn, arena_data.device)
+    if pool.shape[0] * pool.shape[1] == 0:
+        return pool.clone()
+    out = _kernel.launch_superstep(
+        arena_data, pool.contiguous(), bounds, perms, code, k_local, body=body,
+        scratch_words=S, max_iters=max_iters, elide=elide_access_check)
+    pulse_chase.launches += 1
+    return out
 
 
 # ------------------------- variable-depth scheduling -------------------------

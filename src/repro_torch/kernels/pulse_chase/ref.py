@@ -1,7 +1,9 @@
 """Plain torch versions of the pulse_chase kernel: K traversal steps for a
 batch of lanes over an arena, with the kernel's masked-update semantics
-(``chase_reference``), and a whole traversal with the wave scheduler's
-fault semantics (``chase_run_reference``).
+(``chase_reference``), a whole traversal with the wave scheduler's fault
+semantics (``chase_run_reference``), and the local chase of one routing
+superstep over every shard's pool of request records
+(``chase_superstep_reference``).
 
 The kernel's body is ``logic_fn`` here: an ISA program's is the batched VM
 (``core.isa.run_iteration``), and a native body's is the structure's own
@@ -13,6 +15,15 @@ iterator that the body computes (``ops.ChaseLogic`` of it, see
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.arena import NULL, PERM_READ
+from repro_torch.core.iterator import (
+    STATUS_ACTIVE,
+    STATUS_DONE,
+    STATUS_FAULT,
+    STATUS_MAXED,
+)
+from repro_torch.core.routing import F_ITERS, F_PTR, F_SCRATCH, F_STATUS
 
 
 def chase_reference(arena, ptr, scratch, status, iters, logic_fn, num_steps: int):
@@ -66,3 +77,51 @@ def chase_run_reference(arena, ptr, scratch, status, logic_fn, max_steps: int,
                                                       logic_fn, 1)
         faulted = faulted | (live & (status == 1) & (ptr < 0))
     return ptr, scratch, status, iters, faulted
+
+
+def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int, *,
+                              scratch_words: int, max_iters: int, elide: bool = False):
+    """The local chase of one routing superstep over every shard at once.
+
+    ``pool`` is ``(P, L, R)`` request records (``core.routing``'s format);
+    shard ``s`` serves the rows ``[bounds[s], bounds[s + 1])`` of ``arena``
+    (global rows) and reads them when ``perms[s]`` grants PERM_READ
+    (always, with ``elide``).  ``k_local`` times, for every record as
+    ``iterator.step_batch`` treats it: an ACTIVE record whose pointer lies
+    in its shard's range steps (a fault instead when the shard does not
+    grant the read); then a record still ACTIVE goes MAXED at
+    ``max_iters``, and one that was ACTIVE with a NULL pointer faults.
+    Records of other shards' ranges are left as they are.  Returns the new
+    pool; every other word of a record is copied through."""
+    P, L, R = pool.shape
+    S = scratch_words
+    flat = pool.reshape(P * L, R)
+    shard = torch.arange(P * L, device=pool.device) // L
+    lo, hi = bounds[shard], bounds[shard + 1]
+    granted = torch.ones_like(shard, dtype=torch.bool)
+    if not elide:
+        granted = ((perms & PERM_READ) == PERM_READ)[shard]
+    ptr, status, iters = flat[:, F_PTR], flat[:, F_STATUS], flat[:, F_ITERS]
+    scratch = flat[:, F_SCRATCH:F_SCRATCH + S]
+    cap = arena.shape[0]
+    for _ in range(k_local):
+        active = status == STATUS_ACTIVE
+        local = (ptr >= lo) & (ptr < hi)
+        null = ptr == NULL
+        fault = active & local & ~granted & ~null
+        runnable = active & local & ~fault & ~null
+        nodes = arena[torch.where(runnable, ptr.clamp(0, cap - 1), 0).long()]
+        done, nptr, nscr = logic_fn(nodes, ptr, scratch)
+        nptr = torch.where(done, ptr, nptr)
+        ptr = torch.where(runnable, nptr, ptr).to(torch.int32)
+        scratch = torch.where(runnable[:, None], nscr, scratch).to(torch.int32)
+        iters = torch.where(runnable, iters + 1, iters).to(torch.int32)
+        status = torch.where(runnable & done, STATUS_DONE, status)
+        status = torch.where(fault, STATUS_FAULT, status)
+        status = torch.where((status == STATUS_ACTIVE) & (iters >= max_iters), STATUS_MAXED,
+                             status)
+        status = torch.where(active & null, STATUS_FAULT, status).to(torch.int32)
+    out = flat.clone()
+    out[:, F_PTR], out[:, F_STATUS], out[:, F_ITERS] = ptr, status, iters
+    out[:, F_SCRATCH:F_SCRATCH + S] = scratch
+    return out.reshape(P, L, R)
