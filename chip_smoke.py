@@ -7,7 +7,7 @@ Run from the root of the repository, on a machine with a CUDA card and
     python3 chip_smoke.py [--seed 0] [--json PATH]
 
 Phases (any failure exits non-zero before the last line):
-  1. device and build: the card's name and power limit, then the four
+  1. device and build: the card's name and power limit, then the five
      kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
      started together) with their ``-Xptxas -v`` reports (registers, and
      stack frame and spills of every ``paged_decode*`` instantiation);
@@ -109,7 +109,35 @@ Phases (any failure exits non-zero before the last line):
      lookups/s over the median call, supersteps and local-only steps,
      routed records and wire words, mean crossings, the chase kernel's
      device ms per superstep beside its bound, its share of the call's
-     wall time, peak device memory.
+     wall time, peak device memory, and a profiled call split by the
+     ``routing.*`` spans (placement; each superstep's chase and switch,
+     the switch with its counter read; decode);
+ 12. the write path over the same four memory nodes: phase 10's three
+     batches at the same sizes through ``PulseEngine(arena,
+     mesh=EmulatedMesh(4, "cuda")).execute(it, ptr0, scr0, max_iters=4096,
+     k_local=4, compact=True)``, each superstep's commit phase one launch
+     of the ``pulse_commit`` kernel (``csrc/pulse_commit.cu``).
+     ``webservice_rw`` and ``skiplist_rw`` are placed ``interleaved`` with
+     room on every shard for the inserts of its home records (an ALLOC
+     claims a row on its record's home shard, ``id % 4``),
+     ``wiredtiger_update`` ``sequential``.  Gates: the card's run equals
+     the same calls on a CPU copy (records, every ``RoutingStats`` field,
+     final ``data`` and ``heap``) and the sequential commit at P = 4 on the
+     card (all but ``schedule``); the input arena unchanged and the
+     committed arena on the card; every record DONE and every found value
+     right; ``pulse_commit`` launched once per mutating superstep and
+     ``pulse_chase`` never during a mutating batch; the kernel equal to its
+     plain version on the captured commit phase with the most staged
+     records of each batch; the committed arena read back over the mesh on
+     the structure's find iterator (one superstep-mode ``pulse_chase``
+     launch per superstep) finds every inserted and updated key with its
+     value, no deleted key, and 1,024 untouched keys with their old values.
+     Reported: ops/s over the median of three calls, supersteps and
+     local-only steps, commits and epochs, routed records, wire words, mean
+     crossings, a profiled call split into chase, commit and switch, the
+     commit kernel's device ms per superstep beside its bound, the
+     captured commit phase's kernel and plain ms beside its bound and its
+     longest per-shard chain, peak device memory and the phase's time.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -451,6 +479,7 @@ def phase_device():
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.pulse_chase import kernel as chase_kernel
+    from repro_torch.kernels.pulse_commit import kernel as commit_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     name = torch.cuda.get_device_name(0)
@@ -461,7 +490,8 @@ def phase_device():
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} visible)")
     log(f"nvidia-smi: {smi}")
-    sources = [chase_kernel.SOURCE, flash_kernel.SOURCE, paged_kernel.SOURCE, ssd_kernel.SOURCE]
+    sources = [chase_kernel.SOURCE, flash_kernel.SOURCE, paged_kernel.SOURCE, ssd_kernel.SOURCE,
+               commit_kernel.SOURCE]
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
     log(f"built {', '.join(so.name for so in libs)} in {time.perf_counter() - t0:.1f} s")
@@ -791,15 +821,44 @@ def _untouched(rng, pool, n):
     return rng.choice(pool, min(n, len(pool)), replace=False).astype(np.int32)
 
 
-def _webservice_rw(rng):
+def _placement(P, policy, used, allocating):
+    """``(builder, placement)``: ``builder(W)`` an ``ArenaBuilder`` for
+    ``used`` rows over ``P`` shards (``sequential`` at one shard) with room
+    on every shard for the ALLOCs of its home records (``allocating``: the
+    batch positions of the records that allocate; record ``i``'s home is
+    ``i % P``), and the placement's description."""
+    import numpy as np
+
+    from repro_torch.core.arena import ArenaBuilder
+
+    policy = policy if P > 1 else "sequential"
+    allocs = np.bincount(np.asarray(allocating, np.int64) % P, minlength=P)
+    per = -(-used // P) + int(allocs.max())
+
+    def builder(W):
+        return ArenaBuilder(per * P, W, num_shards=P, policy=policy)
+
+    return builder, dict(policy=policy, memory_nodes=P, allocs_per_home=allocs.tolist())
+
+
+def _headroom(fields, placement):
+    """Each shard's spare rows after the build, beside its home ALLOCs."""
+    from repro_torch.core.arena import H_BUMP
+
+    bounds, heap = fields[1], fields[3]
+    return dict(placement, spare_rows=[int(bounds[s + 1] - heap[s, H_BUMP])
+                                       for s in range(len(bounds) - 1)])
+
+
+def _webservice_rw(rng, P=1):
     """The writable hash table (the paper's Table 3 size) under 90% YCSB
     finds, 5% inserts of fresh keys and 5% deletes of stored keys (one per
-    bucket, never a chain's tail)."""
+    bucket, never a chain's tail); over ``P`` shards placed
+    ``interleaved``, each with room for its home inserts."""
     import numpy as np
     import torch
 
     from repro_torch.configs import pulse_paper
-    from repro_torch.core.arena import ArenaBuilder
     from repro_torch.core.structures import hash_table, linked_list
 
     ws = pulse_paper.WEBSERVICE
@@ -825,7 +884,8 @@ def _webservice_rw(rng):
     qv = np.concatenate([np.zeros(len(finds)), fresh_vals, np.zeros(n_del)]).astype(np.int32)
     perm = rng.permutation(B)
     ops, qk, qv = ops[perm].astype(np.int32), qk[perm], qv[perm]
-    b = ArenaBuilder(NB + n + n_ins, hash_table.NODE_WORDS)
+    builder, placement = _placement(P, "interleaved", NB + n, np.flatnonzero(ops == 1))
+    b = builder(hash_table.NODE_WORDS)
     sent = hash_table.build_writable(b, stored, values, NB)
     it = hash_table.rw_iterator(NB)
     p0, s0 = it.init(ops, qk, qv, sent)
@@ -852,26 +912,29 @@ def _webservice_rw(rng):
     rwant = (np.r_[np.ones(n_ins), np.zeros(n_del), np.ones(len(sample))].astype(bool),
              np.r_[fresh_vals, np.zeros(n_del, np.int32), _lookup(ks, vs, sample)[1]])
     fit = hash_table.find_iterator(NB)
-    return dict(name="webservice_rw", structure="hash", keys=n, fields=_arena_fields(b),
+    fields = _arena_fields(b)
+    return dict(name="webservice_rw", structure="hash", keys=n, fields=fields,
+                placement=_headroom(fields, placement),
                 steps=[("rw", it, p0, s0)], check=[check],
                 readback=(fit, *fit.init(torch.from_numpy(rq), sent), rwant),
                 traffic=dict(finds=len(finds), inserts=n_ins, deletes=n_del))
 
 
-def _wiredtiger_update(rng):
+def _wiredtiger_update(rng, P=1):
     """The B+tree (the paper's Table 3 size) under in-place value updates of
-    distinct keys, drawn uniformly without replacement."""
+    distinct keys, drawn uniformly without replacement; over ``P`` shards
+    placed ``sequential`` (range partitioning; it allocates nothing)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import pulse_paper
-    from repro_torch.core.arena import ArenaBuilder
     from repro_torch.core.structures import btree
 
     n = pulse_paper.WIREDTIGER.n_keys
     keys = make_keys(rng, n)
     values = rng.integers(0, 2**31 - 1, n).astype(np.int32)
-    b = ArenaBuilder(btree.node_estimate(n), btree.NODE_WORDS)
+    builder, placement = _placement(P, "sequential", btree.node_estimate(n), [])
+    b = builder(btree.NODE_WORDS)
     root, height = btree.build_into(b, keys, values)
     upd = rng.choice(n, B_MAIN, replace=False)
     q, nv = keys[upd], rng.integers(0, 2**31 - 1, B_MAIN).astype(np.int32)
@@ -890,19 +953,22 @@ def _wiredtiger_update(rng):
     rq = np.concatenate([q, keys[sample]])
     rwant = (np.ones(len(rq), bool), np.concatenate([nv, values[sample]]))
     fit = btree.find_iterator()
-    return dict(name="wiredtiger_update", structure="btree", keys=n, fields=_arena_fields(b),
+    fields = _arena_fields(b)
+    return dict(name="wiredtiger_update", structure="btree", keys=n, fields=fields,
+                placement=_headroom(fields, placement),
                 steps=[("update", it, p0, s0)], check=[check],
                 readback=(fit, *fit.init(torch.from_numpy(rq), root), rwant),
                 traffic=dict(updates=B_MAIN, height=height))
 
 
-def _skiplist_rw(rng):
+def _skiplist_rw(rng, P=1):
     """A skip list of SKIP_KEYS keys: SKIP_OPS inserts of fresh keys, then
-    SKIP_OPS deletes of build-time level-0 keys, no two of them neighbours."""
+    SKIP_OPS deletes of build-time level-0 keys, no two of them neighbours;
+    over ``P`` shards placed ``interleaved``, each with room for its home
+    inserts."""
     import numpy as np
     import torch
 
-    from repro_torch.core.arena import ArenaBuilder
     from repro_torch.core.structures import skiplist
 
     n, n_op = SKIP_KEYS, SKIP_OPS
@@ -910,7 +976,8 @@ def _skiplist_rw(rng):
     stored, fresh = allk[:n], allk[n:]
     values = rng.integers(0, 2**31 - 1, n).astype(np.int32)
     fresh_vals = rng.integers(0, 2**31 - 1, n_op).astype(np.int32)
-    b = ArenaBuilder(n + 1 + n_op, skiplist.NODE_WORDS)
+    builder, placement = _placement(P, "interleaved", n + 1, np.arange(n_op))
+    b = builder(skiplist.NODE_WORDS)
     head = skiplist.build_into(b, stored, values)
     srt = np.argsort(stored)
     ks, vs = stored[srt], values[srt]
@@ -935,20 +1002,23 @@ def _skiplist_rw(rng):
     rwant = (np.r_[np.ones(n_op), np.zeros(n_op), np.ones(len(sample))].astype(bool),
              np.r_[fresh_vals, np.zeros(n_op, np.int32), _lookup(ks, vs, sample)[1]])
     fit = skiplist.find_iterator()
-    return dict(name="skiplist_rw", structure="skiplist", keys=n, fields=_arena_fields(b),
+    fields = _arena_fields(b)
+    return dict(name="skiplist_rw", structure="skiplist", keys=n, fields=fields,
+                placement=_headroom(fields, placement),
                 steps=[("insert", ins, pi, si), ("delete", dele, pd, sd)],
                 check=[check_insert, check_delete],
                 readback=(fit, *fit.init(torch.from_numpy(rq), head), rwant),
                 traffic=dict(inserts=n_op, deletes=n_op))
 
 
-def write_batches(rng):
-    """The three batches of phase 10, each a dict with the host arrays of
-    its input arena (``fields``), its steps (``steps``: name, iterator,
-    ptr0, scr0 on the host), a check per step (``check``) and its read-back
-    (``readback``: iterator, ptr0, scr0, the (found, value) wanted per
-    lane)."""
-    return [_webservice_rw(rng), _wiredtiger_update(rng), _skiplist_rw(rng)]
+def write_batches(rng, P: int = 1):
+    """The three batches of phases 10 (``P = 1``) and 12 (``MEM_NODES``
+    shards), each a dict with the host arrays of its input arena
+    (``fields``), its placement and each shard's headroom (``placement``),
+    its steps (``steps``: name, iterator, ptr0, scr0 on the host), a check
+    per step (``check``) and its read-back (``readback``: iterator, ptr0,
+    scr0, the (found, value) wanted per lane)."""
+    return [_webservice_rw(rng, P), _wiredtiger_update(rng, P), _skiplist_rw(rng, P)]
 
 
 def _run_batch(wb, device: str):
@@ -1239,11 +1309,12 @@ def superstep_vs_plain(arena, it, p0, s0, P: int, *, advance: int = 2):
 
 
 def call_breakdown(fn, n_ops: int = 8):
-    """One profiled call of ``fn``: its wall ms (host clock, ending in a
-    synchronise), the device ms of all its kernels and their share of the
-    wall time, the top kernels, the host operators with the most self
-    time (ms and calls), and the host ms and calls of each ``routing.*``
-    span (``distributed_execute``'s placement, supersteps and decode)."""
+    """One profiled call of ``fn`` (after a warm-up call): its wall ms (host
+    clock, ending in a synchronise), the device ms of all its kernels and
+    their share of the wall time, the top kernels, the host operators with
+    the most self time (ms and calls), and the host ms and calls of each
+    ``routing.*`` span (``distributed_execute``'s placement, supersteps and
+    decode, and inside a superstep its chase, switch and counter read)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1255,8 +1326,9 @@ def call_breakdown(fn, n_ops: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms, top = _device_ms(prof)
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    events = prof.key_averages()
+    device_ms, top = _device_ms(prof, events)
+    host = [e for e in events if e.device_type == DeviceType.CPU]
     spans = {e.key: dict(ms=e.cpu_time_total / 1e3, calls=e.count) for e in host
              if e.key.startswith("routing.")}
     host = [e for e in host if not e.key.startswith("routing.")]
@@ -1266,6 +1338,29 @@ def call_breakdown(fn, n_ops: int = 8):
                 device_busy=(device_ms or 0.0) / wall_ms, top_kernels=top, host_op_ms=host_ms,
                 host_ops=[dict(op=e.key[:60], self_cpu_ms=e.self_cpu_time_total / 1e3,
                                calls=e.count) for e in host])
+
+
+SPANS = ("routing.place", "routing.superstep", "routing.chase", "routing.switch",
+         "routing.counters", "routing.decode")
+
+
+def log_spans(name, spans, wall_ms, supersteps):
+    """Check that a profiled read call shows each ``routing.*`` span, with
+    one chase, switch and counter read per superstep, and log the split:
+    placement, supersteps (the chase, the switch and the counter read
+    inside them), decode and the rest of the call."""
+    if sorted(spans) != sorted(SPANS):
+        raise AssertionError(f"{name}: the profiled call shows the spans {sorted(spans)}")
+    for s in SPANS[1:-1]:
+        if spans[s]["calls"] != supersteps:
+            raise AssertionError(f"{name}: {spans[s]['calls']} {s} spans in {supersteps} "
+                                 f"supersteps")
+    rest = wall_ms - sum(spans[s]["ms"] for s in ("routing.place", "routing.superstep",
+                                                  "routing.decode"))
+    inner = ", ".join(f"{s.split('.')[1]} {spans[s]['ms']:.3f}" for s in SPANS[2:-1])
+    log(f"[{name}] the profiled call's spans: placement {spans['routing.place']['ms']:.3f} ms, "
+        f"{supersteps} supersteps {spans['routing.superstep']['ms']:.3f} ms ({inner} ms), "
+        f"decode {spans['routing.decode']['ms']:.3f} ms, the rest of the call {rest:.3f} ms")
 
 
 def phase_routing(rng):
@@ -1417,19 +1512,424 @@ def phase_routing(rng):
             f"{breakdown['device_ms']:.3f} ms (device busy {100 * breakdown['device_busy']:.1f}%), "
             f"host operators {breakdown['host_op_ms']:.2f} ms; the most self time: " + ", ".join(
                 f"{o['op']} {o['self_cpu_ms']:.2f} ms/{o['calls']}" for o in breakdown["host_ops"]))
-        spans = breakdown["spans"]
-        if sorted(spans) != ["routing.decode", "routing.place", "routing.superstep"]:
-            raise AssertionError(f"{name}: the profiled call shows the spans {sorted(spans)}")
-        rest = breakdown["wall_ms"] - sum(v["ms"] for v in spans.values())
-        log(f"[{name}] the profiled call's spans: placement {spans['routing.place']['ms']:.3f} "
-            f"ms, {spans['routing.superstep']['calls']} supersteps "
-            f"{spans['routing.superstep']['ms']:.3f} ms, decode "
-            f"{spans['routing.decode']['ms']:.3f} ms, the rest of the call {rest:.3f} ms")
+        log_spans(name, breakdown["spans"], breakdown["wall_ms"], st.supersteps)
         del card, cpu, eng, res, res_cpu
         torch.cuda.empty_cache()
     log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s (CPU copies included)")
     log(json.dumps({"phase": "routing", "batches": rows}))
     return rows, launches_total
+
+
+# ------------------------- the write path on the mesh -------------------------
+
+WRITE_MESH_RUN = dict(max_iters=4096, k_local=4, compact=True)  # phase 12's execute arguments
+COMMIT_SOURCE = "src/repro_torch/csrc/pulse_commit.cu"
+COMMIT_REPLACES = "src/repro/core/routing.py:407 (_commit_phase: XLA, no Pallas kernel)"
+
+
+def commit_work(pools, data, heap, bounds, perms, out_pools, out_heap, scratch_words: int):
+    """What one commit phase must move, counted from its inputs (``pools``,
+    ``data``, ``heap`` before the phase) and its result (``out_pools``,
+    ``out_heap``): ``(bytes, eligible records, the longest shard's
+    eligible count)``.
+
+    Per eligible record on a writable shard: its 8-byte order index, its
+    m_op, m_tgt and m_mask read, a CAS's expected word, the staged words
+    its mask selects (a STORE, CAS or ALLOC); its m_op written, and an
+    ALLOC's scratch word (the slot) or status (out of rows).  Per row: the
+    words the phase writes (the union of the masks of the stores and the
+    CAS hits on it, a FREE's whole row, each claimed ALLOC row whole), the
+    guard word each CAS reads, and the link of each slot popped from the
+    free list.  On a shard without PERM_WRITE: each eligible record's order
+    index read, its status and m_op written.  Per shard: its eligible
+    count, bounds and perms read, and the four heap registers read and
+    written where it commits.  A CAS hit is
+    judged on the arena before the phase: exact unless an earlier commit
+    of the same phase wrote its guard word."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.core.arena import (H_BUMP, M_ALLOC, M_CAS, M_FREE, M_NONE, M_STORE,
+                                        PERM_WRITE)
+    from repro_torch.core.iterator import STATUS_EMPTY, STATUS_FAULT
+
+    P, L, R = pools.shape
+    cap, W = data.shape
+    MB = routing.F_SCRATCH + scratch_words
+    op, tgt, mask = pools[..., MB], pools[..., MB + 1], pools[..., MB + 2]
+    me = torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
+    alloc = op == M_ALLOC
+    local = (tgt >= bounds[:-1, None]) & (tgt < bounds[1:, None])
+    elig = ((op != M_NONE) & (pools[..., routing.F_STATUS] != STATUS_EMPTY)
+            & torch.where(alloc, pools[..., routing.F_HOME] == me, local))
+    writable = ((perms & PERM_WRITE) == PERM_WRITE)[:, None]
+    applied, denied = elig & writable, elig & ~writable
+    # the mask's words, widened by sign past bit 31 as the commit does
+    bits = ((mask[..., None] >> torch.arange(W, device=pools.device).clamp(max=31)) & 1) == 1
+    store, cas = applied & (op == M_STORE), applied & (op == M_CAS)
+    free, alloc = applied & (op == M_FREE), applied & alloc
+    row = tgt.clamp(0, cap - 1).long()
+    first = bits.int().argmax(-1)  # the lowest masked word, 0 when none is
+    hit = cas & (data[row, first] == pools[..., MB + 3])
+    written = torch.zeros(cap, W, dtype=torch.int32, device=pools.device)
+    sel = store | hit
+    written.index_add_(0, row[sel], bits[sel].int())
+    written.index_add_(0, row[free], torch.ones(int(free.sum()), W, dtype=torch.int32,
+                                                device=pools.device))
+    claimed = alloc & (out_pools[..., routing.F_STATUS] != STATUS_FAULT)
+    n_claimed = int(claimed.sum())
+    pops = n_claimed - int((out_heap[:, H_BUMP] - heap[:, H_BUMP]).sum())
+    staged_words = int((bits & (store | cas | alloc)[..., None]).sum())
+    words = (int(applied.sum()) * 4  # m_op, m_tgt, m_mask read; m_op written
+             + int(cas.sum()) * 2 + staged_words + int(alloc.sum())  # expect, staged, slot
+             + int((written > 0).sum()) + n_claimed * W + pops  # the rows
+             + int(denied.sum()) * 2  # status and m_op
+             + 4 * P + 8 * int((applied.any(1)).sum()))  # count, bounds, perms; heap
+    per_shard = elig.sum(1)
+    n = int(per_shard.sum())
+    return words * 4 + n * 8, n, int(per_shard.max())
+
+
+def _capture_commits(fn):
+    """Run ``fn`` (a CPU run) with ``pulse_commit`` wrapped: returns fn's
+    result, clones of the inputs of the commit phase that found the most
+    staged records (with its work), and the work (``commit_work``) of
+    every commit phase in call order."""
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+
+    orig, best, works = commit_ops.pulse_commit, dict(staged=-1), []
+
+    def spy(pools, data, heap, bounds, perms, *, scratch_words):
+        before = [t.clone() for t in (pools, data, heap, bounds, perms)]
+        out = orig(pools, data, heap, bounds, perms, scratch_words=scratch_words)
+        work = commit_work(*before, pools, heap, scratch_words)
+        works.append(work)
+        staged = int((before[0][..., routing.F_SCRATCH + scratch_words] != 0).sum())
+        if staged > best["staged"]:
+            best.update(staged=staged, scratch_words=scratch_words, args=before, work=work)
+        return out
+
+    commit_ops.pulse_commit = spy
+    try:
+        return fn(), best, works
+    finally:
+        commit_ops.pulse_commit = orig
+
+
+def commit_vs_plain(best):
+    """The kernel and its plain version on one captured commit phase (the
+    kernel on CUDA copies, the plain version on CPU copies), both timed;
+    returns a dict."""
+    import torch
+
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+    from repro_torch.kernels.pulse_commit import ref as commit_ref
+
+    S = best["scratch_words"]
+    host = best["args"]
+    card = [t.cuda() for t in host]
+
+    def kern():
+        return commit_ops.pulse_commit(*[t.clone() for t in card], scratch_words=S)
+
+    def plain():
+        return commit_ref.pulse_commit_reference(*[t.clone() for t in host], scratch_words=S)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    err = max(max_abs_err(a.cpu(), b) for a, b in zip(got, want))
+    nbytes, n, chain = best["work"]
+    k_ms = profiled_ms([kern], 5, "commit_kernel")
+    wrapper_ms = time_cuda(kern, 5)
+    t0 = time.perf_counter()
+    plain()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return dict(bit_equal=same, max_abs_err=err, staged=best["staged"], eligible=n,
+                longest_chain=chain, ms=wrapper_ms if k_ms is None else k_ms,
+                ms_source="events, the whole wrapper" if k_ms is None else "profiler",
+                wrapper_ms_events=wrapper_ms, plain_ms=plain_ms, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                pool_records=int(host[0].shape[0] * host[0].shape[1]))
+
+
+def timed_split(fn):
+    """One unprofiled call of ``fn`` (a mutating execute on the card) with
+    CUDA events recorded on the stream at the edges of each superstep's
+    pieces: the chase (from the superstep's start to the commit's), the
+    commit (its order in torch ops and the ``pulse_commit`` kernel), the
+    kernel alone (events around the C launch call itself), and the switch.
+    The stream reaches an event once it has run all that was enqueued
+    before it, so a piece's time is the stream's time from its start to
+    its end: the device's work and the gaps where it waited for the host
+    to enqueue more (for the kernel alone, the few microseconds of one
+    launch call).  Returns the call's wall ms (host clock, ending in a
+    synchronise), each piece's ms summed over the supersteps, and the
+    superstep count."""
+    import types
+
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_commit import kernel as commit_kernel
+
+    marks = {k: [] for k in ("chase", "order", "launch", "launched", "switch", "switched")}
+
+    def mark(key):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[key].append(e)
+
+    def around(obj, attr, start, end=None):
+        orig = getattr(obj, attr)
+
+        def wrapped(*a, **kw):
+            mark(start)
+            out = orig(*a, **kw)
+            if end is not None:
+                mark(end)
+            return out
+        return obj, attr, orig, wrapped
+
+    # the built library, seen by ``kernel.launch`` through a stand-in whose
+    # launch call is bracketed by events
+    lib = commit_kernel._library()
+    timed_lib = types.SimpleNamespace(
+        pulse_commit_launch=around(lib, "pulse_commit_launch", "launch", "launched")[3],
+        pulse_commit_error_string=lib.pulse_commit_error_string)
+    patches = [around(routing, "_local_superstep_mut", "chase"),
+               around(commit_kernel, "commit_order", "order"),
+               (commit_kernel, "_library", commit_kernel._library, lambda: timed_lib),
+               around(routing, "_switch", "switch", "switched")]
+    for obj, attr, _, wrapped in patches:
+        setattr(obj, attr, wrapped)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, attr, orig, _ in patches:
+            setattr(obj, attr, orig)
+    n = len(marks["chase"])
+    if any(len(v) != n for v in marks.values()):
+        raise AssertionError(f"timed_split: uneven marks {({k: len(v) for k, v in marks.items()})}")
+
+    def total(a, b):
+        return sum(x.elapsed_time(y) for x, y in zip(marks[a], marks[b]))
+
+    return dict(wall_ms=wall_ms, supersteps=n, chase_ms=total("chase", "order"),
+                commit_ms=total("order", "launched"), kernel_ms=total("launch", "launched"),
+                switch_ms=total("switch", "switched"))
+
+
+def phase_write_mesh(rng):
+    """Phase 12: the write path over the paper's four memory nodes on the
+    card (each superstep's commit phase one ``pulse_commit`` launch), held
+    against a CPU copy, against the sequential commit and against each
+    batch's own checks, then read back over the mesh on ``pulse_chase``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core import commit, routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.engine import PulseEngine
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+
+    t_phase = time.perf_counter()
+    P = pulse_paper.MEM_NODES
+    run = WRITE_MESH_RUN
+    rows, commit_launches, readback_launches = [], 0, 0
+    for wb in write_batches(rng, P):
+        name = wb["name"]
+        t_batch = time.perf_counter()
+        card = arena_from_numpy(*wb["fields"], device="cuda")
+        digest = _digest(card)
+        eng = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"))
+        main = []  # per step: (arena before, result, seconds, peak MiB, launches)
+        for sname, it, p0, s0 in wb["steps"]:
+            before = eng.arena
+            p0c, s0c = p0.cuda(), s0.cuda()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            chase_ops.pulse_chase.launches = 0
+            commit_ops.pulse_commit.launches = 0
+            t0 = time.perf_counter()
+            res = eng.execute(it, p0c, s0c, **run)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = commit_ops.pulse_commit.launches
+            chases = chase_ops.pulse_chase.launches
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            if launches != res.stats.supersteps:
+                raise AssertionError(f"{name}/{sname}: {launches} pulse_commit launches in "
+                                     f"{res.stats.supersteps} supersteps")
+            if chases != 0:
+                raise AssertionError(f"{name}/{sname}: the write path launched the read-only "
+                                     f"pulse_chase {chases} times")
+            commit_launches += launches
+            main.append((before, res, secs, peak, launches, p0c, s0c))
+        final = eng.arena
+        if _digest(card) != digest:
+            raise AssertionError(f"{name}: the input arena changed")
+        if not (final.data.is_cuda and final.heap.is_cuda):
+            raise AssertionError(f"{name}: the committed arena left the card")
+
+        # the same calls on a CPU copy; the commit phase with the most
+        # staged records is captured for the kernel-vs-plain check
+        cpu = arena_from_numpy(*wb["fields"], device="cpu")
+        cpu_eng = PulseEngine(cpu, mesh=routing.EmulatedMesh(P, "cpu"))
+        t0 = time.perf_counter()
+        host, best, works = _capture_commits(lambda e=cpu_eng, w=wb: [
+            e.execute(it, p0, s0, **run) for _, it, p0, s0 in w["steps"]])
+        cpu_s = time.perf_counter() - t0
+        if not (torch.equal(final.data.cpu(), cpu_eng.arena.data)
+                and torch.equal(final.heap.cpu(), cpu_eng.arena.heap)):
+            raise AssertionError(f"{name}: the card's and the CPU copy's final arenas differ")
+
+        # the sequential commit on the card, step after step
+        t0 = time.perf_counter()
+        seq_arena = card
+        for (sname, it, p0, s0), (_, g, *_rest) in zip(wb["steps"], main):
+            srec, sst, seq_arena = commit.sequential_commit_execute(
+                it, seq_arena, p0.cuda(), s0.cuda(), max_iters=run["max_iters"],
+                k_local=run["k_local"], compact=run["compact"])
+            diff = _stats_diff(g.stats, sst)
+            if diff != ["schedule"]:
+                raise AssertionError(f"{name}/{sname}: against the sequential commit the "
+                                     f"stats differ on {diff}")
+            S = it.scratch_words
+            for f, cols in (("ptr", routing.F_PTR), ("status", routing.F_STATUS),
+                            ("iters", routing.F_ITERS),
+                            ("scratch", slice(routing.F_SCRATCH, routing.F_SCRATCH + S))):
+                if not np.array_equal(getattr(g, f).cpu().numpy(), srec[:, cols]):
+                    raise AssertionError(f"{name}/{sname}: {f} differs from the sequential "
+                                         f"commit")
+        if not (torch.equal(seq_arena.data, final.data) and torch.equal(seq_arena.heap,
+                                                                          final.heap)):
+            raise AssertionError(f"{name}: the sequential commit's final arena differs")
+        del seq_arena
+        seq_s = time.perf_counter() - t0
+
+        steps = []
+        for (sname, it, *_), check, (before, g, secs, peak, launches, p0c, s0c), c in zip(
+                wb["steps"], wb["check"], main, host):
+            for f in ("ptr", "scratch", "status", "iters"):
+                if not (getattr(g, f).is_cuda and torch.equal(getattr(g, f).cpu(),
+                                                              getattr(c, f))):
+                    raise AssertionError(f"{name}/{sname}: card and CPU copy differ on {f}")
+            diff = _stats_diff(g.stats, c.stats)
+            if diff:
+                raise AssertionError(f"{name}/{sname}: RoutingStats of card and CPU copy "
+                                     f"differ on {diff}")
+            bad, extra = check(g.status.cpu().numpy(), g.scratch.cpu().numpy())
+            if bad:
+                raise AssertionError(f"{name}/{sname}: {'; '.join(bad)}")
+            # the rate over the median of three calls from the same arena
+            calls = []
+            for _ in range(3):
+                e = PulseEngine(before, mesh=routing.EmulatedMesh(P, "cuda"))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.execute(it, p0c, s0c, **run)
+                torch.cuda.synchronize()
+                calls.append(time.perf_counter() - t0)
+            med = float(np.median(calls))
+
+            # one more call, its supersteps split by CUDA events on the stream
+            split = timed_split(lambda b=before, i=it, p=p0c, q=s0c: PulseEngine(
+                b, mesh=routing.EmulatedMesh(P, "cuda")).execute(i, p, q, **run))
+            st = g.stats
+            if split["supersteps"] != st.supersteps:
+                raise AssertionError(f"{name}/{sname}: the timed call ran {split['supersteps']} "
+                                     f"supersteps, the main path {st.supersteps}")
+            # this step's commit phases, from the CPU copy's run of it
+            mine, done = works[:st.supersteps], works[st.supersteps:]
+            works[:] = done
+            B = g.ptr.shape[0]
+            row = dict(
+                step=sname, ops=B, execute_s=calls, first_execute_s=secs, ops_per_s=B / med,
+                cpu_copy_s=cpu_s, sequential_s=seq_s, supersteps=st.supersteps,
+                local_only_steps=st.local_only_steps,
+                commits=st.commits, epochs=st.epochs, routed_records=int(sum(st.routed_per_step)),
+                wire_words=st.total_wire_words, mean_crossings=float(st.crossings.mean()),
+                commit_launches=launches, commit_ms_per_call=split["kernel_ms"],
+                commit_ms_per_superstep=split["kernel_ms"] / st.supersteps,
+                commit_bytes_per_call=sum(w[0] for w in mine),
+                commit_bound_ms_per_superstep=sum(w[0] for w in mine) / HBM_BYTES_PER_S * 1e3
+                / st.supersteps,
+                longest_chain_max=max(w[2] for w in mine),
+                longest_chain_mean=sum(w[2] for w in mine) / st.supersteps,
+                peak_mib=peak, timed_call=split, iters_max=int(g.iters.max().item()),
+                **extra)
+            steps.append(row)
+            log(f"[{name}] {sname} over P={P}: {B / med:.4g} ops/s (median of "
+                f"{[round(x, 4) for x in calls]} s; first call {secs:.3f} s; for the batch CPU "
+                f"copy {cpu_s:.2f} s, sequential commit {seq_s:.2f} s); supersteps {st.supersteps} "
+                f"({st.local_only_steps} local-only) = pulse_commit launches, 0 pulse_chase; "
+                f"commits {st.commits}, epochs {st.epochs}; routed {row['routed_records']} "
+                f"records, {st.total_wire_words} wire words, mean crossings "
+                f"{row['mean_crossings']:.3f}; commit kernel {row['commit_ms_per_superstep']:.5f} "
+                f"ms a superstep (CUDA events; bytes bound "
+                f"{row['commit_bound_ms_per_superstep']:.6f}, longest shard's chain "
+                f"{row['longest_chain_mean']:.1f} a superstep, at most {row['longest_chain_max']}); "
+                f"peak {peak:.1f} MiB; card == CPU copy == sequential commit (but schedule)")
+            rest = split["wall_ms"] - split["chase_ms"] - split["commit_ms"] - split["switch_ms"]
+            log(f"[{name}] {sname}: a timed call {split['wall_ms']:.2f} ms wall; on the stream "
+                f"the chase {split['chase_ms']:.3f} ms, the commit {split['commit_ms']:.3f} ms "
+                f"(the kernel {split['kernel_ms']:.3f}), the switch {split['switch_ms']:.3f} ms, "
+                f"the rest (placement, counter reads, decode) {rest:.3f} ms")
+        if works:
+            raise AssertionError(f"{name}: {len(works)} commit phases of the CPU copy left over")
+
+        # the kernel against its plain version on the captured commit phase
+        one_commit = commit_vs_plain(best)
+        if not one_commit["bit_equal"]:
+            raise AssertionError(f"{name}: pulse_commit disagrees with its plain version")
+        log(f"[{name}] one commit phase ({one_commit['eligible']} eligible of "
+            f"{one_commit['staged']} staged records, the longest shard's chain "
+            f"{one_commit['longest_chain']}): kernel {one_commit['ms']:.5f} ms "
+            f"({one_commit['ms_source']}; the wrapper with its order {one_commit['wrapper_ms_events']:.4f} ms, "
+            f"CUDA events), plain {one_commit['plain_ms']:.2f} ms, bytes bound "
+            f"{one_commit['bound_ms']:.6f} ms; bit_equal={one_commit['bit_equal']}")
+
+        # the committed arena read back over the mesh on pulse_chase
+        fit, rp, rs, (want_found, want_val) = wb["readback"]
+        reng = PulseEngine(final, mesh=routing.EmulatedMesh(P, "cuda"))
+        chase_ops.pulse_chase.launches = 0
+        res = reng.execute(fit, rp.cuda(), rs.cuda(), **ROUTE_RUN)
+        torch.cuda.synchronize()
+        launches = chase_ops.pulse_chase.launches
+        if launches != res.stats.supersteps:
+            raise AssertionError(f"{name}: the read-back launched {launches} pulse_chase "
+                                 f"kernels in {res.stats.supersteps} supersteps")
+        readback_launches += launches
+        found = res.scratch[:, 2].cpu().numpy() == 1
+        val = res.scratch[:, 1].cpu().numpy()
+        if not (np.array_equal(found, want_found)
+                and np.array_equal(val[want_found], want_val[want_found])):
+            raise AssertionError(f"{name}: the read-back over the mesh disagrees with the "
+                                 f"batch ({int((found != want_found).sum())} lanes found wrong)")
+        log(f"[{name}] read-back of {rp.shape[0]} keys over the mesh: {launches} superstep "
+            f"launches in {res.stats.supersteps} supersteps; inserted/updated found with "
+            f"their values, deleted gone, untouched unchanged")
+        rows.append(dict(batch=name, structure=wb["structure"], keys=wb["keys"],
+                         traffic=wb["traffic"], placement=wb["placement"], execute_args=run,
+                         steps=steps, commit_check=one_commit,
+                         readback_supersteps=res.stats.supersteps,
+                         readback_launches=launches, readback_lanes=int(rp.shape[0])))
+        log(f"[{name}] placement {wb['placement']}; the batch took "
+            f"{time.perf_counter() - t_batch:.1f} s")
+        del card, cpu, eng, cpu_eng, final, reng, res, main, host, best
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 12 took {secs:.1f} s (CPU copies and sequential commits included)")
+    log(json.dumps({"phase": "write_mesh", "seconds": secs, "batches": rows}))
+    return rows, commit_launches, readback_launches
 
 
 # --------------------------- attention kernels ------------------------------
@@ -1887,14 +2387,16 @@ def serve_and_compare(serve_args, kernel_op, backend_field):
     return row, params
 
 
-def _device_ms(prof):
+def _device_ms(prof, events=None):
     """(kernel ms summed over the profiled window, the top 6 kernels by
     time); (None, []) when the profiler saw no kernel.  Only the kernels'
     own events count: an operator's device time is its kernels' again, and
-    a ``record_function`` span's device range (``routing.*``) spans them."""
+    a ``record_function`` span's device range (``routing.*``) spans them.
+    ``events``: the window's ``key_averages()``, where already read."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    events = prof.key_averages() if events is None else events
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("routing.")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -2206,6 +2708,31 @@ def main(argv=None) -> int:
                             launches=r["launches"], supersteps=r["supersteps"])
            for r in route_rows})
 
+    log("== phase 12: the write path over four emulated memory nodes, card against a CPU copy")
+    mesh_rows, commit_launches, mesh_readback = phase_write_mesh(rng)
+    entry["launches"] += mesh_readback
+    entry["launches_note"] += ("; one superstep-mode launch per superstep of each phase-12 "
+                               "read-back")
+    head_commit = next(r for r in mesh_rows if r["batch"] == "wiredtiger_update")["commit_check"]
+    commit_entry = dict(
+        name="pulse_commit", route="cuda", source=COMMIT_SOURCE, replaces=COMMIT_REPLACES,
+        launches=commit_launches, max_abs_err=max(r["commit_check"]["max_abs_err"]
+                                                  for r in mesh_rows),
+        ms=head_commit["ms"], plain_ms=head_commit["plain_ms"], bound_ms=head_commit["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        timed_on="the wiredtiger_update commit phase with the most staged records "
+                 f"({head_commit['eligible']} eligible, the longest shard's chain "
+                 f"{head_commit['longest_chain']}); one block of one warp per shard",
+        launches_note="one per mutating superstep of phase 12 (three batches, four steps)",
+        batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[
+            dict(step=x["step"], supersteps=x["supersteps"], launches=x["commit_launches"],
+                 ms_per_superstep=x["commit_ms_per_superstep"],
+                 bound_ms_per_superstep=x["commit_bound_ms_per_superstep"],
+                 longest_chain_max=x["longest_chain_max"])
+            for x in r["steps"]]) for r in mesh_rows},
+        ms_per_superstep_source="CUDA events around each launch in one timed call a step",
+    )
+
     def f32_err(cks, row):
         return max([c["max_abs_err"] for c in cks if c["dtype"] == "float32"]
                    + [row["max_abs_err"]])
@@ -2257,13 +2784,14 @@ def main(argv=None) -> int:
         timed_on="serve shape B=4 L=512 H=48 dh=64 N=128 chunk=128 f32, one layer",
         serve=ssm_row,
     )
-    summary = {"kernels": [entry, flash_entry, paged_entry, ssd_entry]}
+    summary = {"kernels": [entry, flash_entry, paged_entry, ssd_entry, commit_entry]}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
+            write_mesh=mesh_rows,
             **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
-"""The write path's executor: the sequential commit (the determinism
-contract).
+"""The write path's sequential executor: the sequential commit (the
+determinism contract).
 
 ``sequential_commit_execute`` runs a batch under the superstep schedule of
 the multi-shard engine -- placement, local chase, commit, the capacity
@@ -14,15 +14,20 @@ Where the work runs:
     runs on the arena's device, over a private copy of ``data`` made once
     per call;
   * the commits run on a host mirror of ``data`` and ``heap``, copied down
-    once per call, in plain numpy stores (a Python loop over the eligible
-    records, as the JAX package's executor does);
+    once per call, in plain numpy stores (``kernels.pulse_commit.ref.
+    commit_shard``, a Python loop over the eligible records, as the JAX
+    package's executor does);
   * after each shard's commit phase, only the rows it wrote go back to the
     device copy, in one scatter;
   * each shard's pool of records (L x R int32) crosses the bus once each
     way per superstep.
 So no superstep moves the whole arena.  The input arena is never modified.
-"""
 
+On a mesh (``core.routing.distributed_execute``) the commit runs on the
+arena's device instead: on the card, every shard's commit phase is one
+launch of the ``pulse_commit`` kernel a superstep, and nothing crosses the
+bus; this executor is the oracle that path is held against.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -33,15 +38,10 @@ import torch
 
 from repro_torch.core import routing
 from repro_torch.core.arena import (
-    H_BUMP,
     H_COMMITS,
     H_EPOCH,
-    H_FREE,
     M_ALLOC,
-    M_CAS,
-    M_FREE,
     M_NONE,
-    M_STORE,
     NULL,
     PERM_READ,
     PERM_WRITE,
@@ -65,6 +65,7 @@ from repro_torch.core.routing import (
     F_SCRATCH,
     F_STATUS,
 )
+from repro_torch.kernels.pulse_commit.ref import commit_shard
 
 
 @dataclasses.dataclass
@@ -87,71 +88,6 @@ def _owner_of(bounds: np.ndarray, ptr: np.ndarray) -> np.ndarray:
     P = len(bounds) - 1
     valid = (ptr >= 0) & (ptr < bounds[-1]) & (shard >= 0) & (shard < P)
     return np.where(valid, shard, NULL).astype(np.int32)
-
-
-def _commit_shard(pool, data, heap, s, lo, hi, perm_w, written, *, S, W, MB):
-    """Apply shard ``s``'s eligible commits one at a time, in the canonical
-    (class, slot, id) order.  Mutates pool/data/heap in place and appends
-    the rows it writes to ``written``; returns the number of commit slots
-    consumed (CAS misses included)."""
-    m_op = pool[:, MB]
-    m_tgt = pool[:, MB + 1]
-    pend = (m_op != M_NONE) & (pool[:, F_STATUS] != STATUS_EMPTY)
-    is_alloc = m_op == M_ALLOC
-    eligible = pend & np.where(
-        is_alloc, pool[:, F_HOME] == s, (m_tgt >= lo) & (m_tgt < hi)
-    )
-    idx = np.flatnonzero(eligible)
-    if not len(idx):
-        return 0
-    if not perm_w:
-        pool[idx, F_STATUS] = STATUS_FAULT
-        pool[idx, MB] = M_NONE
-        return 0
-    klass = np.where(is_alloc, 2, np.where(m_op == M_FREE, 1, 0))[idx]
-    slot_key = np.where(is_alloc, 0, m_tgt)[idx]
-    order = idx[np.lexsort((pool[idx, F_ID], slot_key, klass))]
-    applied = 0
-    for r in order:
-        op = int(pool[r, MB])
-        tgt = int(pool[r, MB + 1])
-        # a Python int from the int32 word: widened by sign, so a mask with
-        # bit 31 set also selects words 32..W-1 (the JAX package's commit)
-        mask = int(pool[r, MB + 2])
-        expect = int(pool[r, MB + 3])
-        mdata = pool[r, MB + 4 : MB + 4 + W]
-        maskb = ((mask >> np.arange(W)) & 1).astype(bool)
-        if op in (M_STORE, M_CAS):
-            old = data[tgt]
-            if op == M_STORE or int(old[int(np.argmax(maskb))]) == expect:
-                data[tgt] = np.where(maskb, mdata, old)
-                written.append(tgt)
-        elif op == M_FREE:
-            row = np.zeros(W, np.int32)
-            row[0] = heap[s, H_FREE]
-            data[tgt] = row
-            heap[s, H_FREE] = tgt
-            written.append(tgt)
-        elif op == M_ALLOC:
-            if heap[s, H_FREE] != NULL:
-                slot = int(heap[s, H_FREE])
-                heap[s, H_FREE] = data[slot, 0]
-            elif heap[s, H_BUMP] < hi:
-                slot = int(heap[s, H_BUMP])
-                heap[s, H_BUMP] += 1
-            else:
-                pool[r, F_STATUS] = STATUS_FAULT
-                pool[r, MB] = M_NONE
-                applied += 1
-                continue
-            data[slot] = np.where(maskb, mdata, 0)
-            written.append(slot)
-            pool[r, F_SCRATCH + min(max(tgt, 0), S - 1)] = slot
-        pool[r, MB] = M_NONE
-        applied += 1
-    heap[s, H_EPOCH] += int(applied > 0)
-    heap[s, H_COMMITS] += applied
-    return applied
 
 
 def _decide_and_send(pool, bounds, s, P, *, capacity, drain_done, MB):
@@ -225,9 +161,10 @@ def _remote_count(pool, bounds, s, MB):
     return int((active & (owner != s)).sum())
 
 
-def _chase(it, rows, pool_t, *, S, MB, lo, hi, readable, max_iters, k_local):
+def _chase(it, data, pool_t, *, S, MB, lo, hi, readable, max_iters, k_local):
     """``k_local`` steps of one shard's pool (an (L, R) tensor on the
-    arena's device) over its rows; returns the new pool tensor."""
+    arena's device) over its rows ``[lo, hi)`` of ``data``, the whole
+    arena; returns the new pool tensor."""
     ptr = pool_t[:, F_PTR]
     scr = pool_t[:, F_SCRATCH : F_SCRATCH + S]
     st = pool_t[:, F_STATUS]
@@ -235,13 +172,13 @@ def _chase(it, rows, pool_t, *, S, MB, lo, hi, readable, max_iters, k_local):
     args = dict(max_iters=max_iters, local_lo=lo, local_hi=hi, perm_ok=readable)
     if MB is None:
         for _ in range(k_local):
-            ptr, scr, st, iters = step_batch(it, rows, ptr, scr, st, iters, **args)
+            ptr, scr, st, iters = step_batch(it, data[lo:hi], ptr, scr, st, iters, **args)
         tail = []
     else:
         mut = pool_t[:, MB:]
         for _ in range(k_local):
             ptr, scr, st, iters, mut = mut_step_batch(
-                it, rows, ptr, scr, st, iters, mut, **args)
+                it, data, ptr, scr, st, iters, mut, **args)
         tail = [mut]
     return torch.cat([pool_t[:, :F_PTR], ptr[:, None], st[:, None], iters[:, None],
                       pool_t[:, F_HOPS : F_SCRATCH], scr, *tail], 1)
@@ -344,7 +281,7 @@ def sequential_commit_execute(
             t0 = time.perf_counter()
             lo, hi = int(bounds[s]), int(bounds[s + 1])
             pool_t = _chase(
-                it, dev_data[lo:hi], torch.from_numpy(pools[s]).to(dev), S=S, MB=MB,
+                it, dev_data, torch.from_numpy(pools[s]).to(dev), S=S, MB=MB,
                 lo=lo, hi=hi, readable=bool(readable[s]), max_iters=max_iters,
                 k_local=k_local)
             pools[s] = pool_t.cpu().numpy()
@@ -352,8 +289,8 @@ def sequential_commit_execute(
             chase_s += t1 - t0
             if mutate:
                 written: list = []
-                _commit_shard(pools[s], data, heap, s, lo, hi, bool(writable[s]), written,
-                              S=S, W=W, MB=MB)
+                commit_shard(pools[s], data, heap, s, lo, hi, bool(writable[s]), written,
+                             S=S, W=W)
                 if written:
                     rows = np.unique(np.asarray(written, np.int64))
                     dev_data[torch.from_numpy(rows).to(dev)] = torch.from_numpy(

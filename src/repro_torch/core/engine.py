@@ -22,8 +22,10 @@ Execution paths:
                                when it is on the card.
 
 Mutating iterators (the write path) run through the sequential commit
-(``core.commit``): the chase on the arena's device, the commits on the
-host, and the engine swaps in the committed arena.
+(``core.commit``: the chase on the arena's device, the commits on the host)
+on one node, and on a mesh through ``routing.distributed_execute`` (on the
+card each superstep's commit phase is one ``pulse_commit`` launch); the
+engine swaps in the committed arena.
 
 The dispatch engine's offload decision (t_c <= eta * t_d, S4.1) lives in
 ``core.dispatch``.
@@ -232,7 +234,8 @@ class PulseEngine:
         runs only when the caller asks for it with ``force_offload=False``.
 
         A mutating iterator runs on the write path whatever the device
-        (``_execute_mut``); the kernel backend is read-only
+        (``_execute_mut``, with ``k_local``, ``compact``, ``schedule`` and
+        ``fabric`` passed on); the kernel backend is read-only
         (``backend="kernel"`` raises), and so is the CPU node
         (``force_offload=False`` raises): the commits live with the data.
 
@@ -245,7 +248,7 @@ class PulseEngine:
         ``schedule="auto"`` resolves to ``"dispatched"`` (results and wire
         words do not depend on the schedule; the overlap model that picks
         the pipelined schedule is item 6(d)); ``"fused"`` and
-        ``"pipelined"`` are item 6(c), a mutating iterator on a mesh 6(b).
+        ``"pipelined"`` are item 6(c).
         """
         on_mesh = self.mesh is not None and self.arena.num_shards > 1
         if on_mesh and not isinstance(self.mesh, routing.EmulatedMesh):
@@ -254,12 +257,6 @@ class PulseEngine:
                 "fabric) comes with ROADMAP queue 1, item 6(e)"
             )
         if it.mutates:
-            if on_mesh:
-                raise NotImplementedError(
-                    "a mutating iterator on a mesh (the commit phase on the fabric) "
-                    "comes with ROADMAP queue 1, item 6(b); "
-                    "core.commit.sequential_commit_execute runs it at any shard count"
-                )
             if backend == "kernel":
                 raise ValueError(
                     "mutating iterators are not supported on the pulse_chase "
@@ -272,7 +269,8 @@ class PulseEngine:
                 )
             if backend not in (None, *BACKENDS):
                 raise ValueError(f"unknown backend {backend!r}; choose one of {BACKENDS}")
-            return self._execute_mut(it, ptr0, scratch0, max_iters=max_iters)
+            return self._execute_mut(it, ptr0, scratch0, max_iters=max_iters, k_local=k_local,
+                                     compact=compact, schedule=schedule, fabric=fabric)
         on_card = _on_card(self.arena.data)
         if backend is None:
             backend = "kernel" if on_card else "reference"
@@ -331,18 +329,36 @@ class PulseEngine:
         )
         return ExecResult(ptr, scratch, status, iters, decision=decision)
 
-    def _execute_mut(self, it: PulseIterator, ptr0, scratch0, *, max_iters: int) -> ExecResult:
-        """Write path: run a mutating iterator through the sequential commit
-        and swap the engine's arena to the post-commit state.  The input
-        Arena object is never modified, so a caller can replay a snapshot."""
-        trace = commit_mod.CommitTrace()
-        rec, stats, new_arena = commit_mod.sequential_commit_execute(
-            it, self.arena, ptr0, scratch0, max_iters=max_iters,
-            fault_injector=self.fault_injector, trace=trace,
-        )
-        self.arena = new_arena
+    def _execute_mut(self, it: PulseIterator, ptr0, scratch0, *, max_iters: int,
+                     k_local: int, compact: bool, schedule: str, fabric: str) -> ExecResult:
+        """Write path: run a mutating iterator and swap the engine's arena to
+        the post-commit state.
+
+        On a mesh (P > 1 shards) the batch runs through
+        ``routing.distributed_execute`` on the dispatched schedule
+        (``schedule="auto"`` resolves to it), the arena and heap carried
+        through its supersteps, each commit phase one ``pulse_commit`` launch
+        on the card; on one node or one shard, through the sequential commit
+        (``core.commit``), whose ``CommitTrace`` the result carries.  The
+        input Arena object is never modified, so a caller can replay a
+        snapshot."""
         S = it.scratch_words
-        rec = torch.from_numpy(rec).to(new_arena.data.device)
+        trace = None
+        if self.mesh is not None and self.arena.num_shards > 1:
+            rec, stats, new_arena = routing.distributed_execute(
+                it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
+                k_local=k_local, compact=compact,
+                schedule="dispatched" if schedule == "auto" else schedule, fabric=fabric,
+                fault_injector=self.fault_injector,
+            )
+        else:
+            trace = commit_mod.CommitTrace()
+            rec, stats, new_arena = commit_mod.sequential_commit_execute(
+                it, self.arena, ptr0, scratch0, max_iters=max_iters, k_local=k_local,
+                compact=compact, fault_injector=self.fault_injector, trace=trace,
+            )
+            rec = torch.from_numpy(rec).to(new_arena.data.device)
+        self.arena = new_arena
         return ExecResult(
             ptr=rec[:, routing.F_PTR].contiguous(),
             scratch=rec[:, routing.F_SCRATCH : routing.F_SCRATCH + S].contiguous(),

@@ -174,6 +174,13 @@ def mut_step_batch(
 ):
     """Advance every runnable request of a *mutating* iterator by one step.
 
+    ``arena_data`` is the whole arena, addressed by global row;
+    ``local_lo``/``local_hi`` bound the addresses this executor serves (ints,
+    or ``(B,)`` tensors of per-request bounds, as the routing superstep
+    gives when it chases every shard's pool in one call).  Unlike the JAX
+    package's ``mut_step_batch``, which takes a shard's rows and offsets by
+    ``local_lo``, the rows are never a shard's slice.
+
     The write-path twin of ``step_batch``, with its rules (core.commit):
 
       * a record with a staged mutation (``mut[:, 0] != M_NONE``) is
@@ -200,7 +207,7 @@ def mut_step_batch(
     fault = active & local & ~grant & ~null & ~stalled
     runnable = active & local & ~fault & ~null & ~stalled & ~exhausted
 
-    node = load_node(arena_data, torch.where(runnable, ptr - local_lo, 0))
+    node = load_node(arena_data, torch.where(runnable, ptr, 0))
     done, nptr, nscr, staged = it.mut_fn(node, ptr, scratch)
     m_op, m_tgt, m_mask, m_expect, m_data = (
         torch.as_tensor(x, dtype=torch.int32, device=ptr.device) for x in staged

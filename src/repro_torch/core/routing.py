@@ -9,30 +9,32 @@ request records is ``pools[s]``, and the fabric's all_to_all is a transpose
 of the send buffer's first two axes.  A batch runs in bulk-synchronous
 supersteps (``distributed_execute``, the dispatched schedule): every
 shard's local chase (``_local_superstep``: on the card one ``pulse_chase``
-launch in its superstep mode over all P pools), then the switch
-(``_route_decide``, ``_exchange``, ``_merge_pools``), with the host reading
-four counters per superstep to schedule the next.  The paper's properties
-hold as in the JAX package:
+launch in its superstep mode over all P pools), for a mutating iterator
+every shard's commit phase (``_local_superstep_mut``: the chase in torch
+ops over all P pools at once, then on the card one ``pulse_commit`` launch
+for all P shards), then the switch (``_route_decide``, ``_exchange``,
+``_merge_pools``), with the host reading four counters per superstep to
+schedule the next.  The paper's properties hold as in the JAX package:
 
   * a cross-node hop never bounces through the CPU node (compare
     ``return_to_cpu=True``, the paper's PULSE-ACC ablation, Fig. 9);
   * the request and the response share one wire format, so any shard can
     continue any traversal it receives;
   * the switch knows only ``bounds``; translation and protection happen at
-    the owning shard.
+    the owning shard;
+  * a staged write rides the fabric to the shard that owns its commit
+    target (an ALLOC to its home shard), where it serializes.
 
 Record wire format (R = 6 + S [+ 4 + W] int32 words):
   [id, home_shard, cur_ptr, status, iters, hops, scratch_pad...,
    m_op, m_tgt, m_mask, m_expect, m_data...]
-The mutation payload exists only for mutating iterators, whose executor
-here is ``core.commit.sequential_commit_execute``.
+The mutation payload exists only for mutating iterators.
 
-Ported so far: the read path on the dispatched schedule and the dense
-fabric (ROADMAP queue 1, item 6(a)).  The mutating superstep is item 6(b),
-the fused and pipelined schedules and the ring fabric 6(c), replication
-and fabric faults 6(d); each raises ``NotImplementedError`` naming it.
+Ported so far: the read and the write path on the dispatched schedule and
+the dense fabric (ROADMAP queue 1, items 6(a) and 6(b)).  The fused and
+pipelined schedules and the ring fabric are 6(c), replication and fabric
+faults 6(d); each raises ``NotImplementedError`` naming it.
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -42,12 +44,23 @@ import numpy as np
 import torch
 
 from repro_torch.core import translation
-from repro_torch.core.arena import NULL, PERM_READ, Arena
+from repro_torch.core.arena import (
+    H_COMMITS,
+    H_EPOCH,
+    M_ALLOC,
+    M_NONE,
+    NULL,
+    PERM_READ,
+    Arena,
+    mut_width,
+)
 from repro_torch.core.iterator import (
     STATUS_ACTIVE,
     STATUS_EMPTY,
     STATUS_FAULT,
+    STATUS_MAXED,
     PulseIterator,
+    mut_step_batch,
     step_batch,
 )
 
@@ -93,10 +106,11 @@ def _serve_shard(owner, rec_id, rep_ctx):
     return owner
 
 
-def pack_requests(ids, home, ptr, scratch) -> torch.Tensor:
-    """``(B, R)`` ACTIVE request records on ``ptr``'s device."""
+def pack_requests(ids, home, ptr, scratch, mut_words: int = 0) -> torch.Tensor:
+    """``(B, R)`` ACTIVE request records on ``ptr``'s device, with an empty
+    mutation payload of ``mut_words`` words (a mutating iterator's)."""
     B, S = scratch.shape
-    rec = torch.zeros((B, record_width(S)), dtype=torch.int32, device=ptr.device)
+    rec = torch.zeros((B, record_width(S, mut_words)), dtype=torch.int32, device=ptr.device)
     rec[:, F_ID] = ids
     rec[:, F_HOME] = home
     rec[:, F_PTR] = ptr
@@ -106,6 +120,8 @@ def pack_requests(ids, home, ptr, scratch) -> torch.Tensor:
 
 
 def empty_records(n: int, scratch_words: int, device="cpu") -> torch.Tensor:
+    """``(n, record_width(scratch_words))`` EMPTY records; a mutating
+    iterator's pass ``S + mut_width(W)`` words."""
     rec = torch.zeros((n, record_width(scratch_words)), dtype=torch.int32, device=device)
     rec[:, F_STATUS] = STATUS_EMPTY
     return rec
@@ -226,6 +242,60 @@ def _local_superstep(
     return out
 
 
+def _local_superstep_mut(
+    it: PulseIterator,
+    pools: torch.Tensor,  # (P, L, R) every shard's pool, with the mutation payload
+    data: torch.Tensor,  # (cap, W) the whole arena: carried state, updated in place
+    heap: torch.Tensor,  # (P, HEAP_WORDS) the allocator registers, updated in place
+    bounds: torch.Tensor,
+    perms: torch.Tensor,
+    *,
+    k_local: int,
+    max_iters: int,
+):
+    """Write-path twin of ``_local_superstep``: every shard's chase with
+    write-stalls, then every shard's commit phase.
+
+    The chase is ``k_local`` calls of ``iterator.mut_step_batch`` over all
+    P pools at once, on the whole arena, each record bounded by its shard's
+    rows and read grant: the host issues ``k_local`` steps a superstep
+    whatever P is.  It runs in torch ops (``pulse_chase`` is read-only, as
+    in the JAX package).  Then the exhausted-budget sweep: a record left
+    ACTIVE at ``iters >= max_iters`` with nothing staged retires MAXED
+    (a no-op after a fixed ``k_local`` chase; the adaptive chase of item
+    6(c) relies on it).  The commit is ``kernels.pulse_commit``: one launch
+    for all P shards on the card, its plain version on the CPU, in place on
+    ``data`` and ``heap``.  Under ``torch.profiler`` the two show as the
+    spans ``routing.chase`` and ``routing.commit``.
+
+    Returns ``(pools, data, heap)``.
+    """
+    P, L, R = pools.shape
+    S = it.scratch_words
+    MB = F_SCRATCH + S
+    with torch.profiler.record_function("routing.chase"):
+        flat = pools.reshape(P * L, R)
+        lo = bounds[:-1].repeat_interleave(L)
+        hi = bounds[1:].repeat_interleave(L)
+        granted = translation.access_table(perms, PERM_READ).repeat_interleave(L)
+        st = (flat[:, F_PTR], flat[:, F_SCRATCH:MB], flat[:, F_STATUS], flat[:, F_ITERS],
+              flat[:, MB:])
+        for _ in range(k_local):
+            st = mut_step_batch(it, data, *st, max_iters=max_iters, local_lo=lo, local_hi=hi,
+                                perm_ok=granted)
+        ptr, scr, status, iters, mut = st
+        status = torch.where(
+            (status == STATUS_ACTIVE) & (iters >= max_iters) & (mut[:, 0] == M_NONE),
+            STATUS_MAXED, status).to(torch.int32)
+        pools = torch.cat([flat[:, :F_PTR], ptr[:, None], status[:, None], iters[:, None],
+                           flat[:, F_HOPS:F_SCRATCH], scr, mut], 1).reshape(P, L, R)
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+
+    with torch.profiler.record_function("routing.commit"):
+        commit_ops.pulse_commit(pools, data, heap, bounds, perms, scratch_words=S)
+    return pools, data, heap
+
+
 def _route_decide(
     pools: torch.Tensor,  # (P, L, R)
     bounds: torch.Tensor,
@@ -234,6 +304,7 @@ def _route_decide(
     return_to_cpu: bool,
     link_capacity: int | None = None,
     drain_done: bool = False,
+    mut_base: int | None = None,
 ):
     """Switch decision and leaver extraction for every shard at once.
 
@@ -248,6 +319,10 @@ def _route_decide(
     ``drain_done`` (compaction): finished records retire in place instead
     of being shipped home.  ``return_to_cpu`` (PULSE-ACC, Fig. 9): a
     traversal leaving a node returns to its home node, which re-issues it.
+    ``mut_base`` (the write path) is the column where the mutation payload
+    starts: a record with a staged mutation routes to the shard that owns
+    its commit target (an ALLOC to its home shard), and an unmappable
+    commit target is a switch-level fault that clears the payload.
     """
     P, L, R = pools.shape
     dev = pools.device
@@ -256,11 +331,22 @@ def _route_decide(
     status = pools[..., F_STATUS]
     valid = status != STATUS_EMPTY
     active = status == STATUS_ACTIVE
+    pools = pools.clone()
 
     owner = translation.owner_of(bounds, pools[..., F_PTR].contiguous())
-    bad = active & (owner == NULL)  # the switch notifies the CPU node (Fig. 6 step 6)
+    if mut_base is None:
+        bad = active & (owner == NULL)  # the switch notifies the CPU node (Fig. 6 step 6)
+    else:
+        # a write-pending record is judged on its commit target instead
+        m_op = pools[..., mut_base]
+        pendm = m_op != M_NONE
+        is_alloc = m_op == M_ALLOC
+        towner = translation.owner_of(bounds, pools[..., mut_base + 1].contiguous())
+        bad_mut = active & pendm & ~is_alloc & (towner == NULL)
+        bad = (active & (owner == NULL) & ~pendm) | bad_mut
+        pools[..., mut_base] = torch.where(bad_mut, M_NONE, m_op).to(torch.int32)
+        pendm = pendm & ~bad_mut
     status = torch.where(bad, STATUS_FAULT, status).to(torch.int32)
-    pools = pools.clone()
     pools[..., F_STATUS] = status
     active = status == STATUS_ACTIVE
     home = pools[..., F_HOME]
@@ -276,6 +362,9 @@ def _route_decide(
         dest = torch.where(active, serve, me)
     else:
         dest = torch.where(active, serve, home)
+    if mut_base is not None:
+        # staged mutations route to their commit shard (ALLOC -> home)
+        dest = torch.where(active & pendm, torch.where(is_alloc, home, towner), dest)
     dest = torch.where(valid, dest, me).to(torch.int32)
     moves = valid & (dest != me)
 
@@ -332,27 +421,54 @@ def _route(
     link_capacity: int | None = None,
     drain_done: bool = False,
     fabric: str = "dense",
+    mut_base: int | None = None,
 ):
     """Switch routing: deliver every record to its next shard in one
     superstep.  Returns ``(pools, n_routed, n_dropped_valid)``."""
     L = pools.shape[1]
     kept, send, n_routed = _route_decide(
         pools, bounds, num_shards, return_to_cpu=return_to_cpu,
-        link_capacity=link_capacity, drain_done=drain_done)
+        link_capacity=link_capacity, drain_done=drain_done, mut_base=mut_base)
     arrivals = _exchange(send, num_shards, fabric=fabric)
     merged, n_dropped = _merge_pools(kept, arrivals, L)
     return merged, n_routed, n_dropped
 
 
-def _remote_active(pools, bounds):
+def _remote_active(pools, bounds, mut_base: int | None = None):
     """ACTIVE records their shard cannot serve (owner elsewhere or none),
-    summed over shards."""
+    summed over shards.  A write-pending record's destination is its commit
+    shard (an ALLOC's is its home), so a staged remote write keeps the
+    fabric scheduled even when every pointer is local."""
     P = pools.shape[0]
     me = torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
     active = pools[..., F_STATUS] == STATUS_ACTIVE
-    owner = _serve_shard(translation.owner_of(bounds, pools[..., F_PTR].contiguous()),
-                         pools[..., F_ID], None)
+    owner = translation.owner_of(bounds, pools[..., F_PTR].contiguous())
+    if mut_base is None:
+        owner = _serve_shard(owner, pools[..., F_ID], None)
+    else:
+        m_op = pools[..., mut_base]
+        towner = torch.where(
+            m_op == M_ALLOC, pools[..., F_HOME],
+            translation.owner_of(bounds, pools[..., mut_base + 1].contiguous()))
+        owner = torch.where(m_op != M_NONE, towner, owner)
     return (active & (owner != me)).sum()
+
+
+def _switch(pools, bounds, *, return_to_cpu, link_capacity, drain_done, do_route,
+            mut_base):
+    """The switch half of a superstep and its counters, under the profiler
+    span ``routing.switch``: ``(pools, n_active, n_routed, n_drop,
+    n_remote)``, the counters device scalars."""
+    with torch.profiler.record_function("routing.switch"):
+        if do_route:
+            pools, n_routed, n_drop = _route(
+                pools, bounds, pools.shape[0], return_to_cpu=return_to_cpu,
+                link_capacity=link_capacity, drain_done=drain_done, mut_base=mut_base)
+        else:
+            n_routed = n_drop = torch.zeros((), dtype=torch.int64, device=pools.device)
+        n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum()
+        n_remote = _remote_active(pools, bounds, mut_base)
+    return pools, n_active, n_routed, n_drop, n_remote
 
 
 def superstep(
@@ -378,20 +494,45 @@ def superstep(
     ``do_route=False`` is the compacted local-only step: every surviving
     traversal already sits at its owning shard, so the fabric is skipped
     (wire payload 0); it still counts the actives that turned remote.
-    ``local_backend`` is ``_local_superstep``'s backend.
+    ``local_backend`` is ``_local_superstep``'s backend.  Under
+    ``torch.profiler`` the chase and the switch show as the spans
+    ``routing.chase`` and ``routing.switch``.
     """
-    pools = _local_superstep(
-        it, pools, arena_data, bounds, perms, k_local=k_local, max_iters=max_iters,
-        backend=local_backend, elide_access_check=elide_access_check)
-    if do_route:
-        pools, n_routed, n_drop = _route(
-            pools, bounds, pools.shape[0], return_to_cpu=return_to_cpu,
-            link_capacity=link_capacity, drain_done=drain_done)
-    else:
-        n_routed = n_drop = torch.zeros((), dtype=torch.int64, device=pools.device)
-    n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum()
-    n_remote = _remote_active(pools, bounds)
-    return pools, n_active, n_routed, n_drop, n_remote
+    with torch.profiler.record_function("routing.chase"):
+        pools = _local_superstep(
+            it, pools, arena_data, bounds, perms, k_local=k_local, max_iters=max_iters,
+            backend=local_backend, elide_access_check=elide_access_check)
+    return _switch(pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
+                   drain_done=drain_done, do_route=do_route, mut_base=None)
+
+
+def superstep_mut(
+    it: PulseIterator,
+    pools: torch.Tensor,
+    data: torch.Tensor,
+    heap: torch.Tensor,
+    bounds: torch.Tensor,
+    perms: torch.Tensor,
+    *,
+    k_local: int,
+    max_iters: int,
+    return_to_cpu: bool = False,
+    link_capacity: int | None = None,
+    drain_done: bool = False,
+    do_route: bool = True,
+):
+    """One write superstep over all P shards: the chase, every shard's
+    commit phase, then the switch, which routes a staged write to the
+    shard that owns its commit target.  ``data`` and ``heap`` are carried
+    state, updated in place.  Returns ``(pools, data, heap, n_active,
+    n_routed, n_drop, n_remote)``; the spans are ``routing.chase``,
+    ``routing.commit`` and ``routing.switch``."""
+    pools, data, heap = _local_superstep_mut(
+        it, pools, data, heap, bounds, perms, k_local=k_local, max_iters=max_iters)
+    pools, *counts = _switch(
+        pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
+        drain_done=drain_done, do_route=do_route, mut_base=F_SCRATCH + it.scratch_words)
+    return pools, data, heap, *counts
 
 
 def make_superstep(
@@ -404,36 +545,36 @@ def make_superstep(
     replication=None,
     **kw,
 ):
-    """The JAX package's superstep builder, read variant: ``(pools,
-    arena_data, bounds, perms) -> superstep(it, pools, ...)`` with ``kw``
-    (``superstep``'s keywords) bound.  The mutating superstep, fabric loss,
-    replication and the ring fabric raise, naming their sub-items."""
-    if mutate:
-        raise _later("6(b)", "the mutating superstep (chase, commit, route)")
+    """The JAX package's superstep builder: ``(pools, arena_data, bounds,
+    perms) -> superstep(it, pools, ...)``, or with ``mutate=True`` ``(pools,
+    data, heap, bounds, perms) -> superstep_mut(it, pools, ...)``, with
+    ``kw`` (their keywords) bound.  Fabric loss, replication and the ring
+    fabric raise, naming their sub-items."""
     if drop_prob > 0.0 or replication is not None:
         raise _later("6(d)", "fabric loss and replication")
     _check_fabric(fabric)
-    return functools.partial(superstep, it, **kw)
+    return functools.partial(superstep_mut if mutate else superstep, it, **kw)
 
 
 # ------------------------------- the executor --------------------------------
 
 
-def place_requests(ptr0, scratch0, num_shards: int):
+def place_requests(ptr0, scratch0, num_shards: int, mut_words: int = 0):
     """Every request at its home shard (``id % P``): ``(pools (P, L, R),
     B)`` on ``ptr0``'s device, with ``L = Bp``, the batch padded to a
-    multiple of P (all requests could, transiently, sit on one shard).
-    Request ``i`` takes slot ``i // P`` of shard ``i % P``: the JAX
-    package's stable sort by home shard, the padding as EMPTY records."""
+    multiple of P (all requests could, transiently, sit on one shard), and
+    an empty mutation payload of ``mut_words`` words.  Request ``i`` takes
+    slot ``i // P`` of shard ``i % P``: the JAX package's stable sort by
+    home shard, the padding as EMPTY records."""
     P = num_shards
     B, S = scratch0.shape
     dev = ptr0.device
     Bp = ((B + P - 1) // P) * P
     L = Bp
     ids = torch.arange(B, dtype=torch.int32, device=dev)
-    rec = torch.cat([pack_requests(ids, ids % P, ptr0, scratch0),
-                     empty_records(Bp - B, S, dev)])
-    pools = empty_records(P * L, S, dev).reshape(P, L, -1)
+    rec = torch.cat([pack_requests(ids, ids % P, ptr0, scratch0, mut_words),
+                     empty_records(Bp - B, S + mut_words, dev)])
+    pools = empty_records(P * L, S + mut_words, dev).reshape(P, L, -1)
     pools[:, : Bp // P] = rec.reshape(Bp // P, P, -1).transpose(0, 1)
     return pools, B
 
@@ -462,12 +603,20 @@ def distributed_execute(
     of P memory nodes emulated on the arena's device.
 
     The dispatched schedule: one superstep per host iteration (the local
-    chase, then the switch), the host reading four counters per superstep
-    (actives, routed, dropped, remote) to pick the next.  ``local_backend``
-    is ``"kernel"`` (the default for an arena on the card: one
-    ``pulse_chase`` launch per superstep over all P pools; its plain version
-    on a CPU arena) or ``"reference"`` (the default on the CPU: ``k_local``
-    calls of ``step_batch`` per shard).
+    chase, for a mutating iterator the commit, then the switch), the host
+    reading four counters per superstep (actives, routed, dropped, remote)
+    to pick the next.  ``local_backend`` is ``"kernel"`` (the default for
+    a read batch on the card: one ``pulse_chase`` launch per superstep over
+    all P pools; its plain version on a CPU arena) or ``"reference"`` (the
+    default on the CPU and for a mutating iterator: ``k_local`` steps of
+    the iterator in torch ops).
+
+    A mutating iterator runs on private copies of ``data`` and ``heap``
+    made once per call, each superstep's commit phase one ``pulse_commit``
+    launch on the card (its plain version on the CPU); the input arena is
+    never modified, so a kill from ``fault_injector`` leaves it as it was.
+    It refuses, as the JAX package does, ``return_to_cpu``, the kernel
+    local backend, ``replication`` and ``elide_access_check=True``.
 
     ``compact=True`` enables active-set compaction: finished records retire
     in place (``drain_done``); the per-link capacity follows a power-of-two
@@ -486,14 +635,16 @@ def distributed_execute(
 
     Under ``torch.profiler`` the placement, each superstep (its one read of
     the counters included) and the decode show as the spans
-    ``routing.place``, ``routing.superstep`` and ``routing.decode``.
+    ``routing.place``, ``routing.superstep`` and ``routing.decode``; inside
+    a superstep, ``routing.chase``, ``routing.commit`` (writes),
+    ``routing.switch`` and ``routing.counters`` (the one host read of the
+    superstep's counters, which waits for the device's work).
 
-    Returns ``(records, RoutingStats)``: the records a ``(B, R)`` int32
-    tensor on the arena's device, ordered by request id.  The fused and
-    pipelined schedules and the ring fabric are item 6(c), replication,
-    fabric loss and stragglers 6(d), mutating iterators 6(b)
-    (``core.commit.sequential_commit_execute`` runs them without a mesh, at
-    any P).
+    Returns ``(records, RoutingStats)``, plus the post-commit ``Arena`` on
+    the input's device for a mutating iterator: the records a ``(B, R)``
+    int32 tensor on the arena's device, ordered by request id.  The fused
+    and pipelined schedules and the ring fabric are item 6(c); replication,
+    fabric loss and stragglers 6(d).
     """
     kill_at = None
     if fault_injector is not None:
@@ -507,13 +658,28 @@ def distributed_execute(
     if schedule != "dispatched":
         raise _later("6(c)", f"the {schedule} schedule")
     _check_fabric(fabric)
-    if it.mutates:
-        raise _later("6(b)", "a mutating iterator on a mesh (the commit phase on the fabric)")
+    mutate = it.mutates
+    if mutate and return_to_cpu:
+        raise ValueError(
+            "mutating iterators cannot run under the return_to_cpu ablation: the home "
+            "bounce would reorder commits against the write path's superstep contract")
+    if mutate and local_backend == "kernel":
+        raise ValueError(
+            "mutating iterators are not supported on the pulse_chase kernel local "
+            "backend: it is read-only; use local_backend='reference'")
     if replication is not None:
+        if mutate:
+            raise ValueError(
+                "replication serves the READ path only: writes to a dead shard park "
+                "under backoff until recovery rebuilds it")
         raise _later("6(d)", "replicated reads (ReplicaContext)")
+    if mutate and elide_access_check:
+        raise ValueError(
+            "elide_access_check=True is only sound for verified read-only traversals "
+            "without replication")
     dev = arena.data.device
     if local_backend is None:
-        local_backend = "kernel" if dev.type == "cuda" else "reference"
+        local_backend = "kernel" if dev.type == "cuda" and not mutate else "reference"
     if local_backend not in ("kernel", "reference"):
         raise ValueError(f"unknown local_backend {local_backend!r}")
     if elide_access_check is None:
@@ -527,11 +693,16 @@ def distributed_execute(
         raise ValueError("distributed arena must have uniform shard sizes")
 
     S = it.scratch_words
-    R = record_width(S)
+    MW = mut_width(arena.node_words) if mutate else 0
+    R = record_width(S, MW)
     ptr0 = torch.as_tensor(ptr0, dtype=torch.int32).to(dev)
     scratch0 = torch.as_tensor(scratch0, dtype=torch.int32).to(dev).reshape(-1, S)
     with torch.profiler.record_function("routing.place"):
-        pools, B = place_requests(ptr0, scratch0, num_shards)
+        pools, B = place_requests(ptr0, scratch0, num_shards, MW)
+    if mutate:
+        # the arena is the value being transformed: this call's private copies
+        data, heap = arena.data.clone(), arena.heap.clone()
+        epochs0, commits0 = heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
     L = pools.shape[1]
     base_capacity = L // num_shards
     compact = compact and not return_to_cpu
@@ -552,15 +723,21 @@ def distributed_execute(
             do_route = n_remote > 0
         else:
             capacity, do_route = base_capacity, True
+        route_kw = dict(k_local=k_local, max_iters=max_iters, return_to_cpu=return_to_cpu,
+                        link_capacity=capacity if compact else None, drain_done=compact,
+                        do_route=do_route)
         with torch.profiler.record_function("routing.superstep"):
-            pools, *counts = superstep(
-                it, pools, arena.data, arena.bounds, arena.perms, k_local=k_local,
-                max_iters=max_iters, return_to_cpu=return_to_cpu,
-                link_capacity=capacity if compact else None, drain_done=compact,
-                do_route=do_route, local_backend=local_backend,
-                elide_access_check=elide_access_check)
-            # the dispatched schedule's one read of the device per superstep
-            n_active, n_routed, n_drop, n_remote = torch.stack(counts).tolist()
+            if mutate:
+                pools, data, heap, *counts = superstep_mut(
+                    it, pools, data, heap, arena.bounds, arena.perms, **route_kw)
+            else:
+                pools, *counts = superstep(
+                    it, pools, arena.data, arena.bounds, arena.perms,
+                    local_backend=local_backend, elide_access_check=elide_access_check,
+                    **route_kw)
+            # the dispatched schedule reads the device once per superstep
+            with torch.profiler.record_function("routing.counters"):
+                n_active, n_routed, n_drop, n_remote = torch.stack(counts).tolist()
         steps += 1
         routed_per_step.append(n_routed)
         active_per_step.append(n_active)
@@ -579,11 +756,16 @@ def distributed_execute(
             f"(records would be returned with partial state otherwise)"
         )
     with torch.profiler.record_function("routing.decode"):
-        return _decode_results(
-            pools, B, S, supersteps=steps, routed_per_step=routed_per_step,
+        records, stats = _decode_results(
+            pools, B, S, mut_words=MW, supersteps=steps, routed_per_step=routed_per_step,
             active_per_step=active_per_step, wire_words_per_step=wire_words_per_step,
             capacity_per_step=capacity_per_step, local_only_steps=local_only_steps,
             schedule=schedule, fabric=fabric, num_shards=num_shards)
+        if not mutate:
+            return records, stats
+        epochs, commits = heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
+        stats.commits, stats.epochs = commits - commits0, epochs - epochs0
+    return records, stats, Arena(data=data, bounds=arena.bounds, perms=arena.perms, heap=heap)
 
 
 def _decode_results(
@@ -591,6 +773,7 @@ def _decode_results(
     B: int,
     scratch_words: int,
     *,
+    mut_words: int = 0,
     supersteps: int,
     routed_per_step: list,
     active_per_step: list,
@@ -608,7 +791,7 @@ def _decode_results(
     record lost in routing has already raised), so sorting by id, with
     empties and padding keyed past the batch, puts the batch in the first
     B rows."""
-    flat = pools.reshape(-1, record_width(scratch_words))
+    flat = pools.reshape(-1, record_width(scratch_words, mut_words))
     keep = (flat[:, F_STATUS] != STATUS_EMPTY) & (flat[:, F_ID] < B)
     key = torch.where(keep, flat[:, F_ID], B)
     all_rec = flat[torch.sort(key, stable=True).indices[:B]]

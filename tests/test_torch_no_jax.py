@@ -41,9 +41,12 @@ def test_port_files_exist():
                  "models/model_zoo.py", "serving/batching.py", "serving/kv_cache.py",
                  "launch/serve.py", "configs/mamba2_780m.py", "kernels/ssd_scan/kernel.py",
                  "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py", "models/ssm.py",
-                 "core/commit.py", "core/structures/skiplist.py"):
+                 "core/commit.py", "core/structures/skiplist.py",
+                 "kernels/pulse_commit/kernel.py", "kernels/pulse_commit/ops.py",
+                 "kernels/pulse_commit/ref.py"):
         assert want in names
-    for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu"):
+    for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
+               "pulse_commit.cu"):
         assert (PORT / "csrc" / cu).is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 

@@ -15,7 +15,8 @@ records (hops included) and every ``RoutingStats`` field.
     devices in the subprocess's environment alone (JAX fixes its device
     count when it starts, and this process keeps one).
   * ``PulseEngine`` on an ``EmulatedMesh`` against the single-node engine,
-    every out-of-scope argument's ``NotImplementedError``, and the superstep
+    every out-of-scope argument's ``NotImplementedError`` (the write path on
+    a mesh, item 6(b), is ``tests/test_torch_routing_write.py``), and the superstep
     mode's plain version against ``k_local`` calls of the JAX ``step_batch``
     per shard, edge cases included.
 
@@ -364,15 +365,17 @@ def test_too_few_supersteps_raise_as_in_the_jax_package():
 @needs_jax
 def test_profiler_spans_split_a_call():
     """Under the profiler a call shows its placement, one span per
-    superstep and its decode."""
+    superstep, and in each its chase, its switch and its read of the
+    counters, and its decode."""
     from torch.profiler import ProfilerActivity, profile
 
     _, tit, jar, p0, s0, max_iters = _structure("list", 4)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _, st = _run_port(tit, _carry(jar), p0, s0, 4, max_iters=max_iters, compact=True)
     calls = {e.key: e.count for e in prof.key_averages() if e.key.startswith("routing.")}
-    assert calls == {"routing.place": 1, "routing.superstep": st.supersteps,
-                     "routing.decode": 1}
+    n = st.supersteps
+    assert calls == {"routing.place": 1, "routing.superstep": n, "routing.chase": n,
+                     "routing.switch": n, "routing.counters": n, "routing.decode": 1}
 
 
 def test_mesh_and_arena_must_agree():
@@ -395,10 +398,10 @@ def test_mesh_and_arena_must_agree():
 
 
 def _deferred_calls():
-    """(id, sub-item, callable) for every argument outside item 6(a)."""
+    """(id, sub-item, callable) for every argument outside items 6(a) and
+    6(b) (the write path on a mesh: ``tests/test_torch_routing_write.py``)."""
     ar = tarena.make_arena(np.zeros((8, 4), np.int32), num_shards=2, device=CPU)
     it = tlist.find_iterator()
-    mut = tlist.insert_iterator()
     mesh = trouting.EmulatedMesh(2, CPU)
     p0 = torch.zeros(2, dtype=torch.int32)
     s0 = torch.zeros((2, it.scratch_words), dtype=torch.int32)
@@ -432,8 +435,6 @@ def _deferred_calls():
         ("replication", "6(d)", run(replication=object())),
         ("fabric_loss", "6(d)", run(fault_injector=Injector(Plan(drop_prob=0.1)))),
         ("straggler", "6(d)", run(fault_injector=Injector(Plan(delay_shard=1)))),
-        ("mutating", "6(b)", run(i=mut)),
-        ("superstep_mutate", "6(b)", step(mutate=True)),
         ("superstep_drop", "6(d)", step(drop_prob=0.5)),
         ("superstep_replication", "6(d)", step(replication=object())),
         ("superstep_ring", "6(c)", step(fabric="ring")),
@@ -445,8 +446,6 @@ def _deferred_calls():
                                                      force_offload=True)),
         ("engine_ring", "6(c)", lambda: eng.execute(it, p0, s0, fabric="ring",
                                                     force_offload=True)),
-        ("engine_mutating", "6(b)", lambda: eng.execute(mut, p0, torch.zeros(
-            (2, mut.scratch_words), dtype=torch.int32))),
         ("engine_other_mesh", "6(e)",
          lambda: tengine.PulseEngine(ar, mesh=object()).execute(it, p0, s0)),
     ]

@@ -128,30 +128,43 @@ def test_body_plain_version_matches_pallas_interpret(steps):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
 
 
-@pytest.mark.parametrize("P", [1, 8])
-def test_insert_then_delete_commit_matches(P):
-    """The write_checks skip-list workload: racing inserts of absent odd
-    keys, then racing deletes of every other inserted key (victims never
-    adjacent), each phase through both packages' sequential commit."""
-    rng = np.random.default_rng(11)
+def skiplist_insert_delete(P, seed=11):
+    """The write_checks skip-list workload (``tests/helpers/write_checks.py``,
+    ``check_skiplist_insert_delete``): a 40-key list interleaved over ``P``
+    shards; racing inserts of absent odd keys, then racing deletes of every
+    other inserted key (victims never adjacent).  Returns ``(JAX arena,
+    head, keys, newk, phases)``, each phase ``(name, JAX iterator, port
+    iterator, init arguments as numpy)``."""
+    rng = np.random.default_rng(seed)
     n = 40
     keys = np.sort(rng.choice(np.arange(0, 5000, 2), n, replace=False)).astype(np.int32)
     pol = "interleaved" if P > 1 else "sequential"
     jb = JBuilder(256, jskip.NODE_WORDS, num_shards=P, policy=pol)
     head = jskip.build_into(jb, keys, keys * 2)
-    jar = jb.finish()
     newk = (keys[:16] + 1).astype(np.int32)
+    phases = [("insert", jskip.insert_iterator(), tskip.insert_iterator(),
+               (newk, newk * 2, head)),
+              ("delete", jskip.delete_iterator(), tskip.delete_iterator(), (newk[::2], head))]
+    return jb.finish(), head, keys, newk, phases
+
+
+def phase_inits(args):
+    """The same init arguments for the JAX iterator and the port's."""
+    return ([jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args],
+            [torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args])
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_insert_then_delete_commit_matches(P):
+    """The write_checks skip-list workload: racing inserts of absent odd
+    keys, then racing deletes of every other inserted key (victims never
+    adjacent), each phase through both packages' sequential commit."""
+    jar, head, keys, newk, phases = skiplist_insert_delete(P)
     arenas = []
-    for phase in ("insert", "delete"):
-        jit_ = jskip.insert_iterator() if phase == "insert" else jskip.delete_iterator()
-        tit = tskip.insert_iterator() if phase == "insert" else tskip.delete_iterator()
-        if phase == "insert":
-            args = (newk, newk * 2, head)
-        else:
-            args = (newk[::2], head)
-        jp, js = jit_.init(*(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args))
-        tp, ts = tit.init(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-                            for a in args))
+    for phase, jit_, tit, args in phases:
+        jargs, targs = phase_inits(args)
+        jp, js = jit_.init(*jargs)
+        tp, ts = tit.init(*targs)
         np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
         np.testing.assert_array_equal(np.asarray(js), ts.numpy())
         tin = _carry(jar)
