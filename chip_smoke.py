@@ -115,8 +115,10 @@ Phases (any failure exits non-zero before the last line):
  12. the write path over the same four memory nodes: phase 10's three
      batches at the same sizes through ``PulseEngine(arena,
      mesh=EmulatedMesh(4, "cuda")).execute(it, ptr0, scr0, max_iters=4096,
-     k_local=4, compact=True)``, each superstep's commit phase one launch
-     of the ``pulse_commit`` kernel (``csrc/pulse_commit.cu``).
+     k_local=4, compact=True)``, each superstep's commit phase one
+     ``pulse_commit`` call: the ``commit_key`` kernel, one ``torch.sort``,
+     the ``commit_apply`` and ``commit_tail`` kernels
+     (``csrc/pulse_commit.cu``).
      ``webservice_rw`` and ``skiplist_rw`` are placed ``interleaved`` with
      room on every shard for the inserts of its home records (an ALLOC
      claims a row on its record's home shard, ``id % 4``),
@@ -126,18 +128,22 @@ Phases (any failure exits non-zero before the last line):
      card (all but ``schedule``); the input arena unchanged and the
      committed arena on the card; every record DONE and every found value
      right; ``pulse_commit`` launched once per mutating superstep and
-     ``pulse_chase`` never during a mutating batch; the kernel equal to its
-     plain version on the captured commit phase with the most staged
-     records of each batch; the committed arena read back over the mesh on
+     ``pulse_chase`` never during a mutating batch; the kernels equal to the
+     serial plain version and to the CPU model of their stages on the
+     captured commit phase with the most staged records of each batch; the
+     committed arena read back over the mesh on
      the structure's find iterator (one superstep-mode ``pulse_chase``
      launch per superstep) finds every inserted and updated key with its
      value, no deleted key, and 1,024 untouched keys with their old values.
      Reported: ops/s over the median of three calls, supersteps and
      local-only steps, commits and epochs, routed records, wire words, mean
-     crossings, a profiled call split into chase, commit and switch, the
-     commit kernel's device ms per superstep beside its bound, the
-     captured commit phase's kernel and plain ms beside its bound and its
-     longest per-shard chain, peak device memory and the phase's time.
+     crossings, a call split by CUDA events on the stream into chase,
+     commit (each kernel and the sort) and switch, the commit's ms per
+     superstep beside its bound, the captured commit phase's device ms
+     (every kernel, the sort's included, by stage) and plain ms beside its
+     bound, its serial residue (the longest same-slot run, the free-list
+     pops) beside the longest per-shard count, peak device memory and the
+     phase's time.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -384,27 +390,13 @@ def time_cuda_rotating(fns, rounds: int) -> float:
 def kernel_device_ms(fns, rounds: int, *names: str):
     """Mean device time per call of ``fns`` of the kernels whose names
     contain any of ``names`` (summed, where one call launches several), over
-    ``rounds`` passes of ``fns``, from the profiler's kernel timestamps:
-    unlike CUDA events around a run, it leaves out the gaps where the card
-    waits for the host to launch a short kernel.  None when the profiler saw
-    no such kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
-    if not sum(e.count for e in evs):
-        return None
-    return sum(e.self_device_time_total for e in evs) / (rounds * len(fns)) / 1e3
+    ``rounds`` passes of ``fns``, from the profiler's kernel timestamps
+    (``kernel_breakdown_ms``): unlike CUDA events around a run, it leaves
+    out the gaps where the card waits for the host to launch a short
+    kernel.  None when the profiler saw no such kernel."""
+    ms = [v for k, v in (kernel_breakdown_ms(fns, rounds, tries=1) or {}).items()
+          if any(n in k for n in names)]
+    return sum(ms) if ms else None
 
 
 def profiled_ms(fns, rounds: int, *names: str, tries: int = 3):
@@ -415,6 +407,50 @@ def profiled_ms(fns, rounds: int, *names: str, tries: int = 3):
         ms = kernel_device_ms(fns, rounds, *names)
         if ms is not None:
             return ms
+    return None
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its namespace of no name, template
+    arguments, parameters and return type: ``commit_key``,
+    ``at_cuda_detail::cub::DeviceRadixSortOnesweepKernel``."""
+    key = key.replace("(anonymous namespace)::", "")
+    out, depth = [], 0
+    for ch in key:
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and ch not in "<>":
+            if ch == "(":
+                break
+            out.append(ch)
+    return "".join(out).removeprefix("void ").strip()
+
+
+def kernel_breakdown_ms(fns, rounds: int, skip=("Memcpy", "Memset"), tries: int = 3):
+    """Mean device ms per call of ``fns`` of every kernel the profiler saw,
+    by ``kernel_name`` (instantiations of one template summed; copies and
+    fills left out), over ``rounds`` passes; taken again when a window
+    shows no kernel; None when every try misses."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count and not any(k in e.key for k in skip):
+                name = kernel_name(e.key)
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / (
+                    rounds * len(fns)) / 1e3
+        if out:
+            return out
     return None
 
 
@@ -1531,7 +1567,10 @@ def commit_work(pools, data, heap, bounds, perms, out_pools, out_heap, scratch_w
     """What one commit phase must move, counted from its inputs (``pools``,
     ``data``, ``heap`` before the phase) and its result (``out_pools``,
     ``out_heap``): ``(bytes, eligible records, the longest shard's
-    eligible count)``.
+    eligible count, the longest same-slot run of applied STOREs and CASes,
+    the most ALLOCs a shard popped from its free list)``.  The last two are
+    the kernels' serial residue: a run is applied in order by one group of
+    lanes, and the pops are walked one after another.
 
     Per eligible record on a writable shard: its 8-byte order index, its
     m_op, m_tgt and m_mask read, a CAS's expected word, the staged words
@@ -1578,7 +1617,11 @@ def commit_work(pools, data, heap, bounds, perms, out_pools, out_heap, scratch_w
                                                 device=pools.device))
     claimed = alloc & (out_pools[..., routing.F_STATUS] != STATUS_FAULT)
     n_claimed = int(claimed.sum())
-    pops = n_claimed - int((out_heap[:, H_BUMP] - heap[:, H_BUMP]).sum())
+    pops_per_shard = claimed.sum(1) - (out_heap[:, H_BUMP] - heap[:, H_BUMP])
+    pops = int(pops_per_shard.sum())
+    run_slot = (me.long() * cap + row)[store | cas]
+    longest_run = (int(torch.unique(run_slot, return_counts=True)[1].max())
+                   if run_slot.numel() else 0)
     staged_words = int((bits & (store | cas | alloc)[..., None]).sum())
     words = (int(applied.sum()) * 4  # m_op, m_tgt, m_mask read; m_op written
              + int(cas.sum()) * 2 + staged_words + int(alloc.sum())  # expect, staged, slot
@@ -1587,7 +1630,8 @@ def commit_work(pools, data, heap, bounds, perms, out_pools, out_heap, scratch_w
              + 4 * P + 8 * int((applied.any(1)).sum()))  # count, bounds, perms; heap
     per_shard = elig.sum(1)
     n = int(per_shard.sum())
-    return words * 4 + n * 8, n, int(per_shard.max())
+    return (words * 4 + n * 8, n, int(per_shard.max()), longest_run,
+            int(pops_per_shard.max()))
 
 
 def _capture_commits(fn):
@@ -1617,10 +1661,15 @@ def _capture_commits(fn):
         commit_ops.pulse_commit = orig
 
 
+COMMIT_KERNELS = ("commit_key", "commit_apply", "commit_tail")  # csrc/pulse_commit.cu
+
+
 def commit_vs_plain(best):
-    """The kernel and its plain version on one captured commit phase (the
-    kernel on CUDA copies, the plain version on CPU copies), both timed;
-    returns a dict."""
+    """The kernels and the plain versions on one captured commit phase: the
+    card's commit against the serial plain version and the CPU model of
+    the kernels' stages (each on CPU copies), all timed; returns a dict.
+    The kernels' device time is the sum of every kernel of the phase, the
+    sort's included, from the profiler (``stages_ms`` by stage)."""
     import torch
 
     from repro_torch.kernels.pulse_commit import ops as commit_ops
@@ -1636,20 +1685,35 @@ def commit_vs_plain(best):
     def plain():
         return commit_ref.pulse_commit_reference(*[t.clone() for t in host], scratch_words=S)
 
-    got, want = kern(), plain()
+    def staged():
+        return commit_ref.pulse_commit_staged(*[t.clone() for t in host], scratch_words=S)
+
+    got, want, model = kern(), plain(), staged()
     torch.cuda.synchronize()
     same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    model_same = all(torch.equal(a, b) for a, b in zip(model, want))
     err = max(max_abs_err(a.cpu(), b) for a, b in zip(got, want))
-    nbytes, n, chain = best["work"]
-    k_ms = profiled_ms([kern], 5, "commit_kernel")
+    nbytes, n, chain, run, pops = best["work"]
+    by_name = kernel_breakdown_ms([kern], 5)
+    stages = None
+    if by_name is not None:
+        stages = {k: sum(v for name, v in by_name.items() if k in name) for k in COMMIT_KERNELS}
+        stages["sort"] = sum(v for name, v in by_name.items()
+                             if not any(k in name for k in COMMIT_KERNELS))
     wrapper_ms = time_cuda(kern, 5)
     t0 = time.perf_counter()
     plain()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    return dict(bit_equal=same, max_abs_err=err, staged=best["staged"], eligible=n,
-                longest_chain=chain, ms=wrapper_ms if k_ms is None else k_ms,
-                ms_source="events, the whole wrapper" if k_ms is None else "profiler",
-                wrapper_ms_events=wrapper_ms, plain_ms=plain_ms, bytes=nbytes,
+    t0 = time.perf_counter()
+    staged()
+    staged_ms = (time.perf_counter() - t0) * 1e3
+    return dict(bit_equal=same, staged_model_bit_equal=model_same, max_abs_err=err,
+                staged=best["staged"], eligible=n, longest_chain=chain, longest_run=run,
+                pops=pops, ms=wrapper_ms if stages is None else sum(stages.values()),
+                ms_source="events, the whole wrapper" if stages is None else
+                "profiler, every kernel of the phase summed",
+                stages_ms=stages, kernels_ms=by_name, wrapper_ms_events=wrapper_ms,
+                plain_ms=plain_ms, staged_model_ms=staged_ms, bytes=nbytes,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 pool_records=int(host[0].shape[0] * host[0].shape[1]))
 
@@ -1658,12 +1722,13 @@ def timed_split(fn):
     """One unprofiled call of ``fn`` (a mutating execute on the card) with
     CUDA events recorded on the stream at the edges of each superstep's
     pieces: the chase (from the superstep's start to the commit's), the
-    commit (its order in torch ops and the ``pulse_commit`` kernel), the
-    kernel alone (events around the C launch call itself), and the switch.
+    commit (from its ``commit_key`` launch to the end of its
+    ``commit_tail`` launch: the three kernels and the sort between them),
+    each kernel alone (events around its C launch call) and the switch.
     The stream reaches an event once it has run all that was enqueued
     before it, so a piece's time is the stream's time from its start to
     its end: the device's work and the gaps where it waited for the host
-    to enqueue more (for the kernel alone, the few microseconds of one
+    to enqueue more (for a kernel alone, the few microseconds of one
     launch call).  Returns the call's wall ms (host clock, ending in a
     synchronise), each piece's ms summed over the supersteps, and the
     superstep count."""
@@ -1674,7 +1739,9 @@ def timed_split(fn):
     from repro_torch.core import routing
     from repro_torch.kernels.pulse_commit import kernel as commit_kernel
 
-    marks = {k: [] for k in ("chase", "order", "launch", "launched", "switch", "switched")}
+    stages = ("key", "apply", "tail")
+    marks = {k: [] for k in ("chase", "switch", "switched", *stages,
+                             *(f"{x}_done" for x in stages))}
 
     def mark(key):
         e = torch.cuda.Event(enable_timing=True)
@@ -1693,13 +1760,13 @@ def timed_split(fn):
         return obj, attr, orig, wrapped
 
     # the built library, seen by ``kernel.launch`` through a stand-in whose
-    # launch call is bracketed by events
+    # launch calls are bracketed by events
     lib = commit_kernel._library()
     timed_lib = types.SimpleNamespace(
-        pulse_commit_launch=around(lib, "pulse_commit_launch", "launch", "launched")[3],
-        pulse_commit_error_string=lib.pulse_commit_error_string)
+        pulse_commit_error_string=lib.pulse_commit_error_string,
+        **{f"pulse_commit_{x}_launch": around(lib, f"pulse_commit_{x}_launch", x,
+                                              f"{x}_done")[3] for x in stages})
     patches = [around(routing, "_local_superstep_mut", "chase"),
-               around(commit_kernel, "commit_order", "order"),
                (commit_kernel, "_library", commit_kernel._library, lambda: timed_lib),
                around(routing, "_switch", "switch", "switched")]
     for obj, attr, _, wrapped in patches:
@@ -1720,9 +1787,11 @@ def timed_split(fn):
     def total(a, b):
         return sum(x.elapsed_time(y) for x, y in zip(marks[a], marks[b]))
 
-    return dict(wall_ms=wall_ms, supersteps=n, chase_ms=total("chase", "order"),
-                commit_ms=total("order", "launched"), kernel_ms=total("launch", "launched"),
-                switch_ms=total("switch", "switched"))
+    pieces = {f"{x}_ms": total(x, f"{x}_done") for x in stages}
+    return dict(wall_ms=wall_ms, supersteps=n, chase_ms=total("chase", "key"),
+                commit_ms=total("key", "tail_done"), sort_ms=total("key_done", "apply"),
+                kernel_ms=sum(pieces.values()), switch_ms=total("switch", "switched"),
+                **pieces)
 
 
 def phase_write_mesh(rng):
@@ -1859,11 +1928,14 @@ def phase_write_mesh(rng):
                 wire_words=st.total_wire_words, mean_crossings=float(st.crossings.mean()),
                 commit_launches=launches, commit_ms_per_call=split["kernel_ms"],
                 commit_ms_per_superstep=split["kernel_ms"] / st.supersteps,
+                commit_stream_ms_per_superstep=split["commit_ms"] / st.supersteps,
+                sort_ms_per_superstep=split["sort_ms"] / st.supersteps,
                 commit_bytes_per_call=sum(w[0] for w in mine),
                 commit_bound_ms_per_superstep=sum(w[0] for w in mine) / HBM_BYTES_PER_S * 1e3
                 / st.supersteps,
                 longest_chain_max=max(w[2] for w in mine),
                 longest_chain_mean=sum(w[2] for w in mine) / st.supersteps,
+                longest_run_max=max(w[3] for w in mine), pops_max=max(w[4] for w in mine),
                 peak_mib=peak, timed_call=split, iters_max=int(g.iters.max().item()),
                 **extra)
             steps.append(row)
@@ -1873,16 +1945,21 @@ def phase_write_mesh(rng):
                 f"({st.local_only_steps} local-only) = pulse_commit launches, 0 pulse_chase; "
                 f"commits {st.commits}, epochs {st.epochs}; routed {row['routed_records']} "
                 f"records, {st.total_wire_words} wire words, mean crossings "
-                f"{row['mean_crossings']:.3f}; commit kernel {row['commit_ms_per_superstep']:.5f} "
-                f"ms a superstep (CUDA events; bytes bound "
-                f"{row['commit_bound_ms_per_superstep']:.6f}, longest shard's chain "
-                f"{row['longest_chain_mean']:.1f} a superstep, at most {row['longest_chain_max']}); "
+                f"{row['mean_crossings']:.3f}; pulse_commit "
+                f"{row['commit_stream_ms_per_superstep']:.5f} ms a superstep on the stream, its "
+                f"three kernels {row['commit_ms_per_superstep']:.5f} (CUDA events; bytes bound "
+                f"{row['commit_bound_ms_per_superstep']:.6f}; the old walk's chain, the longest "
+                f"shard's eligible count, {row['longest_chain_mean']:.1f} a superstep, at most "
+                f"{row['longest_chain_max']}; the serial residue: the longest "
+                f"same-slot run {row['longest_run_max']}, free-list pops {row['pops_max']}); "
                 f"peak {peak:.1f} MiB; card == CPU copy == sequential commit (but schedule)")
             rest = split["wall_ms"] - split["chase_ms"] - split["commit_ms"] - split["switch_ms"]
             log(f"[{name}] {sname}: a timed call {split['wall_ms']:.2f} ms wall; on the stream "
                 f"the chase {split['chase_ms']:.3f} ms, the commit {split['commit_ms']:.3f} ms "
-                f"(the kernel {split['kernel_ms']:.3f}), the switch {split['switch_ms']:.3f} ms, "
-                f"the rest (placement, counter reads, decode) {rest:.3f} ms")
+                f"(commit_key {split['key_ms']:.3f}, the sort {split['sort_ms']:.3f}, "
+                f"commit_apply {split['apply_ms']:.3f}, commit_tail {split['tail_ms']:.3f}), "
+                f"the switch {split['switch_ms']:.3f} ms, the rest (placement, counter reads, "
+                f"decode) {rest:.3f} ms")
         if works:
             raise AssertionError(f"{name}: {len(works)} commit phases of the CPU copy left over")
 
@@ -1890,12 +1967,21 @@ def phase_write_mesh(rng):
         one_commit = commit_vs_plain(best)
         if not one_commit["bit_equal"]:
             raise AssertionError(f"{name}: pulse_commit disagrees with its plain version")
+        if not one_commit["staged_model_bit_equal"]:
+            raise AssertionError(f"{name}: the CPU model of pulse_commit's stages disagrees "
+                                 f"with the serial plain version")
+        stages = one_commit["stages_ms"] or {}
         log(f"[{name}] one commit phase ({one_commit['eligible']} eligible of "
-            f"{one_commit['staged']} staged records, the longest shard's chain "
-            f"{one_commit['longest_chain']}): kernel {one_commit['ms']:.5f} ms "
-            f"({one_commit['ms_source']}; the wrapper with its order {one_commit['wrapper_ms_events']:.4f} ms, "
-            f"CUDA events), plain {one_commit['plain_ms']:.2f} ms, bytes bound "
-            f"{one_commit['bound_ms']:.6f} ms; bit_equal={one_commit['bit_equal']}")
+            f"{one_commit['staged']} staged records; the longest shard's count "
+            f"{one_commit['longest_chain']}, the longest same-slot run "
+            f"{one_commit['longest_run']}, free-list pops {one_commit['pops']}): kernels "
+            f"{one_commit['ms']:.5f} ms "
+            f"({one_commit['ms_source']}: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in stages.items())
+            + f"; the wrapper with its clones {one_commit['wrapper_ms_events']:.4f} ms, CUDA "
+            f"events), serial plain {one_commit['plain_ms']:.2f} ms, staged model "
+            f"{one_commit['staged_model_ms']:.2f} ms (CPU), bytes bound "
+            f"{one_commit['bound_ms']:.6f} ms; card == serial == staged model")
 
         # the committed arena read back over the mesh on pulse_chase
         fit, rp, rs, (want_found, want_val) = wb["readback"]
@@ -2719,18 +2805,24 @@ def main(argv=None) -> int:
         launches=commit_launches, max_abs_err=max(r["commit_check"]["max_abs_err"]
                                                   for r in mesh_rows),
         ms=head_commit["ms"], plain_ms=head_commit["plain_ms"], bound_ms=head_commit["bound_ms"],
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", library_ms=None, stages_ms=head_commit["stages_ms"],
         timed_on="the wiredtiger_update commit phase with the most staged records "
-                 f"({head_commit['eligible']} eligible, the longest shard's chain "
-                 f"{head_commit['longest_chain']}); one block of one warp per shard",
+                 f"({head_commit['eligible']} eligible, {head_commit['longest_chain']} on the "
+                 f"longest shard, the longest same-slot run {head_commit['longest_run']}); "
+                 "every kernel of the phase summed: commit_key, the sort, commit_apply, "
+                 "commit_tail",
         launches_note="one per mutating superstep of phase 12 (three batches, four steps)",
         batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[
             dict(step=x["step"], supersteps=x["supersteps"], launches=x["commit_launches"],
                  ms_per_superstep=x["commit_ms_per_superstep"],
+                 stream_ms_per_superstep=x["commit_stream_ms_per_superstep"],
                  bound_ms_per_superstep=x["commit_bound_ms_per_superstep"],
-                 longest_chain_max=x["longest_chain_max"])
+                 longest_chain_max=x["longest_chain_max"],
+                 longest_run_max=x["longest_run_max"], pops_max=x["pops_max"])
             for x in r["steps"]]) for r in mesh_rows},
-        ms_per_superstep_source="CUDA events around each launch in one timed call a step",
+        ms_per_superstep_source="CUDA events around each of the three launches in one timed "
+                                "call a step (stream: from commit_key's launch to the end of "
+                                "commit_tail's, the sort included)",
     )
 
     def f32_err(cks, row):

@@ -25,8 +25,8 @@ So no superstep moves the whole arena.  The input arena is never modified.
 
 On a mesh (``core.routing.distributed_execute``) the commit runs on the
 arena's device instead: on the card, every shard's commit phase is one
-launch of the ``pulse_commit`` kernel a superstep, and nothing crosses the
-bus; this executor is the oracle that path is held against.
+``pulse_commit`` call (three kernels and a sort) a superstep, and nothing
+crosses the bus; this executor is the oracle that path is held against.
 """
 from __future__ import annotations
 

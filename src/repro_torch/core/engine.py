@@ -213,9 +213,11 @@ class PulseEngine:
         k_local: int = 4,
         cache_nodes: int = 0,
         compact: bool = True,
+        fused: bool = True,
         backend: str | None = None,
         schedule: str = "auto",
         fabric: str = "dense",
+        replication=None,
     ) -> ExecResult:
         """Dispatch + execute a batch of traversals.
 
@@ -245,11 +247,21 @@ class PulseEngine:
         ``k_local``, ``compact``, ``return_to_cpu`` and ``fabric`` passed on;
         ``backend="kernel"`` runs each superstep's local chase as one
         ``pulse_chase`` launch, ``"reference"`` as the plain chase.
-        ``schedule="auto"`` resolves to ``"dispatched"`` (results and wire
-        words do not depend on the schedule; the overlap model that picks
-        the pipelined schedule is item 6(d)); ``"fused"`` and
-        ``"pipelined"`` are item 6(c).
+        ``schedule="auto"`` resolves to ``"dispatched"`` whatever ``fused``
+        says: with ``fused=False`` that is the reference's own resolution
+        (the explicit opt-out of device-resident loops); with ``fused=True``
+        the reference asks its overlap model (item 6(d)), which normally
+        picks a device-resident schedule (item 6(c)), so the port pins the
+        dispatched one until those land.  Results and wire words do not
+        depend on the schedule.  ``"fused"`` and ``"pipelined"`` are item
+        6(c).  ``fused`` and ``replication`` are the reference's keywords,
+        which its ``PulseService`` passes: a ``replication`` context other
+        than None raises, naming item 6(d).
         """
+        if replication is not None:
+            raise routing._later("6(d)", "replica fan-out (PulseEngine.execute(replication=...))")
+        if schedule == "auto":
+            schedule = "dispatched"
         on_mesh = self.mesh is not None and self.arena.num_shards > 1
         if on_mesh and not isinstance(self.mesh, routing.EmulatedMesh):
             raise NotImplementedError(
@@ -300,8 +312,6 @@ class PulseEngine:
             )
 
         if on_mesh:
-            if schedule == "auto":
-                schedule = "dispatched"
             rec, stats = routing.distributed_execute(
                 it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
                 k_local=k_local, return_to_cpu=return_to_cpu, compact=compact,
@@ -335,20 +345,18 @@ class PulseEngine:
         the post-commit state.
 
         On a mesh (P > 1 shards) the batch runs through
-        ``routing.distributed_execute`` on the dispatched schedule
-        (``schedule="auto"`` resolves to it), the arena and heap carried
-        through its supersteps, each commit phase one ``pulse_commit`` launch
-        on the card; on one node or one shard, through the sequential commit
-        (``core.commit``), whose ``CommitTrace`` the result carries.  The
-        input Arena object is never modified, so a caller can replay a
-        snapshot."""
+        ``routing.distributed_execute`` on the resolved schedule, the arena
+        and heap carried through its supersteps, each commit phase one
+        ``pulse_commit`` call on the card; on one node or one shard, through
+        the sequential commit (``core.commit``), whose ``CommitTrace`` the
+        result carries.  The input Arena object is never modified, so a
+        caller can replay a snapshot."""
         S = it.scratch_words
         trace = None
         if self.mesh is not None and self.arena.num_shards > 1:
             rec, stats, new_arena = routing.distributed_execute(
                 it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
-                k_local=k_local, compact=compact,
-                schedule="dispatched" if schedule == "auto" else schedule, fabric=fabric,
+                k_local=k_local, compact=compact, schedule=schedule, fabric=fabric,
                 fault_injector=self.fault_injector,
             )
         else:

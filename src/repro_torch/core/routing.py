@@ -11,7 +11,7 @@ supersteps (``distributed_execute``, the dispatched schedule): every
 shard's local chase (``_local_superstep``: on the card one ``pulse_chase``
 launch in its superstep mode over all P pools), for a mutating iterator
 every shard's commit phase (``_local_superstep_mut``: the chase in torch
-ops over all P pools at once, then on the card one ``pulse_commit`` launch
+ops over all P pools at once, then on the card one ``pulse_commit`` call
 for all P shards), then the switch (``_route_decide``, ``_exchange``,
 ``_merge_pools``), with the host reading four counters per superstep to
 schedule the next.  The paper's properties hold as in the JAX package:
@@ -263,9 +263,9 @@ def _local_superstep_mut(
     in the JAX package).  Then the exhausted-budget sweep: a record left
     ACTIVE at ``iters >= max_iters`` with nothing staged retires MAXED
     (a no-op after a fixed ``k_local`` chase; the adaptive chase of item
-    6(c) relies on it).  The commit is ``kernels.pulse_commit``: one launch
-    for all P shards on the card, its plain version on the CPU, in place on
-    ``data`` and ``heap``.  Under ``torch.profiler`` the two show as the
+    6(c) relies on it).  The commit is ``kernels.pulse_commit``: one call
+    for all P shards, its kernels on the card, their stages in torch ops on
+    the CPU, in place on ``data`` and ``heap``.  Under ``torch.profiler`` the two show as the
     spans ``routing.chase`` and ``routing.commit``.
 
     Returns ``(pools, data, heap)``.

@@ -1,15 +1,17 @@
-"""pulse_commit on Hopper: the canonical order in torch ops, then the CUDA
-kernel that walks it.
+"""pulse_commit on Hopper: the bindings of the three CUDA kernels and the
+launch sequence around one ``torch.sort``.
 
 The source (``src/repro_torch/csrc/pulse_commit.cu``) replaces the JAX
 package's ``_commit_phase`` (``src/repro/core/routing.py:407``), XLA with no
-Pallas kernel: one block of one warp per shard walks that shard's eligible
-records in order, its lanes splitting each row's words.  What bounds it is
-the chain of dependent accesses, one record after the next; its bytes bound
-(each eligible record and each row it touches moved once) is far below.
-The record layout, opcodes and heap registers reach the source as ``-D``
-defines from the port's modules.  Built and loaded by ``kernels._build``;
-a build or launch failure raises.
+Pallas kernel.  A commit phase is four steps on the current stream:
+``commit_key`` (every record's order key), ``torch.sort`` of each shard's
+keys, ``commit_apply`` (the STOREs and CASes, one group of lanes per
+same-slot run, every run at once) and ``commit_tail`` (per shard the FREEs
+in parallel, the ALLOCs popped serially from the free list and then claimed
+from the bump pointer in parallel, the heap registers).  Nothing is read on
+the host.  The record layout, opcodes and heap registers reach the source
+as ``-D`` defines from the port's modules.  Built and loaded by
+``kernels._build``; a build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ from repro_torch.core import arena as _arena
 from repro_torch.core import iterator as _iterator
 from repro_torch.core import routing
 from repro_torch.kernels import _build
+from repro_torch.kernels.pulse_commit import ref as _ref
 
 MAX_WORDS = 64  # a node row is at most 256 B
 
 LAYOUT_DEFINES = dict(
-    PC_F_STATUS=routing.F_STATUS, PC_F_SCRATCH=routing.F_SCRATCH,
+    PC_F_ID=routing.F_ID, PC_F_HOME=routing.F_HOME, PC_F_STATUS=routing.F_STATUS,
+    PC_F_SCRATCH=routing.F_SCRATCH, PC_STATUS_EMPTY=_iterator.STATUS_EMPTY,
     PC_M_NONE=_arena.M_NONE, PC_M_STORE=_arena.M_STORE, PC_M_CAS=_arena.M_CAS,
     PC_M_ALLOC=_arena.M_ALLOC, PC_M_FREE=_arena.M_FREE, PC_H_FREE=_arena.H_FREE,
     PC_H_BUMP=_arena.H_BUMP, PC_H_EPOCH=_arena.H_EPOCH, PC_H_COMMITS=_arena.H_COMMITS,
@@ -43,44 +47,22 @@ SOURCE = _build.KernelSource(
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = SOURCE.load()
-    fn = lib.pulse_commit_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        # pools, bounds, key; P, L, R, S, cap; stream
+        "pulse_commit_key_launch": [ptr] * 3 + [i32] * 5 + [ptr],
+        # pools, data, sorted keys, order, perms; P, L, R, S, W, cap; stream
+        "pulse_commit_apply_launch": [ptr] * 5 + [i32] * 6 + [ptr],
+        # pools, data, heap, sorted keys, order, bounds, perms; P, L, R, S, W, cap; stream
+        "pulse_commit_tail_launch": [ptr] * 7 + [i32] * 6 + [ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.pulse_commit_error_string.argtypes = [ctypes.c_int]
     lib.pulse_commit_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def commit_order(pools: torch.Tensor, bounds: torch.Tensor, *, scratch_words: int,
-                 capacity: int):
-    """Each shard's commit order and its count of eligible records, on the
-    pools' device with no host read: ``(order (P, L) int64, n (P,) int32)``.
-
-    A record is eligible at shard ``s`` when it stages a mutation, is not
-    EMPTY, and either its target lies in ``s``'s rows (STORE, CAS, FREE) or
-    ``s`` is its home (ALLOC).  The order is one sort of the key
-    ``(class * capacity + slot) * L + id`` (class 0 STORE/CAS, 1 FREE, 2
-    ALLOC; slot 0 for an ALLOC), with a key past all of them for the rest:
-    the JAX package's four-pass lexsort (eligible first, then class, slot,
-    id) whenever the ids lie in ``[0, L)``, as placement gives them."""
-    P, L, R = pools.shape
-    top = 3 * capacity * L
-    if top >= 1 << 62:
-        raise ValueError(f"pulse_commit: the order key 3 * {capacity} * {L} overflows int64")
-    MB = routing.F_SCRATCH + scratch_words
-    m_op = pools[..., MB]
-    tgt = pools[..., MB + 1]
-    me = torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
-    pend = (m_op != _arena.M_NONE) & (pools[..., routing.F_STATUS] != _iterator.STATUS_EMPTY)
-    is_alloc = m_op == _arena.M_ALLOC
-    local = (tgt >= bounds[:-1, None]) & (tgt < bounds[1:, None])
-    eligible = pend & torch.where(is_alloc, pools[..., routing.F_HOME] == me, local)
-    klass = torch.where(is_alloc, 2, torch.where(m_op == _arena.M_FREE, 1, 0)).long()
-    slot = torch.where(is_alloc, 0, tgt).long()
-    key = (klass * capacity + slot) * L + pools[..., routing.F_ID].long()
-    key = torch.where(eligible, key, top)
-    order = torch.sort(key, dim=1, stable=True).indices
-    return order, eligible.sum(dim=1, dtype=torch.int32)
 
 
 def _check(name, t, shape, dtype, like):
@@ -95,10 +77,10 @@ def _check(name, t, shape, dtype, like):
         raise ValueError(f"pulse_commit: {name} must be contiguous")
 
 
-def launch(pools, data, heap, bounds, perms, order, n_eligible, *, scratch_words: int):
-    """Launch the kernel on PyTorch's current stream: every shard's commit
-    phase, in place on ``pools``, ``data`` and ``heap``.  Does not
-    synchronise."""
+def launch(pools, data, heap, bounds, perms, *, scratch_words: int):
+    """Every shard's commit phase on PyTorch's current stream, in place on
+    ``pools``, ``data`` and ``heap``: ``commit_key``, ``torch.sort``,
+    ``commit_apply``, ``commit_tail``.  Does not synchronise."""
     if pools.device.type != "cuda":
         raise ValueError(f"pulse_commit kernel needs CUDA tensors, got {pools.device}")
     P, L, R = pools.shape
@@ -114,14 +96,23 @@ def launch(pools, data, heap, bounds, perms, order, n_eligible, *, scratch_words
     _check("heap", heap, (P, _arena.HEAP_WORDS), torch.int32, pools)
     _check("bounds", bounds, (P + 1,), torch.int32, pools)
     _check("perms", perms, (P,), torch.int32, pools)
-    _check("order", order, (P, L), torch.int64, pools)
-    _check("n_eligible", n_eligible, (P,), torch.int32, pools)
+    _ref.key_top(cap, L)  # raises when the order key would overflow int64
     lib = _library()
     with torch.cuda.device(pools.device):
-        err = lib.pulse_commit_launch(
-            pools.data_ptr(), data.data_ptr(), heap.data_ptr(), order.data_ptr(),
-            n_eligible.data_ptr(), bounds.data_ptr(), perms.data_ptr(), P, L, R, S, W,
-            torch.cuda.current_stream(pools.device).cuda_stream)
+        stream = torch.cuda.current_stream(pools.device).cuda_stream
+        key = torch.empty((P, L), dtype=torch.int64, device=pools.device)
+        _raise(lib, "commit_key", lib.pulse_commit_key_launch(
+            pools.data_ptr(), bounds.data_ptr(), key.data_ptr(), P, L, R, S, cap, stream))
+        sk, order = torch.sort(key, dim=1, stable=True)
+        _raise(lib, "commit_apply", lib.pulse_commit_apply_launch(
+            pools.data_ptr(), data.data_ptr(), sk.data_ptr(), order.data_ptr(),
+            perms.data_ptr(), P, L, R, S, W, cap, stream))
+        _raise(lib, "commit_tail", lib.pulse_commit_tail_launch(
+            pools.data_ptr(), data.data_ptr(), heap.data_ptr(), sk.data_ptr(),
+            order.data_ptr(), bounds.data_ptr(), perms.data_ptr(), P, L, R, S, W, cap, stream))
+
+
+def _raise(lib, name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"pulse_commit launch failed: CUDA error {err} "
+        raise RuntimeError(f"pulse_commit: the {name} launch failed: CUDA error {err} "
                            f"({lib.pulse_commit_error_string(err).decode()})")

@@ -1,6 +1,8 @@
-"""pulse_commit: the CUDA kernel for CUDA tensors, the plain version
-(``ref.pulse_commit_reference``) for CPU tensors; never one in place of the
-other.  ``pulse_commit.launches`` counts the kernel's launches.
+"""pulse_commit: the CUDA kernels for CUDA tensors, the plain version of
+their stages (``ref.pulse_commit_staged``) for CPU tensors; never one in
+place of the other.  ``pulse_commit.launches`` counts the commit phases run
+on the kernels (one for all P shards).  ``ref.pulse_commit_reference`` is
+the serial oracle both are held against.
 """
 
 from __future__ import annotations
@@ -8,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.pulse_commit import kernel as _kernel
-from repro_torch.kernels.pulse_commit.ref import pulse_commit_reference
+from repro_torch.kernels.pulse_commit.ref import pulse_commit_staged
 
 
 def pulse_commit(pools: torch.Tensor, data: torch.Tensor, heap: torch.Tensor,
@@ -19,17 +21,16 @@ def pulse_commit(pools: torch.Tensor, data: torch.Tensor, heap: torch.Tensor,
     HEAP_WORDS), ``bounds`` (P + 1,), ``perms`` (P,).  Updates in place, so a
     superstep moves no copy of the arena; returns ``(pools, data, heap)``.
 
-    On CUDA tensors: the canonical order in torch ops, then one launch for
-    all P shards, with nothing read on the host.  A pool of no records
-    launches nothing."""
+    On CUDA tensors: the ``commit_key`` kernel, one ``torch.sort``, then
+    the ``commit_apply`` and ``commit_tail`` kernels, all on the current
+    stream with nothing read on the host.  A pool of no records launches
+    nothing."""
     if not pools.is_cuda:
-        return pulse_commit_reference(pools, data, heap, bounds, perms,
-                                      scratch_words=scratch_words)
+        return pulse_commit_staged(pools, data, heap, bounds, perms,
+                                   scratch_words=scratch_words)
     if pools.numel() == 0:
         return pools, data, heap
-    order, n = _kernel.commit_order(pools, bounds, scratch_words=scratch_words,
-                                    capacity=data.shape[0])
-    _kernel.launch(pools, data, heap, bounds, perms, order, n, scratch_words=scratch_words)
+    _kernel.launch(pools, data, heap, bounds, perms, scratch_words=scratch_words)
     pulse_commit.launches += 1
     return pools, data, heap
 

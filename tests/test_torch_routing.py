@@ -353,6 +353,36 @@ def test_engine_on_a_mesh_passes_its_knobs_and_the_kill():
 
 
 @needs_jax
+@pytest.mark.parametrize("P", [1, 4], ids=["one_node", "mesh4"])
+def test_engine_takes_the_reference_callers_keywords(P):
+    """The keywords the reference's ``PulseService`` passes to
+    ``execute`` (``fused``, ``schedule``, ``fabric``, ``replication=None``)
+    give the call without them, bit for bit, on one node and on a mesh of
+    four; a replication context raises naming item 6(d), on the read path
+    and on the write path."""
+    _, tit, jar, p0, s0, max_iters = _structure("hash", P)
+    tar = _carry(jar)
+    mesh = trouting.EmulatedMesh(P, CPU) if P > 1 else None
+    p0, s0 = torch.from_numpy(p0), torch.from_numpy(s0)
+    run = dict(max_iters=max_iters, force_offload=True, compact=True)
+    base = tengine.PulseEngine(tar, mesh=mesh).execute(tit, p0, s0, **run)
+    for fused in (True, False):
+        res = tengine.PulseEngine(tar, mesh=mesh).execute(
+            tit, p0, s0, fused=fused, schedule="auto", fabric="dense", replication=None, **run)
+        for f in ("ptr", "scratch", "status", "iters"):
+            assert torch.equal(getattr(base, f), getattr(res, f)), (fused, f)
+        if P > 1:
+            _assert_stats_equal(base.stats, res.stats)
+            assert res.stats.schedule == "dispatched"
+    wit = tlist.insert_iterator()
+    for it in (tit, wit):
+        with pytest.raises(NotImplementedError, match=r"item 6\(d\)"):
+            tengine.PulseEngine(tar, mesh=mesh).execute(
+                it, p0, torch.zeros((p0.shape[0], it.scratch_words), dtype=torch.int32),
+                fused=True, replication=object(), **run)
+
+
+@needs_jax
 def test_too_few_supersteps_raise_as_in_the_jax_package():
     jit_, tit, jar, p0, s0, max_iters = _structure("list", 4)
     with pytest.raises(RuntimeError, match="still ACTIVE"):

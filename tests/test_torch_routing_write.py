@@ -16,10 +16,12 @@ through the port on the CPU, and every int32 output must be bit-equal:
     one subprocess: this file run as a script, with four host devices in the
     subprocess's environment alone (about 25-35 s on a CPU core, mostly
     compiles); ``schedule`` included;
-  * ``pulse_commit``'s plain version against the JAX ``_commit_phase``,
-    jitted on the CPU for one shard at a time, on seeded pools of every
-    edge case, and the kernel's order (``kernel.commit_order``) against the
-    plain version's lexsort;
+  * ``pulse_commit``'s serial plain version and the CPU model of its CUDA
+    stages (``ref.pulse_commit_staged``, the wrapper's CPU route) against
+    the JAX ``_commit_phase``, jitted on the CPU for one shard at a time, on
+    seeded pools of every edge case and on the card test's random pools,
+    and the sort of the order key (``ref.commit_key``) against the plain
+    version's lexsort;
   * the mutating local chase over all P pools in one call against the JAX
     ``_local_superstep_mut`` per shard, and ``_route_decide`` and
     ``_remote_active`` with the mutation payload against the JAX package's;
@@ -28,14 +30,17 @@ through the port on the CPU, and every int32 output must be bit-equal:
     leaves the arena as it was; the refusals; the profiler spans.
 
 The tests marked ``gpu`` (``pytest -m gpu`` on the card, which has no JAX)
-hold the ``pulse_commit`` kernel against its plain version, and a mutating
-batch on ``EmulatedMesh(4, "cuda")`` against its CPU copy.
+hold the ``pulse_commit`` kernels against the serial plain version, on the
+edge cases, on random pools and at the main path's scale (P = 4 pools of
+16,384 staged stores), and a mutating batch on ``EmulatedMesh(4, "cuda")``
+against its CPU copy.
 
 Run as a script (``python tests/test_torch_routing_write.py OUT.npz`` with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``) it writes the JAX
 package's four-device results to OUT.npz."""
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -66,7 +71,6 @@ from repro_torch.core import iterator as titer
 from repro_torch.core import routing as trouting
 from repro_torch.core.structures import hash_table as thash
 from repro_torch.core.structures import linked_list as tlist
-from repro_torch.kernels.pulse_commit import kernel as tkernel
 from repro_torch.kernels.pulse_commit import ops as tops
 from repro_torch.kernels.pulse_commit import ref as tref
 
@@ -232,7 +236,9 @@ def test_distributed_write_matches_jax_on_four_devices(case, jax_mesh_results):
 # ------------------- (c) the commit phase's plain version ---------------------
 
 COMMIT_CASES = ["cas_hit_miss", "store_race", "free_then_alloc", "double_free",
-                "alloc_exhaustion", "write_denied", "wide_mask_w40", "nothing_eligible"]
+                "alloc_exhaustion", "write_denied", "wide_mask_w40", "nothing_eligible",
+                "cas_store_run12", "free_then_bump"]
+MAIN_PATH_SHAPES = ["distinct", "racing", "alloc_overflow"]  # _main_path_pools
 
 
 def _commit_case(case, seed=0):
@@ -241,7 +247,8 @@ def _commit_case(case, seed=0):
     records at random slots with ids in [0, L), beside records no shard
     may commit (EMPTY, or staged at another shard's rows)."""
     g = np.random.default_rng(seed)
-    P, rows, S, L = 2, 16, 3, 12
+    P, rows, S = 2, 16, 3
+    L = 16 if case == "cas_store_run12" else 12  # a run of 12 and its neighbours
     W = 40 if case == "wide_mask_w40" else 4
     cap = P * rows
     data = g.integers(-50, 50, (cap, W)).astype(np.int32)
@@ -303,6 +310,25 @@ def _commit_case(case, seed=0):
         rec(0, M.M_CAS, 5, INT_MIN, int(data[5, 31]))  # the lowest selected word is 31
         rec(1, M.M_CAS, 19, INT_MIN | (1 << 12), int(data[19, 12]) + 1)
         rec(1, M.M_ALLOC, 1, INT_MIN)
+    elif case == "cas_store_run12":
+        # twelve racing writers of slot 6 in id order: a CAS hits only on
+        # what the run's earlier records left in word 0
+        for t in range(5):
+            rec(0, M.M_STORE, 6, -1, row=np.full(W, 1000 + t))
+        for t in range(5):
+            rec(0, M.M_CAS, 6, 0b0001, 1000 + t, row=np.full(W, 2000 + t))
+        for _ in range(2):
+            rec(0, M.M_CAS, 6, 0b0011, int(data[6, 0]), row=np.full(W, 3000))
+        rec(0, M.M_STORE, 7, 0b0010)  # a neighbour slot, applied beside the run
+    elif case == "free_then_bump":
+        # more ALLOCs than freed rows: the pops end and the bump takes over
+        for t in (9, 4, 11):
+            rec(0, M.M_FREE, t)
+        for t in range(6):
+            rec(0, M.M_ALLOC, t % S, 0b0101)
+        rec(1, M.M_FREE, 17)
+        for t in range(7):  # one pop, four spare rows, two faults
+            rec(1, M.M_ALLOC, t % S, -1)
     # records no shard commits here: EMPTY, staged elsewhere, or homed elsewhere
     rec(0, M.M_STORE, 20, -1)  # shard 1's row, still at shard 0
     rec(1, M.M_ALLOC, 0, -1, home=0)
@@ -323,12 +349,17 @@ def _commit_case(case, seed=0):
     return data, heap, bounds, perms, pools, S
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_commit_fn(S, W):
+    """The JAX ``_commit_phase`` of one shard, jitted once per (S, W)."""
+    return jax.jit(lambda pool, rows, h, lo, hi, s, ok: jrouting._commit_phase(
+        pool, rows, h, lo, hi, s, ok, S=S, W=W))
+
+
 def _jax_commit(data, heap, bounds, perms, pools, S):
     """The JAX ``_commit_phase`` for each shard in turn (they touch disjoint
     rows and registers)."""
-    W = data.shape[1]
-    fn = jax.jit(lambda pool, rows, h, lo, hi, s, ok: jrouting._commit_phase(
-        pool, rows, h, lo, hi, s, ok, S=S, W=W))
+    fn = _jax_commit_fn(S, data.shape[1])
     data, heap, pools = data.copy(), heap.copy(), pools.copy()
     for s in range(pools.shape[0]):
         lo, hi = int(bounds[s]), int(bounds[s + 1])
@@ -358,20 +389,22 @@ def _lexsort_order(pools, bounds, S):
 @pytest.mark.parametrize("case", COMMIT_CASES)
 def test_commit_plain_version_matches_jax_commit_phase(case):
     """Pools, data and heap bit-equal to the JAX ``_commit_phase``; the
-    kernel's order and eligible counts equal the plain version's lexsort;
-    on CPU tensors the wrapper runs the plain version and launches
-    nothing."""
+    sort of the order key gives the plain version's lexsort, every eligible
+    key below the top one; on CPU tensors the wrapper runs the CPU model of
+    the kernel's stages, bit-equal too, and launches nothing."""
     data, heap, bounds, perms, pools, S = _commit_case(case)
     want = _jax_commit(data, heap, bounds, perms, pools, S)
     t = [torch.from_numpy(x.copy()) for x in (pools, data, heap, bounds, perms)]
     got_pools, got_data, got_heap = tref.pulse_commit_reference(*t, scratch_words=S)
     for name, a, b in zip(("data", "heap", "pools"), want, (got_data, got_heap, got_pools)):
         np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
-    order, n = tkernel.commit_order(torch.from_numpy(pools), torch.from_numpy(bounds),
-                                    scratch_words=S, capacity=data.shape[0])
-    assert order.dtype == torch.int64 and n.dtype == torch.int32
+    key = tref.commit_key(torch.from_numpy(pools), torch.from_numpy(bounds), scratch_words=S,
+                          capacity=data.shape[0])
+    assert key.dtype == torch.int64
+    sk, order = torch.sort(key, dim=1, stable=True)
+    top = tref.key_top(data.shape[0], pools.shape[1])
     for s, idx in enumerate(_lexsort_order(pools, bounds, S)):
-        assert int(n[s]) == len(idx)
+        assert int((sk[s] < top).sum()) == len(idx)
         np.testing.assert_array_equal(order[s, : len(idx)].numpy(), idx)
     launches = tops.pulse_commit.launches
     t = [torch.from_numpy(x.copy()) for x in (pools, data, heap, bounds, perms)]
@@ -395,6 +428,48 @@ def test_commit_plain_version_matches_jax_on_random_pools(W):
         got_pools, got_data, got_heap = tref.pulse_commit_reference(*t, scratch_words=S)
         for name, a, b in zip(("data", "heap", "pools"), want, (got_data, got_heap, got_pools)):
             np.testing.assert_array_equal(a, b.numpy(), err_msg=f"{name} seed {seed}")
+
+
+def _staged_vs_serial(host):
+    """The CPU model of the kernel's stages and the serial plain version on
+    copies of the same inputs: ``(staged, serial)``, each (pools, data,
+    heap)."""
+    data, heap, bounds, perms, pools, S = host
+
+    def fresh():
+        return [torch.from_numpy(x.copy()) for x in (pools, data, heap, bounds, perms)]
+
+    return (tref.pulse_commit_staged(*fresh(), scratch_words=S),
+            tref.pulse_commit_reference(*fresh(), scratch_words=S))
+
+
+@needs_jax
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("W", [4, 20, 40])
+def test_commit_staged_model_matches_jax_on_random_pools(W, seed):
+    """The card test's random pools (racing runs, rows freed twice, ALLOCs
+    popping slots past the shard, write-revoked shards, wide masks): the
+    staged model bit-equal to the serial commit and to the JAX
+    ``_commit_phase``."""
+    host = _card_pools(4, W, seed)
+    data, heap, bounds, perms, pools, S = host
+    want = _jax_commit(data, heap, bounds, perms, pools, S)
+    staged, serial = _staged_vs_serial(host)
+    for name, a, b, c in zip(("pools", "data", "heap"), (want[2], want[0], want[1]), staged,
+                             serial):
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=f"{name} staged")
+        np.testing.assert_array_equal(a, c.numpy(), err_msg=f"{name} serial")
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES)
+def test_commit_staged_model_matches_serial_at_the_main_paths_shape(shape):
+    """The main path's pools (every record staged, P = 4) at a small L:
+    distinct slots, 10% racing, and more ALLOCs than the shards have rows;
+    the staged model bit-equal to the serial commit."""
+    host = _main_path_pools(1024, shape)
+    staged, serial = _staged_vs_serial(host)
+    for name, a, b in zip(("pools", "data", "heap"), staged, serial):
+        assert torch.equal(a, b), (shape, name)
 
 
 def _check_commit_edge(case, data, heap, pools, want, S):
@@ -424,6 +499,14 @@ def _check_commit_edge(case, data, heap, pools, want, S):
     elif case == "nothing_eligible":
         assert (new_data == data).all() and (new_heap == heap).all()
         assert (new_pools == pools).all()
+    elif case == "cas_store_run12":
+        run = (pools[0, :, MB] != tarena.M_NONE) & (pools[0, :, MB + 1] == 6)
+        assert run.sum() == 12 and new_data[6, 0] != data[6, 0]
+        assert (new_data[7, [0, 2, 3]] == data[7, [0, 2, 3]]).all()
+    elif case == "free_then_bump":
+        assert new_heap[0, tarena.H_FREE] == tarena.NULL
+        assert new_heap[0, tarena.H_BUMP] == heap[0, tarena.H_BUMP] + 3
+        assert new_heap[1, tarena.H_BUMP] == 2 * 16 and (st[1] == titer.STATUS_FAULT).sum() == 2
     if case != "nothing_eligible":
         assert (new_pools[..., MB] == tarena.M_NONE).sum() > (pools[..., MB] == tarena.M_NONE).sum()
 
@@ -747,6 +830,49 @@ def _card_pools(P, W, seed):
     return data, heap, bounds, perms, pools, S
 
 
+def _main_path_pools(L, shape, seed=0, P=4, W=20):
+    """P pools of L records each, every one staged, for the commit at the
+    main path's shape: ``distinct`` is ``wiredtiger_update``'s phase (STOREs
+    and CASes of one word, each to its own slot of the record's shard, a
+    fifth of the CASes missing), ``racing`` the same with 10% of the targets
+    drawn from 64 hot slots a shard, ``alloc_overflow`` FREEs, then ALLOCs
+    homed at each shard past its freed and spare rows."""
+    g = np.random.default_rng(seed)
+    rows, S = 2 * L, 3
+    cap = P * rows
+    data = g.integers(-1000, 1000, (cap, W)).astype(np.int32)
+    bounds = np.arange(P + 1, dtype=np.int32) * rows
+    perms = np.full(P, tarena.PERM_READ | tarena.PERM_WRITE, np.int32)
+    heap = np.zeros((P, tarena.HEAP_WORDS), np.int32)
+    heap[:, tarena.H_FREE] = tarena.NULL
+    heap[:, tarena.H_BUMP] = bounds[1:] - L // 8
+    R = trouting.record_width(S, tarena.mut_width(W))
+    MB = F.F_SCRATCH + S
+    pools = np.zeros((P, L, R), np.int32)
+    pools[..., F.F_ID] = np.stack([g.permutation(L) for _ in range(P)])
+    pools[..., F.F_HOME] = np.arange(P)[:, None]
+    pools[..., F.F_STATUS] = titer.STATUS_ACTIVE
+    pools[..., MB + 4 :] = g.integers(-1000, 1000, (P, L, W))
+    local = np.stack([g.permutation(rows)[:L] for _ in range(P)])  # distinct slots a shard
+    if shape == "racing":
+        hot = g.random((P, L)) < 0.1
+        local = np.where(hot, g.integers(0, 64, (P, L)), local)
+    tgt = bounds[:-1, None] + local
+    if shape == "alloc_overflow":
+        op = np.where(np.arange(L) < L // 4, tarena.M_FREE, tarena.M_ALLOC)
+        op = g.permuted(np.tile(op, (P, 1)), axis=1)
+        tgt = np.where(op == tarena.M_FREE, tgt, g.integers(-2, S + 2, (P, L)))
+        mask = g.choice([-1, 1, 0b0101], (P, L))
+    else:
+        op = np.where(g.random((P, L)) < 0.7, tarena.M_STORE, tarena.M_CAS)
+        mask = 1 << g.integers(0, W, (P, L))
+        word = np.argmax((mask[..., None] >> np.arange(W)) & 1, -1)
+        expect = data[tgt, word] + (g.random((P, L)) < 0.2)
+        pools[..., MB + 3] = expect
+    pools[..., MB], pools[..., MB + 1], pools[..., MB + 2] = op, tgt, mask
+    return data, heap, bounds, perms, pools, S
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("W", [4, 20, 40])
 @pytest.mark.parametrize("P", [1, 4, 8])
@@ -787,6 +913,32 @@ def test_pulse_commit_edge_cases_on_card(case):
     torch.cuda.synchronize()
     for name, a, b in zip(("pools", "data", "heap"), want, got):
         assert torch.equal(a, b.cpu()), (case, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES)
+def test_pulse_commit_kernel_at_the_main_paths_scale(shape):
+    """P = 4 pools of 16,384 staged records (``wiredtiger_update``'s commit
+    phase; then with 10% of the targets racing; then ALLOCs past the
+    shards' rows): one commit phase on the kernels, bit-equal to the serial
+    plain version, counted once, with nothing read on the host."""
+    _card()
+    host = _main_path_pools(16384, shape)
+    data, heap, bounds, perms, pools, S = host
+    cpu = [torch.from_numpy(x.copy()) for x in (pools, data, heap, bounds, perms)]
+    want = tref.pulse_commit_reference(*cpu, scratch_words=S)
+    card = [torch.from_numpy(x.copy()).cuda() for x in (pools, data, heap, bounds, perms)]
+    before = tops.pulse_commit.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tops.pulse_commit(*card, scratch_words=S)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tops.pulse_commit.launches == before + 1
+    for name, a, b in zip(("pools", "data", "heap"), want, got):
+        assert torch.equal(a, b.cpu()), (shape, name)
 
 
 @pytest.mark.gpu
