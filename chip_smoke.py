@@ -145,6 +145,21 @@ Phases (any failure exits non-zero before the last line):
      pops) beside the longest per-shard count, peak device memory and the
      phase's time.
 
+Phases 11 and 12 then run every batch (each step of a write batch) on the
+device-resident schedules, ``schedule="fused"`` and ``"pipelined"`` on the
+dense fabric, and ``webservice`` also pipelined on the ring,
+``webservice_rw`` also fused on the ring: each call's supersteps replayed
+from one captured CUDA graph, ``routing.CHUNK`` a replay, the host reading
+one small tensor a chunk.  Gates, against the card's own dispatched run of
+the same batch: records bit-equal; supersteps, local-only steps, wire
+words, crossings, commits and epochs equal; ``schedule``, ``fabric`` and
+``fused`` as asked; the final ``data`` and ``heap`` bit-equal; one capture
+in the first call (which launched the kernels: a warm-up superstep and the
+captured chunk), none in the second, whose chunk reads are counted
+(ceil(supersteps / CHUNK)).  Reported: the rate over the median of three
+calls beside the dispatched one, the capture's time, and a profiled call's
+kernel time, busy share and each kernel's executions.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1265,6 +1280,10 @@ def phase_write(rng):
 # ------------------------------ routing -------------------------------------
 
 ROUTE_RUN = dict(max_iters=4096, k_local=4, compact=True)  # phase 11's execute arguments
+# the device-resident (schedule, fabric) pairs phases 11 and 12 run beside the dispatched one
+ROUTE_SCHEDULES = [("fused", "dense"), ("pipelined", "dense")]
+ROUTE_RING = [("pipelined", "ring")]  # phase 11's webservice
+WRITE_RING = [("fused", "ring")]  # phase 12's webservice_rw
 
 
 def routing_batches(rng, *, B: int = B_MAIN):
@@ -1344,8 +1363,9 @@ def superstep_vs_plain(arena, it, p0, s0, P: int, *, advance: int = 2):
                 plain_ms=time_cuda(plain, 3))
 
 
-def call_breakdown(fn, n_ops: int = 8):
-    """One profiled call of ``fn`` (after a warm-up call): its wall ms (host
+def call_breakdown(fn, n_ops: int = 8, warm: bool = True):
+    """One profiled call of ``fn`` (after a warm-up call unless ``warm`` is
+    False, for a caller that has just called it): its wall ms (host
     clock, ending in a synchronise), the device ms of all its kernels and
     their share of the wall time, the top kernels, the host operators with
     the most self time (ms and calls), and the host ms and calls of each
@@ -1355,7 +1375,8 @@ def call_breakdown(fn, n_ops: int = 8):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1370,7 +1391,13 @@ def call_breakdown(fn, n_ops: int = 8):
     host = [e for e in host if not e.key.startswith("routing.")]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:n_ops]
+    kernel_calls = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.key.startswith("routing."):
+            name = kernel_name(e.key)
+            kernel_calls[name] = kernel_calls.get(name, 0) + e.count
     return dict(wall_ms=wall_ms, device_ms=device_ms or 0.0, spans=spans,
+                kernel_calls=kernel_calls,
                 device_busy=(device_ms or 0.0) / wall_ms, top_kernels=top, host_op_ms=host_ms,
                 host_ops=[dict(op=e.key[:60], self_cpu_ms=e.self_cpu_time_total / 1e3,
                                calls=e.count) for e in host])
@@ -1397,6 +1424,116 @@ def log_spans(name, spans, wall_ms, supersteps):
     log(f"[{name}] the profiled call's spans: placement {spans['routing.place']['ms']:.3f} ms, "
         f"{supersteps} supersteps {spans['routing.superstep']['ms']:.3f} ms ({inner} ms), "
         f"decode {spans['routing.decode']['ms']:.3f} ms, the rest of the call {rest:.3f} ms")
+
+
+def device_resident_runs(name, engine_for, it, p0, s0, run, ref, combos, ref_arena=None):
+    """The batch on each device-resident ``(schedule, fabric)`` of
+    ``combos``, every call through ``engine_for().execute`` (a fresh
+    ``PulseEngine`` on the batch's input arena over the card's mesh), held
+    against the card's dispatched run ``ref`` (its ``ExecResult``; for a
+    write batch ``ref_arena``, its committed arena): records bit-equal;
+    ``supersteps``, ``local_only_steps``, ``total_wire_words``, the
+    crossings, ``commits`` and ``epochs`` equal; ``schedule``, ``fabric``
+    and ``fused`` as asked; the final ``data`` and ``heap`` bit-equal.  The
+    first call captures once (``routing.CACHE_STATS.traces``; the kernels'
+    counts set to 0 just before it and read just after: the warm-up
+    superstep's launches and the captured chunk's); the second captures
+    nothing and its host reads are counted; the rate is over the median of
+    three more calls; one more call is profiled (its kernels' device time,
+    the card's busy share, each kernel's executions).  Returns the rows
+    and the launch counts summed over the first calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+
+    stats, rows = routing.CACHE_STATS, []
+    launches = dict(pulse_chase=0, pulse_commit=0)
+    B = ref.ptr.shape[0]
+    for schedule, fabric in combos:
+        kw = dict(run, schedule=schedule, fabric=fabric)
+        tag = f"[{name}] {schedule}/{fabric}"
+        t_run = time.perf_counter()
+        traces, capture_s = stats.traces, stats.capture_s
+        chase_ops.pulse_chase.launches = commit_ops.pulse_commit.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = engine_for()
+        res = eng.execute(it, p0, s0, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first = dict(pulse_chase=chase_ops.pulse_chase.launches,
+                     pulse_commit=commit_ops.pulse_commit.launches)
+        captures, capture_s = stats.traces - traces, stats.capture_s - capture_s
+        if captures != 1:
+            raise AssertionError(f"{tag}: {captures} captures in the first call")
+        if not any(first.values()):
+            raise AssertionError(f"{tag}: the first call launched no kernel")
+        for k, v in first.items():
+            launches[k] += v
+        st, rst = res.stats, ref.stats
+        if (st.schedule, st.fabric, st.fused) != (schedule, fabric, True):
+            raise AssertionError(f"{tag}: the stats say {st.schedule}/{st.fabric}/{st.fused}")
+        for f in ("ptr", "scratch", "status", "iters"):
+            if not torch.equal(getattr(res, f), getattr(ref, f)):
+                raise AssertionError(f"{tag}: {f} differs from the dispatched run")
+        for f in ("supersteps", "local_only_steps", "total_wire_words", "commits", "epochs"):
+            if getattr(st, f) != getattr(rst, f):
+                raise AssertionError(f"{tag}: {f} {getattr(st, f)} != {getattr(rst, f)}")
+        if not np.array_equal(st.crossings, rst.crossings):
+            raise AssertionError(f"{tag}: the crossings differ from the dispatched run")
+        if ref_arena is not None and not (torch.equal(eng.arena.data, ref_arena.data)
+                                          and torch.equal(eng.arena.heap, ref_arena.heap)):
+            raise AssertionError(f"{tag}: the committed arena differs from the dispatched run's")
+        # a second call: no capture, and the host's reads counted
+        traces, reads = stats.traces, stats.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = engine_for().execute(it, p0, s0, **kw)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        reads = stats.host_reads - reads
+        if stats.traces != traces:
+            raise AssertionError(f"{tag}: the second call captured again")
+        if not torch.equal(again.scratch, res.scratch) or reads != -(-st.supersteps // routing.CHUNK):
+            raise AssertionError(f"{tag}: the second call differs ({reads} chunk reads)")
+        calls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine_for().execute(it, p0, s0, **kw)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+        med = float(np.median(calls))
+        t0 = time.perf_counter()
+        prof = call_breakdown(lambda: engine_for().execute(it, p0, s0, **kw), warm=False)
+        profile_s = time.perf_counter() - t0
+        row = dict(schedule=schedule, fabric=fabric, ops=B, per_s=B / med, execute_s=calls,
+                   first_call_s=first_s, second_call_s=second_s, capture_s=capture_s,
+                   captures_first_call=captures, captures_second_call=0,
+                   chunk=routing.CHUNK, chunk_reads=reads, first_call_launches=first,
+                   supersteps=st.supersteps, local_only_steps=st.local_only_steps,
+                   wire_words=st.total_wire_words, ring_hops=st.ring_hops,
+                   kernel_share_of_call=prof["device_ms"] / (med * 1e3),
+                   profiled_call=dict(wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                                      device_busy=prof["device_busy"],
+                                      top_kernels=prof["top_kernels"],
+                                      kernel_calls=prof["kernel_calls"]),
+                   equals_dispatched=True, profile_s=profile_s,
+                   seconds=time.perf_counter() - t_run)
+        rows.append(row)
+        log(f"{tag}: {B / med:.4g} a second (median of {[round(x, 4) for x in calls]} s; first "
+            f"call {first_s:.3f} s with the capture {capture_s:.3f} s, second {second_s:.4f} s); "
+            f"{st.supersteps} supersteps ({st.local_only_steps} local-only), {reads} chunk reads "
+            f"of {routing.CHUNK} supersteps; captures 1 then 0; first call's launches {first}; "
+            f"a profiled call {prof['wall_ms']:.2f} ms wall, kernels {prof['device_ms']:.3f} ms "
+            f"(busy {100 * prof['device_busy']:.1f}% of the profiled call, "
+            f"{100 * row['kernel_share_of_call']:.1f}% of the median call); == the dispatched "
+            f"run; this run "
+            f"{row['seconds']:.1f} s, the profiled call's trace {profile_s:.1f} s of it")
+    return rows, launches
 
 
 def phase_routing(rng):
@@ -1549,6 +1686,15 @@ def phase_routing(rng):
             f"host operators {breakdown['host_op_ms']:.2f} ms; the most self time: " + ", ".join(
                 f"{o['op']} {o['self_cpu_ms']:.2f} ms/{o['calls']}" for o in breakdown["host_ops"]))
         log_spans(name, breakdown["spans"], breakdown["wall_ms"], st.supersteps)
+
+        # the device-resident schedules, each against this dispatched run
+        combos = ROUTE_SCHEDULES + (ROUTE_RING if name == "webservice" else [])
+        dr_rows, dr_launches = device_resident_runs(
+            name, lambda c=card: PulseEngine(c, mesh=routing.EmulatedMesh(P, "cuda")), it, p0,
+            s0, run, res, combos)
+        row.update(dispatched_lookups_per_s=row["lookups_per_s"], device_resident=dr_rows)
+        launches_total += dr_launches["pulse_chase"]
+        routing.reset_executable_caches()
         del card, cpu, eng, res, res_cpu
         torch.cuda.empty_cache()
     log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s (CPU copies included)")
@@ -1962,6 +2108,22 @@ def phase_write_mesh(rng):
                 f"decode) {rest:.3f} ms")
         if works:
             raise AssertionError(f"{name}: {len(works)} commit phases of the CPU copy left over")
+
+        # the device-resident schedules, each step against its dispatched run
+        t_dr = time.perf_counter()
+        for (sname, it, *_), (before, g, *_r, p0c, s0c), row in zip(wb["steps"], main, steps):
+            combos = ROUTE_SCHEDULES + (WRITE_RING if name == "webservice_rw" else [])
+            dr_rows, dr_launches = device_resident_runs(
+                f"{name}/{sname}",
+                lambda b=before: PulseEngine(b, mesh=routing.EmulatedMesh(P, "cuda")), it, p0c,
+                s0c, run, g, combos, ref_arena=g.arena)
+            if dr_launches["pulse_chase"]:
+                raise AssertionError(f"{name}/{sname}: a device-resident write run launched "
+                                     f"pulse_chase")
+            row.update(dispatched_ops_per_s=row["ops_per_s"], device_resident=dr_rows)
+            commit_launches += dr_launches["pulse_commit"]
+        routing.reset_executable_caches()
+        log(f"[{name}] the device-resident runs took {time.perf_counter() - t_dr:.1f} s")
 
         # the kernel against its plain version on the captured commit phase
         one_commit = commit_vs_plain(best)
@@ -2781,7 +2943,10 @@ def main(argv=None) -> int:
     entry["launches_note"] = ("one per PulseEngine.execute: three workloads x two routes "
                               "(phase 3) and one read-back per write batch (phase 10); one "
                               "superstep-mode launch per superstep of each routed batch "
-                              "(phase 11)")
+                              "(phase 11), and on its fused and pipelined schedules the first "
+                              "call's launches: the warm-up superstep's and the captured "
+                              "chunk's (1 and 8 a fused call, 2 and 16 a pipelined one; the "
+                              "replays run the captured ones)")
     entry["max_abs_err"] = max([entry["max_abs_err"]]
                                + [r["superstep_check"]["max_abs_err"] for r in route_rows])
     entry["superstep"] = dict(
@@ -2811,7 +2976,10 @@ def main(argv=None) -> int:
                  f"longest shard, the longest same-slot run {head_commit['longest_run']}); "
                  "every kernel of the phase summed: commit_key, the sort, commit_apply, "
                  "commit_tail",
-        launches_note="one per mutating superstep of phase 12 (three batches, four steps)",
+        launches_note="one per mutating superstep of phase 12 (three batches, four steps), "
+                      "and on the fused and pipelined schedules each step's first call's: "
+                      "the warm-up superstep's and the captured chunk's (1 and 8; the "
+                      "replays run the captured ones)",
         batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[
             dict(step=x["step"], supersteps=x["supersteps"], launches=x["commit_launches"],
                  ms_per_superstep=x["commit_ms_per_superstep"],

@@ -10,10 +10,10 @@ Execution paths:
   * a mesh                  -- with ``mesh=routing.EmulatedMesh(P, ...)`` and
                                a P-shard arena, a read batch is routed across
                                the P memory nodes in supersteps
-                               (``routing.distributed_execute``, the
-                               dispatched schedule); the backend picks the
-                               local chase: one ``pulse_chase`` launch per
-                               superstep, or the plain chase.
+                               (``routing.distributed_execute``, on the
+                               schedule and fabric asked); the backend picks
+                               the local chase: one ``pulse_chase`` launch
+                               per chase, or the plain chase.
   * ``cpu_node``            -- the Cache-based baseline: the traversal runs at
                                the CPU node with an LRU trace of node fetches;
                                chosen by the dispatch model for iterators it
@@ -243,20 +243,22 @@ class PulseEngine:
 
         On a mesh (``mesh=routing.EmulatedMesh(P, device)`` and an arena of P
         > 1 shards) an offloaded read batch runs through
-        ``routing.distributed_execute`` on the dispatched schedule, with
-        ``k_local``, ``compact``, ``return_to_cpu`` and ``fabric`` passed on;
-        ``backend="kernel"`` runs each superstep's local chase as one
-        ``pulse_chase`` launch, ``"reference"`` as the plain chase.
-        ``schedule="auto"`` resolves to ``"dispatched"`` whatever ``fused``
-        says: with ``fused=False`` that is the reference's own resolution
-        (the explicit opt-out of device-resident loops); with ``fused=True``
-        the reference asks its overlap model (item 6(d)), which normally
-        picks a device-resident schedule (item 6(c)), so the port pins the
-        dispatched one until those land.  Results and wire words do not
-        depend on the schedule.  ``"fused"`` and ``"pipelined"`` are item
-        6(c).  ``fused`` and ``replication`` are the reference's keywords,
-        which its ``PulseService`` passes: a ``replication`` context other
-        than None raises, naming item 6(d).
+        ``routing.distributed_execute``, with ``k_local``, ``compact``,
+        ``return_to_cpu``, ``schedule`` and ``fabric`` passed on:
+        ``"dispatched"``, or the device-resident ``"fused"`` and
+        ``"pipelined"`` (on the card a chunk of supersteps replayed from one
+        captured CUDA graph), on the ``"dense"`` or the ``"ring"`` fabric;
+        ``backend="kernel"`` runs each local chase as one ``pulse_chase``
+        launch, ``"reference"`` as the plain chase.  ``schedule="auto"``
+        resolves to ``"dispatched"`` whatever ``fused`` says: with
+        ``fused=False`` that is the reference's own resolution (the explicit
+        opt-out of device-resident loops); with ``fused=True`` the reference
+        asks its overlap model (``dispatch.schedule_decision``, item 6(d)),
+        which normally picks the pipelined schedule, so the port pins the
+        dispatched one until that model lands.  Results and wire words do
+        not depend on the schedule.  ``fused`` and ``replication`` are the
+        reference's keywords, which its ``PulseService`` passes: a
+        ``replication`` context other than None raises, naming item 6(d).
         """
         if replication is not None:
             raise routing._later("6(d)", "replica fan-out (PulseEngine.execute(replication=...))")
@@ -345,9 +347,9 @@ class PulseEngine:
         the post-commit state.
 
         On a mesh (P > 1 shards) the batch runs through
-        ``routing.distributed_execute`` on the resolved schedule, the arena
-        and heap carried through its supersteps, each commit phase one
-        ``pulse_commit`` call on the card; on one node or one shard, through
+        ``routing.distributed_execute`` on the resolved schedule and the
+        fabric asked, the arena and heap carried through its supersteps,
+        each commit phase one ``pulse_commit`` call on the card; on one node or one shard, through
         the sequential commit (``core.commit``), whose ``CommitTrace`` the
         result carries.  The input Arena object is never modified, so a
         caller can replay a snapshot."""

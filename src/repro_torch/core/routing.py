@@ -6,15 +6,20 @@ programmable switch that holds only the range-partition base table.  Here a
 mesh of P memory nodes is emulated on one device (``EmulatedMesh``): every
 per-shard array carries a leading ``(P, ...)`` axis, each shard's pool of
 request records is ``pools[s]``, and the fabric's all_to_all is a transpose
-of the send buffer's first two axes.  A batch runs in bulk-synchronous
-supersteps (``distributed_execute``, the dispatched schedule): every
+of the send buffer's first two axes (``fabric="dense"``), or the JAX
+package's ``P - 1`` ring distance classes, one copy each
+(``fabric="ring"``).  A batch runs in bulk-synchronous supersteps: every
 shard's local chase (``_local_superstep``: on the card one ``pulse_chase``
 launch in its superstep mode over all P pools), for a mutating iterator
 every shard's commit phase (``_local_superstep_mut``: the chase in torch
 ops over all P pools at once, then on the card one ``pulse_commit`` call
 for all P shards), then the switch (``_route_decide``, ``_exchange``,
-``_merge_pools``), with the host reading four counters per superstep to
-schedule the next.  The paper's properties hold as in the JAX package:
+``_merge_pools``).  ``distributed_execute`` schedules them three ways:
+dispatched (the host reads four counters per superstep to pick the next),
+fused and pipelined (``_DeviceLoop``: the capacity ladder, the local-only
+decision and the loop's end on the device; on the card a chunk of
+supersteps replayed from one captured CUDA graph, the host reading one
+small tensor a chunk).  The paper's properties hold as in the JAX package:
 
   * a cross-node hop never bounces through the CPU node (compare
     ``return_to_cpu=True``, the paper's PULSE-ACC ablation, Fig. 9);
@@ -30,15 +35,19 @@ Record wire format (R = 6 + S [+ 4 + W] int32 words):
    m_op, m_tgt, m_mask, m_expect, m_data...]
 The mutation payload exists only for mutating iterators.
 
-Ported so far: the read and the write path on the dispatched schedule and
-the dense fabric (ROADMAP queue 1, items 6(a) and 6(b)).  The fused and
-pipelined schedules and the ring fabric are 6(c), replication and fabric
-faults 6(d); each raises ``NotImplementedError`` naming it.
+Ported: the read and the write path on every schedule and fabric (ROADMAP
+queue 1, items 6(a)-(c)).  The JAX package's resident-arena cache
+(``_resident_arena``) has no counterpart: on one card the arena already
+lives on the mesh's device, and a read runner captures its tensors.
+Replication and fabric faults are 6(d) and raise ``NotImplementedError``
+naming it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+import weakref
 
 import numpy as np
 import torch
@@ -78,9 +87,7 @@ def _later(item: str, what: str) -> NotImplementedError:
 
 
 def _check_fabric(fabric: str) -> None:
-    if fabric == "ring":
-        raise _later("6(c)", "the ring fabric (ppermute distance classes)")
-    if fabric != "dense":
+    if fabric not in ("dense", "ring"):
         raise ValueError(f"unknown fabric {fabric!r}")
 
 
@@ -169,8 +176,57 @@ class RoutingStats:
     _num_shards: int = 0
 
 
+# ----------------------------- the capacity ladder ----------------------------
+
+
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
+
+
+def _pow2_at_least_traced(n: torch.Tensor) -> torch.Tensor:
+    """Device twin of ``_pow2_at_least``, elementwise on int32: the exact
+    bit length of ``n - 1`` counted against ``1 << i`` (no float log2,
+    whose rounding at exact powers of two would put the device ladder a
+    rung off the host's).  Equal to the host's for every ``n`` in ``[1,
+    2**30]``; at 0 it gives 1 (the host 2), a count the ladder never sees
+    while a superstep is live."""
+    n = n.to(torch.int32)
+    powers = torch.ones(31, dtype=torch.int32, device=n.device) << torch.arange(
+        31, dtype=torch.int32, device=n.device)
+    bl = ((n - 1)[..., None] >= powers).sum(-1, dtype=torch.int32)
+    return torch.ones_like(bl) << bl
+
+
+def _ladder(n_active: int, n_remote: int, *, num_shards: int, base_capacity: int,
+            min_link_capacity: int, compact: bool):
+    """The dispatched schedule's capacity ladder on the host: ``(capacity,
+    do_route)`` for the next superstep from the last one's counts."""
+    if not compact:
+        return base_capacity, True
+    demand = (n_active + num_shards - 1) // num_shards
+    return min(base_capacity, max(min_link_capacity, _pow2_at_least(demand))), n_remote > 0
+
+
+def _ladder_traced(n_active, n_remote, *, num_shards: int, base_capacity: int,
+                   min_link_capacity: int, compact: bool):
+    """``_ladder`` on device int32 counts (the ONE definition of the rung
+    that the device-resident schedules share with the host loop, or their
+    wire accounting and pool layouts desync): ``(capacity, do_route)``,
+    an int32 and a bool device scalar."""
+    dev = n_active.device
+    if not compact:
+        return (torch.full((), base_capacity, dtype=torch.int32, device=dev),
+                torch.ones((), dtype=torch.bool, device=dev))
+    demand = (n_active + (num_shards - 1)) // num_shards
+    capacity = torch.clamp(_pow2_at_least_traced(demand), min=min_link_capacity)
+    return torch.clamp(capacity, max=base_capacity).to(torch.int32), n_remote > 0
+
+
+def capacity_rungs(base_capacity: int, min_link_capacity: int) -> tuple:
+    """The distinct values the compacted capacity ladder can take: powers of
+    two clamped to ``[min_link_capacity, base_capacity]``, at most 31."""
+    return tuple(sorted({
+        min(base_capacity, max(min_link_capacity, 1 << i)) for i in range(31)}))
 
 
 def can_elide_access_check(it: PulseIterator, arena: Arena) -> bool:
@@ -203,6 +259,7 @@ def _local_superstep(
     max_iters: int,
     backend: str = "kernel",
     elide_access_check: bool = False,
+    edges=None,
 ):
     """Run up to ``k_local`` iterations for every shard's locally-owned
     ACTIVE records; returns the new pools.
@@ -217,6 +274,9 @@ def _local_superstep(
     constant True; ``distributed_execute`` sets it only when the iterator's
     pulse-verify certificate proves it read-only and every shard grants
     PERM_READ, so eliding is bit-identical.
+
+    ``edges`` (the reference backend) is ``bounds`` read on the host ahead
+    of time, so that a captured superstep reads nothing on the host.
     """
     if backend == "kernel":
         from repro_torch.kernels.pulse_chase import ops as chase_ops
@@ -227,8 +287,11 @@ def _local_superstep(
     if backend != "reference":
         raise ValueError(f"unknown local backend {backend!r}")
     S = it.scratch_words
-    edges = bounds.tolist()
-    granted = translation.access_table(perms, PERM_READ).tolist()
+    if edges is None:
+        edges = bounds.tolist()
+    granted = translation.access_table(perms, PERM_READ)
+    if elide_access_check:
+        granted = torch.ones_like(granted)
     out = pools.clone()
     for s, pool in enumerate(out):
         lo, hi = int(edges[s]), int(edges[s + 1])
@@ -236,7 +299,7 @@ def _local_superstep(
               pool[:, F_ITERS])
         for _ in range(k_local):
             st = step_batch(it, arena_data[lo:hi], *st, max_iters=max_iters, local_lo=lo,
-                            local_hi=hi, perm_ok=True if elide_access_check else granted[s])
+                            local_hi=hi, perm_ok=granted[s])
         pool[:, F_PTR], pool[:, F_SCRATCH : F_SCRATCH + S] = st[0], st[1]
         pool[:, F_STATUS], pool[:, F_ITERS] = st[2], st[3]
     return out
@@ -252,6 +315,8 @@ def _local_superstep_mut(
     *,
     k_local: int,
     max_iters: int,
+    commit: bool = True,
+    live: torch.Tensor | None = None,
 ):
     """Write-path twin of ``_local_superstep``: every shard's chase with
     write-stalls, then every shard's commit phase.
@@ -268,6 +333,12 @@ def _local_superstep_mut(
     the CPU, in place on ``data`` and ``heap``.  Under ``torch.profiler`` the two show as the
     spans ``routing.chase`` and ``routing.commit``.
 
+    ``commit=False`` runs the chase alone and returns the pools (the
+    pipelined schedule chases its two wavefronts apart, then commits the
+    merged pool: the commit's order never depends on the pool's layout).
+    ``live`` (a device bool, the device-resident loops) gates the commit
+    (``_commit``).
+
     Returns ``(pools, data, heap)``.
     """
     P, L, R = pools.shape
@@ -275,9 +346,9 @@ def _local_superstep_mut(
     MB = F_SCRATCH + S
     with torch.profiler.record_function("routing.chase"):
         flat = pools.reshape(P * L, R)
-        lo = bounds[:-1].repeat_interleave(L)
-        hi = bounds[1:].repeat_interleave(L)
-        granted = translation.access_table(perms, PERM_READ).repeat_interleave(L)
+        lo = bounds[:-1, None].expand(P, L).reshape(-1)
+        hi = bounds[1:, None].expand(P, L).reshape(-1)
+        granted = translation.access_table(perms, PERM_READ)[:, None].expand(P, L).reshape(-1)
         st = (flat[:, F_PTR], flat[:, F_SCRATCH:MB], flat[:, F_STATUS], flat[:, F_ITERS],
               flat[:, MB:])
         for _ in range(k_local):
@@ -289,11 +360,9 @@ def _local_superstep_mut(
             STATUS_MAXED, status).to(torch.int32)
         pools = torch.cat([flat[:, :F_PTR], ptr[:, None], status[:, None], iters[:, None],
                            flat[:, F_HOPS:F_SCRATCH], scr, mut], 1).reshape(P, L, R)
-    from repro_torch.kernels.pulse_commit import ops as commit_ops
-
-    with torch.profiler.record_function("routing.commit"):
-        commit_ops.pulse_commit(pools, data, heap, bounds, perms, scratch_words=S)
-    return pools, data, heap
+    if not commit:
+        return pools
+    return _commit(pools, data, heap, bounds, perms, scratch_words=S, live=live)
 
 
 def _route_decide(
@@ -302,7 +371,8 @@ def _route_decide(
     num_shards: int,
     *,
     return_to_cpu: bool,
-    link_capacity: int | None = None,
+    link_capacity: int | torch.Tensor | None = None,
+    phys_capacity: int | None = None,
     drain_done: bool = False,
     mut_base: int | None = None,
 ):
@@ -310,11 +380,18 @@ def _route_decide(
 
     Computes each record's next shard, marks switch-level faults (an ACTIVE
     record whose pointer no shard owns), packs the records that fit under
-    the per-link capacity C into a ``(P, P, C, R)`` send buffer (source,
+    the per-link capacity C into a ``(P, P, Cp, R)`` send buffer (source,
     destination, slot) and strips them from their pools.  A destination
     takes its movers in pool order; the overflow parks in place for the
     next superstep (the JAX package's trash row).  Returns
     ``(kept, send, n_routed)``, ``n_routed`` a device scalar.
+
+    ``phys_capacity`` Cp is the buffer's rows per link, a Python int;
+    ``link_capacity`` C only gates which records fit and may be a device
+    scalar (the device-resident loops carry the capacity rung as state).
+    The parking is then that of a superstep with a buffer of C rows, so
+    the pools equal the dispatched schedule's at C bit for bit.  Either
+    defaults to the other, and both to ``L // P``.
 
     ``drain_done`` (compaction): finished records retire in place instead
     of being shipped home.  ``return_to_cpu`` (PULSE-ACC, Fig. 9): a
@@ -326,7 +403,10 @@ def _route_decide(
     """
     P, L, R = pools.shape
     dev = pools.device
-    Cp = L // num_shards if link_capacity is None else int(link_capacity)
+    if phys_capacity is None:
+        phys_capacity = L // num_shards if link_capacity is None else int(link_capacity)
+    Cp = int(phys_capacity)
+    C = Cp if link_capacity is None else link_capacity
     me = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
     status = pools[..., F_STATUS]
     valid = status != STATUS_EMPTY
@@ -374,7 +454,7 @@ def _route_decide(
     onehot = ((dest[:, None, :] == dests) & moves[:, None, :]).to(torch.int32)
     pos = torch.cumsum(onehot, dim=2, dtype=torch.int32) - onehot
     pos = torch.gather(pos, 1, dest.clamp(0, num_shards - 1).long()[:, None, :])[:, 0]
-    fits = moves & (pos < Cp)
+    fits = moves & (pos < C)
     pools[..., F_HOPS] += fits.to(torch.int32)
 
     # every record has a row of its own: a mover its (source, destination,
@@ -391,13 +471,28 @@ def _route_decide(
 
 
 def _exchange(send: torch.Tensor, num_shards: int, *, fabric: str = "dense"):
-    """Carry the send buffer across the fabric: arrivals ``(P, P * C, R)``,
-    each destination's ordered by source shard (the dense all_to_all
-    layout).  On one device the all_to_all is a transpose of the send
-    buffer's source and destination axes."""
+    """Carry the send buffer ``(P, P, Cp, R)`` (source, destination, slot)
+    across the fabric: arrivals ``(P, P * Cp, R)``, each destination's
+    ordered by source shard (the dense all_to_all layout).
+
+    ``fabric="dense"`` is the switch's one all_to_all: on one device a
+    transpose of the buffer's source and destination axes.
+    ``fabric="ring"`` is the JAX package's ``P - 1`` ppermute distance
+    classes: class ``h`` carries each shard ``s``'s block for ``(s + h) %
+    P`` forward ``h`` shards, one copy a class here, into the arrivals'
+    dense layout; a shard's own block stays EMPTY, as the switch leaves it
+    (no record moves to its own shard), so both fabrics give the same
+    arrivals bit for bit."""
     _check_fabric(fabric)
     P, _, Cp, R = send.shape
-    return send.transpose(0, 1).reshape(num_shards, P * Cp, R)
+    if fabric == "dense":
+        return send.transpose(0, 1).reshape(num_shards, P * Cp, R)
+    arrivals = empty_records(P * P * Cp, R - F_SCRATCH, send.device).reshape(P, P, Cp, R)
+    src = torch.arange(P, device=send.device)
+    for h in range(1, P):
+        dst = (src + h) % P
+        arrivals[dst, src] = send[src, dst]
+    return arrivals.reshape(num_shards, P * Cp, R)
 
 
 def _merge_pools(kept: torch.Tensor, arrivals: torch.Tensor, L: int):
@@ -418,17 +513,20 @@ def _route(
     num_shards: int,
     *,
     return_to_cpu: bool,
-    link_capacity: int | None = None,
+    link_capacity: int | torch.Tensor | None = None,
+    phys_capacity: int | None = None,
     drain_done: bool = False,
     fabric: str = "dense",
     mut_base: int | None = None,
 ):
     """Switch routing: deliver every record to its next shard in one
-    superstep.  Returns ``(pools, n_routed, n_dropped_valid)``."""
+    superstep (``_route_decide``'s capacities).  Returns ``(pools,
+    n_routed, n_dropped_valid)``."""
     L = pools.shape[1]
     kept, send, n_routed = _route_decide(
         pools, bounds, num_shards, return_to_cpu=return_to_cpu,
-        link_capacity=link_capacity, drain_done=drain_done, mut_base=mut_base)
+        link_capacity=link_capacity, phys_capacity=phys_capacity, drain_done=drain_done,
+        mut_base=mut_base)
     arrivals = _exchange(send, num_shards, fabric=fabric)
     merged, n_dropped = _merge_pools(kept, arrivals, L)
     return merged, n_routed, n_dropped
@@ -455,7 +553,7 @@ def _remote_active(pools, bounds, mut_base: int | None = None):
 
 
 def _switch(pools, bounds, *, return_to_cpu, link_capacity, drain_done, do_route,
-            mut_base):
+            mut_base, phys_capacity=None, fabric="dense"):
     """The switch half of a superstep and its counters, under the profiler
     span ``routing.switch``: ``(pools, n_active, n_routed, n_drop,
     n_remote)``, the counters device scalars."""
@@ -463,7 +561,8 @@ def _switch(pools, bounds, *, return_to_cpu, link_capacity, drain_done, do_route
         if do_route:
             pools, n_routed, n_drop = _route(
                 pools, bounds, pools.shape[0], return_to_cpu=return_to_cpu,
-                link_capacity=link_capacity, drain_done=drain_done, mut_base=mut_base)
+                link_capacity=link_capacity, phys_capacity=phys_capacity,
+                drain_done=drain_done, fabric=fabric, mut_base=mut_base)
         else:
             n_routed = n_drop = torch.zeros((), dtype=torch.int64, device=pools.device)
         n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum()
@@ -486,9 +585,10 @@ def superstep(
     do_route: bool = True,
     local_backend: str = "kernel",
     elide_access_check: bool = False,
+    fabric: str = "dense",
 ):
     """One read superstep over all P shards: the local chase, then the
-    switch.  Returns ``(pools, n_active, n_routed, n_drop, n_remote)``, the
+    switch (over ``fabric``).  Returns ``(pools, n_active, n_routed, n_drop, n_remote)``, the
     counters device scalars summed over the shards.
 
     ``do_route=False`` is the compacted local-only step: every surviving
@@ -503,7 +603,7 @@ def superstep(
             it, pools, arena_data, bounds, perms, k_local=k_local, max_iters=max_iters,
             backend=local_backend, elide_access_check=elide_access_check)
     return _switch(pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
-                   drain_done=drain_done, do_route=do_route, mut_base=None)
+                   drain_done=drain_done, do_route=do_route, mut_base=None, fabric=fabric)
 
 
 def superstep_mut(
@@ -520,6 +620,7 @@ def superstep_mut(
     link_capacity: int | None = None,
     drain_done: bool = False,
     do_route: bool = True,
+    fabric: str = "dense",
 ):
     """One write superstep over all P shards: the chase, every shard's
     commit phase, then the switch, which routes a staged write to the
@@ -531,7 +632,8 @@ def superstep_mut(
         it, pools, data, heap, bounds, perms, k_local=k_local, max_iters=max_iters)
     pools, *counts = _switch(
         pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
-        drain_done=drain_done, do_route=do_route, mut_base=F_SCRATCH + it.scratch_words)
+        drain_done=drain_done, do_route=do_route, mut_base=F_SCRATCH + it.scratch_words,
+        fabric=fabric)
     return pools, data, heap, *counts
 
 
@@ -548,12 +650,360 @@ def make_superstep(
     """The JAX package's superstep builder: ``(pools, arena_data, bounds,
     perms) -> superstep(it, pools, ...)``, or with ``mutate=True`` ``(pools,
     data, heap, bounds, perms) -> superstep_mut(it, pools, ...)``, with
-    ``kw`` (their keywords) bound.  Fabric loss, replication and the ring
-    fabric raise, naming their sub-items."""
+    ``fabric`` and ``kw`` (their keywords) bound.  Fabric loss and
+    replication raise, naming item 6(d)."""
     if drop_prob > 0.0 or replication is not None:
         raise _later("6(d)", "fabric loss and replication")
     _check_fabric(fabric)
-    return functools.partial(superstep_mut if mutate else superstep, it, **kw)
+    return functools.partial(superstep_mut if mutate else superstep, it, fabric=fabric, **kw)
+
+
+# ------------------------- the device-resident loops --------------------------
+
+CHUNK = 8  # supersteps one captured graph runs between two host reads
+
+
+def _commit(pools, data, heap, bounds, perms, *, scratch_words: int, live=None):
+    """Every shard's commit phase (``kernels.pulse_commit``), in place on
+    ``pools``, ``data`` and ``heap``, under the profiler span
+    ``routing.commit``.  ``live`` (a device bool) gates it through its
+    input: a superstep that is not live hands it only EMPTY records, so it
+    applies nothing and leaves ``data`` and ``heap`` as they were."""
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+
+    if live is not None:
+        pools[..., F_STATUS] = torch.where(live, pools[..., F_STATUS], STATUS_EMPTY)
+    with torch.profiler.record_function("routing.commit"):
+        commit_ops.pulse_commit(pools, data, heap, bounds, perms, scratch_words=scratch_words)
+    return pools, data, heap
+
+
+@dataclasses.dataclass
+class ExecutableCacheStats:
+    """Counters of the device-resident loops' cache (the JAX package's
+    ``CACHE_STATS``): ``hits`` and ``misses`` count runner lookups;
+    ``traces`` counts loop bodies built, a CUDA-graph capture on the card
+    and a build of the eager loop on the CPU.  The port adds
+    ``host_reads``, the loops' reads of their flags (one a chunk), and
+    ``capture_s``, the seconds spent warming up and capturing."""
+
+    hits: int = 0
+    misses: int = 0
+    traces: int = 0
+    host_reads: int = 0
+    capture_s: float = 0.0
+
+    def reset(self) -> None:
+        self.hits = self.misses = self.traces = self.host_reads = 0
+        self.capture_s = 0.0
+
+
+CACHE_STATS = ExecutableCacheStats()
+_FUSED_CACHE: dict = {}
+
+
+def reset_executable_caches() -> None:
+    """Drop every cached runner and its captured graph (test isolation)."""
+    _FUSED_CACHE.clear()
+    CACHE_STATS.reset()
+
+
+class _DeviceLoop:
+    """A whole traversal as one device-resident loop at static shapes: the
+    JAX package's ``make_fused_loop`` (``schedule="fused"``) or
+    ``make_pipelined_loop`` (``"pipelined"``), read or write path, one
+    instance per cache key.
+
+    The carried state lives in this object's buffers on the arena's
+    device: the pools (the pipelined loop's resident wavefront), the
+    in-flight send buffer and ``did_route`` (pipelined), and the int32
+    counters ``n_active``, ``n_remote``, ``steps``, ``routed``,
+    ``dropped``, ``local_only`` and the ``cap_counts`` histogram over
+    ``capacity_rungs``.  The JAX loop's ``cond`` is the device flag
+    ``live``; every superstep computes it first and writes its results
+    through ``torch.where(live, new, old)``, so a superstep that is not
+    live changes nothing and counts nothing.  ``lax.cond`` becomes the same
+    select: both branches run and ``do_route`` (``did_route``) picks one,
+    so a local-only superstep keeps its chased pools and never passes them
+    through ``_merge_pools``.
+
+    A chunk is ``CHUNK`` supersteps, then the flags (``live``, the counts
+    and the histogram) in one small tensor.  On the card the first call
+    warms one superstep up on a side stream (which also builds the
+    kernels), puts the state back, and captures a chunk as one
+    ``torch.cuda.CUDAGraph``; every call replays it and reads the flags
+    once a chunk until ``live`` is false.  A failed capture or replay
+    raises.  On the CPU the same chunk runs eagerly.
+
+    A read runner captures the arena's own tensors (it is keyed by the
+    arena); a write runner owns copies of ``data``, ``heap``, ``bounds``
+    and ``perms``, loaded each call, and hands back fresh ones.  The
+    iteration budget is fixed per runner (``pulse_chase`` takes it by
+    value); ``halt`` is a device scalar loaded each call."""
+
+    _CARRIED = ("pools", "send", "did_route", "n_active", "n_remote", "steps", "routed",
+                "dropped", "cap_counts", "local_only")
+
+    def __init__(self, it: PulseIterator, arena: Arena, *, schedule: str, pool_rows: int,
+                 k_local: int, max_iters: int, max_supersteps: int, min_link_capacity: int,
+                 return_to_cpu: bool, compact: bool, fabric: str, local_backend: str,
+                 elide_access_check: bool):
+        P, L, dev = arena.num_shards, pool_rows, arena.data.device
+        self.it, self.schedule, self.fabric = it, schedule, fabric
+        self.P, self.L, self.base, self.device = P, L, L // P, dev
+        self.mutate = it.mutates
+        self.S = it.scratch_words
+        self.R = record_width(self.S, mut_width(arena.node_words) if self.mutate else 0)
+        self.mut_base = F_SCRATCH + self.S if self.mutate else None
+        self.k_local, self.max_iters, self.max_supersteps = k_local, max_iters, max_supersteps
+        self.min_link_capacity, self.return_to_cpu, self.compact = (
+            min_link_capacity, return_to_cpu, compact)
+        self.local_backend, self.elide = local_backend, elide_access_check
+        self.rungs = capacity_rungs(self.base, min_link_capacity) if compact else (self.base,)
+        if self.mutate:
+            self.data, self.heap = torch.empty_like(arena.data), torch.empty_like(arena.heap)
+            self.bounds, self.perms = torch.empty_like(arena.bounds), torch.empty_like(arena.perms)
+        else:
+            self.data, self.bounds, self.perms = arena.data, arena.bounds, arena.perms
+        self.edges = (arena.bounds.tolist() if local_backend == "reference" and not self.mutate
+                      else None)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.rungs_t = torch.tensor(self.rungs, **i32)
+        self.pools = torch.empty((P, L, self.R), **i32)
+        self.final = torch.empty_like(self.pools)
+        self.empty_send = empty_records(P * P * self.base, self.R - F_SCRATCH, dev).reshape(
+            P, P, self.base, self.R)
+        self.send = self.empty_send.clone()
+        self.did_route = torch.zeros((), dtype=torch.bool, device=dev)
+        self.live = torch.zeros((), dtype=torch.bool, device=dev)
+        (self.n_active, self.n_remote, self.steps, self.routed, self.dropped, self.local_only,
+         self.halt) = (torch.zeros((), **i32) for _ in range(7))
+        self.cap_counts = torch.zeros(len(self.rungs), **i32)
+        self.flags = torch.zeros(6 + len(self.rungs), **i32)
+        self._superstep = (self._pipelined_superstep if schedule == "pipelined"
+                           else self._fused_superstep)
+        self.side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.graph = None
+        if self.side is None:
+            CACHE_STATS.traces += 1  # the eager loop is built once per key
+
+    # ---- one superstep ----
+
+    def _live(self):
+        live = ((self.n_active > 0) & (self.steps < self.max_supersteps)
+                & (self.steps < self.halt))
+        return live & (self.dropped == 0) if self.schedule == "fused" else live
+
+    def _ladder(self):
+        return _ladder_traced(self.n_active, self.n_remote, num_shards=self.P,
+                              base_capacity=self.base,
+                              min_link_capacity=self.min_link_capacity, compact=self.compact)
+
+    def _chase(self, pools):
+        if self.mutate:
+            return _local_superstep_mut(self.it, pools, self.data, self.heap, self.bounds,
+                                        self.perms, k_local=self.k_local,
+                                        max_iters=self.max_iters, commit=False)
+        with torch.profiler.record_function("routing.chase"):
+            return _local_superstep(self.it, pools, self.data, self.bounds, self.perms,
+                                    k_local=self.k_local, max_iters=self.max_iters,
+                                    backend=self.local_backend,
+                                    elide_access_check=self.elide, edges=self.edges)
+
+    def _on_side(self, fn):
+        """``fn()`` on the side stream, forked from and joined back into the
+        current one (inside a capture, two branches of the graph)."""
+        if self.side is None:
+            return fn()
+        cur = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            out = fn()
+        cur.wait_stream(self.side)
+        return out
+
+    def _write(self, live, **new):
+        for name, value in new.items():
+            buf = getattr(self, name)
+            buf.copy_(torch.where(live, value, buf))
+
+    def _tally(self, live, do_route, capacity, n_routed, n_drop, **new):
+        i32 = torch.int32
+        self._write(
+            live, steps=self.steps + 1,
+            routed=self.routed + torch.where(do_route, n_routed, 0).to(i32),
+            dropped=self.dropped + n_drop.to(i32),
+            cap_counts=self.cap_counts + torch.where(do_route, (self.rungs_t == capacity).to(i32), 0),
+            local_only=self.local_only + (~do_route).to(i32), **new)
+
+    def _fused_superstep(self):
+        """``make_fused_loop``'s body: the chase (for writes, then the
+        commit), then the switch at the ladder's rung, selected by
+        ``do_route``."""
+        live = self._live()
+        self.live.copy_(live)
+        if self.mutate:
+            pools, _, _ = _local_superstep_mut(
+                self.it, self.pools, self.data, self.heap, self.bounds, self.perms,
+                k_local=self.k_local, max_iters=self.max_iters, live=live)
+        else:
+            pools = self._chase(self.pools)
+        capacity, do_route = self._ladder()
+        with torch.profiler.record_function("routing.switch"):
+            routed, n_routed, n_drop = _route(
+                pools, self.bounds, self.P, return_to_cpu=self.return_to_cpu,
+                link_capacity=capacity, phys_capacity=self.base, drain_done=self.compact,
+                fabric=self.fabric, mut_base=self.mut_base)
+            pools = torch.where(do_route, routed, pools)
+            n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32)
+            n_remote = _remote_active(pools, self.bounds, self.mut_base).to(torch.int32)
+        self._tally(live, do_route, capacity, n_routed, torch.where(do_route, n_drop, 0),
+                    pools=pools, n_active=n_active, n_remote=n_remote)
+
+    def _pipelined_superstep(self):
+        """``make_pipelined_loop``'s tick: the wavefront that was in flight
+        lands and chases on the side stream while the resident one chases,
+        the two merge (for writes, the merged pool commits once), then the
+        ladder's decision extracts the next in-flight wavefront; the
+        scheduler's two counts span both wavefronts."""
+        live = self._live()
+        self.live.copy_(live)
+        landed = self._on_side(
+            lambda: self._chase(_exchange(self.send, self.P, fabric=self.fabric)))
+        resident = self._chase(self.pools)
+        merged, n_drop = _merge_pools(resident, landed, self.L)
+        pool_s = torch.where(self.did_route, merged, resident)
+        n_drop = torch.where(self.did_route, n_drop, 0)
+        if self.mutate:
+            _commit(pool_s, self.data, self.heap, self.bounds, self.perms,
+                    scratch_words=self.S, live=live)
+        capacity, do_route = self._ladder()
+        with torch.profiler.record_function("routing.switch"):
+            kept, send, n_routed = _route_decide(
+                pool_s, self.bounds, self.P, return_to_cpu=self.return_to_cpu,
+                link_capacity=capacity, phys_capacity=self.base, drain_done=self.compact,
+                mut_base=self.mut_base)
+            kept = torch.where(do_route, kept, pool_s)
+            send = torch.where(do_route, send, self.empty_send)
+            n_active = ((kept[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32)
+                        + (send[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32))
+            n_remote = _remote_active(kept, self.bounds, self.mut_base).to(torch.int32)
+        self._tally(live, do_route, capacity, n_routed, n_drop, pools=kept, send=send,
+                    did_route=do_route, n_active=n_active, n_remote=n_remote)
+
+    # ---- a chunk, and the call ----
+
+    def _flags(self):
+        """After a chunk: ``live`` once more, and the host's one read:
+        ``[live, n_active, steps, dropped, local_only, did_route,
+        *cap_counts]``.  The pipelined loop also lands its in-flight
+        wavefront here (into ``final``; its drops join ``dropped``), as the
+        JAX loop does after its ``while_loop``."""
+        live = self._live()
+        self.live.copy_(live)
+        dropped = self.dropped
+        if self.schedule == "pipelined":
+            merged, n_drop = _merge_pools(
+                self.pools, _exchange(self.send, self.P, fabric=self.fabric), self.L)
+            self.final.copy_(torch.where(self.did_route, merged, self.pools))
+            dropped = dropped + torch.where(self.did_route, n_drop, 0).to(torch.int32)
+        head = torch.stack([live.to(torch.int32), self.n_active, self.steps, dropped,
+                            self.local_only, self.did_route.to(torch.int32)])
+        self.flags.copy_(torch.cat([head, self.cap_counts]))
+
+    def _chunk(self):
+        for _ in range(CHUNK):
+            self._superstep()
+        self._flags()
+
+    def _load(self, pools, halt: int, arena: Arena):
+        self.pools.copy_(pools)
+        n0 = (pools[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32)
+        self.n_active.copy_(n0)
+        self.n_remote.copy_(n0)  # before the first superstep all sit at home
+        for t in (self.steps, self.routed, self.dropped, self.local_only, self.cap_counts,
+                  self.did_route):
+            t.zero_()
+        self.send.copy_(self.empty_send)
+        self.halt.fill_(halt)
+        if self.mutate:
+            for mine, theirs in ((self.data, arena.data), (self.heap, arena.heap),
+                                 (self.bounds, arena.bounds), (self.perms, arena.perms)):
+                mine.copy_(theirs)
+
+    def _capture(self):
+        """Warm one superstep up on a side stream (the kernels build and
+        load, every op runs once), put the state back, and capture a chunk."""
+        t0 = time.perf_counter()
+        state = self._CARRIED + (("data", "heap") if self.mutate else ())
+        saved = {n: getattr(self, n).clone() for n in state}
+        cur, warm = torch.cuda.current_stream(self.device), torch.cuda.Stream(self.device)
+        warm.wait_stream(cur)
+        with torch.cuda.stream(warm):
+            self._superstep()
+        cur.wait_stream(warm)
+        for n, t in saved.items():
+            getattr(self, n).copy_(t)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._chunk()
+        self.graph = graph
+        CACHE_STATS.traces += 1
+        CACHE_STATS.capture_s += time.perf_counter() - t0
+
+    def run(self, pools: torch.Tensor, halt: int, arena: Arena):
+        """One call: load the placed pools (for writes, the arena), run
+        chunks until ``live`` is false.  Returns ``(final pools, flags)``,
+        the pools this runner's buffer (read them before its next call) and
+        ``flags`` the last chunk's, on the host."""
+        self._load(pools, halt, arena)
+        if self.side is not None and self.graph is None:
+            with torch.profiler.record_function("routing.capture"):
+                self._capture()
+        while True:
+            with torch.profiler.record_function("routing.chunk"):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self._chunk()
+                flags = self.flags.tolist()
+            CACHE_STATS.host_reads += 1
+            if not flags[0]:
+                break
+        return (self.final if self.schedule == "pipelined" else self.pools), flags
+
+
+def get_fused_runner(it: PulseIterator, arena: Arena, *, schedule: str = "fused",
+                     pool_rows: int, k_local: int, max_iters: int, max_supersteps: int,
+                     min_link_capacity: int, return_to_cpu: bool, compact: bool,
+                     fabric: str = "dense", local_backend: str = "reference",
+                     elide_access_check: bool = False) -> _DeviceLoop:
+    """The cached device-resident loop (``_DeviceLoop``) for one key: the
+    iterator, the device, the schedule's knobs, the iteration budget, the
+    pool's rows, and for a read batch the arena itself (a captured graph
+    holds its tensors' addresses; the entry goes when the arena dies), for
+    a write batch the arena's shapes (the runner loads ``data`` and
+    ``heap`` each call)."""
+    mutate = it.mutates
+    ident = ((tuple(arena.data.shape), tuple(arena.heap.shape)) if mutate
+             else id(arena))
+    key = (it, str(arena.data.device), ident, arena.num_shards, pool_rows, schedule, k_local,
+           max_iters, max_supersteps, min_link_capacity, return_to_cpu, compact, fabric,
+           local_backend, elide_access_check)
+    runner = _FUSED_CACHE.get(key)
+    if runner is not None:
+        CACHE_STATS.hits += 1
+        return runner
+    CACHE_STATS.misses += 1
+    runner = _FUSED_CACHE[key] = _DeviceLoop(
+        it, arena, schedule=schedule, pool_rows=pool_rows, k_local=k_local,
+        max_iters=max_iters, max_supersteps=max_supersteps,
+        min_link_capacity=min_link_capacity, return_to_cpu=return_to_cpu, compact=compact,
+        fabric=fabric, local_backend=local_backend, elide_access_check=elide_access_check)
+    if not mutate:
+        weakref.finalize(arena, _FUSED_CACHE.pop, key, None)
+    return runner
 
 
 # ------------------------------- the executor --------------------------------
@@ -592,7 +1042,8 @@ def distributed_execute(
     return_to_cpu: bool = False,
     compact: bool = False,
     min_link_capacity: int = 8,
-    schedule: str = "dispatched",
+    fused: bool = False,
+    schedule: str | None = None,
     fabric: str = "dense",
     local_backend: str | None = None,
     fault_injector=None,
@@ -602,33 +1053,54 @@ def distributed_execute(
     """Run a batch of traversals over a range-partitioned arena on a mesh
     of P memory nodes emulated on the arena's device.
 
-    The dispatched schedule: one superstep per host iteration (the local
-    chase, for a mutating iterator the commit, then the switch), the host
-    reading four counters per superstep (actives, routed, dropped, remote)
-    to pick the next.  ``local_backend`` is ``"kernel"`` (the default for
-    a read batch on the card: one ``pulse_chase`` launch per superstep over
-    all P pools; its plain version on a CPU arena) or ``"reference"`` (the
-    default on the CPU and for a mutating iterator: ``k_local`` steps of
-    the iterator in torch ops).
+    ``schedule`` picks the superstep engine (``fused=True`` is the JAX
+    package's boolean shorthand for ``"fused"``); all three give the same
+    records, pools, superstep counts and wire accounting bit for bit:
 
-    A mutating iterator runs on private copies of ``data`` and ``heap``
-    made once per call, each superstep's commit phase one ``pulse_commit``
-    launch on the card (its plain version on the CPU); the input arena is
-    never modified, so a kill from ``fault_injector`` leaves it as it was.
-    It refuses, as the JAX package does, ``return_to_cpu``, the kernel
-    local backend, ``replication`` and ``elide_access_check=True``.
+      * ``"dispatched"``: one superstep per host iteration (the local
+        chase, for a mutating iterator the commit, then the switch), the
+        host reading four counters per superstep (actives, routed, dropped,
+        remote) to pick the next;
+      * ``"fused"``: the whole traversal as one device-resident loop
+        (``_DeviceLoop``): the ladder, the local-only decision and the end
+        of the loop on the device, on the card a chunk of ``CHUNK``
+        supersteps replayed from one captured CUDA graph between two host
+        reads;
+      * ``"pipelined"``: the same loop with the JAX package's two
+        wavefronts: the one in flight lands and chases on a second stream
+        while the resident one chases.
+
+    Fused and pipelined runs report aggregates only (``wire_words_total``,
+    no per-superstep lists), as the JAX package's do.  ``fabric="ring"``
+    carries the records on ``P - 1`` distance classes instead of the dense
+    all_to_all, on any schedule (``_exchange``).
+
+    ``local_backend`` is ``"kernel"`` (the default for a read batch on the
+    card: one ``pulse_chase`` launch per chase over all P pools, two a
+    pipelined tick; its plain version on a CPU arena) or ``"reference"``
+    (the default on the CPU and for a mutating iterator: ``k_local`` steps
+    of the iterator in torch ops).
+
+    A mutating iterator runs on private copies of ``data`` and ``heap``,
+    each superstep's commit phase one ``pulse_commit`` launch on the card
+    (its plain version on the CPU); the input arena is never modified, so a
+    kill from ``fault_injector`` leaves it as it was.  It refuses, as the
+    JAX package does, ``return_to_cpu``, the kernel local backend,
+    ``replication`` and ``elide_access_check=True``.
 
     ``compact=True`` enables active-set compaction: finished records retire
     in place (``drain_done``); the per-link capacity follows a power-of-two
     envelope of the surviving actives, ``min(L // P, max(min_link_capacity,
-    pow2(ceil(n_active / P))))``; a superstep whose actives all sit at
-    their owning shard skips the fabric.  Results are bit-identical to the
-    uncompacted schedule; only ``crossings`` differ.  ``compact`` is
-    ignored under ``return_to_cpu`` (the home bounce is the ablation).
+    pow2(ceil(n_active / P))))`` (``_ladder``; on the device
+    ``_ladder_traced``); a superstep whose actives all sit at their owning
+    shard skips the fabric.  Results are bit-identical to the uncompacted
+    schedule; only ``crossings`` differ.  ``compact`` is ignored under
+    ``return_to_cpu`` (the home bounce is the ablation).
 
     ``fault_injector`` (the JAX package's ``FaultInjector`` interface:
     ``begin_call``, ``kill_step``, ``fire``, ``plan``): a targeted kill
-    fires before the named (1-based) superstep.
+    fires before the named (1-based) superstep; a device-resident loop
+    halts there (``halt``, a device scalar) and the host fires it.
 
     ``elide_access_check=None`` auto-specializes (``can_elide_access_check``);
     ``False`` keeps the probe; ``True`` asserts the caller's own proof.
@@ -638,13 +1110,15 @@ def distributed_execute(
     ``routing.place``, ``routing.superstep`` and ``routing.decode``; inside
     a superstep, ``routing.chase``, ``routing.commit`` (writes),
     ``routing.switch`` and ``routing.counters`` (the one host read of the
-    superstep's counters, which waits for the device's work).
+    superstep's counters, which waits for the device's work).  A
+    device-resident loop shows ``routing.capture`` (its first call on the
+    card) and one ``routing.chunk`` per chunk, its read of the flags
+    included, in place of ``routing.superstep``.
 
     Returns ``(records, RoutingStats)``, plus the post-commit ``Arena`` on
     the input's device for a mutating iterator: the records a ``(B, R)``
-    int32 tensor on the arena's device, ordered by request id.  The fused
-    and pipelined schedules and the ring fabric are item 6(c); replication,
-    fabric loss and stragglers 6(d).
+    int32 tensor on the arena's device, ordered by request id.
+    Replication, fabric loss and stragglers are item 6(d).
     """
     kill_at = None
     if fault_injector is not None:
@@ -653,10 +1127,10 @@ def distributed_execute(
                                  or getattr(plan, "delay_shard", None) is not None):
             raise _later("6(d)", "injected fabric loss and straggler delays")
         kill_at = fault_injector.kill_step(fault_injector.begin_call())
+    if schedule is None:
+        schedule = "fused" if fused else "dispatched"
     if schedule not in ("dispatched", "fused", "pipelined"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule != "dispatched":
-        raise _later("6(c)", f"the {schedule} schedule")
     _check_fabric(fabric)
     mutate = it.mutates
     if mutate and return_to_cpu:
@@ -699,14 +1173,51 @@ def distributed_execute(
     scratch0 = torch.as_tensor(scratch0, dtype=torch.int32).to(dev).reshape(-1, S)
     with torch.profiler.record_function("routing.place"):
         pools, B = place_requests(ptr0, scratch0, num_shards, MW)
+    L = pools.shape[1]
+    base_capacity = L // num_shards
+    compact = compact and not return_to_cpu
+    if schedule != "dispatched":
+        runner = get_fused_runner(
+            it, arena, schedule=schedule, pool_rows=L, k_local=k_local,
+            max_iters=min(max_iters, (1 << 31) - 1), max_supersteps=max_supersteps,
+            min_link_capacity=min_link_capacity, return_to_cpu=return_to_cpu,
+            compact=compact, fabric=fabric, local_backend=local_backend,
+            elide_access_check=elide_access_check)
+        # an armed kill caps the loop at kill_at - 1 supersteps
+        halt = kill_at - 1 if kill_at is not None else max_supersteps
+        pools, flags = runner.run(pools, halt, arena)
+        _, n_active, steps, n_drop, local_only, _, *cap_counts = flags
+        if n_drop != 0:  # not assert: must survive python -O
+            raise RuntimeError(f"request records lost in routing (pool overflow): {n_drop}")
+        if kill_at is not None and n_active > 0 and steps >= kill_at - 1:
+            # halted at the injected death with work left: the call dies here
+            fault_injector.fire(kill_at)
+        if n_active != 0:
+            raise RuntimeError(
+                f"distributed_execute: {n_active} records still ACTIVE after "
+                f"max_supersteps={max_supersteps}; raise the cap or lower max_iters "
+                f"(records would be returned with partial state otherwise)")
+        # the per-rung histogram to a wire total in Python integers (an
+        # int32 product on the device would wrap at large pools)
+        wire = sum(c * num_shards * (num_shards - 1) * cap * R
+                   for c, cap in zip(cap_counts, runner.rungs))
+        with torch.profiler.record_function("routing.decode"):
+            records, stats = _decode_results(
+                pools, B, S, mut_words=MW, supersteps=steps, local_only_steps=local_only,
+                wire_words_total=wire, fused=True, schedule=schedule, fabric=fabric,
+                num_shards=num_shards)
+            if not mutate:
+                return records, stats
+            data, heap = runner.data.clone(), runner.heap.clone()
+            cols = [H_EPOCH, H_COMMITS]
+            stats.epochs, stats.commits = (heap[:, cols].sum(0) - arena.heap[:, cols].sum(0)).tolist()
+        return records, stats, Arena(data=data, bounds=arena.bounds, perms=arena.perms,
+                                     heap=heap)
+
     if mutate:
         # the arena is the value being transformed: this call's private copies
         data, heap = arena.data.clone(), arena.heap.clone()
         epochs0, commits0 = heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
-    L = pools.shape[1]
-    base_capacity = L // num_shards
-    compact = compact and not return_to_cpu
-
     routed_per_step, active_per_step = [], []
     wire_words_per_step, capacity_per_step = [], []
     local_only_steps = 0
@@ -717,15 +1228,12 @@ def distributed_execute(
         # an injected shard death fires before the targeted (1-based) superstep
         if kill_at is not None and steps + 1 >= kill_at:
             fault_injector.fire(steps + 1)
-        if compact:
-            demand = (n_active + num_shards - 1) // num_shards
-            capacity = min(base_capacity, max(min_link_capacity, _pow2_at_least(demand)))
-            do_route = n_remote > 0
-        else:
-            capacity, do_route = base_capacity, True
+        capacity, do_route = _ladder(n_active, n_remote, num_shards=num_shards,
+                                     base_capacity=base_capacity,
+                                     min_link_capacity=min_link_capacity, compact=compact)
         route_kw = dict(k_local=k_local, max_iters=max_iters, return_to_cpu=return_to_cpu,
                         link_capacity=capacity if compact else None, drain_done=compact,
-                        do_route=do_route)
+                        do_route=do_route, fabric=fabric)
         with torch.profiler.record_function("routing.superstep"):
             if mutate:
                 pools, data, heap, *counts = superstep_mut(
@@ -775,17 +1283,21 @@ def _decode_results(
     *,
     mut_words: int = 0,
     supersteps: int,
-    routed_per_step: list,
-    active_per_step: list,
-    wire_words_per_step: list,
-    capacity_per_step: list,
-    local_only_steps: int,
+    routed_per_step: list | None = None,
+    active_per_step: list | None = None,
+    wire_words_per_step: list | None = None,
+    capacity_per_step: list | None = None,
+    local_only_steps: int = 0,
+    wire_words_total: int | None = None,
+    fused: bool = False,
     schedule: str,
     fabric: str,
     num_shards: int,
 ):
     """Order the final pools' records by request id on their device, and
     build the stats; the host reads the record count and the crossings.
+    A device-resident run passes ``wire_words_total`` and ``fused=True``
+    and no per-superstep lists.
 
     Every request id in ``[0, B)`` sits in exactly one valid record (a
     record lost in routing has already raised), so sorting by id, with
@@ -801,11 +1313,13 @@ def _decode_results(
     stats = RoutingStats(
         supersteps=supersteps,
         crossings=all_rec[:, F_HOPS].cpu().numpy(),
-        routed_per_step=routed_per_step,
-        active_per_step=active_per_step,
-        wire_words_per_step=wire_words_per_step,
-        capacity_per_step=capacity_per_step,
+        routed_per_step=routed_per_step or [],
+        active_per_step=active_per_step or [],
+        wire_words_per_step=wire_words_per_step or [],
+        capacity_per_step=capacity_per_step or [],
         local_only_steps=local_only_steps,
+        wire_words_total=wire_words_total,
+        fused=fused,
         schedule=schedule,
         fabric=fabric,
         _num_shards=num_shards,

@@ -428,8 +428,10 @@ def test_mesh_and_arena_must_agree():
 
 
 def _deferred_calls():
-    """(id, sub-item, callable) for every argument outside items 6(a) and
-    6(b) (the write path on a mesh: ``tests/test_torch_routing_write.py``)."""
+    """(id, sub-item, callable) for every argument outside items 6(a)-(c)
+    (the write path on a mesh: ``tests/test_torch_routing_write.py``; the
+    fused and pipelined schedules and the ring fabric:
+    ``tests/test_torch_routing_fused.py`` and ``test_item_6c_calls`` below)."""
     ar = tarena.make_arena(np.zeros((8, 4), np.int32), num_shards=2, device=CPU)
     it = tlist.find_iterator()
     mesh = trouting.EmulatedMesh(2, CPU)
@@ -457,25 +459,13 @@ def _deferred_calls():
     def step(**kw):
         return lambda: trouting.make_superstep(it, 2, k_local=4, max_iters=8, **kw)
 
-    eng = tengine.PulseEngine(ar, mesh=mesh)
     return [
-        ("fused", "6(c)", run(schedule="fused")),
-        ("pipelined", "6(c)", run(schedule="pipelined")),
-        ("ring", "6(c)", run(fabric="ring")),
         ("replication", "6(d)", run(replication=object())),
         ("fabric_loss", "6(d)", run(fault_injector=Injector(Plan(drop_prob=0.1)))),
         ("straggler", "6(d)", run(fault_injector=Injector(Plan(delay_shard=1)))),
         ("superstep_drop", "6(d)", step(drop_prob=0.5)),
         ("superstep_replication", "6(d)", step(replication=object())),
-        ("superstep_ring", "6(c)", step(fabric="ring")),
         ("serve_map", "6(d)", lambda: trouting._serve_shard(p0, p0, object())),
-        ("exchange_ring", "6(c)",
-         lambda: trouting._exchange(torch.zeros((2, 2, 1, 9), dtype=torch.int32), 2,
-                                    fabric="ring")),
-        ("engine_fused", "6(c)", lambda: eng.execute(it, p0, s0, schedule="fused",
-                                                     force_offload=True)),
-        ("engine_ring", "6(c)", lambda: eng.execute(it, p0, s0, fabric="ring",
-                                                    force_offload=True)),
         ("engine_other_mesh", "6(e)",
          lambda: tengine.PulseEngine(ar, mesh=object()).execute(it, p0, s0)),
     ]
@@ -490,6 +480,58 @@ def test_out_of_scope_arguments_raise_naming_their_item(case):
     fn = {c[0]: c[2] for c in _deferred_calls()}[cid]
     with pytest.raises(NotImplementedError, match=rf"item {item[0]}\({item[2]}\)"):
         fn()
+
+
+ITEM_6C_CALLS = ("fused", "pipelined", "ring", "superstep_ring", "exchange_ring", "engine_fused",
+                 "engine_ring")
+
+
+@pytest.mark.parametrize("case", ITEM_6C_CALLS)
+def test_item_6c_calls(case):
+    """The calls that raised naming item 6(c) before it was ported now run,
+    each equal to the dispatched dense run of the same batch (a list of 64
+    keys over two shards): records and stats but ``schedule``, ``fused``,
+    ``fabric`` and the aggregates; the superstep and the exchange bit for
+    bit."""
+    g = np.random.default_rng(7)
+    keys = np.arange(64, dtype=np.int32)
+    ar, head = tlist.build(keys, g.integers(0, 10**6, 64).astype(np.int32), num_shards=2,
+                           policy="interleaved", device=CPU)
+    it = tlist.find_iterator()
+    p0, s0 = it.init(torch.from_numpy(np.r_[keys[::3], 10**6].astype(np.int32)), head)
+    mesh = trouting.EmulatedMesh(2, CPU)
+    run = dict(max_iters=256, compact=True)
+    base, bst = trouting.distributed_execute(it, ar, p0, s0, mesh=mesh, **run)
+    eng = tengine.PulseEngine(ar, mesh=mesh)
+    if case in ("superstep_ring", "exchange_ring"):
+        pools, _ = trouting.place_requests(p0, s0, 2)
+        kw = dict(k_local=2, max_iters=256, local_backend="reference")
+        want = trouting.make_superstep(it, 2, **kw)(pools, ar.data, ar.bounds, ar.perms)
+        got = trouting.make_superstep(it, 2, fabric="ring", **kw)(pools, ar.data, ar.bounds,
+                                                                 ar.perms)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        kept, send, _ = trouting._route_decide(want[0], ar.bounds, 2, return_to_cpu=False)
+        assert torch.equal(trouting._exchange(send, 2, fabric="ring"),
+                           trouting._exchange(send, 2, fabric="dense"))
+        return
+    schedule = {"fused": "fused", "pipelined": "pipelined", "engine_fused": "fused"}.get(
+        case, "dispatched")
+    fabric = "ring" if case in ("ring", "engine_ring") else "dense"
+    if case.startswith("engine"):
+        res = eng.execute(it, p0, s0, schedule=schedule, fabric=fabric, force_offload=True,
+                          **run)
+        rec, st = None, res.stats
+        assert torch.equal(res.ptr, base[:, trouting.F_PTR])
+        assert torch.equal(res.status, base[:, trouting.F_STATUS])
+    else:
+        rec, st = trouting.distributed_execute(it, ar, p0, s0, mesh=mesh, schedule=schedule,
+                                               fabric=fabric, **run)
+        assert torch.equal(rec, base)
+    assert (st.schedule, st.fabric, st.fused) == (schedule, fabric, schedule != "dispatched")
+    assert st.supersteps == bst.supersteps and st.total_wire_words == bst.total_wire_words
+    assert st.local_only_steps == bst.local_only_steps
+    np.testing.assert_array_equal(st.crossings, bst.crossings)
+    assert st.ring_hops == (st.supersteps - st.local_only_steps if fabric == "ring" else 0)
 
 
 # ------------------ (f) the superstep mode's plain version --------------------
