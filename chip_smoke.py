@@ -145,6 +145,29 @@ Phases (any failure exits non-zero before the last line):
      pops) beside the longest per-shard count, peak device memory and the
      phase's time.
 
+ 13. faults and replication over the same four memory nodes, at phase 11's
+     size (``webservice`` and ``wiredtiger``, 65,536 queries each; R = 2
+     keeps one more copy of each arena on the card, printed): replicated
+     reads through ``PulseEngine.execute(..., replication=ReplicaContext)``
+     on the dispatched schedule, ``failover`` with each of the four
+     primaries dead and ``spread`` and ``primary`` healthy, each with the
+     healthy run's payload and one ``pulse_chase`` launch a superstep (the
+     replica windows inside it); on ``wiredtiger`` with shard 1 dead, card
+     == CPU copy (every stat) == the replicated sequential executor
+     (records with hops); the replica-window superstep against its plain
+     version for the native body of each batch and the ISA ``hash_find``
+     program, timed beside the same launch without the windows; fabric loss
+     (``FaultPlan(drop_prob=0.4, drop_seed=7)``) on ``webservice`` over the
+     five schedule x fabric pairs of ``tests/helpers/ft_checks.py``
+     (records equal to the loss-free run, a replay identical, the
+     superstep growth reported; on dispatched/dense card == CPU copy in every stat) and on
+     ``webservice_rw`` fused/dense (every record DONE, every find right, a
+     replay identical to the arena); a kill of shard 2 before superstep 3
+     of ``webservice_rw`` on each schedule (``ShardFailure``, the arena's
+     digest unchanged).  Reported: lookups/s healthy against degraded, the
+     replica-window superstep's kernel ms and bound, the loss's superstep
+     growth, each with the card's name and power limit.
+
 Phases 11 and 12 then run every batch (each step of a write batch) on the
 device-resident schedules, ``schedule="fused"`` and ``"pipelined"`` on the
 dense fabric, and ``webservice`` also pipelined on the ring,
@@ -1279,7 +1302,8 @@ def phase_write(rng):
 
 # ------------------------------ routing -------------------------------------
 
-ROUTE_RUN = dict(max_iters=4096, k_local=4, compact=True)  # phase 11's execute arguments
+ROUTE_RUN = dict(max_iters=4096, k_local=4, compact=True,
+                 schedule="dispatched")  # phase 11's execute arguments
 # the device-resident (schedule, fabric) pairs phases 11 and 12 run beside the dispatched one
 ROUTE_SCHEDULES = [("fused", "dense"), ("pipelined", "dense")]
 ROUTE_RING = [("pipelined", "ring")]  # phase 11's webservice
@@ -1704,7 +1728,8 @@ def phase_routing(rng):
 
 # ------------------------- the write path on the mesh -------------------------
 
-WRITE_MESH_RUN = dict(max_iters=4096, k_local=4, compact=True)  # phase 12's execute arguments
+WRITE_MESH_RUN = dict(max_iters=4096, k_local=4, compact=True,
+                      schedule="dispatched")  # phase 12's execute arguments
 COMMIT_SOURCE = "src/repro_torch/csrc/pulse_commit.cu"
 COMMIT_REPLACES = "src/repro/core/routing.py:407 (_commit_phase: XLA, no Pallas kernel)"
 
@@ -2178,6 +2203,344 @@ def phase_write_mesh(rng):
     log(f"  phase 12 took {secs:.1f} s (CPU copies and sequential commits included)")
     log(json.dumps({"phase": "write_mesh", "seconds": secs, "batches": rows}))
     return rows, commit_launches, readback_launches
+
+
+# ---------------------- faults and replication on the mesh ---------------------
+
+LOSS_PLAN = dict(drop_prob=0.4, drop_seed=7)  # tests/helpers/ft_checks.py:138
+# every (schedule, fabric) of tests/helpers/ft_checks.py:23-29
+FT_SCHEDULES = [("dispatched", "dense"), ("fused", "dense"), ("fused", "ring"),
+                ("pipelined", "dense"), ("pipelined", "ring")]
+RECORDED_SUPERSTEP_MS = 0.030  # phase 11's webservice superstep in a call (PERF.md)
+
+
+def replica_rows(plan, arena):
+    """Holder ``r``'s rows hold ``primary_map[r]``'s, in the arena's layout,
+    on the arena's device: R = 2 adds one copy of the arena."""
+    import torch
+
+    rows = torch.zeros_like(arena.data)
+    b = arena.bounds.tolist()
+    for holder, p in enumerate(plan.primary_map):
+        if p >= 0:
+            rows[b[holder]:b[holder + 1]] = arena.data[b[p]:b[p + 1]]
+    return rows
+
+
+def replica_window_vs_plain(arena, it, p0, s0, P, rep, *, advance: int = 2):
+    """One superstep's local chase with the replica windows, after
+    ``advance`` routed supersteps, on the kernel and on its plain version
+    (the same CUDA tensors), both timed, beside the kernel without the
+    windows on the same pools; the bound counts the records active at its
+    start read and written once and each distinct row its steps read once
+    (from the plain version run one step at a time)."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_chase import ops, ref
+
+    pools, _ = routing.place_requests(p0, s0, P)
+    step = routing.make_superstep(it, P, k_local=ROUTE_RUN["k_local"],
+                                  max_iters=ROUTE_RUN["max_iters"], drain_done=True)
+    for _ in range(advance):
+        pools = step(pools, arena.data, arena.bounds, arena.perms)[0]
+    logic = ops.iterator_logic(it)
+    args = (arena.data, pools, arena.bounds, arena.perms)
+    kw = dict(logic_fn=logic, k_local=ROUTE_RUN["k_local"], max_iters=ROUTE_RUN["max_iters"])
+
+    def kern():
+        return ops.pulse_chase_superstep(*args, rep=rep, **kw)
+
+    def healthy():
+        return ops.pulse_chase_superstep(*args, **kw)
+
+    def plain(k=ROUTE_RUN["k_local"], pool=pools):
+        return ref.chase_superstep_reference(arena.data, pool, arena.bounds, arena.perms, logic,
+                                             k, scratch_words=it.scratch_words,
+                                             max_iters=ROUTE_RUN["max_iters"], rep=rep)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    F_PTR, F_ITERS = routing.F_PTR, routing.F_ITERS
+    cur, seen = pools, []
+    for _ in range(ROUTE_RUN["k_local"]):
+        nxt = plain(1, cur)
+        moved = nxt[..., F_ITERS] > cur[..., F_ITERS]
+        seen.append(cur[..., F_PTR][moved])
+        cur = nxt
+    rows_read = int(torch.unique(torch.cat(seen)).numel())
+    active = int((pools[..., routing.F_STATUS] == 0).sum().item())
+    R = pools.shape[2]
+    bound = (active * R * 4 * 2 + rows_read * arena.node_words * 4) / HBM_BYTES_PER_S * 1e3
+    k_ms = profiled_ms([kern], 10, "chase_kernel")
+    h_ms = profiled_ms([healthy], 10, "chase_kernel")
+    return dict(bit_equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
+                active_records=active, pool_records=int(pools.shape[0] * pools.shape[1]),
+                rows_read=rows_read, ms=k_ms if k_ms is not None else time_cuda(kern, 10),
+                ms_source="profiler" if k_ms is not None else "events",
+                healthy_ms=h_ms, plain_ms=time_cuda(plain, 3), bound_ms=bound,
+                bound_by="bytes")
+
+
+def _timed(fn, n: int = 3):
+    """(result of the first call, the median wall seconds of ``n`` calls)."""
+    import numpy as np
+    import torch
+
+    out, secs = None, []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out = r if out is None else out
+    return out, float(np.median(secs))
+
+
+def phase_faults(rng, smi):
+    """Phase 13: fault injection and replication on an EmulatedMesh of the
+    paper's four memory nodes on the card, at phase 11's size: replicated
+    reads on the dispatched schedule (one pulse_chase launch a superstep,
+    the replica windows in the launch), fabric loss on every schedule and
+    fabric, and a kill on each schedule."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import commit, routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.engine import PulseEngine
+    from repro_torch.core.faults import FaultInjector, FaultPlan, ShardFailure
+    from repro_torch.core.isa import as_pulse_iterator
+    from repro_torch.core.structures import isa_programs
+    from repro_torch.kernels.pulse_chase import ops
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+
+    t_phase = time.perf_counter()
+    P, batches = routing_batches(rng)
+    batches = [b for b in batches if not b["run"].get("return_to_cpu")]
+    run = dict(ROUTE_RUN)
+    rows, launches_total, window_checks = [], 0, []
+    payload = ("ptr", "scratch", "status", "iters")
+    for b in batches:
+        name, it = b["name"], b["it"]
+        fields = [t.numpy() for t in (b["arena"].data, b["arena"].bounds, b["arena"].perms,
+                                      b["arena"].heap)]
+        card = arena_from_numpy(*fields, device="cuda")
+        p0, s0 = b["p0"].cuda(), b["s0"].cuda()
+        eng = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"))
+        healthy, healthy_s = _timed(lambda: eng.execute(it, p0, s0, **run))
+        arena_mb = card.capacity * card.node_words * 4 / 1e6
+        row = dict(batch=name, memory_nodes=P, lanes=int(p0.shape[0]), arena_mb=arena_mb,
+                   replica_mb=arena_mb, healthy_lookups_per_s=p0.shape[0] / healthy_s,
+                   healthy_supersteps=healthy.stats.supersteps, replicated=[])
+        log(f"[{name}] R = 2 keeps one more copy of the arena on the card: {arena_mb:.1f} MB "
+            f"of replica rows beside the arena's {arena_mb:.1f} MB")
+
+        # replicated reads: every dead primary under failover, spread and
+        # primary healthy; each call one launch a superstep
+        cases = [("failover", (d,)) for d in range(P)] + [("spread", ()), ("primary", ())]
+        rows_by_policy = {}
+        for policy, dead in cases:
+            plan = routing.make_replica_plan(P, policy=policy)
+            if policy not in rows_by_policy:
+                rows_by_policy[policy] = replica_rows(plan, card)
+            mask = torch.zeros(P, dtype=torch.bool, device="cuda")
+            mask[list(dead)] = True
+            ctx = routing.ReplicaContext(plan, rows_by_policy[policy], mask)
+            # timed as the healthy run is: the median of three calls
+            ops.pulse_chase.launches = 0
+            res, secs = _timed(lambda: eng.execute(it, p0, s0, replication=ctx, **run))
+            launches = ops.pulse_chase.launches
+            st = res.stats
+            if launches != 3 * st.supersteps or st.schedule != "dispatched":
+                raise AssertionError(f"{name} {policy} {dead}: {launches} pulse_chase launches "
+                                     f"in three calls of {st.supersteps} supersteps "
+                                     f"({st.schedule})")
+            launches_total += launches
+            for f in payload:
+                if not torch.equal(getattr(res, f), getattr(healthy, f)):
+                    raise AssertionError(f"{name} {policy} {dead}: {f} differs from the "
+                                         "healthy run")
+            row["replicated"].append(dict(
+                policy=policy, dead=list(dead), supersteps=st.supersteps, launches=launches,
+                local_only_steps=st.local_only_steps, mean_crossings=float(st.crossings.mean()),
+                lookups_per_s=p0.shape[0] / secs, execute_s=secs))
+        degraded = [r["lookups_per_s"] for r in row["replicated"] if r["policy"] == "failover"]
+        row["degraded_lookups_per_s"] = dict(min=min(degraded), max=max(degraded))
+        log(f"[{name}] P={P}: healthy {row['healthy_lookups_per_s']:.4g} lookups/s "
+            f"({healthy.stats.supersteps} supersteps); one primary dead (failover) "
+            f"{min(degraded):.4g}-{max(degraded):.4g} lookups/s, supersteps "
+            f"{[r['supersteps'] for r in row['replicated'] if r['policy'] == 'failover']}; "
+            + "; ".join(f"{r['policy']} healthy {r['lookups_per_s']:.4g} lookups/s, "
+                        f"{r['supersteps']} supersteps" for r in row["replicated"][P:])
+            + f"; payload == healthy in every case; {smi}")
+
+        # one case on a CPU copy and on the sequential executor, bit for bit
+        if name == "wiredtiger":
+            plan = routing.make_replica_plan(P, policy="failover")
+            dead = np.zeros(P, bool)
+            dead[1] = True
+            ctx = routing.ReplicaContext(plan, rows_by_policy["failover"],
+                                         torch.from_numpy(dead).cuda())
+            rec, st = routing.distributed_execute(it, card, p0, s0,
+                                                  mesh=routing.EmulatedMesh(P, "cuda"),
+                                                  replication=ctx, **run)
+            cpu = arena_from_numpy(*fields, device="cpu")
+            crec, cst = routing.distributed_execute(
+                it, cpu, b["p0"], b["s0"], mesh=routing.EmulatedMesh(P, "cpu"),
+                replication=routing.ReplicaContext(plan, rows_by_policy["failover"].cpu(),
+                                                   dead), **run)
+            if not torch.equal(rec.cpu(), crec) or _stats_diff(st, cst):
+                raise AssertionError(f"{name}: replicated card and CPU copy differ "
+                                     f"({_stats_diff(st, cst)})")
+            srec, sst = commit.sequential_commit_execute(
+                it, card, p0, s0, max_iters=run["max_iters"], k_local=run["k_local"],
+                compact=run["compact"], replication=ctx)
+            if not np.array_equal(rec.cpu().numpy(), srec) or _stats_diff(st, sst) != ["schedule"]:
+                raise AssertionError(f"{name}: replicated run differs from the sequential "
+                                     f"executor ({_stats_diff(st, sst)})")
+            row["cpu_copy_and_sequential"] = "failover, shard 1 dead: bit-equal, hops included"
+            log(f"[{name}] failover with shard 1 dead: card == CPU copy (every stat) == the "
+                f"replicated sequential executor (records with hops, {sst.supersteps} "
+                "supersteps)")
+
+        # the replica windows against their plain version, at this size
+        plan = routing.make_replica_plan(P, policy="failover")
+        mask = torch.zeros(P, dtype=torch.bool, device="cuda")
+        mask[1] = True
+        rep = (rows_by_policy["failover"], torch.tensor(plan.primary_map, dtype=torch.int32,
+                                                         device="cuda"), mask, "failover")
+        bodies = [(ops.iterator_logic(it).native.name, it)]
+        if name == "webservice":
+            bodies.append(("isa", as_pulse_iterator(isa_programs.hash_find_program())))
+        for body, bit in bodies:
+            one = replica_window_vs_plain(card, bit, p0, s0, P, rep)
+            if not one["bit_equal"]:
+                raise AssertionError(f"{name}/{body}: the replica window disagrees with its "
+                                     "plain version")
+            one.update(batch=name, body=body)
+            window_checks.append(one)
+            log(f"[{name}] one superstep with the replica windows, body {body} "
+                f"({one['active_records']} active of {one['pool_records']} records, "
+                f"{one['rows_read']} rows read): kernel {one['ms']:.5f} ms ({one['ms_source']}), "
+                f"without the windows {one['healthy_ms']} ms, plain {one['plain_ms']:.3f} ms, "
+                f"bound {one['bound_ms']:.5f} ms; the recorded phase-11 superstep in a "
+                f"call {RECORDED_SUPERSTEP_MS} ms; bit_equal=True; {smi}")
+
+        # fabric loss on every schedule x fabric (webservice), records equal
+        # to the loss-free run, a replay identical
+        if name == "webservice":
+            row["loss"] = []
+            for schedule, fabric in FT_SCHEDULES:
+                kw = dict(run, schedule=schedule, fabric=fabric)
+
+                def lossy():
+                    return PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"),
+                                       fault_injector=FaultInjector(FaultPlan(**LOSS_PLAN))
+                                       ).execute(it, p0, s0, **kw)
+
+                ops.pulse_chase.launches = 0
+                res, secs = _timed(lossy, n=1)
+                launches = ops.pulse_chase.launches
+                again = lossy()
+                st = res.stats
+                for f in payload:
+                    if not torch.equal(getattr(res, f), getattr(healthy, f)):
+                        raise AssertionError(f"{name} loss {schedule}/{fabric}: {f} differs")
+                    if not torch.equal(getattr(again, f), getattr(res, f)):
+                        raise AssertionError(f"{name} loss {schedule}/{fabric}: the replay's "
+                                             f"{f} differs")
+                # loss may lengthen a run or shorten it (a parked record
+                # keeps the fabric scheduled, so fewer supersteps are
+                # local-only): the supersteps are reported, not gated
+                if _stats_diff(st, again.stats):
+                    raise AssertionError(f"{name} loss {schedule}/{fabric}: the replay differs "
+                                         f"on {_stats_diff(st, again.stats)}")
+                if schedule == "dispatched" and launches != st.supersteps:
+                    raise AssertionError(f"{name} loss: {launches} launches in "
+                                         f"{st.supersteps} supersteps")
+                launches_total += launches
+                loss_row = dict(schedule=schedule, fabric=fabric, supersteps=st.supersteps,
+                                loss_free_supersteps=healthy.stats.supersteps,
+                                growth=st.supersteps / healthy.stats.supersteps,
+                                launches=launches, first_call_s=secs,
+                                mean_crossings=float(st.crossings.mean()))
+                if (schedule, fabric) == ("dispatched", "dense"):
+                    cpu = arena_from_numpy(*fields, device="cpu")
+                    cres = PulseEngine(cpu, mesh=routing.EmulatedMesh(P, "cpu"),
+                                       fault_injector=FaultInjector(FaultPlan(**LOSS_PLAN))
+                                       ).execute(it, b["p0"], b["s0"], **kw)
+                    diff = _stats_diff(st, cres.stats)
+                    if diff or not all(torch.equal(getattr(res, f).cpu(), getattr(cres, f))
+                                       for f in payload):
+                        raise AssertionError(f"{name} loss: card and CPU copy differ ({diff})")
+                    loss_row["card_equals_cpu"] = True
+                row["loss"].append(loss_row)
+                log(f"[{name}] loss {LOSS_PLAN} on {schedule}/{fabric}: {st.supersteps} "
+                    f"supersteps (loss-free {healthy.stats.supersteps}, x{loss_row['growth']:.3f}),"
+                    f" records == loss-free, replay identical, first call {secs:.3f} s, "
+                    f"{launches} pulse_chase launches"
+                    + ("; card == CPU copy in every stat" if "card_equals_cpu" in loss_row else ""))
+        rows.append(row)
+        routing.reset_executable_caches()
+        del card, eng, healthy
+        torch.cuda.empty_cache()
+
+    # the write path: loss on fused/dense, and a kill on each schedule
+    wb = _webservice_rw(rng, P)
+    _, wit, wp0, ws0 = wb["steps"][0]
+    wp0, ws0 = wp0.cuda(), ws0.cuda()
+    card = arena_from_numpy(*wb["fields"], device="cuda")
+    digest = _digest(card)
+    wrun = dict(WRITE_MESH_RUN, schedule="fused", fabric="dense")
+    free = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda")).execute(wit, wp0, ws0, **wrun)
+    lossy = []
+    for _ in range(2):
+        eng = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"),
+                          fault_injector=FaultInjector(FaultPlan(**LOSS_PLAN)))
+        commit_ops.pulse_commit.launches = 0
+        res = eng.execute(wit, wp0, ws0, **wrun)
+        lossy.append((res, eng.arena, commit_ops.pulse_commit.launches))
+    (res, ar, commits), (res2, ar2, _) = lossy
+    bad, _ = wb["check"][0](res.status.cpu().numpy(), res.scratch.cpu().numpy())
+    if bad:
+        raise AssertionError(f"webservice_rw loss: {bad}")
+    if (_stats_diff(res.stats, res2.stats) or not torch.equal(ar.data, ar2.data)
+            or not torch.equal(ar.heap, ar2.heap)
+            or not all(torch.equal(getattr(res, f), getattr(res2, f)) for f in payload)):
+        raise AssertionError("webservice_rw loss: the replay differs")
+    write_loss = dict(schedule="fused", fabric="dense", supersteps=res.stats.supersteps,
+                      loss_free_supersteps=free.stats.supersteps,
+                      growth=res.stats.supersteps / free.stats.supersteps,
+                      commits=res.stats.commits, first_call_commit_launches=commits)
+    log(f"[webservice_rw] loss {LOSS_PLAN} on fused/dense: {res.stats.supersteps} supersteps "
+        f"(loss-free {free.stats.supersteps}), every record DONE and every find right, replay "
+        "identical (records, stats, data, heap)")
+    kills = []
+    for schedule in ("dispatched", "fused", "pipelined"):
+        eng = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"),
+                          fault_injector=FaultInjector(FaultPlan(kill_shard=2, kill_superstep=3)))
+        try:
+            eng.execute(wit, wp0, ws0, **dict(wrun, schedule=schedule))
+            raise AssertionError(f"webservice_rw {schedule}: the kill did not fire")
+        except ShardFailure as e:
+            if (e.shard, e.superstep) != (2, 3) or eng.arena is not card:
+                raise AssertionError(f"webservice_rw {schedule}: {e} / the engine's arena moved")
+        if _digest(card) != digest:
+            raise AssertionError(f"webservice_rw {schedule}: the kill changed the arena")
+        kills.append(schedule)
+    log(f"[webservice_rw] a kill before superstep 3 of shard 2 on {kills}: ShardFailure(2, 3), "
+        "the arena's digest unchanged")
+    routing.reset_executable_caches()
+    del card, free, lossy, res, res2, ar, ar2
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 13 took {secs:.1f} s (CPU copies and the sequential executor included)")
+    out = dict(phase="faults", seconds=secs, batches=rows, window_checks=window_checks,
+               write_loss=write_loss, kills=kills)
+    log(json.dumps(out))
+    return out, launches_total
 
 
 # --------------------------- attention kernels ------------------------------
@@ -2964,6 +3327,24 @@ def main(argv=None) -> int:
     entry["launches"] += mesh_readback
     entry["launches_note"] += ("; one superstep-mode launch per superstep of each phase-12 "
                                "read-back")
+    log("== phase 13: faults and replication over four emulated memory nodes")
+    faults_row, fault_launches = phase_faults(rng, smi)
+    entry["launches"] += fault_launches
+    entry["launches_note"] += ("; one superstep-mode launch per superstep of each of three "
+                               "timed calls of each phase-13 replicated read (the replica "
+                               "windows in the launch) and of each lossy "
+                               "dispatched read, and the lossy fused and pipelined reads' first "
+                               "calls' launches")
+    checks13 = faults_row["window_checks"]
+    entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
+    entry["replica_window"] = dict(
+        timed_on="one superstep's local chase with the replica windows (failover, shard 1 "
+                 "dead) of each phase-13 batch (4 shards x 65,536 records), kernel vs plain; "
+                 "healthy_ms: the same launch without the windows",
+        **{f"{c['batch']}/{c['body']}": {k: c[k] for k in (
+            "ms", "healthy_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "active_records", "rows_read")} for c in checks13})
+
     head_commit = next(r for r in mesh_rows if r["batch"] == "wiredtiger_update")["commit_check"]
     commit_entry = dict(
         name="pulse_commit", route="cuda", source=COMMIT_SOURCE, replaces=COMMIT_REPLACES,
@@ -3051,7 +3432,7 @@ def main(argv=None) -> int:
             device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
-            write_mesh=mesh_rows,
+            write_mesh=mesh_rows, faults=faults_row,
             **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -90,10 +90,34 @@ def _owner_of(bounds: np.ndarray, ptr: np.ndarray) -> np.ndarray:
     return np.where(valid, shard, NULL).astype(np.int32)
 
 
-def _decide_and_send(pool, bounds, s, P, *, capacity, drain_done, MB):
+def _serve_np(owner: np.ndarray, rec_id: np.ndarray, rep) -> np.ndarray:
+    """The switch's serve map (``routing._serve_shard``) in numpy: the shard
+    that serves a read at ``owner``'s range under the replication policy.
+    ``rep = (replica_map, dead_mask, policy)`` or None (the identity).  A
+    copy on purpose, as the reference's oracle keeps its own: this executor
+    checks the dispatched run, so it shares none of its code."""
+    if rep is None:
+        return owner
+    replica_map, dead_mask, policy = rep
+    P = len(replica_map)
+    safe = np.clip(owner, 0, P - 1)
+    alt = replica_map[safe]
+    has_alt = (alt >= 0) & (owner >= 0) & ~dead_mask[np.clip(alt, 0, P - 1)]
+    dead = dead_mask[safe]
+    if policy == "spread":
+        redirect = has_alt & (dead | (rec_id % 2 == 1))
+    elif policy == "failover":
+        redirect = has_alt & dead
+    else:  # "primary"
+        redirect = np.zeros_like(has_alt)
+    return np.where(redirect, alt, owner).astype(np.int32)
+
+
+def _decide_and_send(pool, bounds, s, P, *, capacity, drain_done, MB, rep=None):
     """The switch decision: fault-mark, compute destinations (staged
-    mutations route to their commit shard), park overflow, extract leavers.
-    Returns the per-destination send blocks and blanks leavers in place."""
+    mutations route to their commit shard; reads through the serve map
+    ``rep``), park overflow, extract leavers.  Returns the per-destination
+    send blocks and blanks leavers in place."""
     status = pool[:, F_STATUS]
     valid = status != STATUS_EMPTY
     active = status == STATUS_ACTIVE
@@ -116,10 +140,11 @@ def _decide_and_send(pool, bounds, s, P, *, capacity, drain_done, MB):
     pool[bad, F_STATUS] = STATUS_FAULT
     active = pool[:, F_STATUS] == STATUS_ACTIVE
 
+    serve = _serve_np(owner, pool[:, F_ID], rep)
     if drain_done:
-        dest = np.where(active, owner, s)
+        dest = np.where(active, serve, s)
     else:
-        dest = np.where(active, owner, pool[:, F_HOME])
+        dest = np.where(active, serve, pool[:, F_HOME])
     if MB is not None:
         cdest = np.where(is_alloc, pool[:, F_HOME], towner)
         dest = np.where(active & pendm, cdest, dest)
@@ -149,7 +174,7 @@ def _merge(kept, arrivals, L):
     return merged, dropped
 
 
-def _remote_count(pool, bounds, s, MB):
+def _remote_count(pool, bounds, s, MB, rep=None):
     active = pool[:, F_STATUS] == STATUS_ACTIVE
     owner = _owner_of(bounds, pool[:, F_PTR])
     if MB is not None:
@@ -158,18 +183,22 @@ def _remote_count(pool, bounds, s, MB):
             m_op == M_ALLOC, pool[:, F_HOME], _owner_of(bounds, pool[:, MB + 1])
         )
         owner = np.where(m_op != M_NONE, towner, owner)
+    else:
+        owner = _serve_np(owner, pool[:, F_ID], rep)
     return int((active & (owner != s)).sum())
 
 
-def _chase(it, data, pool_t, *, S, MB, lo, hi, readable, max_iters, k_local):
+def _chase(it, data, pool_t, *, S, MB, lo, hi, readable, max_iters, k_local, rep_kw=None):
     """``k_local`` steps of one shard's pool (an (L, R) tensor on the
     arena's device) over its rows ``[lo, hi)`` of ``data``, the whole
-    arena; returns the new pool tensor."""
+    arena; returns the new pool tensor.  ``rep_kw`` (replicated reads) are
+    ``step_batch``'s replica-window arguments and the served ``local_hi``."""
     ptr = pool_t[:, F_PTR]
     scr = pool_t[:, F_SCRATCH : F_SCRATCH + S]
     st = pool_t[:, F_STATUS]
     iters = pool_t[:, F_ITERS]
-    args = dict(max_iters=max_iters, local_lo=lo, local_hi=hi, perm_ok=readable)
+    args = {**dict(max_iters=max_iters, local_lo=lo, local_hi=hi, perm_ok=readable),
+            **(rep_kw or {})}
     if MB is None:
         for _ in range(k_local):
             ptr, scr, st, iters = step_batch(it, data[lo:hi], ptr, scr, st, iters, **args)
@@ -206,20 +235,27 @@ def sequential_commit_execute(
     read-only ones, as the JAX package's executor does.  The new arena lives
     on the input arena's device; the input arena is never modified.
 
-    ``fault_injector`` (the JAX package's ``FaultInjector`` interface:
-    ``begin_call``, ``kill_step``, ``fire``): a targeted kill raises before
-    the named (1-based) superstep runs, and the mutated copies are
-    discarded, so the input arena stays as it was.  ``replication`` (the
-    read fan-out to replicas) comes with ROADMAP queue 1, item 6(d).
+    ``fault_injector`` (``core.faults.FaultInjector``): a targeted kill
+    raises before the named (1-based) superstep runs, and the mutated
+    copies are discarded, so the input arena stays as it was.  Fabric loss
+    and delay do not apply (this schedule has no fabric).
+
+    ``replication`` (``routing.ReplicaContext``, read iterators): the
+    oracle of the device read fan-out.  A holder serves its primary's
+    range from this executor's own copy of the primary's rows (replicas
+    are bit-identical by construction), so a dispatched replicated run
+    must match it bit for bit, hops and supersteps included.
+
     ``trace``, when given, is filled with the split of the wall time and
     the bytes moved (``CommitTrace``).
     """
     kill_at = None
     if fault_injector is not None:
         kill_at = fault_injector.kill_step(fault_injector.begin_call())
-    if replication is not None:
-        raise NotImplementedError(
-            "replicated reads (ReplicaContext) come with ROADMAP queue 1, item 6(d)"
+    if replication is not None and it.mutates:
+        raise ValueError(
+            "replication serves the READ path only; the write path commits "
+            "through the primary and ships the log to the replica"
         )
     P = arena.num_shards
     dev = arena.data.device
@@ -264,6 +300,13 @@ def sequential_commit_execute(
     writable = (perms & PERM_WRITE) == PERM_WRITE
     pool_bytes = L * R * 4
 
+    rep_np = primary_map = dead_np = None
+    if replication is not None:
+        plan = replication.plan
+        primary_map = np.asarray(plan.primary_map, np.int32)
+        dead_np = torch.as_tensor(replication.dead_mask).cpu().numpy().astype(bool)
+        rep_np = (np.asarray(plan.replica_map, np.int32), dead_np, plan.policy)
+
     routed_per_step, active_per_step = [], []
     wire_words_per_step, capacity_per_step = [], []
     local_only_steps = 0
@@ -280,10 +323,23 @@ def sequential_commit_execute(
         for s in range(P):
             t0 = time.perf_counter()
             lo, hi = int(bounds[s]), int(bounds[s + 1])
+            rep_kw = None
+            if replication is not None:
+                # shard s doubles as the replica holder of primary_map[s]:
+                # it serves the primary's range when the policy spreads or
+                # the primary is dead (never while itself dead), and a dead
+                # shard serves nothing of its own
+                p = int(primary_map[s])
+                ps = max(p, 0)
+                plo, phi = int(bounds[ps]), int(bounds[ps + 1])
+                rep_kw = dict(rep_data=dev_data[plo:phi], rep_lo=plo, rep_hi=phi, rep_base=0,
+                              rep_on=bool(p >= 0 and not dead_np[s]
+                                          and (plan.policy == "spread" or dead_np[p])),
+                              rep_perm_ok=bool(readable[ps]), local_hi=lo if dead_np[s] else hi)
             pool_t = _chase(
                 it, dev_data, torch.from_numpy(pools[s]).to(dev), S=S, MB=MB,
                 lo=lo, hi=hi, readable=bool(readable[s]), max_iters=max_iters,
-                k_local=k_local)
+                k_local=k_local, rep_kw=rep_kw)
             pools[s] = pool_t.cpu().numpy()
             t1 = time.perf_counter()
             chase_s += t1 - t0
@@ -320,7 +376,7 @@ def sequential_commit_execute(
             for s in range(P):
                 send, routed = _decide_and_send(
                     pools[s], bounds, s, P,
-                    capacity=capacity, drain_done=compact, MB=MB,
+                    capacity=capacity, drain_done=compact, MB=MB, rep=rep_np,
                 )
                 sends.append(send)
                 n_routed += routed
@@ -334,7 +390,7 @@ def sequential_commit_execute(
 
         steps += 1
         n_active = int((pools[:, :, F_STATUS] == STATUS_ACTIVE).sum())
-        n_remote = sum(_remote_count(pools[s], bounds, s, MB) for s in range(P))
+        n_remote = sum(_remote_count(pools[s], bounds, s, MB, rep_np) for s in range(P))
         routed_per_step.append(n_routed)
         active_per_step.append(n_active)
         capacity_per_step.append(capacity if do_route else 0)

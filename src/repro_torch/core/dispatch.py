@@ -13,6 +13,11 @@ Two N sources:
     (``PulseIterator.n_instructions``), the weighted critical path of its
     next/end bodies.
 
+``schedule_decision`` is the overlap model of a distributed traversal:
+the superstep schedule (pipelined, fused) that hides the larger share of a
+superstep's modeled local-chase and fabric time; ``PulseEngine`` asks it
+for ``schedule="auto"`` on a mesh.
+
 Defaults mirror the paper's prototype: 250 MHz pipelines (t_i = 4 ns),
 132 ns memory pipeline latency (TCAM 22 + controller 110, Fig. 10), 25 GB/s
 per-node bandwidth, eta = 0.75 (m=3, n=4).
@@ -108,3 +113,73 @@ def offload_decision(
         f"{eta * t_d:.1f}ns -> {'offload' if ok else 'run at CPU node'}"
     )
     return OffloadDecision(ok, t_c, t_d, ratio, n, reason)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleDecision:
+    """Which distributed superstep schedule the dispatch engine picks: a
+    closed-form model of where a superstep's time goes, and the schedule
+    that hides the larger share.  ``overlap_frac`` is the fraction of a
+    serialized superstep the wavefront-pipelined schedule can hide (the
+    smaller phase over their sum): above 0 whenever both phases are, so a
+    multi-shard traversal defaults to ``pipelined`` unless one phase
+    dominates."""
+
+    schedule: str  # "pipelined" | "fused" | "local"
+    t_local_ns: float  # modeled local-chase time per superstep
+    t_fabric_ns: float  # modeled fabric time per superstep
+    overlap_frac: float  # serialized time hidden by overlapping the two
+    reason: str
+
+
+def schedule_decision(
+    it: PulseIterator,
+    node_words: int,
+    num_shards: int,
+    accel: AcceleratorSpec | None = None,
+    *,
+    k_local: int = 4,
+    min_overlap: float = 0.05,
+) -> ScheduleDecision:
+    """Pick the superstep schedule of a distributed traversal (S5 and the
+    overlap of the local chase with the fabric).
+
+    The local phase runs ``k_local`` iterations, each bounded by the larger
+    of compute (t_i * N) and the aggregated LOAD (t_d); the fabric phase is
+    the network stack plus per-link interconnect time.  When neither phase
+    dominates, pipelining the two wavefronts hides ``min(t_local,
+    t_fabric)`` of every superstep, so the engine picks ``pipelined``;
+    below ``min_overlap`` the serialized fused loop wins."""
+    accel = accel or AcceleratorSpec()
+    if num_shards <= 1:
+        return ScheduleDecision(
+            "local", 0.0, 0.0, 0.0, "single memory node: nothing to overlap"
+        )
+    n = count_instructions(it, node_words)
+    t_local = k_local * max(accel.t_i_ns * n, accel.t_d_ns(node_words * 4))
+    t_fabric = (
+        accel.network_ns
+        + accel.scheduler_ns
+        + accel.interconnect_ns * (num_shards - 1)
+    )
+    overlap = min(t_local, t_fabric) / (t_local + t_fabric)
+    schedule = "pipelined" if overlap >= min_overlap else "fused"
+    reason = (
+        f"t_local={t_local:.0f}ns t_fabric={t_fabric:.0f}ns -> overlap hides "
+        f"{overlap:.0%} of a serialized superstep -> {schedule}"
+    )
+    return ScheduleDecision(schedule, t_local, t_fabric, overlap, reason)
+
+
+def workload_table(entries):
+    """The shape of paper Table 3: name, t_c/t_d, iterations.  ``entries``
+    is a list of ``(name, iterator, node_words, iters)``."""
+    rows = []
+    accel = AcceleratorSpec()
+    for name, it, node_words, iters in entries:
+        d = offload_decision(it, node_words, accel)
+        rows.append(
+            dict(name=name, tc_td=round(d.ratio, 3), iterations=iters,
+                 offload=d.offload, n_instructions=d.n_instructions)
+        )
+    return rows

@@ -174,14 +174,17 @@ class PulseEngine:
         self.mesh = mesh
         self.accel = accel or dispatch_mod.AcceleratorSpec()
         self.eta = self.accel.eta if eta is None else eta
-        # test hook with the reference's FaultInjector interface
-        # (begin_call / kill_step / fire); every execute() counts as one call
+        # test-only fault hook (core.faults.FaultInjector); every execute()
+        # counts as one call toward the plan's kill_call
         self.fault_injector = fault_injector
         # the kernel path's logic (and its code tensor) per iterator, and the
         # dispatch model's decision per (iterator, eta): counting an ISA
         # program's longest path is Python work on every call otherwise
         self._logic: dict = {}
         self._decisions: dict = {}
+        # the overlap model's schedule per (iterator, k_local); serving calls
+        # execute() per quantum
+        self._schedule_cache: dict = {}
 
     def _local_fault_check(self):
         """Register the engine call with the fault injector and fire its
@@ -250,20 +253,16 @@ class PulseEngine:
         captured CUDA graph), on the ``"dense"`` or the ``"ring"`` fabric;
         ``backend="kernel"`` runs each local chase as one ``pulse_chase``
         launch, ``"reference"`` as the plain chase.  ``schedule="auto"``
-        resolves to ``"dispatched"`` whatever ``fused`` says: with
-        ``fused=False`` that is the reference's own resolution (the explicit
-        opt-out of device-resident loops); with ``fused=True`` the reference
-        asks its overlap model (``dispatch.schedule_decision``, item 6(d)),
-        which normally picks the pipelined schedule, so the port pins the
-        dispatched one until that model lands.  Results and wire words do
-        not depend on the schedule.  ``fused`` and ``replication`` are the
-        reference's keywords, which its ``PulseService`` passes: a
-        ``replication`` context other than None raises, naming item 6(d).
+        consults the dispatch engine's overlap model
+        (``dispatch.schedule_decision``, ``_resolve_schedule``), which
+        normally picks the pipelined schedule; ``fused=False`` is the
+        explicit opt-out of device-resident loops (``"dispatched"``).  A
+        ``replication`` context (``routing.ReplicaContext``) runs a read
+        batch on a mesh on the dispatched schedule, the only one that
+        serves replicas; on one node, and for a mutating iterator, it is
+        not used, as in the reference.  Results and wire words do not
+        depend on the schedule.
         """
-        if replication is not None:
-            raise routing._later("6(d)", "replica fan-out (PulseEngine.execute(replication=...))")
-        if schedule == "auto":
-            schedule = "dispatched"
         on_mesh = self.mesh is not None and self.arena.num_shards > 1
         if on_mesh and not isinstance(self.mesh, routing.EmulatedMesh):
             raise NotImplementedError(
@@ -284,7 +283,8 @@ class PulseEngine:
             if backend not in (None, *BACKENDS):
                 raise ValueError(f"unknown backend {backend!r}; choose one of {BACKENDS}")
             return self._execute_mut(it, ptr0, scratch0, max_iters=max_iters, k_local=k_local,
-                                     compact=compact, schedule=schedule, fabric=fabric)
+                                     compact=compact, fused=fused, schedule=schedule,
+                                     fabric=fabric)
         on_card = _on_card(self.arena.data)
         if backend is None:
             backend = "kernel" if on_card else "reference"
@@ -314,11 +314,17 @@ class PulseEngine:
             )
 
         if on_mesh:
+            if replication is not None:
+                # replica fan-out runs on the dispatched schedule; results do
+                # not depend on the schedule
+                schedule = "dispatched"
+            else:
+                schedule = self._resolve_schedule(it, schedule, fused, k_local)
             rec, stats = routing.distributed_execute(
                 it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
                 k_local=k_local, return_to_cpu=return_to_cpu, compact=compact,
                 schedule=schedule, fabric=fabric, local_backend=backend,
-                fault_injector=self.fault_injector,
+                fault_injector=self.fault_injector, replication=replication,
             )
             S = it.scratch_words
             return ExecResult(
@@ -341,8 +347,26 @@ class PulseEngine:
         )
         return ExecResult(ptr, scratch, status, iters, decision=decision)
 
+    def _resolve_schedule(self, it: PulseIterator, schedule: str, fused: bool,
+                          k_local: int) -> str:
+        """``schedule="auto"``: the dispatch engine's overlap-model pick
+        (cached per iterator and ``k_local``), ``"fused"`` where it answers
+        ``"local"``; ``fused=False`` is the explicit opt-out of
+        device-resident loops.  Shared by the read and write paths."""
+        if schedule != "auto":
+            return schedule
+        if not fused:
+            return "dispatched"
+        key = (it, k_local)
+        sd = self._schedule_cache.get(key)
+        if sd is None:
+            sd = self._schedule_cache[key] = dispatch_mod.schedule_decision(
+                it, self.arena.node_words, self.arena.num_shards, self.accel, k_local=k_local)
+        return sd.schedule if sd.schedule != "local" else "fused"
+
     def _execute_mut(self, it: PulseIterator, ptr0, scratch0, *, max_iters: int,
-                     k_local: int, compact: bool, schedule: str, fabric: str) -> ExecResult:
+                     k_local: int, compact: bool, fused: bool, schedule: str,
+                     fabric: str) -> ExecResult:
         """Write path: run a mutating iterator and swap the engine's arena to
         the post-commit state.
 
@@ -356,6 +380,7 @@ class PulseEngine:
         S = it.scratch_words
         trace = None
         if self.mesh is not None and self.arena.num_shards > 1:
+            schedule = self._resolve_schedule(it, schedule, fused, k_local)
             rec, stats, new_arena = routing.distributed_execute(
                 it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
                 k_local=k_local, compact=compact, schedule=schedule, fabric=fabric,

@@ -112,10 +112,16 @@ def step_batch(
     iters: torch.Tensor,  # (B,) int32
     *,
     max_iters: int,
-    local_lo: int = 0,
-    local_hi: int | None = None,
+    local_lo: int | torch.Tensor = 0,
+    local_hi: int | torch.Tensor | None = None,
     perm_ok: torch.Tensor | bool = True,
     logic_fn=None,
+    rep_data: torch.Tensor | None = None,
+    rep_lo: int | torch.Tensor = 0,
+    rep_hi: int | torch.Tensor = 0,
+    rep_base: int | torch.Tensor = 0,
+    rep_on: torch.Tensor | bool = False,
+    rep_perm_ok: torch.Tensor | bool = True,
 ):
     """Advance every ACTIVE request by one iteration.
 
@@ -125,19 +131,37 @@ def step_batch(
 
     ``logic_fn`` optionally substitutes a batched fused next+end body
     (``kernels.pulse_chase.ops.iterator_logic``) with identical done-gating.
+
+    ``rep_data``/``rep_lo``/``rep_hi`` declare a second servable range: the
+    replica rows this executor holds for another shard (read fan-out).
+    When ``rep_on`` is true a record whose pointer lies in ``[rep_lo,
+    rep_hi)`` is chased from ``rep_data`` at row ``ptr - rep_lo +
+    rep_base`` under the primary's grant ``rep_perm_ok``; replicas are
+    bit-identical to their primary, so the copy that served a read never
+    changes its result.
     """
     if local_hi is None:
         local_hi = arena_data.shape[0]
-    local = (ptr >= local_lo) & (ptr < local_hi)
+    own = (ptr >= local_lo) & (ptr < local_hi)
+    if rep_data is not None:
+        rep = torch.as_tensor(rep_on, device=ptr.device) & (ptr >= rep_lo) & (ptr < rep_hi)
+    else:
+        rep = torch.zeros_like(own)
+    local = own | rep
     null = ptr == NULL
     active = status == STATUS_ACTIVE
 
-    grant = torch.as_tensor(perm_ok, dtype=torch.bool, device=ptr.device)
+    # a replica-served record checks the primary's grant
+    grant = torch.where(rep, torch.as_tensor(rep_perm_ok, device=ptr.device),
+                        torch.as_tensor(perm_ok, dtype=torch.bool, device=ptr.device))
     fault = active & local & ~grant & ~null
     runnable = active & local & ~fault & ~null
 
     offset = ptr - local_lo
-    node = load_node(arena_data, torch.where(runnable, offset, 0))
+    node = load_node(arena_data, torch.where(runnable & own, offset, 0))
+    if rep_data is not None:
+        rep_node = load_node(rep_data, torch.where(runnable & rep, ptr - rep_lo + rep_base, 0))
+        node = torch.where(rep[:, None], rep_node, node)
     if logic_fn is not None:
         done, nptr, nscr = logic_fn(node, ptr, scratch)
         new_ptr = torch.where(done, ptr, nptr).to(torch.int32)

@@ -35,24 +35,30 @@ Record wire format (R = 6 + S [+ 4 + W] int32 words):
    m_op, m_tgt, m_mask, m_expect, m_data...]
 The mutation payload exists only for mutating iterators.
 
-Ported: the read and the write path on every schedule and fabric (ROADMAP
-queue 1, items 6(a)-(c)).  The JAX package's resident-arena cache
-(``_resident_arena``) has no counterpart: on one card the arena already
-lives on the mesh's device, and a read runner captures its tensors.
-Replication and fabric faults are 6(d) and raise ``NotImplementedError``
-naming it.
+Fault injection and replication (item 6(d)) as in the JAX package:
+fabric loss parks a record under a seeded mask (``_drop_mask``, the JAX
+package's threefry bits, ``core.prng``) and sends it again next superstep,
+on every schedule; a straggler shard sleeps on the dispatched schedule in
+the supersteps it serves; a ``ReplicaContext`` (read path, dispatched
+schedule) redirects reads bound for a dead (or spread-balanced) primary to
+the shard holding its replica, which chases them from its replica rows
+(on the card in the same ``pulse_chase`` launch, its replica window).
+
+Ported: items 6(a)-(d) of ROADMAP queue 1.  The JAX package's
+resident-arena cache (``_resident_arena``) has no counterpart: on one card
+the arena already lives on the mesh's device, and a read runner captures
+its tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
 import weakref
 
 import numpy as np
 import torch
 
-from repro_torch.core import translation
+from repro_torch.core import prng, translation
 from repro_torch.core.arena import (
     H_COMMITS,
     H_EPOCH,
@@ -82,10 +88,6 @@ def record_width(scratch_words: int, mut_words: int = 0) -> int:
     return F_SCRATCH + scratch_words + mut_words
 
 
-def _later(item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with ROADMAP queue 1, item {item}")
-
-
 def _check_fabric(fabric: str) -> None:
     if fabric not in ("dense", "ring"):
         raise ValueError(f"unknown fabric {fabric!r}")
@@ -105,12 +107,142 @@ class EmulatedMesh:
             raise ValueError(f"a mesh needs at least one shard, got {self.num_shards}")
 
 
+@dataclasses.dataclass(frozen=True)
+class ReplicaPlan:
+    """Static hot-shard replication wiring (R = 2) for the READ path.
+
+    ``primary_map[r]`` names the primary shard whose rows replica holder
+    ``r`` mirrors (-1: r holds no replica); ``replica_map[p]`` is the
+    inverse (-1: p is unreplicated).  Both are tuples, so a plan is
+    hashable.
+
+    ``policy`` is the read fan-out rule the switch applies per record:
+
+      * ``"primary"``: never redirect (replicas are cold standbys);
+      * ``"failover"``: redirect a read to the replica only while the
+        primary is marked dead in ``dead_mask``;
+      * ``"spread"``: odd request ids read from the replica, even ids from
+        the primary (dead primaries always redirect).  Replicas are
+        bit-identical by construction, so the copy that serves a read never
+        changes its result.
+    """
+
+    primary_map: tuple
+    replica_map: tuple
+    policy: str = "failover"
+
+    def __post_init__(self):
+        if self.policy not in ("primary", "failover", "spread"):
+            raise ValueError(f"unknown replica policy {self.policy!r}")
+        if len(self.primary_map) != len(self.replica_map):
+            raise ValueError("primary_map / replica_map length mismatch")
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.primary_map)
+
+    @property
+    def replicated(self) -> tuple:
+        """Primaries that have a replica."""
+        return tuple(p for p, r in enumerate(self.replica_map) if r >= 0)
+
+
+def make_replica_plan(num_shards: int, primaries=None, *, policy: str = "failover") -> ReplicaPlan:
+    """An R = 2 plan: primary ``p``'s rows are mirrored on shard ``(p +
+    num_shards // 2) % num_shards`` (the antipode: a correlated failure of
+    neighbours never takes both copies).  ``primaries`` defaults to every
+    shard; each holder mirrors at most one primary."""
+    if primaries is None:
+        primaries = range(num_shards)
+    primary_map = [-1] * num_shards
+    replica_map = [-1] * num_shards
+    for p in primaries:
+        r = (p + max(1, num_shards // 2)) % num_shards
+        if primary_map[r] != -1:
+            raise ValueError(f"replica holder {r} already mirrors shard {primary_map[r]}")
+        primary_map[r] = int(p)
+        replica_map[p] = int(r)
+    return ReplicaPlan(tuple(primary_map), tuple(replica_map), policy)
+
+
+@dataclasses.dataclass
+class ReplicaContext:
+    """Per-call replication operands of ``distributed_execute``.
+
+    ``rep_rows`` has the arena's layout ``(capacity, node_words)``: holder
+    ``r``'s rows ``[bounds[r], bounds[r + 1])`` are a copy of
+    ``primary_map[r]``'s rows (zeros when r holds none), so each shard
+    stores at most one other shard's rows, the R = 2 memory budget.
+    ``dead_mask`` ``(P,)`` is the failure detector's verdict for this call.
+    Either may be a numpy array or a tensor; both go to the arena's device
+    as operands, so one build of a superstep serves healthy and degraded
+    rounds."""
+
+    plan: ReplicaPlan
+    rep_rows: object  # (capacity, node_words) int32
+    dead_mask: object  # (P,) bool
+
+
+def _rep_operands(replication: ReplicaContext, data: torch.Tensor, P: int):
+    """``(rep, rep_ctx)`` of a call over the arena rows ``data`` of ``P``
+    shards, on their device: ``rep = (rep_rows, primary_map, dead_mask,
+    policy)`` for the local chase and ``rep_ctx = (replica_map, dead_mask,
+    policy)`` for the switch."""
+    dev, plan = data.device, replication.plan
+    rows = torch.as_tensor(replication.rep_rows, dtype=torch.int32).to(dev).contiguous()
+    dead = torch.as_tensor(replication.dead_mask, dtype=torch.bool).to(dev).contiguous()
+    if plan.num_shards != P or tuple(dead.shape) != (P,):
+        raise ValueError(f"a replica plan of {plan.num_shards} shards and a dead mask of "
+                         f"shape {tuple(dead.shape)} for an arena of {P} shards")
+    if rows.shape != data.shape:
+        raise ValueError(f"replica rows {tuple(rows.shape)} do not have the arena's layout "
+                         f"{tuple(data.shape)}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    primary = torch.tensor(plan.primary_map, **i32)
+    replica = torch.tensor(plan.replica_map, **i32)
+    return (rows, primary, dead, plan.policy), (replica, dead, plan.policy)
+
+
 def _serve_shard(owner, rec_id, rep_ctx):
     """The switch's serve map: which shard answers a read at ``owner``'s
-    range.  Identity; the replica fan-out is item 6(d)."""
-    if rep_ctx is not None:
-        raise _later("6(d)", "the replica serve map (ReplicaContext)")
-    return owner
+    range under the fan-out policy, elementwise.  Identity when
+    replication is off."""
+    if rep_ctx is None:
+        return owner
+    replica_arr, dead_mask, policy = rep_ctx
+    num = replica_arr.shape[0]
+    safe = owner.clamp(0, num - 1).long()
+    alt = replica_arr[safe]
+    # a dead replica holder is no fallback: its copy died with it
+    has_alt = (alt >= 0) & (owner >= 0) & ~dead_mask[alt.clamp(0, num - 1).long()]
+    dead = dead_mask[safe]
+    if policy == "spread":
+        redirect = has_alt & (dead | (rec_id % 2 == 1))
+    elif policy == "failover":
+        redirect = has_alt & dead
+    else:  # "primary"
+        redirect = torch.zeros_like(has_alt)
+    return torch.where(redirect, alt, owner).to(torch.int32)
+
+
+def replica_windows(rep, bounds, perms):
+    """Each shard's replica window under ``rep = (rep_rows, primary_map,
+    dead_mask, policy)``, as ``(P,)`` tensors ``(own_hi, rep_lo, rep_hi,
+    rep_on, rep_perm_ok)``: shard ``s`` serves ``p = primary_map[s]``'s
+    range ``[rep_lo, rep_hi)`` while ``rep_on`` (always under ``"spread"``,
+    only while ``p`` is dead under the other policies, never while ``s`` is
+    dead) under ``p``'s read grant ``rep_perm_ok``; a dead shard's own range
+    ``[bounds[s], own_hi)`` is empty.  The plain versions of the superstep
+    (``_local_superstep``'s reference backend, ``chase_superstep_reference``)
+    read it; the kernel stages the same words in shared memory."""
+    _, primary, dead, policy = rep
+    ps = primary.clamp(0, primary.shape[0] - 1).long()
+    on = (primary >= 0) & ~dead
+    if policy != "spread":
+        on = on & dead[ps]
+    probe = translation.access_table(perms, PERM_READ)
+    own_hi = torch.where(dead, bounds[:-1], bounds[1:])
+    return own_hi, bounds[ps], bounds[ps + 1], on, probe[ps]
 
 
 def pack_requests(ids, home, ptr, scratch, mut_words: int = 0) -> torch.Tensor:
@@ -260,6 +392,7 @@ def _local_superstep(
     backend: str = "kernel",
     elide_access_check: bool = False,
     edges=None,
+    rep=None,
 ):
     """Run up to ``k_local`` iterations for every shard's locally-owned
     ACTIVE records; returns the new pools.
@@ -277,29 +410,44 @@ def _local_superstep(
 
     ``edges`` (the reference backend) is ``bounds`` read on the host ahead
     of time, so that a captured superstep reads nothing on the host.
+
+    ``rep = (rep_rows, primary_map, dead_mask, policy)`` (device tensors and
+    the ``ReplicaPlan`` policy) adds each holder's replica window: shard
+    ``s`` also chases records whose pointer lies in ``primary_map[s]``'s
+    range (always under ``"spread"``, only while that primary is dead
+    under the other policies, never while ``s`` is dead), reading
+    ``rep_rows`` under the primary's read grant; a dead shard's own range
+    collapses to nothing.  The access check is never elided on that
+    window.
     """
     if backend == "kernel":
         from repro_torch.kernels.pulse_chase import ops as chase_ops
 
         return chase_ops.pulse_chase_superstep(
             arena_data, pools, bounds, perms, logic_fn=chase_ops.iterator_logic(it),
-            k_local=k_local, max_iters=max_iters, elide_access_check=elide_access_check)
+            k_local=k_local, max_iters=max_iters, elide_access_check=elide_access_check,
+            rep=rep)
     if backend != "reference":
         raise ValueError(f"unknown local backend {backend!r}")
     S = it.scratch_words
     if edges is None:
         edges = bounds.tolist()
-    granted = translation.access_table(perms, PERM_READ)
-    if elide_access_check:
-        granted = torch.ones_like(granted)
+    probe = translation.access_table(perms, PERM_READ)
+    granted = torch.ones_like(probe) if elide_access_check else probe
+    windows = replica_windows(rep, bounds, perms) if rep is not None else None
     out = pools.clone()
     for s, pool in enumerate(out):
         lo, hi = int(edges[s]), int(edges[s + 1])
+        kw = dict(local_hi=hi)
+        if rep is not None:
+            own_hi, rep_lo, rep_hi, rep_on, rep_ok = (w[s] for w in windows)
+            kw = dict(local_hi=own_hi, rep_data=rep[0], rep_lo=rep_lo, rep_hi=rep_hi,
+                      rep_base=lo, rep_on=rep_on, rep_perm_ok=rep_ok)
         st = (pool[:, F_PTR], pool[:, F_SCRATCH : F_SCRATCH + S], pool[:, F_STATUS],
               pool[:, F_ITERS])
         for _ in range(k_local):
             st = step_batch(it, arena_data[lo:hi], *st, max_iters=max_iters, local_lo=lo,
-                            local_hi=hi, perm_ok=granted[s])
+                            perm_ok=granted[s], **kw)
         pool[:, F_PTR], pool[:, F_SCRATCH : F_SCRATCH + S] = st[0], st[1]
         pool[:, F_STATUS], pool[:, F_ITERS] = st[2], st[3]
     return out
@@ -365,6 +513,34 @@ def _local_superstep_mut(
     return _commit(pools, data, heap, bounds, perms, scratch_words=S, live=live)
 
 
+def _shard_keys(drop_seed: int, shards: torch.Tensor) -> torch.Tensor:
+    """The loss mask's per-shard keys, ``fold_in(PRNGKey(drop_seed),
+    shard)``: ``(..., 2)`` for ``shards`` of shape ``(...)``."""
+    return prng.fold_in(prng.prng_key(drop_seed, shards.device), shards)
+
+
+def _loss_mask(keys: torch.Tensor, L: int, drop_prob: float, step_idx) -> torch.Tensor:
+    """``(..., L)`` bool: the pool slots lost this superstep, from the
+    per-shard ``keys`` and ``step_idx`` (an int or a device scalar, the
+    supersteps completed).  Only device ops: a device-resident loop keys it
+    on its device counter inside a captured graph."""
+    threshold = torch.tensor(drop_prob, dtype=torch.float32).item()  # compared in float32
+    return prng.uniform(prng.fold_in(keys, step_idx), L) < threshold
+
+
+def _drop_mask(L: int, drop_prob: float, drop_seed: int, my_shard, step_idx) -> torch.Tensor:
+    """Fault-injection fabric loss: each pool slot is independently lost
+    with probability ``drop_prob`` this superstep, the JAX package's
+    ``_drop_mask`` bit for bit (``jax.random.uniform`` under
+    ``fold_in(fold_in(PRNGKey(drop_seed), my_shard), step_idx)``).
+    ``my_shard`` may be a tensor of shard ids: the mask is then ``(...,
+    L)``, one row per shard.  A pure function of (seed, shard, superstep),
+    so a lossy run replays bit for bit.  A dropped record parks on its
+    source shard and is sent again next superstep."""
+    shards = torch.as_tensor(my_shard, dtype=torch.int64)
+    return _loss_mask(_shard_keys(drop_seed, shards), L, drop_prob, step_idx)
+
+
 def _route_decide(
     pools: torch.Tensor,  # (P, L, R)
     bounds: torch.Tensor,
@@ -375,6 +551,8 @@ def _route_decide(
     phys_capacity: int | None = None,
     drain_done: bool = False,
     mut_base: int | None = None,
+    drop_mask: torch.Tensor | None = None,
+    rep_ctx=None,
 ):
     """Switch decision and leaver extraction for every shard at once.
 
@@ -400,6 +578,12 @@ def _route_decide(
     starts: a record with a staged mutation routes to the shard that owns
     its commit target (an ALLOC to its home shard), and an unmappable
     commit target is a switch-level fault that clears the payload.
+
+    ``drop_mask`` ``(P, L)`` (fault injection): a lost record parks in
+    place like capacity overflow and is sent again next superstep; its
+    hops do not advance.  ``rep_ctx = (replica_map, dead_mask, policy)``
+    applies the replica serve map (``_serve_shard``) to ACTIVE reads; a
+    fault is still judged on the raw owner.
     """
     P, L, R = pools.shape
     dev = pools.device
@@ -431,7 +615,7 @@ def _route_decide(
     active = status == STATUS_ACTIVE
     home = pools[..., F_HOME]
 
-    serve = _serve_shard(owner, pools[..., F_ID], None)
+    serve = _serve_shard(owner, pools[..., F_ID], rep_ctx)
     if return_to_cpu:
         stay = active & (owner == me)
         dest = torch.where(stay, me, home)
@@ -455,6 +639,8 @@ def _route_decide(
     pos = torch.cumsum(onehot, dim=2, dtype=torch.int32) - onehot
     pos = torch.gather(pos, 1, dest.clamp(0, num_shards - 1).long()[:, None, :])[:, 0]
     fits = moves & (pos < C)
+    if drop_mask is not None:
+        fits = fits & ~drop_mask
     pools[..., F_HOPS] += fits.to(torch.int32)
 
     # every record has a row of its own: a mover its (source, destination,
@@ -518,31 +704,34 @@ def _route(
     drain_done: bool = False,
     fabric: str = "dense",
     mut_base: int | None = None,
+    drop_mask: torch.Tensor | None = None,
+    rep_ctx=None,
 ):
     """Switch routing: deliver every record to its next shard in one
-    superstep (``_route_decide``'s capacities).  Returns ``(pools,
-    n_routed, n_dropped_valid)``."""
+    superstep (``_route_decide``'s capacities, loss and serve map).
+    Returns ``(pools, n_routed, n_dropped_valid)``."""
     L = pools.shape[1]
     kept, send, n_routed = _route_decide(
         pools, bounds, num_shards, return_to_cpu=return_to_cpu,
         link_capacity=link_capacity, phys_capacity=phys_capacity, drain_done=drain_done,
-        mut_base=mut_base)
+        mut_base=mut_base, drop_mask=drop_mask, rep_ctx=rep_ctx)
     arrivals = _exchange(send, num_shards, fabric=fabric)
     merged, n_dropped = _merge_pools(kept, arrivals, L)
     return merged, n_routed, n_dropped
 
 
-def _remote_active(pools, bounds, mut_base: int | None = None):
+def _remote_active(pools, bounds, mut_base: int | None = None, rep_ctx=None):
     """ACTIVE records their shard cannot serve (owner elsewhere or none),
     summed over shards.  A write-pending record's destination is its commit
     shard (an ALLOC's is its home), so a staged remote write keeps the
-    fabric scheduled even when every pointer is local."""
+    fabric scheduled even when every pointer is local.  Under replication
+    the serve map decides remoteness."""
     P = pools.shape[0]
     me = torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
     active = pools[..., F_STATUS] == STATUS_ACTIVE
     owner = translation.owner_of(bounds, pools[..., F_PTR].contiguous())
     if mut_base is None:
-        owner = _serve_shard(owner, pools[..., F_ID], None)
+        owner = _serve_shard(owner, pools[..., F_ID], rep_ctx)
     else:
         m_op = pools[..., mut_base]
         towner = torch.where(
@@ -553,7 +742,7 @@ def _remote_active(pools, bounds, mut_base: int | None = None):
 
 
 def _switch(pools, bounds, *, return_to_cpu, link_capacity, drain_done, do_route,
-            mut_base, phys_capacity=None, fabric="dense"):
+            mut_base, phys_capacity=None, fabric="dense", drop_mask=None, rep_ctx=None):
     """The switch half of a superstep and its counters, under the profiler
     span ``routing.switch``: ``(pools, n_active, n_routed, n_drop,
     n_remote)``, the counters device scalars."""
@@ -562,11 +751,12 @@ def _switch(pools, bounds, *, return_to_cpu, link_capacity, drain_done, do_route
             pools, n_routed, n_drop = _route(
                 pools, bounds, pools.shape[0], return_to_cpu=return_to_cpu,
                 link_capacity=link_capacity, phys_capacity=phys_capacity,
-                drain_done=drain_done, fabric=fabric, mut_base=mut_base)
+                drain_done=drain_done, fabric=fabric, mut_base=mut_base,
+                drop_mask=drop_mask, rep_ctx=rep_ctx)
         else:
             n_routed = n_drop = torch.zeros((), dtype=torch.int64, device=pools.device)
         n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum()
-        n_remote = _remote_active(pools, bounds, mut_base)
+        n_remote = _remote_active(pools, bounds, mut_base, rep_ctx)
     return pools, n_active, n_routed, n_drop, n_remote
 
 
@@ -586,6 +776,9 @@ def superstep(
     local_backend: str = "kernel",
     elide_access_check: bool = False,
     fabric: str = "dense",
+    rep=None,
+    rep_ctx=None,
+    drop_mask: torch.Tensor | None = None,
 ):
     """One read superstep over all P shards: the local chase, then the
     switch (over ``fabric``).  Returns ``(pools, n_active, n_routed, n_drop, n_remote)``, the
@@ -594,16 +787,19 @@ def superstep(
     ``do_route=False`` is the compacted local-only step: every surviving
     traversal already sits at its owning shard, so the fabric is skipped
     (wire payload 0); it still counts the actives that turned remote.
-    ``local_backend`` is ``_local_superstep``'s backend.  Under
-    ``torch.profiler`` the chase and the switch show as the spans
+    ``local_backend`` is ``_local_superstep``'s backend.  ``rep`` and
+    ``rep_ctx`` (``_rep_operands``) add the replica windows and the serve
+    map; ``drop_mask`` ``(P, L)`` parks the records lost on the fabric.
+    Under ``torch.profiler`` the chase and the switch show as the spans
     ``routing.chase`` and ``routing.switch``.
     """
     with torch.profiler.record_function("routing.chase"):
         pools = _local_superstep(
             it, pools, arena_data, bounds, perms, k_local=k_local, max_iters=max_iters,
-            backend=local_backend, elide_access_check=elide_access_check)
+            backend=local_backend, elide_access_check=elide_access_check, rep=rep)
     return _switch(pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
-                   drain_done=drain_done, do_route=do_route, mut_base=None, fabric=fabric)
+                   drain_done=drain_done, do_route=do_route, mut_base=None, fabric=fabric,
+                   drop_mask=drop_mask, rep_ctx=rep_ctx)
 
 
 def superstep_mut(
@@ -621,19 +817,21 @@ def superstep_mut(
     drain_done: bool = False,
     do_route: bool = True,
     fabric: str = "dense",
+    drop_mask: torch.Tensor | None = None,
 ):
     """One write superstep over all P shards: the chase, every shard's
     commit phase, then the switch, which routes a staged write to the
-    shard that owns its commit target.  ``data`` and ``heap`` are carried
-    state, updated in place.  Returns ``(pools, data, heap, n_active,
-    n_routed, n_drop, n_remote)``; the spans are ``routing.chase``,
-    ``routing.commit`` and ``routing.switch``."""
+    shard that owns its commit target (``drop_mask`` parks the records
+    lost on the fabric).  ``data`` and ``heap`` are carried state, updated
+    in place.  Returns ``(pools, data, heap, n_active, n_routed, n_drop,
+    n_remote)``; the spans are ``routing.chase``, ``routing.commit`` and
+    ``routing.switch``."""
     pools, data, heap = _local_superstep_mut(
         it, pools, data, heap, bounds, perms, k_local=k_local, max_iters=max_iters)
     pools, *counts = _switch(
         pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
         drain_done=drain_done, do_route=do_route, mut_base=F_SCRATCH + it.scratch_words,
-        fabric=fabric)
+        fabric=fabric, drop_mask=drop_mask)
     return pools, data, heap, *counts
 
 
@@ -644,18 +842,43 @@ def make_superstep(
     fabric: str = "dense",
     mutate: bool = False,
     drop_prob: float = 0.0,
-    replication=None,
+    drop_seed: int = 0,
+    replication: ReplicaPlan | None = None,
     **kw,
 ):
     """The JAX package's superstep builder: ``(pools, arena_data, bounds,
-    perms) -> superstep(it, pools, ...)``, or with ``mutate=True`` ``(pools,
-    data, heap, bounds, perms) -> superstep_mut(it, pools, ...)``, with
-    ``fabric`` and ``kw`` (their keywords) bound.  Fabric loss and
-    replication raise, naming item 6(d)."""
-    if drop_prob > 0.0 or replication is not None:
-        raise _later("6(d)", "fabric loss and replication")
+    perms, *extra) -> superstep(it, pools, ...)``, or with ``mutate=True``
+    ``(pools, data, heap, bounds, perms, *extra) -> superstep_mut(it,
+    pools, ...)``, with ``fabric`` and ``kw`` (their keywords) bound.
+
+    ``replication`` (read path only) adds two operands after ``perms``:
+    the replica rows (the arena's layout) and the dead mask ``(P,)``.
+    ``drop_prob > 0`` (fault injection) adds one trailing operand, the
+    superstep index, which keys the loss mask with ``drop_seed``
+    (``_drop_mask``); a local-only superstep (``do_route=False``) takes
+    none."""
+    if replication is not None and mutate:
+        raise ValueError("replication is a read-path feature (writes park)")
     _check_fabric(fabric)
-    return functools.partial(superstep_mut if mutate else superstep, it, fabric=fabric, **kw)
+    inject_drop = drop_prob > 0.0 and kw.get("do_route", True)
+    body = superstep_mut if mutate else superstep
+    n_fixed = 5 if mutate else 4
+
+    def step(*args):
+        fixed, extra = args[:n_fixed], list(args[n_fixed:])
+        call = dict(kw, fabric=fabric)
+        if replication is not None:
+            rows, dead = extra[:2]
+            extra = extra[2:]
+            call["rep"], call["rep_ctx"] = _rep_operands(
+                ReplicaContext(replication, rows, dead), fixed[1], num_shards)
+        if inject_drop:
+            call["drop_mask"] = _drop_mask(fixed[0].shape[1], drop_prob, drop_seed,
+                                           torch.arange(num_shards, device=fixed[0].device),
+                                           extra[0])
+        return body(it, *fixed, **call)
+
+    return step
 
 
 # ------------------------- the device-resident loops --------------------------
@@ -739,7 +962,9 @@ class _DeviceLoop:
     arena); a write runner owns copies of ``data``, ``heap``, ``bounds``
     and ``perms``, loaded each call, and hands back fresh ones.  The
     iteration budget is fixed per runner (``pulse_chase`` takes it by
-    value); ``halt`` is a device scalar loaded each call."""
+    value); ``halt`` is a device scalar loaded each call.  Fabric loss
+    (``drop_prob > 0``) keys its mask on the device counter ``steps``, as
+    the JAX loops key it on theirs."""
 
     _CARRIED = ("pools", "send", "did_route", "n_active", "n_remote", "steps", "routed",
                 "dropped", "cap_counts", "local_only")
@@ -747,7 +972,7 @@ class _DeviceLoop:
     def __init__(self, it: PulseIterator, arena: Arena, *, schedule: str, pool_rows: int,
                  k_local: int, max_iters: int, max_supersteps: int, min_link_capacity: int,
                  return_to_cpu: bool, compact: bool, fabric: str, local_backend: str,
-                 elide_access_check: bool):
+                 elide_access_check: bool, drop_prob: float = 0.0, drop_seed: int = 0):
         P, L, dev = arena.num_shards, pool_rows, arena.data.device
         self.it, self.schedule, self.fabric = it, schedule, fabric
         self.P, self.L, self.base, self.device = P, L, L // P, dev
@@ -759,6 +984,9 @@ class _DeviceLoop:
         self.min_link_capacity, self.return_to_cpu, self.compact = (
             min_link_capacity, return_to_cpu, compact)
         self.local_backend, self.elide = local_backend, elide_access_check
+        self.drop_prob = drop_prob
+        self.drop_keys = (_shard_keys(drop_seed, torch.arange(P, device=dev))
+                          if drop_prob > 0.0 else None)
         self.rungs = capacity_rungs(self.base, min_link_capacity) if compact else (self.base,)
         if self.mutate:
             self.data, self.heap = torch.empty_like(arena.data), torch.empty_like(arena.heap)
@@ -798,6 +1026,12 @@ class _DeviceLoop:
         return _ladder_traced(self.n_active, self.n_remote, num_shards=self.P,
                               base_capacity=self.base,
                               min_link_capacity=self.min_link_capacity, compact=self.compact)
+
+    def _mask(self):
+        """This superstep's loss mask, keyed on the device counter, or None."""
+        if self.drop_keys is None:
+            return None
+        return _loss_mask(self.drop_keys, self.L, self.drop_prob, self.steps)
 
     def _chase(self, pools):
         if self.mutate:
@@ -853,7 +1087,7 @@ class _DeviceLoop:
             routed, n_routed, n_drop = _route(
                 pools, self.bounds, self.P, return_to_cpu=self.return_to_cpu,
                 link_capacity=capacity, phys_capacity=self.base, drain_done=self.compact,
-                fabric=self.fabric, mut_base=self.mut_base)
+                fabric=self.fabric, mut_base=self.mut_base, drop_mask=self._mask())
             pools = torch.where(do_route, routed, pools)
             n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32)
             n_remote = _remote_active(pools, self.bounds, self.mut_base).to(torch.int32)
@@ -882,7 +1116,7 @@ class _DeviceLoop:
             kept, send, n_routed = _route_decide(
                 pool_s, self.bounds, self.P, return_to_cpu=self.return_to_cpu,
                 link_capacity=capacity, phys_capacity=self.base, drain_done=self.compact,
-                mut_base=self.mut_base)
+                mut_base=self.mut_base, drop_mask=self._mask())
             kept = torch.where(do_route, kept, pool_s)
             send = torch.where(do_route, send, self.empty_send)
             n_active = ((kept[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32)
@@ -978,19 +1212,20 @@ def get_fused_runner(it: PulseIterator, arena: Arena, *, schedule: str = "fused"
                      pool_rows: int, k_local: int, max_iters: int, max_supersteps: int,
                      min_link_capacity: int, return_to_cpu: bool, compact: bool,
                      fabric: str = "dense", local_backend: str = "reference",
-                     elide_access_check: bool = False) -> _DeviceLoop:
+                     elide_access_check: bool = False, drop_prob: float = 0.0,
+                     drop_seed: int = 0) -> _DeviceLoop:
     """The cached device-resident loop (``_DeviceLoop``) for one key: the
     iterator, the device, the schedule's knobs, the iteration budget, the
     pool's rows, and for a read batch the arena itself (a captured graph
     holds its tensors' addresses; the entry goes when the arena dies), for
     a write batch the arena's shapes (the runner loads ``data`` and
-    ``heap`` each call)."""
+    ``heap`` each call), and the fabric loss's probability and seed."""
     mutate = it.mutates
     ident = ((tuple(arena.data.shape), tuple(arena.heap.shape)) if mutate
              else id(arena))
     key = (it, str(arena.data.device), ident, arena.num_shards, pool_rows, schedule, k_local,
            max_iters, max_supersteps, min_link_capacity, return_to_cpu, compact, fabric,
-           local_backend, elide_access_check)
+           local_backend, elide_access_check, drop_prob, drop_seed)
     runner = _FUSED_CACHE.get(key)
     if runner is not None:
         CACHE_STATS.hits += 1
@@ -1000,7 +1235,8 @@ def get_fused_runner(it: PulseIterator, arena: Arena, *, schedule: str = "fused"
         it, arena, schedule=schedule, pool_rows=pool_rows, k_local=k_local,
         max_iters=max_iters, max_supersteps=max_supersteps,
         min_link_capacity=min_link_capacity, return_to_cpu=return_to_cpu, compact=compact,
-        fabric=fabric, local_backend=local_backend, elide_access_check=elide_access_check)
+        fabric=fabric, local_backend=local_backend, elide_access_check=elide_access_check,
+        drop_prob=drop_prob, drop_seed=drop_seed)
     if not mutate:
         weakref.finalize(arena, _FUSED_CACHE.pop, key, None)
     return runner
@@ -1047,11 +1283,21 @@ def distributed_execute(
     fabric: str = "dense",
     local_backend: str | None = None,
     fault_injector=None,
-    replication=None,
+    replication: ReplicaContext | None = None,
     elide_access_check: bool | None = None,
 ):
     """Run a batch of traversals over a range-partitioned arena on a mesh
     of P memory nodes emulated on the arena's device.
+
+    ``replication`` (read path, dispatched schedule) threads a
+    ``ReplicaContext`` through every superstep: the serve map redirects
+    reads bound for dead (or spread-balanced) primaries to their replica
+    holders, which chase them from their replica rows (on the card in the
+    same ``pulse_chase`` launch: its replica window).  Replicas are
+    bit-identical by construction, so the final ``(ptr, scratch, status,
+    iters)`` equal the failure-free run's; only ``hops`` and superstep
+    counts may differ.  A dead shard with no replica cannot serve its
+    range.
 
     ``schedule`` picks the superstep engine (``fused=True`` is the JAX
     package's boolean shorthand for ``"fused"``); all three give the same
@@ -1086,7 +1332,8 @@ def distributed_execute(
     (its plain version on the CPU); the input arena is never modified, so a
     kill from ``fault_injector`` leaves it as it was.  It refuses, as the
     JAX package does, ``return_to_cpu``, the kernel local backend,
-    ``replication`` and ``elide_access_check=True``.
+    ``replication`` and ``elide_access_check=True``.  ``replication``
+    refuses ``return_to_cpu`` and the device-resident schedules too.
 
     ``compact=True`` enables active-set compaction: finished records retire
     in place (``drain_done``); the per-link capacity follows a power-of-two
@@ -1097,13 +1344,20 @@ def distributed_execute(
     schedule; only ``crossings`` differ.  ``compact`` is ignored under
     ``return_to_cpu`` (the home bounce is the ablation).
 
-    ``fault_injector`` (the JAX package's ``FaultInjector`` interface:
-    ``begin_call``, ``kill_step``, ``fire``, ``plan``): a targeted kill
-    fires before the named (1-based) superstep; a device-resident loop
-    halts there (``halt``, a device scalar) and the host fires it.
+    ``fault_injector`` (``core.faults.FaultInjector``, test-only): a
+    targeted kill fires before the named (1-based) superstep (a
+    device-resident loop halts there, ``halt`` a device scalar, and the
+    host fires it); fabric loss parks each routed record under the seeded
+    mask (``_drop_mask``, keyed on the supersteps completed) on every
+    schedule; a straggler shard sleeps ``delay_s`` before each dispatched
+    superstep in which it serves work (an ACTIVE record points into its
+    range and no replica serves in its place), the one case in which the
+    host reads the pools.
 
-    ``elide_access_check=None`` auto-specializes (``can_elide_access_check``);
-    ``False`` keeps the probe; ``True`` asserts the caller's own proof.
+    ``elide_access_check=None`` auto-specializes (``can_elide_access_check``,
+    never under replication); ``False`` keeps the probe; ``True`` asserts
+    the caller's own proof and raises for a mutating iterator or under
+    replication.
 
     Under ``torch.profiler`` the placement, each superstep (its one read of
     the counters included) and the decode show as the spans
@@ -1118,15 +1372,16 @@ def distributed_execute(
     Returns ``(records, RoutingStats)``, plus the post-commit ``Arena`` on
     the input's device for a mutating iterator: the records a ``(B, R)``
     int32 tensor on the arena's device, ordered by request id.
-    Replication, fabric loss and stragglers are item 6(d).
     """
     kill_at = None
+    delay_s, delay_shard = 0.0, None
+    drop_prob, drop_seed = 0.0, 0
     if fault_injector is not None:
-        plan = getattr(fault_injector, "plan", None)
-        if plan is not None and (getattr(plan, "drop_prob", 0.0) > 0.0
-                                 or getattr(plan, "delay_shard", None) is not None):
-            raise _later("6(d)", "injected fabric loss and straggler delays")
         kill_at = fault_injector.kill_step(fault_injector.begin_call())
+        plan = fault_injector.plan
+        drop_prob, drop_seed = float(plan.drop_prob), int(plan.drop_seed)
+        if plan.delay_shard is not None:
+            delay_s, delay_shard = float(plan.delay_s), int(plan.delay_shard)
     if schedule is None:
         schedule = "fused" if fused else "dispatched"
     if schedule not in ("dispatched", "fused", "pipelined"):
@@ -1146,8 +1401,13 @@ def distributed_execute(
             raise ValueError(
                 "replication serves the READ path only: writes to a dead shard park "
                 "under backoff until recovery rebuilds it")
-        raise _later("6(d)", "replicated reads (ReplicaContext)")
-    if mutate and elide_access_check:
+        if return_to_cpu:
+            raise ValueError("replication is incompatible with the return_to_cpu ablation")
+        if schedule in ("fused", "pipelined"):
+            raise ValueError(
+                "replication runs on the dispatched schedule (results are "
+                "schedule-invariant, so degraded rounds fall back to it)")
+    if elide_access_check and (mutate or replication is not None):
         raise ValueError(
             "elide_access_check=True is only sound for verified read-only traversals "
             "without replication")
@@ -1157,7 +1417,9 @@ def distributed_execute(
     if local_backend not in ("kernel", "reference"):
         raise ValueError(f"unknown local_backend {local_backend!r}")
     if elide_access_check is None:
-        elide_access_check = can_elide_access_check(it, arena)
+        # a replicated round keeps the probe: the replica window checks the
+        # primary's grant, and degraded-mode perms may change between rounds
+        elide_access_check = replication is None and can_elide_access_check(it, arena)
     num_shards = arena.num_shards
     if mesh.num_shards != num_shards:
         raise ValueError(f"arena has {num_shards} shards but the mesh has {mesh.num_shards}")
@@ -1182,7 +1444,7 @@ def distributed_execute(
             max_iters=min(max_iters, (1 << 31) - 1), max_supersteps=max_supersteps,
             min_link_capacity=min_link_capacity, return_to_cpu=return_to_cpu,
             compact=compact, fabric=fabric, local_backend=local_backend,
-            elide_access_check=elide_access_check)
+            elide_access_check=elide_access_check, drop_prob=drop_prob, drop_seed=drop_seed)
         # an armed kill caps the loop at kill_at - 1 supersteps
         halt = kill_at - 1 if kill_at is not None else max_supersteps
         pools, flags = runner.run(pools, halt, arena)
@@ -1218,6 +1480,18 @@ def distributed_execute(
         # the arena is the value being transformed: this call's private copies
         data, heap = arena.data.clone(), arena.heap.clone()
         epochs0, commits0 = heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
+    rep = rep_ctx = drop_keys = None
+    if replication is not None:
+        rep, rep_ctx = _rep_operands(replication, arena.data, num_shards)
+    if drop_prob > 0.0:
+        drop_keys = _shard_keys(drop_seed, torch.arange(num_shards, device=dev))
+    if delay_s > 0.0:
+        dlo, dhi = arena.bounds[delay_shard : delay_shard + 2].tolist()
+        # a replicated straggler, alive, still serves its reads; dead, its
+        # replica serves them and it costs no one anything
+        delay_serves = not (replication is not None
+                            and replication.plan.replica_map[delay_shard] >= 0
+                            and bool(torch.as_tensor(replication.dead_mask)[delay_shard]))
     routed_per_step, active_per_step = [], []
     wire_words_per_step, capacity_per_step = [], []
     local_only_steps = 0
@@ -1228,12 +1502,21 @@ def distributed_execute(
         # an injected shard death fires before the targeted (1-based) superstep
         if kill_at is not None and steps + 1 >= kill_at:
             fault_injector.fire(steps + 1)
+        if delay_s > 0.0 and delay_serves:
+            # the straggler extends the barrier only on supersteps in which
+            # it serves work: an ACTIVE record points into its range
+            ptrs = pools[..., F_PTR]
+            if bool(((pools[..., F_STATUS] == STATUS_ACTIVE) & (ptrs >= dlo)
+                     & (ptrs < dhi)).any()):
+                time.sleep(delay_s)
         capacity, do_route = _ladder(n_active, n_remote, num_shards=num_shards,
                                      base_capacity=base_capacity,
                                      min_link_capacity=min_link_capacity, compact=compact)
         route_kw = dict(k_local=k_local, max_iters=max_iters, return_to_cpu=return_to_cpu,
                         link_capacity=capacity if compact else None, drain_done=compact,
-                        do_route=do_route, fabric=fabric)
+                        do_route=do_route, fabric=fabric,
+                        drop_mask=(_loss_mask(drop_keys, L, drop_prob, steps)
+                                   if drop_keys is not None and do_route else None))
         with torch.profiler.record_function("routing.superstep"):
             if mutate:
                 pools, data, heap, *counts = superstep_mut(
@@ -1242,7 +1525,7 @@ def distributed_execute(
                 pools, *counts = superstep(
                     it, pools, arena.data, arena.bounds, arena.perms,
                     local_backend=local_backend, elide_access_check=elide_access_check,
-                    **route_kw)
+                    rep=rep, rep_ctx=rep_ctx, **route_kw)
             # the dispatched schedule reads the device once per superstep
             with torch.profiler.record_function("routing.counters"):
                 n_active, n_routed, n_drop, n_remote = torch.stack(counts).tolist()

@@ -41,6 +41,14 @@
 //     lane leaves its loop only once nothing can change it: it is no longer
 //     active, or its pointer is another shard's and its budget is not
 //     spent.  The semantics of ref.chase_superstep_reference.
+//     With replica rows (rep_rows, replicated reads), shard s also serves a
+//     second window: the range of primary_map[s], whose rows it holds at
+//     rep_rows[bounds[s] + (ptr - bounds[primary])], while the policy
+//     spreads reads or that primary is marked dead (never while s itself is
+//     dead), under the primary's grant; a dead shard's own range is empty.
+//     The window sits in the row's address and in the test of locality, so
+//     every body takes it unchanged; without replica rows the lane is
+//     compiled without it.
 //
 // What bounds it on this card: every step of a lane is a gather whose
 // address depends on the previous step's result, so a lane is a chain of
@@ -96,6 +104,9 @@ struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
   int* next_lane;          // work counter (zeroed by the launcher)
   const int* pool_in;      // superstep: (B, R) request records
   int* pool_out;
+  const int* rep_rows;     // superstep, replicated reads: (cap, W) replica rows, or null
+  const int* primary_map;  // (n_perms,) the primary whose rows each shard holds, or -1
+  const unsigned char* dead_mask;  // (n_perms,) shards marked dead
   int cap, W, T, B, S;
   int num_steps;           // steps (fixed depth, superstep) or the budget (run)
   int quantum;             // run: a fault check every `quantum` iterations
@@ -108,6 +119,7 @@ struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
   int L;                   // superstep: records of one shard's pool
   int max_iters;           // superstep: a lane's iteration budget
   int elide;               // superstep: 1 when every shard's grant is known true
+  int rep_spread;          // replicated reads: 1 under the "spread" policy
 };
 
 namespace {
@@ -517,33 +529,46 @@ __device__ __forceinline__ void run_lane(Body& body, const ChaseArgs& a, const i
 }
 
 // One superstep of one record (mode 2): iterator.step_batch, k_local times,
-// over the record's shard's range.  Every word of the record is copied
-// through; ptr, status, iters and the scratch pad are written as they end.
-template <class Body>
+// over the record's shard's range (and, with kRep, its replica window:
+// s_rep holds four words a shard, [own hi, window lo, window hi, flags],
+// flags bit 0 the window is on, bit 1 the primary grants the read).  Every
+// word of the record is copied through; ptr, status, iters and the scratch
+// pad are written as they end.
+template <bool kRep, class Body>
 __device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
                                                const int* s_bounds, const int* s_perms,
-                                               bool vec, int lane) {
+                                               const int* s_rep, bool vec, int lane) {
   const int* __restrict__ rec = a.pool_in + static_cast<size_t>(lane) * a.R;
   int* __restrict__ out = a.pool_out + static_cast<size_t>(lane) * a.R;
   for (int j = 0; j < a.R; ++j) out[j] = rec[j];
   int st = rec[kRecStatus];
   if (st != kActive) return;
   const int shard = lane / a.L;
-  const int lo = s_bounds[shard], hi = s_bounds[shard + 1];
+  const int lo = s_bounds[shard];
   const bool granted = a.elide != 0 || (s_perms[shard] & a.need) == a.need;
+  int hi = s_bounds[shard + 1], rep_lo = 0, rep_hi = 0, flags = 0;
+  if constexpr (kRep) {
+    hi = s_rep[4 * shard];
+    rep_lo = s_rep[4 * shard + 1];
+    rep_hi = s_rep[4 * shard + 2];
+    flags = s_rep[4 * shard + 3];
+  }
   int p = rec[kRecPtr];
   int iters = rec[kRecIters];
   body.begin(rec + kRecScratch);
   for (int k = 0; k < a.num_steps && st == kActive; ++k) {
     const bool null_ptr = p == kNull;
-    const bool local = p >= lo && p < hi;
+    const bool in_rep = kRep && (flags & 1) && p >= rep_lo && p < rep_hi;
+    const bool local = in_rep || (p >= lo && p < hi);
     // another shard's pointer, budget left: the router moves it, unchanged
     if (!local && !null_ptr && iters < a.max_iters) break;
     if (local && !null_ptr) {
-      if (!granted) {
+      if (!(in_rep ? (flags & 2) != 0 : granted)) {
         st = kFault;
       } else {
-        const int* row = a.arena + static_cast<size_t>(clampi(p, 0, a.cap - 1)) * a.W;
+        const int* row =
+            in_rep ? a.rep_rows + static_cast<size_t>(clampi(p - rep_lo + lo, 0, a.cap - 1)) * a.W
+                   : a.arena + static_cast<size_t>(clampi(p, 0, a.cap - 1)) * a.W;
         int np;
         const bool done = body.step(row, vec, p, np);
         if (!done) p = np;
@@ -566,20 +591,38 @@ __global__ void __launch_bounds__(kThreads) chase_kernel(const ChaseArgs a) {
   int4* s_code = smem;  // the program's rows, decoded
   int* s_bounds = reinterpret_cast<int*>(smem + a.T);
   int* s_perms = s_bounds + a.n_bounds;
-  int* room = s_perms + a.n_perms;
+  const bool superstep = a.mode == kSuperstep;
+  const bool rep = superstep && a.rep_rows != nullptr;
+  int* s_rep = s_perms + a.n_perms;  // replicated reads: 4 words a shard
+  int* room = s_rep + (rep ? 4 * a.n_perms : 0);
   for (int i = threadIdx.x; i < a.T; i += kThreads) s_code[i] = decode_row(a.code + 4 * i, a.W, a.S);
   for (int i = threadIdx.x; i < a.n_bounds; i += kThreads) s_bounds[i] = a.bounds[i];
   for (int i = threadIdx.x; i < a.n_perms; i += kThreads) s_perms[i] = a.perms[i];
+  if (rep) {
+    for (int s = threadIdx.x; s < a.n_perms; s += kThreads) {
+      const int prim = a.primary_map[s];
+      const int ps = clampi(prim, 0, a.n_perms - 1);
+      const bool dead = a.dead_mask[s] != 0;
+      const bool on = prim >= 0 && !dead && (a.rep_spread != 0 || a.dead_mask[ps] != 0);
+      const bool ok = (a.perms[ps] & a.need) == a.need;
+      s_rep[4 * s] = dead ? a.bounds[s] : a.bounds[s + 1];  // a dead shard serves none of its own
+      s_rep[4 * s + 1] = a.bounds[ps];
+      s_rep[4 * s + 2] = a.bounds[ps + 1];
+      s_rep[4 * s + 3] = (on ? 1 : 0) | (ok ? 2 : 0);
+    }
+  }
   __syncthreads();
 
   Body body(a, s_code, room);
-  const bool vec = (a.W % 4 == 0) && (reinterpret_cast<uintptr_t>(a.arena) % 16 == 0);
+  const bool vec = (a.W % 4 == 0) && (reinterpret_cast<uintptr_t>(a.arena) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(a.rep_rows) % 16 == 0);
   int lane = blockIdx.x * kThreads + threadIdx.x;
   const int resident = gridDim.x * kThreads;
-  const bool superstep = a.mode == kSuperstep;
   while (lane < a.B) {
-    if (superstep)
-      superstep_lane(body, a, s_bounds, s_perms, vec, lane);
+    if (rep)
+      superstep_lane<true>(body, a, s_bounds, s_perms, s_rep, vec, lane);
+    else if (superstep)
+      superstep_lane<false>(body, a, s_bounds, s_perms, nullptr, vec, lane);
     else
       run_lane(body, a, s_bounds, s_perms, vec, lane);
     if (a.next_lane == nullptr) break;
@@ -587,10 +630,11 @@ __global__ void __launch_bounds__(kThreads) chase_kernel(const ChaseArgs a) {
   }
 }
 
-// shared memory of one block: the program, the fault table and, for the
-// interpreter, its registers, scratch pads and node rows
+// shared memory of one block: the program, the fault table, the replica
+// windows and, for the interpreter, its registers, scratch pads and node rows
 size_t smem_bytes(bool isa, const ChaseArgs& a) {
   size_t words = static_cast<size_t>(a.n_bounds) + a.n_perms;
+  if (a.mode == kSuperstep && a.rep_rows != nullptr) words += static_cast<size_t>(4) * a.n_perms;
   if (isa) words += static_cast<size_t>(4) * a.T + static_cast<size_t>(kNumRegs + a.S + a.W) * kThreads;
   return words * sizeof(int);
 }

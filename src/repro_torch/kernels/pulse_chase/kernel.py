@@ -153,10 +153,10 @@ class ChaseArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "arena", "code", "ptr_in", "scr_in", "st_in", "it_in", "ptr_out", "scr_out",
         "st_out", "it_out", "faulted_out", "bounds", "perms", "next_lane", "pool_in",
-        "pool_out")] + [
+        "pool_out", "rep_rows", "primary_map", "dead_mask")] + [
         (n, ctypes.c_int) for n in (
             "cap", "W", "T", "B", "S", "num_steps", "quantum", "mode", "n_bounds", "n_perms",
-            "check_cap", "need", "R", "L", "max_iters", "elide")]
+            "check_cap", "need", "R", "L", "max_iters", "elide", "rep_spread")]
 
 
 MODE_FIXED, MODE_RUN, MODE_SUPERSTEP = 0, 1, 2  # ChaseArgs.mode
@@ -261,12 +261,15 @@ launch.last_grid = 0  # blocks of the last launch (the card's resident blocks, o
 
 
 def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: str = "isa",
-                     scratch_words: int, max_iters: int, elide: bool):
+                     scratch_words: int, max_iters: int, elide: bool, rep=None):
     """Launch one routing superstep (mode 2) on PyTorch's current stream:
     ``k_local`` steps of every record of ``pool`` ((P, L, R) int32, shard
     ``s``'s records at ``pool[s]``) over the rows of its shard, ``bounds``
     ((P + 1,) shard bases) and ``perms`` ((P,) permission bits; a shard
     reads when it grants PERM_READ, or always with ``elide``) on the card.
+    ``rep = (rep_rows, primary_map, dead_mask, policy)`` (replicated
+    reads: (cap, W) int32 rows in the arena's layout, (P,) int32, (P,)
+    bool, the ``ReplicaPlan`` policy) adds each shard's replica window.
     Returns the new pool; reads nothing on the host and does not
     synchronise.  An empty pool raises: every call launches."""
     dev = arena.device
@@ -297,6 +300,21 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
     a.arena, a.code = arena.data_ptr(), code.data_ptr() if body == "isa" else None
     a.bounds, a.perms = bounds.data_ptr(), perms.data_ptr()
     a.pool_in, a.pool_out = pool.data_ptr(), out.data_ptr()
+    if rep is not None:
+        rep_rows, primary, dead, policy = rep
+        for name, t, nd in (("rep_rows", rep_rows, 2), ("primary_map", primary, 1)):
+            _check(name, t, dev, nd)
+        if rep_rows.shape != arena.shape or primary.shape[0] != P:
+            raise ValueError(f"pulse_chase: replica rows {tuple(rep_rows.shape)} and primary "
+                             f"map {tuple(primary.shape)} for an arena {tuple(arena.shape)} "
+                             f"of {P} shards")
+        if (dead.device != dev or dead.dtype != torch.bool or tuple(dead.shape) != (P,)
+                or not dead.is_contiguous()):
+            raise ValueError(f"pulse_chase: dead_mask must be a contiguous ({P},) bool tensor "
+                             f"on {dev}, got {dead.dtype} {tuple(dead.shape)} on {dead.device}")
+        a.rep_rows, a.primary_map, a.dead_mask = (rep_rows.data_ptr(), primary.data_ptr(),
+                                                  dead.data_ptr())
+        a.rep_spread = int(policy == "spread")
     _go(a, body, dev)
     return out
 

@@ -217,6 +217,7 @@ def pulse_chase_superstep(
     k_local: int,
     max_iters: int,
     elide_access_check: bool = False,
+    rep=None,
 ):
     """The local chase of one routing superstep, every shard at once.
 
@@ -224,8 +225,9 @@ def pulse_chase_superstep(
     format), shard ``s``'s pool at ``pool[s]``; ``bounds`` ``(P + 1,)`` and
     ``perms`` ``(P,)`` are the arena's.  Each record takes up to
     ``k_local`` steps of ``iterator.step_batch`` over its shard's range
-    (``ref.chase_superstep_reference`` says how).  Returns the new pool;
-    the input is not modified.
+    (``ref.chase_superstep_reference`` says how).  ``rep = (rep_rows,
+    primary_map, dead_mask, policy)`` (replicated reads) adds each shard's
+    replica window.  Returns the new pool; the input is not modified.
 
     On CUDA tensors this is one launch of the kernel (the interpreter for
     an ISA iterator's logic, or the native body of a structure's iterator;
@@ -235,13 +237,13 @@ def pulse_chase_superstep(
     if not _on_cuda(arena_data):
         return chase_superstep_reference(
             arena_data, pool, bounds, perms, logic_fn, k_local, scratch_words=S,
-            max_iters=max_iters, elide=elide_access_check)
+            max_iters=max_iters, elide=elide_access_check, rep=rep)
     body, code = _kernel_body(logic_fn, arena_data.device)
     if pool.shape[0] * pool.shape[1] == 0:
         return pool.clone()
     out = _kernel.launch_superstep(
         arena_data, pool.contiguous(), bounds, perms, code, k_local, body=body,
-        scratch_words=S, max_iters=max_iters, elide=elide_access_check)
+        scratch_words=S, max_iters=max_iters, elide=elide_access_check, rep=rep)
     pulse_chase.launches += 1
     return out
 

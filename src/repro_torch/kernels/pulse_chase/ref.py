@@ -23,7 +23,7 @@ from repro_torch.core.iterator import (
     STATUS_FAULT,
     STATUS_MAXED,
 )
-from repro_torch.core.routing import F_ITERS, F_PTR, F_SCRATCH, F_STATUS
+from repro_torch.core.routing import F_ITERS, F_PTR, F_SCRATCH, F_STATUS, replica_windows
 
 
 def chase_reference(arena, ptr, scratch, status, iters, logic_fn, num_steps: int):
@@ -80,7 +80,8 @@ def chase_run_reference(arena, ptr, scratch, status, logic_fn, max_steps: int,
 
 
 def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int, *,
-                              scratch_words: int, max_iters: int, elide: bool = False):
+                              scratch_words: int, max_iters: int, elide: bool = False,
+                              rep=None):
     """The local chase of one routing superstep over every shard at once.
 
     ``pool`` is ``(P, L, R)`` request records (``core.routing``'s format);
@@ -92,25 +93,42 @@ def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int
     grant the read); then a record still ACTIVE goes MAXED at
     ``max_iters``, and one that was ACTIVE with a NULL pointer faults.
     Records of other shards' ranges are left as they are.  Returns the new
-    pool; every other word of a record is copied through."""
+    pool; every other word of a record is copied through.
+
+    ``rep = (rep_rows, primary_map, dead_mask, policy)`` (replicated
+    reads): shard ``s`` also serves the range of ``p = primary_map[s]``
+    while ``policy`` is ``"spread"`` or ``p`` is marked dead (never while
+    ``s`` is), reading row ``bounds[s] + (ptr - bounds[p])`` of
+    ``rep_rows`` under ``p``'s read grant (never elided); a dead shard's
+    own range is empty."""
     P, L, R = pool.shape
     S = scratch_words
     flat = pool.reshape(P * L, R)
     shard = torch.arange(P * L, device=pool.device) // L
     lo, hi = bounds[shard], bounds[shard + 1]
-    granted = torch.ones_like(shard, dtype=torch.bool)
-    if not elide:
-        granted = ((perms & PERM_READ) == PERM_READ)[shard]
+    probe = (perms & PERM_READ) == PERM_READ
+    granted = torch.ones_like(shard, dtype=torch.bool) if elide else probe[shard]
+    on = torch.zeros_like(granted)
+    rep_lo = rep_hi = lo
+    if rep is not None:
+        rep_rows = rep[0]
+        hi, rep_lo, rep_hi, on, rep_ok = (w[shard] for w in replica_windows(rep, bounds, perms))
     ptr, status, iters = flat[:, F_PTR], flat[:, F_STATUS], flat[:, F_ITERS]
     scratch = flat[:, F_SCRATCH:F_SCRATCH + S]
     cap = arena.shape[0]
     for _ in range(k_local):
         active = status == STATUS_ACTIVE
-        local = (ptr >= lo) & (ptr < hi)
+        in_rep = on & (ptr >= rep_lo) & (ptr < rep_hi)
+        local = in_rep | ((ptr >= lo) & (ptr < hi))
         null = ptr == NULL
-        fault = active & local & ~granted & ~null
+        grant = torch.where(in_rep, rep_ok, granted) if rep is not None else granted
+        fault = active & local & ~grant & ~null
         runnable = active & local & ~fault & ~null
-        nodes = arena[torch.where(runnable, ptr.clamp(0, cap - 1), 0).long()]
+        nodes = arena[torch.where(runnable & ~in_rep, ptr.clamp(0, cap - 1), 0).long()]
+        if rep is not None:
+            at = (ptr - rep_lo + lo).clamp(0, cap - 1)
+            nodes = torch.where(in_rep[:, None],
+                                rep_rows[torch.where(runnable & in_rep, at, 0).long()], nodes)
         done, nptr, nscr = logic_fn(nodes, ptr, scratch)
         nptr = torch.where(done, ptr, nptr)
         ptr = torch.where(runnable, nptr, ptr).to(torch.int32)

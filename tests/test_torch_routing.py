@@ -14,11 +14,14 @@ records (hops included) and every ``RoutingStats`` field.
     P = 4 in one subprocess: this file run as a script, with the four host
     devices in the subprocess's environment alone (JAX fixes its device
     count when it starts, and this process keeps one).
-  * ``PulseEngine`` on an ``EmulatedMesh`` against the single-node engine,
-    every out-of-scope argument's ``NotImplementedError`` (the write path on
-    a mesh, item 6(b), is ``tests/test_torch_routing_write.py``), and the superstep
-    mode's plain version against ``k_local`` calls of the JAX ``step_batch``
-    per shard, edge cases included.
+  * ``PulseEngine`` on an ``EmulatedMesh`` against the single-node engine
+    (``schedule="auto"`` resolved as the JAX engine resolves it), the
+    out-of-scope argument's ``NotImplementedError`` (the write path on a
+    mesh, item 6(b), is ``tests/test_torch_routing_write.py``; replication
+    and fault injection, item 6(d), ``tests/test_torch_replication.py`` and
+    ``tests/test_torch_faults.py``), and the superstep mode's plain version
+    against ``k_local`` calls of the JAX ``step_batch`` per shard, edge
+    cases included.
 
 The tests marked ``gpu`` (``pytest -m gpu`` on the card, which has no JAX)
 hold the kernel's superstep mode against its plain version for the
@@ -45,7 +48,7 @@ try:
     import jax.numpy as jnp
 
     from repro.core import commit as jcommit
-    from repro.core import faults as jfaults
+    from repro.core import engine as jengine
     from repro.core import isa as jisa
     from repro.core import iterator as jiter
     from repro.core import routing as jrouting
@@ -61,6 +64,7 @@ except ImportError:  # the card's machine has no JAX; its gpu tests need none
     jax = None
 from repro_torch.core import arena as tarena
 from repro_torch.core import engine as tengine
+from repro_torch.core import faults as tfaults
 from repro_torch.core import isa as tisa
 from repro_torch.core import iterator as titer
 from repro_torch.core import routing as trouting
@@ -309,8 +313,9 @@ def test_distributed_matches_jax_on_four_devices(case, jax_mesh_results):
 def test_engine_on_a_mesh_matches_single_node(name, backend):
     """``PulseEngine(mesh=EmulatedMesh(4, "cpu")).execute`` gives the
     single-node engine's ptr, scratch, status and iters; ``schedule="auto"``
-    resolves to the dispatched schedule (no overlap model yet)."""
-    _, tit, jar, p0, s0, max_iters = _structure(name, 4)
+    resolves as the JAX engine resolves it for the same iterator, P and
+    ``k_local`` (its overlap model)."""
+    jit_, tit, jar, p0, s0, max_iters = _structure(name, 4)
     tar = _carry(jar)
     p0, s0 = torch.from_numpy(p0), torch.from_numpy(s0)
     one = tengine.PulseEngine(tar).execute(tit, p0, s0, max_iters=max_iters,
@@ -320,14 +325,17 @@ def test_engine_on_a_mesh_matches_single_node(name, backend):
     for f in ("ptr", "scratch", "status", "iters"):
         assert torch.equal(getattr(one, f), getattr(res, f)), f
     assert isinstance(res.stats, trouting.RoutingStats)
-    assert res.stats.schedule == "dispatched" and res.stats.fabric == "dense"
+    want = jengine.PulseEngine(jar)._resolve_schedule(jit_, "auto", True, 4)
+    assert res.stats.schedule == want and res.stats.fabric == "dense"
+    assert res.stats.fused == (want != "dispatched")
     assert res.stats.supersteps > 1 and res.stats.crossings.sum() > 0
 
 
 @needs_jax
 def test_engine_on_a_mesh_passes_its_knobs_and_the_kill():
     """``k_local``, ``compact`` and ``return_to_cpu`` reach the executor
-    (the JAX package's sequential run at the same knobs), and a targeted
+    (the JAX package's sequential run at the same knobs, on the dispatched
+    schedule, whose stats carry the per-superstep lists), and a targeted
     kill fires before the named superstep."""
     jit_, tit, jar, p0, s0, max_iters = _structure("list", 4)
     tar = _carry(jar)
@@ -336,7 +344,7 @@ def test_engine_on_a_mesh_passes_its_knobs_and_the_kill():
                                                       **kw)
         res = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(4, CPU)).execute(
             tit, torch.from_numpy(p0), torch.from_numpy(s0), max_iters=max_iters,
-            force_offload=True, **kw)
+            force_offload=True, schedule="dispatched", **kw)
         _assert_stats_equal(jst, res.stats, skip=("schedule",))
         assert torch.equal(res.iters, torch.from_numpy(jrec[:, trouting.F_ITERS].copy()))
     ablate = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(4, CPU)).execute(
@@ -344,9 +352,9 @@ def test_engine_on_a_mesh_passes_its_knobs_and_the_kill():
         force_offload=True, return_to_cpu=True)
     assert ablate.stats.local_only_steps == 0
     assert ablate.stats.crossings.sum() > res.stats.crossings.sum()
-    inj = jfaults.FaultInjector(jfaults.FaultPlan(kill_shard=2, kill_call=0, kill_superstep=3))
+    inj = tfaults.FaultInjector(tfaults.FaultPlan(kill_shard=2, kill_call=0, kill_superstep=3))
     eng = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(4, CPU), fault_injector=inj)
-    with pytest.raises(jfaults.ShardFailure) as exc:
+    with pytest.raises(tfaults.ShardFailure) as exc:
         eng.execute(tit, torch.from_numpy(p0), torch.from_numpy(s0), max_iters=max_iters,
                     force_offload=True)
     assert exc.value.superstep == 3 and exc.value.shard == 2
@@ -356,30 +364,43 @@ def test_engine_on_a_mesh_passes_its_knobs_and_the_kill():
 @pytest.mark.parametrize("P", [1, 4], ids=["one_node", "mesh4"])
 def test_engine_takes_the_reference_callers_keywords(P):
     """The keywords the reference's ``PulseService`` passes to
-    ``execute`` (``fused``, ``schedule``, ``fabric``, ``replication=None``)
-    give the call without them, bit for bit, on one node and on a mesh of
-    four; a replication context raises naming item 6(d), on the read path
-    and on the write path."""
-    _, tit, jar, p0, s0, max_iters = _structure("hash", P)
+    ``execute`` (``fused``, ``schedule``, ``fabric``, ``replication``) give
+    the call without them, bit for bit, on one node and on a mesh of four:
+    ``fused=True`` resolves ``"auto"`` as the JAX engine does,
+    ``fused=False`` to the dispatched schedule; a healthy replication
+    context runs the read batch on the dispatched schedule with the same
+    records, and on the write path it is not used, as in the reference."""
+    jit_, tit, jar, p0, s0, max_iters = _structure("hash", P)
     tar = _carry(jar)
     mesh = trouting.EmulatedMesh(P, CPU) if P > 1 else None
     p0, s0 = torch.from_numpy(p0), torch.from_numpy(s0)
     run = dict(max_iters=max_iters, force_offload=True, compact=True)
     base = tengine.PulseEngine(tar, mesh=mesh).execute(tit, p0, s0, **run)
-    for fused in (True, False):
+    disp = tengine.PulseEngine(tar, mesh=mesh).execute(tit, p0, s0, schedule="dispatched",
+                                                       **run)
+    want = jengine.PulseEngine(jar)._resolve_schedule(jit_, "auto", True, 4)
+    plan = trouting.make_replica_plan(P)
+    ctx = trouting.ReplicaContext(plan, tar.data.clone(), np.zeros(P, bool))
+    if P > 1:
+        assert base.stats.schedule == want and disp.stats.schedule == "dispatched"
+        assert base.stats.supersteps == disp.stats.supersteps
+        assert base.stats.total_wire_words == disp.stats.total_wire_words
+    for fused, rep in ((True, None), (False, None), (True, ctx)):
         res = tengine.PulseEngine(tar, mesh=mesh).execute(
-            tit, p0, s0, fused=fused, schedule="auto", fabric="dense", replication=None, **run)
+            tit, p0, s0, fused=fused, schedule="auto", fabric="dense", replication=rep, **run)
         for f in ("ptr", "scratch", "status", "iters"):
             assert torch.equal(getattr(base, f), getattr(res, f)), (fused, f)
         if P > 1:
-            _assert_stats_equal(base.stats, res.stats)
-            assert res.stats.schedule == "dispatched"
+            # the same schedule as the call without the keywords, or the
+            # dispatched one: every field equal to that run's
+            _assert_stats_equal(base.stats if fused and rep is None else disp.stats, res.stats)
     wit = tlist.insert_iterator()
-    for it in (tit, wit):
-        with pytest.raises(NotImplementedError, match=r"item 6\(d\)"):
-            tengine.PulseEngine(tar, mesh=mesh).execute(
-                it, p0, torch.zeros((p0.shape[0], it.scratch_words), dtype=torch.int32),
-                fused=True, replication=object(), **run)
+    w0 = torch.zeros((p0.shape[0], wit.scratch_words), dtype=torch.int32)
+    wres = [tengine.PulseEngine(tar, mesh=mesh).execute(wit, p0, w0, fused=True,
+                                                        replication=r, **run)
+            for r in (None, ctx)]
+    assert torch.equal(wres[0].status, wres[1].status)
+    assert torch.equal(wres[0].arena.data, wres[1].arena.data)
 
 
 @needs_jax
@@ -428,44 +449,19 @@ def test_mesh_and_arena_must_agree():
 
 
 def _deferred_calls():
-    """(id, sub-item, callable) for every argument outside items 6(a)-(c)
+    """(id, sub-item, callable) for every argument outside items 6(a)-(d)
     (the write path on a mesh: ``tests/test_torch_routing_write.py``; the
     fused and pipelined schedules and the ring fabric:
-    ``tests/test_torch_routing_fused.py`` and ``test_item_6c_calls`` below)."""
+    ``tests/test_torch_routing_fused.py`` and ``test_item_6c_calls`` below;
+    replication and fault injection: ``tests/test_torch_replication.py``
+    and ``tests/test_torch_faults.py``)."""
     ar = tarena.make_arena(np.zeros((8, 4), np.int32), num_shards=2, device=CPU)
     it = tlist.find_iterator()
     mesh = trouting.EmulatedMesh(2, CPU)
     p0 = torch.zeros(2, dtype=torch.int32)
     s0 = torch.zeros((2, it.scratch_words), dtype=torch.int32)
 
-    def run(i=it, **kw):
-        return lambda: trouting.distributed_execute(
-            i, ar, p0, torch.zeros((2, i.scratch_words), dtype=torch.int32), mesh=mesh, **kw)
-
-    class Plan:
-        def __init__(self, **kw):
-            self.drop_prob, self.delay_shard = kw.get("drop_prob", 0.0), kw.get("delay_shard")
-
-    class Injector:
-        def __init__(self, plan):
-            self.plan = plan
-
-        def begin_call(self):
-            return 0
-
-        def kill_step(self, call):
-            return None
-
-    def step(**kw):
-        return lambda: trouting.make_superstep(it, 2, k_local=4, max_iters=8, **kw)
-
     return [
-        ("replication", "6(d)", run(replication=object())),
-        ("fabric_loss", "6(d)", run(fault_injector=Injector(Plan(drop_prob=0.1)))),
-        ("straggler", "6(d)", run(fault_injector=Injector(Plan(delay_shard=1)))),
-        ("superstep_drop", "6(d)", step(drop_prob=0.5)),
-        ("superstep_replication", "6(d)", step(replication=object())),
-        ("serve_map", "6(d)", lambda: trouting._serve_shard(p0, p0, object())),
         ("engine_other_mesh", "6(e)",
          lambda: tengine.PulseEngine(ar, mesh=object()).execute(it, p0, s0)),
     ]

@@ -47,11 +47,11 @@ try:
     import jax
     import jax.numpy as jnp
 
-    from repro.core import faults as jfaults
     from repro.core import routing as jrouting
 except ImportError:  # the card's machine has no JAX; its gpu tests need none
     jax = None
 from repro_torch.core import arena as tarena
+from repro_torch.core import faults as tfaults
 from repro_torch.core import iterator as titer
 from repro_torch.core import routing as trouting
 from repro_torch.core.structures import btree as tbtree
@@ -362,22 +362,22 @@ def test_a_kill_fires_at_the_reference_superstep(schedule):
     _, tit, jar, p0, s0, max_iters = _structure("list", 4)
     tar = _carry(jar)
     for sched in ("dispatched", schedule):
-        inj = jfaults.FaultInjector(jfaults.FaultPlan(**plan))
-        with pytest.raises(jfaults.ShardFailure) as exc:
+        inj = tfaults.FaultInjector(tfaults.FaultPlan(**plan))
+        with pytest.raises(tfaults.ShardFailure) as exc:
             _run(tit, tar, p0, s0, 4, max_iters=max_iters, compact=True, schedule=sched,
                  fault_injector=inj)
         assert (exc.value.superstep, exc.value.shard) == (3, 2), sched
     jar, [(_, _, wit, _, targs, mi)] = _phases("hash_mixed_rw", 4)
     war = _carry(jar)
     before = (war.data.clone(), war.heap.clone())
-    inj = jfaults.FaultInjector(jfaults.FaultPlan(**plan))
-    with pytest.raises(jfaults.ShardFailure) as exc:
+    inj = tfaults.FaultInjector(tfaults.FaultPlan(**plan))
+    with pytest.raises(tfaults.ShardFailure) as exc:
         _run(wit, war, *wit.init(*targs), 4, max_iters=mi, compact=True, schedule=schedule,
              fault_injector=inj)
     assert exc.value.superstep == 3
     assert torch.equal(war.data, before[0]) and torch.equal(war.heap, before[1])
     rec, st = _run(tit, tar, p0, s0, 4, max_iters=max_iters, compact=True)
-    late = jfaults.FaultInjector(jfaults.FaultPlan(**dict(plan, kill_superstep=10**6)))
+    late = tfaults.FaultInjector(tfaults.FaultPlan(**dict(plan, kill_superstep=10**6)))
     got, gst = _run(tit, tar, p0, s0, 4, max_iters=max_iters, compact=True, schedule=schedule,
                     fault_injector=late)
     assert torch.equal(got, rec) and gst.supersteps == st.supersteps

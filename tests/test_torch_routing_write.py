@@ -58,7 +58,6 @@ try:
 
     from repro.core import commit as jcommit
     from repro.core import engine as jengine
-    from repro.core import faults as jfaults
     from repro.core import iterator as jiter
     from repro.core import routing as jrouting
     from repro.core import translation as jtrans
@@ -67,6 +66,7 @@ except ImportError:  # the card's machine has no JAX; its gpu tests need none
     jax = None
 from repro_torch.core import arena as tarena
 from repro_torch.core import engine as tengine
+from repro_torch.core import faults as tfaults
 from repro_torch.core import iterator as titer
 from repro_torch.core import routing as trouting
 from repro_torch.core.structures import hash_table as thash
@@ -689,16 +689,19 @@ def test_engine_write_path_passes_k_local_and_compact(k_local, compact):
 @pytest.mark.parametrize("name", ["hash_mixed_rw", "btree_update"])
 def test_engine_on_a_mesh_swaps_in_the_committed_arena(name):
     """``PulseEngine(ar, mesh=EmulatedMesh(4, "cpu")).execute`` of a
-    mutating iterator swaps in the arena that the JAX sequential commit
-    gives, with the same records and stats but ``schedule``; the input
-    arena is untouched; the result carries no host commit trace."""
+    mutating iterator on the dispatched schedule swaps in the arena that
+    the JAX sequential commit gives, with the same records and stats but
+    ``schedule``; the input arena is untouched; the result carries no host
+    commit trace.  ``"auto"`` resolves as the JAX engine resolves it, to
+    the same records, arena and aggregates."""
     jar, [(_, jit_, tit, jargs, targs, max_iters)] = _phases(name, 4)
     jrec, jst, jar2 = jcommit.sequential_commit_execute(jit_, jar, *jit_.init(*jargs),
                                                         max_iters=max_iters, k_local=3)
     tar = _carry(jar)
     before = tar.data.clone()
     eng = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(4, CPU))
-    res = eng.execute(tit, *tit.init(*targs), max_iters=max_iters, k_local=3)
+    res = eng.execute(tit, *tit.init(*targs), max_iters=max_iters, k_local=3,
+                      schedule="dispatched")
     assert eng.arena is res.arena and eng.arena is not tar and res.commit_trace is None
     _assert_arena_equal(jar2, eng.arena)
     _assert_stats_equal(jst, res.stats, skip=("schedule",))
@@ -706,6 +709,16 @@ def test_engine_on_a_mesh_swaps_in_the_committed_arena(name):
     np.testing.assert_array_equal(jrec[:, F.F_STATUS], res.status.numpy())
     np.testing.assert_array_equal(jrec[:, F.F_SCRATCH : F.F_SCRATCH + tit.scratch_words],
                                   res.scratch.numpy())
+    assert torch.equal(tar.data, before)
+    want = jengine.PulseEngine(jar)._resolve_schedule(jit_, "auto", True, 3)
+    auto = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(4, CPU)).execute(
+        tit, *tit.init(*targs), max_iters=max_iters, k_local=3)
+    assert auto.stats.schedule == want and auto.stats.fused == (want != "dispatched")
+    _assert_arena_equal(jar2, auto.arena)
+    _assert_stats_equal(jst, auto.stats, skip=(
+        "schedule", "fused", "routed_per_step", "active_per_step", "wire_words_per_step",
+        "capacity_per_step", "wire_words_total"))
+    assert torch.equal(auto.status, res.status) and torch.equal(auto.scratch, res.scratch)
     assert torch.equal(tar.data, before)
 
 
@@ -717,10 +730,10 @@ def test_engine_on_a_mesh_kill_leaves_the_arena():
     jar, [(_, _, tit, _, targs, max_iters)] = _phases("chain_mixed_rw", 4)
     tar = _carry(jar)
     before = (tar.data.clone(), tar.heap.clone())
-    plan = jfaults.FaultPlan(kill_shard=1, kill_call=0, kill_superstep=3)
+    plan = tfaults.FaultPlan(kill_shard=1, kill_call=0, kill_superstep=3)
     eng = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(4, CPU),
-                              fault_injector=jfaults.FaultInjector(plan))
-    with pytest.raises(jfaults.ShardFailure) as e:
+                              fault_injector=tfaults.FaultInjector(plan))
+    with pytest.raises(tfaults.ShardFailure) as e:
         eng.execute(tit, *tit.init(*targs), max_iters=max_iters)
     assert e.value.superstep == 3 and eng.arena is tar
     assert torch.equal(tar.data, before[0]) and torch.equal(tar.heap, before[1])
@@ -944,9 +957,10 @@ def test_pulse_commit_kernel_at_the_main_paths_scale(shape):
 @pytest.mark.gpu
 def test_write_batch_on_a_card_mesh_matches_cpu():
     """One mixed find/insert/delete batch over a writable hash table through
-    ``PulseEngine(arena, mesh=EmulatedMesh(4, "cuda")).execute`` (one
-    ``pulse_commit`` launch a superstep, no ``pulse_chase`` launch) and on a
-    CPU copy: records, stats, final data and heap bit-equal."""
+    ``PulseEngine(arena, mesh=EmulatedMesh(4, "cuda")).execute`` on the
+    dispatched schedule (one ``pulse_commit`` launch a superstep, no
+    ``pulse_chase`` launch) and on a CPU copy: records, stats, final data
+    and heap bit-equal."""
     _card()
     from repro_torch.kernels.pulse_chase import ops as chase_ops
 
@@ -968,7 +982,8 @@ def test_write_batch_on_a_card_mesh_matches_cpu():
         ar = b.finish(device=dev)
         eng = tengine.PulseEngine(ar, mesh=trouting.EmulatedMesh(P, dev))
         commits, chases = tops.pulse_commit.launches, chase_ops.pulse_chase.launches
-        res = eng.execute(it, *it.init(ops, qk, qk * 3, sent), max_iters=4096)
+        res = eng.execute(it, *it.init(ops, qk, qk * 3, sent), max_iters=4096,
+                          schedule="dispatched")
         if dev == "cuda":
             assert tops.pulse_commit.launches - commits == res.stats.supersteps
             assert chase_ops.pulse_chase.launches == chases

@@ -28,6 +28,7 @@ try:
     from repro.core import faults as jfaults
     from repro.core import isa as jisa
     from repro.core import iterator as jiter
+    from repro.core import routing as jrouting
     from repro.core.arena import ArenaBuilder as JBuilder
     from repro.core.arena import make_arena as jmake_arena
     from repro.core.structures import bst as jbst
@@ -40,6 +41,7 @@ except ImportError:  # the card's machine has no JAX; its gpu test needs none
 from repro_torch.core import arena as tarena
 from repro_torch.core import commit as tcommit
 from repro_torch.core import engine as tengine
+from repro_torch.core import faults as tfaults
 from repro_torch.core import isa as tisa
 from repro_torch.core import iterator as titer
 from repro_torch.core import routing as trouting
@@ -520,17 +522,33 @@ def test_write_checks_workloads_match(name, P):
 
 
 def test_read_only_iterator_and_replication():
-    """A read-only iterator gives (records, stats) as in the JAX package; the
-    read fan-out to replicas is item 6(d)."""
+    """A read-only iterator gives (records, stats) as in the JAX package,
+    and so does the read fan-out to replicas (item 6(d)): failover with
+    shard 3 dead, records (hops included) and every stat bit-equal."""
     jar, head, keys = _list_case(P=8)
     q = keys[::3].copy()
     jit_, tit = jlist.find_iterator(), tlist.find_iterator()
     out = _both_commit(jit_, tit, jar, jit_.init(jnp.asarray(q), head),
                        tit.init(torch.from_numpy(q), head), max_iters=4096)
     assert len(out) == 2 and out[1].supersteps > 1
-    with pytest.raises(NotImplementedError, match=r"6\(d\)"):
-        tcommit.sequential_commit_execute(tit, _carry(jar), *tit.init(torch.from_numpy(q), head),
-                                          replication=object())
+    data, bounds = np.asarray(jar.data), np.asarray(jar.bounds)
+    dead = np.zeros(8, bool)
+    dead[3] = True
+    ctx = []
+    for mod in (jrouting, trouting):
+        plan = mod.make_replica_plan(8)
+        rows = np.zeros_like(data)
+        for h, p in enumerate(plan.primary_map):
+            rows[bounds[h]:bounds[h + 1]] = data[bounds[p]:bounds[p + 1]]
+        ctx.append(mod.ReplicaContext(plan, rows, dead))
+    jrec, jst = jcommit.sequential_commit_execute(jit_, jar, *jit_.init(jnp.asarray(q), head),
+                                                  max_iters=4096, replication=ctx[0])
+    trec, tst = tcommit.sequential_commit_execute(tit, _carry(jar),
+                                                  *tit.init(torch.from_numpy(q), head),
+                                                  max_iters=4096, replication=ctx[1])
+    np.testing.assert_array_equal(jrec, trec)
+    assert tst.supersteps == jst.supersteps and tst.routed_per_step == jst.routed_per_step
+    np.testing.assert_array_equal(jrec[:, trouting.F_STATUS], out[0][:, trouting.F_STATUS])
 
 
 # --------------------------------- the engine ---------------------------------
@@ -576,15 +594,18 @@ def test_engine_fault_injector_kill_leaves_the_arena():
     plan = jfaults.FaultPlan(kill_shard=0, kill_call=1, kill_superstep=3)
     jit_, tit = jlist.insert_iterator(), tlist.insert_iterator()
     tar = _carry(jar)
-    teng = tengine.PulseEngine(tar, fault_injector=jfaults.FaultInjector(plan))
+    teng = tengine.PulseEngine(tar, fault_injector=tfaults.FaultInjector(
+        tfaults.FaultPlan(**dataclasses.asdict(plan))))
     jeng = jengine.PulseEngine(jar, fault_injector=jfaults.FaultInjector(plan))
     fit = tlist.find_iterator()
     teng.execute(fit, *fit.init(torch.from_numpy(newk), head), max_iters=100)  # call 0
     jfit = jlist.find_iterator()
     jeng.execute(jfit, *jfit.init(jnp.asarray(newk), head), max_iters=100)
-    for eng, it, init in ((jeng, jit_, jit_.init(newk, newk, head)),
-                          (teng, tit, tit.init(newk, newk, head))):
-        with pytest.raises(jfaults.ShardFailure) as e:
+    for eng, it, init, failure in ((jeng, jit_, jit_.init(newk, newk, head),
+                                    jfaults.ShardFailure),
+                                   (teng, tit, tit.init(newk, newk, head),
+                                    tfaults.ShardFailure)):
+        with pytest.raises(failure) as e:
             eng.execute(it, *init, max_iters=100)
         assert e.value.superstep == 3
     assert teng.arena is tar and jeng.arena is jar
