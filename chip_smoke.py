@@ -167,6 +167,29 @@ Phases (any failure exits non-zero before the last line):
      digest unchanged).  Reported: lookups/s healthy against degraded, the
      replica-window superstep's kernel ms and bound, the loss's superstep
      growth, each with the card's name and power limit.
+ 14. traversal serving: ``PulseService`` (``serving/traversal_service.py``)
+     over one heap holding the ``webservice`` hash table (200,000 keys,
+     4,096 buckets) and the ``wiredtiger`` B+tree (500,000 keys), with three
+     specs (hash finds, B+tree finds, in-place B+tree updates in the finds'
+     group) and 32,768 requests of three tenants: 45% hash finds and 45%
+     B+tree finds (YCSB Zipfian 0.99, 10% absent keys), 10% updates of
+     distinct keys from the 5% of the tree's keys no read draws; 2,048
+     slots a structure.  Runs: (a) one node, sync, quantum 16, against the
+     same service on a CPU copy, request by request (status, iters, result,
+     admit and finish rounds) and in every ``ServiceMetrics`` count, one
+     ``pulse_chase`` launch per read engine call; (b) the same async, equal
+     to (a); (c) ``EmulatedMesh(4, "cuda")``, interleaved, schedule "auto"
+     (pipelined), sync: status, iters and result equal to (a), one capture
+     a group; (d) (c)'s mesh async with SLO sizing (quanta 4-256, a 20 ms
+     deadline on every request): one capture a group whatever quanta it
+     picks (the budget is a device operand of the captured chunk); (e) (c)
+     with ``request_reshard(8)`` once a third of the requests retired.
+     Every run's reads equal ``ref_find`` and the final tree holds every
+     update.  The superstep mode with the budget as a device tensor, at two
+     budgets, against its plain version.  Reported for each run: requests/s,
+     p50/p99/p999 latency, rounds, engine calls, mean quantum, captures,
+     ``pulse_chase`` and ``pulse_commit`` launches and the host's share of
+     the run's wall time (outside the engine calls).
 
 Phases 11 and 12 then run every batch (each step of a write batch) on the
 device-resident schedules, ``schedule="fused"`` and ``"pipelined"`` on the
@@ -2543,6 +2566,415 @@ def phase_faults(rng, smi):
     return out, launches_total
 
 
+# --------------------------- traversal serving -------------------------------
+
+SERVE_REQUESTS = 32_768  # phase 14's requests
+SERVE_SLOTS = 2_048  # slots_per_structure
+SERVE_QUANTUM = 16
+SLO_QUANTA = (4, 256)  # run (d)'s min_quantum, max_quantum
+SLO_DEADLINE_MS = 20.0
+RESERVED = 0.05  # the B+tree's keys only updates draw
+# a tenant a kind: a tenant's queue is FIFO, so a tenant mixing the tree's
+# reads and writes would block on the write barrier at every change of kind
+TENANTS = ("cache-reader", "index-reader", "index-writer")
+
+
+def serving_heap(rng):
+    """Phase 14's heap, drawn from ``rng``: the keys and values of the
+    ``webservice`` hash table (200,000 keys, 4,096 buckets) and of the
+    ``wiredtiger`` B+tree (500,000 keys), and the rows of one arena that
+    holds both (``build_serving_arena``)."""
+    import numpy as np
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core.structures import btree
+
+    ws, wt = pulse_paper.WEBSERVICE, pulse_paper.WIREDTIGER
+    hkeys = make_keys(rng, ws.n_keys)
+    hvals = rng.integers(0, 2**31 - 1, ws.n_keys).astype(np.int32)
+    bkeys = make_keys(rng, wt.n_keys)
+    bvals = rng.integers(0, 2**31 - 1, wt.n_keys).astype(np.int32)
+    rows = ws.n_keys + btree.node_estimate(wt.n_keys)
+    cap = -(-rows // 64) * 64  # even shard ranges at 4 and 8 shards
+    return dict(hkeys=hkeys, hvals=hvals, bkeys=bkeys, bvals=bvals, cap=cap,
+                n_buckets=ws.n_buckets)
+
+
+def build_serving_arena(heap, P: int, device: str):
+    """The heap of ``serving_heap`` built into an arena of ``P`` shards on
+    ``device``: ``(arena, bucket heads, root)``."""
+    from repro_torch.core.arena import ArenaBuilder
+    from repro_torch.core.structures import btree, hash_table
+
+    b = ArenaBuilder(heap["cap"], btree.NODE_WORDS, num_shards=P,
+                     policy="interleaved" if P > 1 else "sequential")
+    heads = hash_table.build_into(b, heap["hkeys"], heap["hvals"], heap["n_buckets"])
+    root, _ = btree.build_into(b, heap["bkeys"], heap["bvals"])
+    return b.finish(device=device), heads, root
+
+
+def serving_requests(rng, heap, n: int = SERVE_REQUESTS):
+    """``n`` requests of three tenants (``TENANTS``): 45% hash finds and 45%
+    B+tree finds (YCSB Zipfian 0.99 over the stored keys, 10% absent keys),
+    10% updates of distinct keys from the 5% of the tree's keys that no
+    read draws, in a seeded order, arriving over the rounds at
+    ``SERVE_SLOTS * 3 // 4`` a round.  Returns tuples ``(req_id, structure, query, tenant,
+    arrive_round, value)`` and the update map ``{key: value}``."""
+    import numpy as np
+
+    bkeys = heap["bkeys"]
+    n_res = int(len(bkeys) * RESERVED)
+    reserved, readable = bkeys[:n_res], bkeys[n_res:]
+    n_up = int(round(0.10 * n))
+    n_hash = (n - n_up) // 2
+    n_bt = n - n_up - n_hash
+    hq = make_queries(rng, heap["hkeys"], n_hash)
+    bq = make_queries(rng, readable, n_bt)
+    # an absent draw may be a reserved key, whose value the updates change
+    clash = np.isin(bq, reserved)
+    stored = np.sort(bkeys.astype(np.int64))
+    while clash.any():
+        cand = rng.integers(0, 2**31 - 1, size=int(clash.sum()), dtype=np.int64)
+        pos = np.clip(np.searchsorted(stored, cand), 0, len(stored) - 1)
+        ok = stored[pos] != cand
+        idx = np.flatnonzero(clash)[: int(ok.sum())]
+        bq[idx] = cand[ok][: len(idx)].astype(np.int32)
+        clash[idx] = False
+    up_keys = rng.choice(reserved, n_up, replace=False)
+    up_vals = rng.integers(0, 2**31 - 1, n_up).astype(np.int32)
+    kinds = rng.permutation(np.array([0] * n_hash + [1] * n_bt + [2] * n_up))
+    cursor = [0, 0, 0]
+    src = (hq, bq, up_keys)
+    names = ("webservice", "wiredtiger", "wiredtiger_update")
+    per_round = SERVE_SLOTS * 3 // 4
+    out = []
+    for i, k in enumerate(kinds):
+        q = int(src[k][cursor[k]])
+        v = int(up_vals[cursor[k]]) if k == 2 else 0
+        cursor[k] += 1
+        out.append((i, names[k], q, TENANTS[k], i // per_round, v))
+    return out, dict(zip(up_keys.tolist(), up_vals.tolist()))
+
+
+def serving_specs(heads, root, device: str):
+    """The three specs: ``webservice`` (hash finds), ``wiredtiger`` (B+tree
+    finds) and ``wiredtiger_update`` (in-place updates, the finds' group)."""
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core.structures import btree, hash_table
+    from repro_torch.serving.traversal_service import StructureSpec
+
+    nb = pulse_paper.WEBSERVICE.n_buckets
+    return {
+        "webservice": StructureSpec(hash_table.find_iterator(nb),
+                                    (torch.as_tensor(heads).to(device),)),
+        "wiredtiger": StructureSpec(btree.find_iterator(), (root,), group="wiredtiger"),
+        "wiredtiger_update": StructureSpec(btree.update_iterator(), (root,),
+                                           group="wiredtiger", takes_value=True),
+    }
+
+
+class _EngineTally:
+    """Wraps one engine's ``execute`` to count its calls by iterator kind
+    and add up their wall time (the host clock around each call, whose
+    result the service then copies to the host)."""
+
+    def __init__(self, engine):
+        self.reads = self.writes = 0
+        self.seconds = 0.0
+        self._execute = engine.execute
+        engine.execute = self
+
+    def __call__(self, it, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self._execute(it, *args, **kw)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            if it.mutates:
+                self.writes += 1
+            else:
+                self.reads += 1
+
+
+def serve_run(tag, arena, specs, tuples, *, P: int, deadline_ms=None, reshard_at=None,
+              **svc_kw):
+    """One phase-14 run: a ``PulseService`` over ``arena`` (on a mesh of P
+    when P > 1) serving ``tuples``.  The launch counts are set to 0 just
+    before and read just after.  Returns (requests, metrics, engine, row)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.core.engine import PulseEngine
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+    from repro_torch.serving.admission import TraversalRequest
+    from repro_torch.serving.traversal_service import PulseService
+
+    dev = arena.data.device.type
+    eng = PulseEngine(arena, mesh=routing.EmulatedMesh(P, dev) if P > 1 else None)
+    tally = _EngineTally(eng)
+    svc = PulseService(eng, specs, slots_per_structure=SERVE_SLOTS, quantum=SERVE_QUANTUM,
+                       **svc_kw)
+    quanta = []
+    pick = svc._quantum_for_round
+    svc._quantum_for_round = lambda now: quanta.append(pick(now)) or quanta[-1]
+    reqs = [TraversalRequest(i, s, q, tenant=t, arrive_round=a, value=v, deadline_ms=deadline_ms)
+            for i, s, q, t, a, v in tuples]
+    for r in reqs:
+        svc.submit(r)
+    retired_at = None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    traces0 = routing.CACHE_STATS.traces
+    chase_ops.pulse_chase.launches = commit_ops.pulse_commit.launches = 0
+    t0 = time.perf_counter()
+    try:
+        while svc._busy():
+            if (reshard_at is not None and retired_at is None
+                    and svc.metrics.retired >= reshard_at):
+                retired_at = svc.metrics.retired
+                svc.request_reshard(2 * P)
+            if svc.metrics.rounds > 100_000:
+                raise RuntimeError(f"{tag}: the service did not drain")
+            svc.step()
+    finally:
+        svc.close()
+        svc._drain_emit()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chase_ops.pulse_chase.launches
+    commits = commit_ops.pulse_commit.launches
+    m = svc.metrics
+    m.wall_s = wall
+    lat = np.asarray(m.latencies_ms)
+    row = dict(
+        run=tag, device=dev, shards=P, requests=len(reqs), completed=m.completed,
+        requests_per_s=m.completed / wall, p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)), p999_ms=float(np.percentile(lat, 99.9)),
+        rounds=m.rounds, engine_calls=m.engine_calls, read_calls=tally.reads,
+        write_calls=tally.writes, mean_quantum=float(np.mean(quanta)),
+        quantum_min=min(quanta), quantum_max=max(quanta), distinct_quanta=len(set(quanta)),
+        captures=routing.CACHE_STATS.traces - traces0 if dev == "cuda" else None,
+        pulse_chase_launches=launches, pulse_commit_launches=commits,
+        supersteps=m.supersteps, commits=m.commits, reshards=m.reshards,
+        reshard_after_retired=retired_at, wall_s=wall,
+        host_share=1.0 - tally.seconds / wall, engine_s=tally.seconds)
+    return reqs, m, eng, row
+
+
+def _serving_counts(m):
+    import dataclasses
+
+    skip = ("wall_s", "latencies_ms", "per_tenant", "recovery_ms_total")
+    out = {f.name: getattr(m, f.name) for f in dataclasses.fields(m) if f.name not in skip}
+    out["per_tenant"] = {t: v["completed"] for t, v in sorted(m.per_tenant.items())}
+    return out
+
+
+def _same_requests(tag, a, b, *, rounds: bool = True):
+    """Request by request: status, iters, result (and the rounds)."""
+    import numpy as np
+
+    for x, y in zip(a, b):
+        same = (x.status, x.iters) == (y.status, y.iters) and np.array_equal(x.result, y.result)
+        if rounds:
+            same = same and (x.admit_round, x.finish_round) == (y.admit_round, y.finish_round)
+        if not same:
+            raise AssertionError(f"{tag}: request {x.req_id} ({x.structure}) differs: "
+                                 f"{(x.status, x.iters, x.admit_round, x.finish_round, x.result)}"
+                                 f" vs {(y.status, y.iters, y.admit_round, y.finish_round, y.result)}")
+
+
+def _check_against_oracle(tag, reqs, heap):
+    """Every request DONE, every read equal to its structure's
+    ``ref_find``, every update found its key."""
+    import numpy as np
+
+    from repro_torch.core.iterator import STATUS_DONE
+    from repro_torch.core.structures import btree, hash_table
+
+    by = {}
+    for r in reqs:
+        if r.status != STATUS_DONE:
+            raise AssertionError(f"{tag}: request {r.req_id} retired with status {r.status}")
+        by.setdefault(r.structure, []).append(r)
+    q = np.array([r.query for r in by["webservice"]], np.int32)
+    want = hash_table.ref_find(heap["hkeys"], heap["hvals"], heap["n_buckets"], q)
+    got = [(int(r.result[1]), int(r.result[2])) for r in by["webservice"]]
+    if got != [tuple(w[:2]) for w in want]:
+        raise AssertionError(f"{tag}: hash finds disagree with ref_find")
+    q = np.array([r.query for r in by["wiredtiger"]], np.int32)
+    want = btree.ref_find(heap["bkeys"], heap["bvals"], q)
+    got = [(int(r.result[1]), int(r.result[2])) for r in by["wiredtiger"]]
+    if got != [tuple(w[:2]) for w in want]:
+        raise AssertionError(f"{tag}: B+tree finds disagree with ref_find")
+    if not all(int(r.result[btree.U_FOUND]) == 1 for r in by["wiredtiger_update"]):
+        raise AssertionError(f"{tag}: an update missed its key")
+
+
+def _updates_visible(tag, eng, root, updates):
+    """The final tree read back through ``eng`` (after the run's counts
+    were read): every updated key holds its value."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.structures import btree
+
+    keys = np.array(sorted(updates), np.int32)
+    it = btree.find_iterator()
+    dev = eng.arena.data.device
+    p0, s0 = it.init(torch.from_numpy(keys).to(dev), root)
+    kw = dict(schedule="dispatched") if eng.mesh is not None else {}
+    res = eng.execute(it, p0, s0, max_iters=4096, **kw)
+    scr = res.scratch.cpu().numpy()
+    if not (scr[:, 2] == 1).all() or scr[:, 1].tolist() != [updates[k] for k in keys.tolist()]:
+        raise AssertionError(f"{tag}: the final tree does not hold the updates")
+
+
+def budget_operand_check(arena, heads, P: int):
+    """The superstep mode with the budget as a device tensor, at two
+    budgets, against its plain version with the budget as an int, on one
+    placed pool of hash finds over the mesh heap.  Returns the check row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core import routing
+    from repro_torch.core.structures import hash_table
+    from repro_torch.kernels.pulse_chase import ops, ref
+
+    nb = pulse_paper.WEBSERVICE.n_buckets
+    it = hash_table.find_iterator(nb)
+    g = np.random.default_rng(14)
+    q = torch.from_numpy(g.integers(0, 2**31 - 1, SERVE_SLOTS).astype(np.int32)).cuda()
+    p0, s0 = it.init(q, torch.as_tensor(heads).cuda())
+    pools, _ = routing.place_requests(p0, s0, P)
+    logic = ops.iterator_logic(it)
+    rows, err = [], 0
+    for budget in (3, SERVE_QUANTUM):
+        dev_budget = torch.tensor(budget, dtype=torch.int32, device="cuda")
+        got = ops.pulse_chase_superstep(arena.data, pools, arena.bounds, arena.perms,
+                                        logic_fn=logic, k_local=4, max_iters=dev_budget)
+        want = ref.chase_superstep_reference(arena.data, pools, arena.bounds, arena.perms,
+                                             logic, 4, scratch_words=it.scratch_words,
+                                             max_iters=budget)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        maxed = int((got[..., routing.F_STATUS] == 2).sum())
+        rows.append(dict(budget=budget, max_abs_err=e, maxed=maxed))
+        if e != 0:
+            raise AssertionError(f"the device-budget superstep disagrees with its plain version "
+                                 f"at budget {budget}: max |err| {e}")
+    return dict(name="pulse_chase superstep, budget as a device tensor", budgets=rows,
+                max_abs_err=err)
+
+
+def phase_serving(rng, smi):
+    """Phase 14: traversal serving, ``PulseService`` over the port's engine
+    on the card, runs (a)-(e); see the module docstring."""
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+
+    t_phase = time.perf_counter()
+    heap = serving_heap(rng)
+    tuples, updates = serving_requests(rng, heap)
+    rows, results = [], {}
+    one, heads, root = build_serving_arena(heap, 1, "cuda")
+    cpu_fields = [t.cpu().numpy() for t in (one.data, one.bounds, one.perms, one.heap)]
+
+    # (a) one node, sync, the card against a CPU copy of the same service
+    ra, ma, ea, row = serve_run("a: one node, sync", one, serving_specs(heads, root, "cuda"),
+                                tuples, P=1)
+    rows.append(row)
+    cpu = arena_from_numpy(*cpu_fields, device="cpu")
+    rc, mc, ec, crow = serve_run("a: CPU copy", cpu, serving_specs(heads, root, "cpu"), tuples,
+                                 P=1)
+    _same_requests("(a) card vs CPU copy", ra, rc)
+    if _serving_counts(ma) != _serving_counts(mc):
+        raise AssertionError(f"(a) metrics differ: {_serving_counts(ma)} vs "
+                             f"{_serving_counts(mc)}")
+    if row["pulse_chase_launches"] != row["read_calls"]:
+        raise AssertionError(f"(a): {row['pulse_chase_launches']} pulse_chase launches for "
+                             f"{row['read_calls']} read engine calls")
+    _check_against_oracle("(a)", ra, heap)
+    _updates_visible("(a)", ea, root, updates)
+    log(f"  (a) card == CPU copy ({crow['wall_s']:.1f} s on the CPU), reads == ref_find, "
+        f"updates visible")
+
+    # (b) the same on the async pipeline
+    one_b = arena_from_numpy(*cpu_fields, device="cuda")
+    rb, mb, eb, row = serve_run("b: one node, async", one_b, serving_specs(heads, root, "cuda"),
+                                tuples, P=1, pipeline="async")
+    rows.append(row)
+    _same_requests("(b) async vs (a)", ra, rb)
+    if _serving_counts(ma) != _serving_counts(mb):
+        raise AssertionError("(b) metrics differ from (a)")
+    if row["pulse_chase_launches"] != row["read_calls"]:
+        raise AssertionError("(b): pulse_chase launches != read engine calls")
+    _updates_visible("(b)", eb, root, updates)
+
+    # (c) the mesh of four, interleaved, schedule "auto" (pipelined), sync
+    P = 4
+    mesh_arena, mheads, mroot = build_serving_arena(heap, P, "cuda")
+    mesh_fields = [t.cpu().numpy() for t in (mesh_arena.data, mesh_arena.bounds,
+                                             mesh_arena.perms, mesh_arena.heap)]
+    routing.reset_executable_caches()
+    rcm, mcm, ecm, row = serve_run("c: mesh of 4, sync", mesh_arena,
+                                   serving_specs(mheads, mroot, "cuda"), tuples, P=P)
+    rows.append(row)
+    _same_requests("(c) mesh vs (a)", ra, rcm, rounds=False)
+    if row["captures"] != len(serving_specs(mheads, mroot, "cuda")):
+        raise AssertionError(f"(c): {row['captures']} captures for three groups")
+    _updates_visible("(c)", ecm, mroot, updates)
+    budget_row = budget_operand_check(arena_from_numpy(*mesh_fields, device="cuda"), mheads, P)
+
+    # (d) the mesh, async, SLO sizing with a deadline on every request
+    routing.reset_executable_caches()
+    rd, md, ed, row = serve_run(
+        "d: mesh of 4, async, SLO sizing", arena_from_numpy(*mesh_fields, device="cuda"),
+        serving_specs(mheads, mroot, "cuda"), tuples, P=P, pipeline="async",
+        min_quantum=SLO_QUANTA[0], max_quantum=SLO_QUANTA[1], deadline_ms=SLO_DEADLINE_MS)
+    rows.append(row)
+    if row["captures"] != 3:
+        raise AssertionError(f"(d): {row['captures']} captures for three groups over "
+                             f"{row['distinct_quanta']} quanta: the budget must be a device "
+                             f"operand")
+    _check_against_oracle("(d)", rd, heap)
+    _updates_visible("(d)", ed, mroot, updates)
+
+    # (e) (c) with a live reshard to 8 once a third of the requests retired
+    routing.reset_executable_caches()
+    re_, me, ee, row = serve_run(
+        "e: mesh of 4 -> 8, sync", arena_from_numpy(*mesh_fields, device="cuda"),
+        serving_specs(mheads, mroot, "cuda"), tuples, P=P, reshard_at=len(tuples) // 3)
+    rows.append(row)
+    if me.reshards != 1 or ee.arena.num_shards != 2 * P:
+        raise AssertionError(f"(e): {me.reshards} reshards, {ee.arena.num_shards} shards")
+    _check_against_oracle("(e)", re_, heap)
+    _updates_visible("(e)", ee, mroot, updates)
+
+    for r in rows:
+        log(f"  [{r['run']}] {r['requests_per_s']:,.0f} requests/s, p50 {r['p50_ms']:.3f} / "
+            f"p99 {r['p99_ms']:.3f} / p999 {r['p999_ms']:.3f} ms, {r['rounds']} rounds, "
+            f"{r['engine_calls']} engine calls ({r['read_calls']} read), mean quantum "
+            f"{r['mean_quantum']:.2f} ({r['quantum_min']}-{r['quantum_max']}), captures "
+            f"{r['captures']}, pulse_chase {r['pulse_chase_launches']}, pulse_commit "
+            f"{r['pulse_commit_launches']}, supersteps {r['supersteps']}, host share "
+            f"{r['host_share']:.1%} of {r['wall_s']:.2f} s; {smi}")
+    log(f"  budget operand: {budget_row['budgets']}")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 14 took {secs:.1f} s (the CPU copy included)")
+    out = dict(phase="serving", seconds=secs, card=smi, runs=rows, budget_check=budget_row,
+               cpu_copy=crow)
+    log(json.dumps(out))
+    return out
+
+
 # --------------------------- attention kernels ------------------------------
 
 
@@ -3335,6 +3767,16 @@ def main(argv=None) -> int:
                                "windows in the launch) and of each lossy "
                                "dispatched read, and the lossy fused and pipelined reads' first "
                                "calls' launches")
+    log("== phase 14: traversal serving, PulseService over the engine on the card")
+    serving_row = phase_serving(rng, smi)
+    serve_runs = serving_row["runs"]
+    entry["launches"] += sum(r["pulse_chase_launches"] for r in serve_runs)
+    entry["launches_note"] += ("; in phase 14, one per read engine call of each one-node "
+                               "service run (a, b), and on the mesh runs (c, d, e) the first "
+                               "call's launches of each group's device loop (its warm-up "
+                               "superstep and captured chunk)")
+    entry["max_abs_err"] = max(entry["max_abs_err"], serving_row["budget_check"]["max_abs_err"])
+    entry["budget_operand"] = serving_row["budget_check"]
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -3348,7 +3790,8 @@ def main(argv=None) -> int:
     head_commit = next(r for r in mesh_rows if r["batch"] == "wiredtiger_update")["commit_check"]
     commit_entry = dict(
         name="pulse_commit", route="cuda", source=COMMIT_SOURCE, replaces=COMMIT_REPLACES,
-        launches=commit_launches, max_abs_err=max(r["commit_check"]["max_abs_err"]
+        launches=commit_launches + sum(r["pulse_commit_launches"] for r in serve_runs),
+        max_abs_err=max(r["commit_check"]["max_abs_err"]
                                                   for r in mesh_rows),
         ms=head_commit["ms"], plain_ms=head_commit["plain_ms"], bound_ms=head_commit["bound_ms"],
         bound_by="bytes", library_ms=None, stages_ms=head_commit["stages_ms"],
@@ -3360,7 +3803,8 @@ def main(argv=None) -> int:
         launches_note="one per mutating superstep of phase 12 (three batches, four steps), "
                       "and on the fused and pipelined schedules each step's first call's: "
                       "the warm-up superstep's and the captured chunk's (1 and 8; the "
-                      "replays run the captured ones)",
+                      "replays run the captured ones); in phase 14, those of each update "
+                      "group's device loop on the mesh runs (c, d, e)",
         batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[
             dict(step=x["step"], supersteps=x["supersteps"], launches=x["commit_launches"],
                  ms_per_superstep=x["commit_ms_per_superstep"],
@@ -3432,7 +3876,7 @@ def main(argv=None) -> int:
             device=name, nvidia_smi=smi, seed=args.seed, build=build_report, checks=checks,
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
-            write_mesh=mesh_rows, faults=faults_row,
+            write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
             **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -161,6 +161,89 @@ def arena_from_numpy(data, bounds, perms, heap, *, device="cuda") -> Arena:
     )
 
 
+def remap_shards(arena: Arena, new_num_shards: int) -> Arena:
+    """Re-partition an arena to ``new_num_shards`` (an exact 2x grow or
+    shrink), as the JAX package's ``remap_shards`` does.
+
+    Pointers are global rows and the partition is by address range, so no
+    pointer is rewritten: growing splits every shard's range at its
+    midpoint and shrinking merges adjacent pairs; ``bounds``, ``perms`` and
+    the allocator registers change, and the only rows written are links of
+    free slots (a parent's free chain is split between its children, pop
+    order kept; a merge chains the left's then the right's, plus any bump
+    hole of the left below the midpoint when the right has allocated).  A
+    split copies the epoch and commit registers, a merge takes their max,
+    so a grow then a shrink gives the arena back.
+
+    Host surgery in numpy; returns a new Arena on the input's device (the
+    input is never modified)."""
+    P = arena.num_shards
+    Q = int(new_num_shards)
+    if Q == P:
+        return arena
+    if Q != 2 * P and P != 2 * Q:
+        raise ValueError(f"remap_shards supports exact 2x changes, {P} -> {Q}")
+    bounds = arena.bounds.cpu().numpy().astype(np.int64)
+    data = arena.data.cpu().numpy().copy()  # free-chain links may move
+    heap_old = arena.heap.cpu().numpy()
+    perms_old = arena.perms.cpu().numpy()
+
+    def walk(head: int) -> list[int]:
+        out, p = [], int(head)
+        while p != NULL:
+            out.append(p)
+            p = int(data[p, 0])
+        return out
+
+    def relink(slots: list[int]) -> int:
+        for i, p in enumerate(slots):
+            data[p, 0] = slots[i + 1] if i + 1 < len(slots) else NULL
+        return slots[0] if slots else NULL
+
+    new_bounds = np.zeros(Q + 1, np.int64)
+    new_bounds[-1] = bounds[-1]
+    new_perms = np.zeros(Q, np.int32)
+    new_heap = np.zeros((Q, HEAP_WORDS), np.int32)
+    if Q == 2 * P:  # grow: split each range at its midpoint
+        for s in range(P):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            if (hi - lo) % 2:
+                raise ValueError(f"shard {s} range has odd size {hi - lo}")
+            mid = (lo + hi) // 2
+            new_bounds[2 * s], new_bounds[2 * s + 1] = lo, mid
+            new_perms[2 * s] = new_perms[2 * s + 1] = perms_old[s]
+            slots = walk(heap_old[s, H_FREE])
+            new_heap[2 * s, H_FREE] = relink([p for p in slots if p < mid])
+            new_heap[2 * s + 1, H_FREE] = relink([p for p in slots if p >= mid])
+            b = int(heap_old[s, H_BUMP])
+            new_heap[2 * s, H_BUMP] = min(b, mid)
+            new_heap[2 * s + 1, H_BUMP] = max(b, mid)
+            for w in (H_EPOCH, H_COMMITS):
+                new_heap[2 * s, w] = new_heap[2 * s + 1, w] = heap_old[s, w]
+    else:  # shrink: merge adjacent pairs
+        for t in range(Q):
+            s0, s1 = 2 * t, 2 * t + 1
+            lo, mid = int(bounds[s0]), int(bounds[s1])
+            if perms_old[s0] != perms_old[s1]:
+                raise ValueError(f"cannot merge shards {s0}/{s1}: permission mismatch")
+            new_bounds[t] = lo
+            new_perms[t] = perms_old[s0]
+            b0, b1 = int(heap_old[s0, H_BUMP]), int(heap_old[s1, H_BUMP])
+            slots = walk(heap_old[s0, H_FREE]) + walk(heap_old[s1, H_FREE])
+            if b1 > mid:
+                if b0 < mid:  # a hole below the midpoint: only free-chain slots say so
+                    data[b0:mid] = 0
+                    slots = slots + list(range(b0, mid))
+                nb = b1
+            else:
+                nb = b0
+            new_heap[t, H_FREE] = relink(slots)
+            new_heap[t, H_BUMP] = nb
+            for w in (H_EPOCH, H_COMMITS):
+                new_heap[t, w] = max(heap_old[s0, w], heap_old[s1, w])
+    return arena_from_numpy(data, new_bounds, new_perms, new_heap, device=arena.data.device)
+
+
 def load_node(arena_data: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
     """The single aggregated LOAD of one iteration (PULSE S4.1).
 

@@ -166,12 +166,15 @@ class PulseEngine:
         arena: Arena,
         *,
         mesh=None,
+        axis_name: str = "mem",
         accel: dispatch_mod.AcceleratorSpec | None = None,
         eta: float | None = None,
         fault_injector=None,
     ):
         self.arena = arena
         self.mesh = mesh
+        # the mesh axis the shards lie on; every routed call passes it on
+        self.axis_name = axis_name
         self.accel = accel or dispatch_mod.AcceleratorSpec()
         self.eta = self.accel.eta if eta is None else eta
         # test-only fault hook (core.faults.FaultInjector); every execute()
@@ -194,6 +197,17 @@ class PulseEngine:
             k = inj.kill_step(inj.begin_call())
             if k is not None:
                 inj.fire(k)
+
+    def reshard(self, arena: Arena, mesh=None) -> None:
+        """Install a re-partitioned arena (``arena.remap_shards``) and, when
+        given, a mesh of the new width.  The decisions that depend on the
+        shard count go (the overlap model's schedules); the device-resident
+        runners key on the arena's shapes, so those of the new width build
+        on their first call."""
+        self.arena = arena
+        if mesh is not None:
+            self.mesh = mesh
+        self._schedule_cache.clear()
 
     def dispatch(self, it: PulseIterator) -> dispatch_mod.OffloadDecision:
         key = (it, self.accel, self.eta)
@@ -321,7 +335,8 @@ class PulseEngine:
             else:
                 schedule = self._resolve_schedule(it, schedule, fused, k_local)
             rec, stats = routing.distributed_execute(
-                it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
+                it, self.arena, ptr0, scratch0, mesh=self.mesh, axis_name=self.axis_name,
+                max_iters=max_iters,
                 k_local=k_local, return_to_cpu=return_to_cpu, compact=compact,
                 schedule=schedule, fabric=fabric, local_backend=backend,
                 fault_injector=self.fault_injector, replication=replication,
@@ -382,7 +397,8 @@ class PulseEngine:
         if self.mesh is not None and self.arena.num_shards > 1:
             schedule = self._resolve_schedule(it, schedule, fused, k_local)
             rec, stats, new_arena = routing.distributed_execute(
-                it, self.arena, ptr0, scratch0, mesh=self.mesh, max_iters=max_iters,
+                it, self.arena, ptr0, scratch0, mesh=self.mesh, axis_name=self.axis_name,
+                max_iters=max_iters,
                 k_local=k_local, compact=compact, schedule=schedule, fabric=fabric,
                 fault_injector=self.fault_injector,
             )

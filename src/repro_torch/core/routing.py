@@ -96,11 +96,14 @@ def _check_fabric(fabric: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class EmulatedMesh:
     """P memory nodes emulated on one device: the stand-in for
-    ``jax.make_mesh((P,), ("mem",))``.  Every per-shard array carries a
-    leading ``(P, ...)`` axis on ``device``."""
+    ``jax.make_mesh((P,), (axis_name,))``.  Every per-shard array carries a
+    leading ``(P, ...)`` axis on ``device``; ``axis_name`` names that axis,
+    and ``distributed_execute`` refuses any other name, as ``shard_map``
+    refuses an axis its mesh lacks."""
 
     num_shards: int
     device: str | torch.device = "cuda"
+    axis_name: str = "mem"
 
     def __post_init__(self):
         if self.num_shards < 1:
@@ -388,7 +391,7 @@ def _local_superstep(
     perms: torch.Tensor,  # (P,)
     *,
     k_local: int,
-    max_iters: int,
+    max_iters: int | torch.Tensor,
     backend: str = "kernel",
     elide_access_check: bool = False,
     edges=None,
@@ -410,6 +413,10 @@ def _local_superstep(
 
     ``edges`` (the reference backend) is ``bounds`` read on the host ahead
     of time, so that a captured superstep reads nothing on the host.
+
+    ``max_iters`` is an int, or a 0-d int32 tensor on the arena's device
+    (the device-resident loops: a captured chunk reads the call's budget
+    from it, so one capture serves every budget).
 
     ``rep = (rep_rows, primary_map, dead_mask, policy)`` (device tensors and
     the ``ReplicaPlan`` policy) adds each holder's replica window: shard
@@ -462,7 +469,7 @@ def _local_superstep_mut(
     perms: torch.Tensor,
     *,
     k_local: int,
-    max_iters: int,
+    max_iters: int | torch.Tensor,
     commit: bool = True,
     live: torch.Tensor | None = None,
 ):
@@ -958,11 +965,14 @@ class _DeviceLoop:
     once a chunk until ``live`` is false.  A failed capture or replay
     raises.  On the CPU the same chunk runs eagerly.
 
-    A read runner captures the arena's own tensors (it is keyed by the
-    arena); a write runner owns copies of ``data``, ``heap``, ``bounds``
-    and ``perms``, loaded each call, and hands back fresh ones.  The
-    iteration budget is fixed per runner (``pulse_chase`` takes it by
-    value); ``halt`` is a device scalar loaded each call.  Fabric loss
+    A write runner owns copies of ``data``, ``heap``, ``bounds`` and
+    ``perms``, loaded each call, and hands back fresh ones; a read runner
+    owns copies of ``data``, ``bounds`` and ``perms``, loaded when a call
+    brings an arena other than the last one (the write path swaps the
+    arena after every write, and the next reads replay the same graph).
+    The iteration budget and ``halt`` are device scalars loaded each call,
+    so one capture serves every budget (``pulse_chase``'s superstep mode
+    reads the budget from the device), as one JAX executable does.  Fabric loss
     (``drop_prob > 0``) keys its mask on the device counter ``steps``, as
     the JAX loops key it on theirs."""
 
@@ -970,7 +980,7 @@ class _DeviceLoop:
                 "dropped", "cap_counts", "local_only")
 
     def __init__(self, it: PulseIterator, arena: Arena, *, schedule: str, pool_rows: int,
-                 k_local: int, max_iters: int, max_supersteps: int, min_link_capacity: int,
+                 k_local: int, max_supersteps: int, min_link_capacity: int,
                  return_to_cpu: bool, compact: bool, fabric: str, local_backend: str,
                  elide_access_check: bool, drop_prob: float = 0.0, drop_seed: int = 0):
         P, L, dev = arena.num_shards, pool_rows, arena.data.device
@@ -980,7 +990,7 @@ class _DeviceLoop:
         self.S = it.scratch_words
         self.R = record_width(self.S, mut_width(arena.node_words) if self.mutate else 0)
         self.mut_base = F_SCRATCH + self.S if self.mutate else None
-        self.k_local, self.max_iters, self.max_supersteps = k_local, max_iters, max_supersteps
+        self.k_local, self.max_supersteps = k_local, max_supersteps
         self.min_link_capacity, self.return_to_cpu, self.compact = (
             min_link_capacity, return_to_cpu, compact)
         self.local_backend, self.elide = local_backend, elide_access_check
@@ -988,11 +998,12 @@ class _DeviceLoop:
         self.drop_keys = (_shard_keys(drop_seed, torch.arange(P, device=dev))
                           if drop_prob > 0.0 else None)
         self.rungs = capacity_rungs(self.base, min_link_capacity) if compact else (self.base,)
-        if self.mutate:
-            self.data, self.heap = torch.empty_like(arena.data), torch.empty_like(arena.heap)
-            self.bounds, self.perms = torch.empty_like(arena.bounds), torch.empty_like(arena.perms)
-        else:
-            self.data, self.bounds, self.perms = arena.data, arena.bounds, arena.perms
+        self.data, self.bounds, self.perms = (torch.empty_like(arena.data),
+                                              torch.empty_like(arena.bounds),
+                                              torch.empty_like(arena.perms))
+        self.heap = torch.empty_like(arena.heap) if self.mutate else None
+        self.source = None  # a read runner: the arena its buffers hold (a weak reference)
+        # the reference backend's edges are part of a read runner's key
         self.edges = (arena.bounds.tolist() if local_backend == "reference" and not self.mutate
                       else None)
         i32 = dict(dtype=torch.int32, device=dev)
@@ -1005,7 +1016,7 @@ class _DeviceLoop:
         self.did_route = torch.zeros((), dtype=torch.bool, device=dev)
         self.live = torch.zeros((), dtype=torch.bool, device=dev)
         (self.n_active, self.n_remote, self.steps, self.routed, self.dropped, self.local_only,
-         self.halt) = (torch.zeros((), **i32) for _ in range(7))
+         self.halt, self.budget) = (torch.zeros((), **i32) for _ in range(8))
         self.cap_counts = torch.zeros(len(self.rungs), **i32)
         self.flags = torch.zeros(6 + len(self.rungs), **i32)
         self._superstep = (self._pipelined_superstep if schedule == "pipelined"
@@ -1037,10 +1048,10 @@ class _DeviceLoop:
         if self.mutate:
             return _local_superstep_mut(self.it, pools, self.data, self.heap, self.bounds,
                                         self.perms, k_local=self.k_local,
-                                        max_iters=self.max_iters, commit=False)
+                                        max_iters=self.budget, commit=False)
         with torch.profiler.record_function("routing.chase"):
             return _local_superstep(self.it, pools, self.data, self.bounds, self.perms,
-                                    k_local=self.k_local, max_iters=self.max_iters,
+                                    k_local=self.k_local, max_iters=self.budget,
                                     backend=self.local_backend,
                                     elide_access_check=self.elide, edges=self.edges)
 
@@ -1079,7 +1090,7 @@ class _DeviceLoop:
         if self.mutate:
             pools, _, _ = _local_superstep_mut(
                 self.it, self.pools, self.data, self.heap, self.bounds, self.perms,
-                k_local=self.k_local, max_iters=self.max_iters, live=live)
+                k_local=self.k_local, max_iters=self.budget, live=live)
         else:
             pools = self._chase(self.pools)
         capacity, do_route = self._ladder()
@@ -1150,7 +1161,7 @@ class _DeviceLoop:
             self._superstep()
         self._flags()
 
-    def _load(self, pools, halt: int, arena: Arena):
+    def _load(self, pools, halt: int, max_iters: int, arena: Arena):
         self.pools.copy_(pools)
         n0 = (pools[..., F_STATUS] == STATUS_ACTIVE).sum(dtype=torch.int32)
         self.n_active.copy_(n0)
@@ -1160,9 +1171,15 @@ class _DeviceLoop:
             t.zero_()
         self.send.copy_(self.empty_send)
         self.halt.fill_(halt)
-        if self.mutate:
-            for mine, theirs in ((self.data, arena.data), (self.heap, arena.heap),
-                                 (self.bounds, arena.bounds), (self.perms, arena.perms)):
+        self.budget.fill_(max_iters)
+        if self.mutate or self.source is None or self.source() is not arena:
+            pairs = [(self.data, arena.data), (self.bounds, arena.bounds),
+                     (self.perms, arena.perms)]
+            if self.mutate:
+                pairs.append((self.heap, arena.heap))
+            else:
+                self.source = weakref.ref(arena)
+            for mine, theirs in pairs:
                 mine.copy_(theirs)
 
     def _capture(self):
@@ -1186,12 +1203,13 @@ class _DeviceLoop:
         CACHE_STATS.traces += 1
         CACHE_STATS.capture_s += time.perf_counter() - t0
 
-    def run(self, pools: torch.Tensor, halt: int, arena: Arena):
-        """One call: load the placed pools (for writes, the arena), run
-        chunks until ``live`` is false.  Returns ``(final pools, flags)``,
-        the pools this runner's buffer (read them before its next call) and
-        ``flags`` the last chunk's, on the host."""
-        self._load(pools, halt, arena)
+    def run(self, pools: torch.Tensor, halt: int, max_iters: int, arena: Arena):
+        """One call: load the placed pools, the budget and (for writes, or
+        a read of another arena) the arena, run chunks until ``live`` is
+        false.  Returns ``(final pools, flags)``, the pools this runner's
+        buffer (read them before its next call) and ``flags`` the last
+        chunk's, on the host."""
+        self._load(pools, halt, max_iters, arena)
         if self.side is not None and self.graph is None:
             with torch.profiler.record_function("routing.capture"):
                 self._capture()
@@ -1209,22 +1227,23 @@ class _DeviceLoop:
 
 
 def get_fused_runner(it: PulseIterator, arena: Arena, *, schedule: str = "fused",
-                     pool_rows: int, k_local: int, max_iters: int, max_supersteps: int,
+                     pool_rows: int, k_local: int, max_supersteps: int,
                      min_link_capacity: int, return_to_cpu: bool, compact: bool,
                      fabric: str = "dense", local_backend: str = "reference",
                      elide_access_check: bool = False, drop_prob: float = 0.0,
                      drop_seed: int = 0) -> _DeviceLoop:
     """The cached device-resident loop (``_DeviceLoop``) for one key: the
-    iterator, the device, the schedule's knobs, the iteration budget, the
-    pool's rows, and for a read batch the arena itself (a captured graph
-    holds its tensors' addresses; the entry goes when the arena dies), for
-    a write batch the arena's shapes (the runner loads ``data`` and
-    ``heap`` each call), and the fabric loss's probability and seed."""
-    mutate = it.mutates
-    ident = ((tuple(arena.data.shape), tuple(arena.heap.shape)) if mutate
-             else id(arena))
+    iterator, the device, the schedule's knobs, the pool's rows, the
+    arena's shapes (the runner copies an arena in when a call brings
+    another one; a write runner every call), for a read batch on the
+    reference backend the shard bounds (the captured chase slices by
+    them), and the fabric loss's probability and seed.  The iteration
+    budget is not part of the key: it is a device operand of the loop."""
+    ident = (tuple(arena.data.shape), tuple(arena.heap.shape))
+    if local_backend == "reference" and not it.mutates:
+        ident += (tuple(arena.bounds.tolist()),)
     key = (it, str(arena.data.device), ident, arena.num_shards, pool_rows, schedule, k_local,
-           max_iters, max_supersteps, min_link_capacity, return_to_cpu, compact, fabric,
+           max_supersteps, min_link_capacity, return_to_cpu, compact, fabric,
            local_backend, elide_access_check, drop_prob, drop_seed)
     runner = _FUSED_CACHE.get(key)
     if runner is not None:
@@ -1233,12 +1252,10 @@ def get_fused_runner(it: PulseIterator, arena: Arena, *, schedule: str = "fused"
     CACHE_STATS.misses += 1
     runner = _FUSED_CACHE[key] = _DeviceLoop(
         it, arena, schedule=schedule, pool_rows=pool_rows, k_local=k_local,
-        max_iters=max_iters, max_supersteps=max_supersteps,
-        min_link_capacity=min_link_capacity, return_to_cpu=return_to_cpu, compact=compact,
-        fabric=fabric, local_backend=local_backend, elide_access_check=elide_access_check,
+        max_supersteps=max_supersteps, min_link_capacity=min_link_capacity,
+        return_to_cpu=return_to_cpu, compact=compact, fabric=fabric,
+        local_backend=local_backend, elide_access_check=elide_access_check,
         drop_prob=drop_prob, drop_seed=drop_seed)
-    if not mutate:
-        weakref.finalize(arena, _FUSED_CACHE.pop, key, None)
     return runner
 
 
@@ -1272,6 +1289,7 @@ def distributed_execute(
     scratch0,
     *,
     mesh: EmulatedMesh,
+    axis_name: str = "mem",
     max_iters: int = 1 << 30,
     k_local: int = 4,
     max_supersteps: int = 1 << 16,
@@ -1287,7 +1305,9 @@ def distributed_execute(
     elide_access_check: bool | None = None,
 ):
     """Run a batch of traversals over a range-partitioned arena on a mesh
-    of P memory nodes emulated on the arena's device.
+    of P memory nodes emulated on the arena's device.  ``axis_name`` must
+    name the mesh's axis (``ValueError`` otherwise, as ``shard_map``
+    refuses an axis its mesh lacks).
 
     ``replication`` (read path, dispatched schedule) threads a
     ``ReplicaContext`` through every superstep: the serve map redirects
@@ -1421,6 +1441,8 @@ def distributed_execute(
         # primary's grant, and degraded-mode perms may change between rounds
         elide_access_check = replication is None and can_elide_access_check(it, arena)
     num_shards = arena.num_shards
+    if axis_name != mesh.axis_name:
+        raise ValueError(f"axis {axis_name!r} is not the mesh's; its axis is {mesh.axis_name!r}")
     if mesh.num_shards != num_shards:
         raise ValueError(f"arena has {num_shards} shards but the mesh has {mesh.num_shards}")
     if torch.device(mesh.device).type != dev.type:
@@ -1441,13 +1463,13 @@ def distributed_execute(
     if schedule != "dispatched":
         runner = get_fused_runner(
             it, arena, schedule=schedule, pool_rows=L, k_local=k_local,
-            max_iters=min(max_iters, (1 << 31) - 1), max_supersteps=max_supersteps,
-            min_link_capacity=min_link_capacity, return_to_cpu=return_to_cpu,
-            compact=compact, fabric=fabric, local_backend=local_backend,
-            elide_access_check=elide_access_check, drop_prob=drop_prob, drop_seed=drop_seed)
+            max_supersteps=max_supersteps, min_link_capacity=min_link_capacity,
+            return_to_cpu=return_to_cpu, compact=compact, fabric=fabric,
+            local_backend=local_backend, elide_access_check=elide_access_check,
+            drop_prob=drop_prob, drop_seed=drop_seed)
         # an armed kill caps the loop at kill_at - 1 supersteps
         halt = kill_at - 1 if kill_at is not None else max_supersteps
-        pools, flags = runner.run(pools, halt, arena)
+        pools, flags = runner.run(pools, halt, min(max_iters, (1 << 31) - 1), arena)
         _, n_active, steps, n_drop, local_only, _, *cap_counts = flags
         if n_drop != 0:  # not assert: must survive python -O
             raise RuntimeError(f"request records lost in routing (pool overflow): {n_drop}")

@@ -107,6 +107,7 @@ struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
   const int* rep_rows;     // superstep, replicated reads: (cap, W) replica rows, or null
   const int* primary_map;  // (n_perms,) the primary whose rows each shard holds, or -1
   const unsigned char* dead_mask;  // (n_perms,) shards marked dead
+  const int* budget;       // superstep: the lanes' iteration budget on the device, or null
   int cap, W, T, B, S;
   int num_steps;           // steps (fixed depth, superstep) or the budget (run)
   int quantum;             // run: a fault check every `quantum` iterations
@@ -117,7 +118,7 @@ struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
   int need;                // the permission bits a read needs
   int R;                   // superstep: words of a record
   int L;                   // superstep: records of one shard's pool
-  int max_iters;           // superstep: a lane's iteration budget
+  int max_iters;           // superstep: a lane's iteration budget when `budget` is null
   int elide;               // superstep: 1 when every shard's grant is known true
   int rep_spread;          // replicated reads: 1 under the "spread" policy
 };
@@ -555,13 +556,15 @@ __device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
   }
   int p = rec[kRecPtr];
   int iters = rec[kRecIters];
+  // a captured superstep reads the call's budget here, so one graph serves every budget
+  const int max_iters = a.budget != nullptr ? __ldg(a.budget) : a.max_iters;
   body.begin(rec + kRecScratch);
   for (int k = 0; k < a.num_steps && st == kActive; ++k) {
     const bool null_ptr = p == kNull;
     const bool in_rep = kRep && (flags & 1) && p >= rep_lo && p < rep_hi;
     const bool local = in_rep || (p >= lo && p < hi);
     // another shard's pointer, budget left: the router moves it, unchanged
-    if (!local && !null_ptr && iters < a.max_iters) break;
+    if (!local && !null_ptr && iters < max_iters) break;
     if (local && !null_ptr) {
       if (!(in_rep ? (flags & 2) != 0 : granted)) {
         st = kFault;
@@ -576,7 +579,7 @@ __device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
         if (done) st = kDone;
       }
     }
-    if (st == kActive && iters >= a.max_iters) st = kMaxed;
+    if (st == kActive && iters >= max_iters) st = kMaxed;
     if (null_ptr) st = kFault;  // walked off the structure on an earlier step
   }
   out[kRecPtr] = p;

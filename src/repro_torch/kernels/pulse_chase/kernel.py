@@ -153,7 +153,7 @@ class ChaseArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "arena", "code", "ptr_in", "scr_in", "st_in", "it_in", "ptr_out", "scr_out",
         "st_out", "it_out", "faulted_out", "bounds", "perms", "next_lane", "pool_in",
-        "pool_out", "rep_rows", "primary_map", "dead_mask")] + [
+        "pool_out", "rep_rows", "primary_map", "dead_mask", "budget")] + [
         (n, ctypes.c_int) for n in (
             "cap", "W", "T", "B", "S", "num_steps", "quantum", "mode", "n_bounds", "n_perms",
             "check_cap", "need", "R", "L", "max_iters", "elide", "rep_spread")]
@@ -261,7 +261,7 @@ launch.last_grid = 0  # blocks of the last launch (the card's resident blocks, o
 
 
 def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: str = "isa",
-                     scratch_words: int, max_iters: int, elide: bool, rep=None):
+                     scratch_words: int, max_iters, elide: bool, rep=None):
     """Launch one routing superstep (mode 2) on PyTorch's current stream:
     ``k_local`` steps of every record of ``pool`` ((P, L, R) int32, shard
     ``s``'s records at ``pool[s]``) over the rows of its shard, ``bounds``
@@ -270,6 +270,9 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
     ``rep = (rep_rows, primary_map, dead_mask, policy)`` (replicated
     reads: (cap, W) int32 rows in the arena's layout, (P,) int32, (P,)
     bool, the ``ReplicaPlan`` policy) adds each shard's replica window.
+    ``max_iters`` is an int, passed by value, or a one-element int32
+    tensor on the card, which the kernel reads (a captured launch then
+    takes whatever budget the tensor holds at replay).
     Returns the new pool; reads nothing on the host and does not
     synchronise.  An empty pool raises: every call launches."""
     dev = arena.device
@@ -294,9 +297,17 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
         raise ValueError(f"pulse_chase: pool {tuple(pool.shape)} or k_local {k_local} out of "
                          "range")
     out = torch.empty_like(pool)
+    on_card = isinstance(max_iters, torch.Tensor)
+    if on_card and (max_iters.device != dev or max_iters.dtype != torch.int32
+                    or max_iters.numel() != 1):
+        raise ValueError(f"pulse_chase: a budget tensor must be one int32 word on {dev}, got "
+                         f"{max_iters.dtype} {tuple(max_iters.shape)} on {max_iters.device}")
     a = ChaseArgs(cap=cap, W=W, T=T, B=P * L, S=S, num_steps=int(k_local), mode=MODE_SUPERSTEP,
                   quantum=1, n_bounds=P + 1, n_perms=P, need=PERM_READ, R=R, L=L,
-                  max_iters=int(min(max_iters, 2**31 - 1)), elide=int(bool(elide)))
+                  max_iters=0 if on_card else int(min(max_iters, 2**31 - 1)),
+                  elide=int(bool(elide)))
+    if on_card:
+        a.budget = max_iters.data_ptr()
     a.arena, a.code = arena.data_ptr(), code.data_ptr() if body == "isa" else None
     a.bounds, a.perms = bounds.data_ptr(), perms.data_ptr()
     a.pool_in, a.pool_out = pool.data_ptr(), out.data_ptr()

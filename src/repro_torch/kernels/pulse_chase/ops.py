@@ -215,7 +215,7 @@ def pulse_chase_superstep(
     *,
     logic_fn,
     k_local: int,
-    max_iters: int,
+    max_iters: int | torch.Tensor,
     elide_access_check: bool = False,
     rep=None,
 ):
@@ -227,7 +227,10 @@ def pulse_chase_superstep(
     ``k_local`` steps of ``iterator.step_batch`` over its shard's range
     (``ref.chase_superstep_reference`` says how).  ``rep = (rep_rows,
     primary_map, dead_mask, policy)`` (replicated reads) adds each shard's
-    replica window.  Returns the new pool; the input is not modified.
+    replica window.  ``max_iters`` is an int, or a 0-d int32 tensor on the
+    pool's device that the kernel (and the plain version) read, so that a
+    captured launch serves any budget.  Returns the new pool; the input is
+    not modified.
 
     On CUDA tensors this is one launch of the kernel (the interpreter for
     an ISA iterator's logic, or the native body of a structure's iterator;

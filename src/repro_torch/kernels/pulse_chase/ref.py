@@ -80,7 +80,7 @@ def chase_run_reference(arena, ptr, scratch, status, logic_fn, max_steps: int,
 
 
 def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int, *,
-                              scratch_words: int, max_iters: int, elide: bool = False,
+                              scratch_words: int, max_iters, elide: bool = False,
                               rep=None):
     """The local chase of one routing superstep over every shard at once.
 
@@ -91,7 +91,8 @@ def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int
     ``iterator.step_batch`` treats it: an ACTIVE record whose pointer lies
     in its shard's range steps (a fault instead when the shard does not
     grant the read); then a record still ACTIVE goes MAXED at
-    ``max_iters``, and one that was ACTIVE with a NULL pointer faults.
+    ``max_iters`` (an int, or a 0-d int32 tensor the kernel reads on the
+    card), and one that was ACTIVE with a NULL pointer faults.
     Records of other shards' ranges are left as they are.  Returns the new
     pool; every other word of a record is copied through.
 

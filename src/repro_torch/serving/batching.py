@@ -5,13 +5,15 @@ decodes one token per step for all slots, retires sequences on EOS / max
 tokens, and immediately backfills freed slots -- the vLLM-style serving
 loop on top of the model zoo's ``prefill``/``decode_step``.  Runs eagerly
 on the params' device (the JAX package jits one prefill per distinct
-prompt length).  The traversal service's ``DeviceRunner``/``QuantumWork``
-come with traversal serving (ROADMAP queue 1).
+prompt length).  ``DeviceRunner`` and ``QuantumWork`` at the end are the
+traversal service's background execution thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 
 import numpy as np
@@ -197,3 +199,113 @@ def _merge_slots(cache_old, cache_new, slots: np.ndarray):
         idx = torch.as_tensor(slots, dtype=torch.long, device=a.device)
         a[:, idx] = cache_new[key][:, idx]
     return cache_old
+
+
+# --------------------------------------------------------------------------
+# The device runner (PulseService's background execution thread)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QuantumWork:
+    """One traversal quantum handed to the ``DeviceRunner``.
+
+    ``run`` does the device work (one ``engine.execute`` call) and returns
+    its result; ``apply`` consumes that result (the slot state, the fast
+    retirement, the emit events).  Both run on the runner thread, strictly
+    FIFO, so the order of engine calls, and with it every record, commit
+    and arena, is the synchronous loop's."""
+
+    label: str
+    run: "callable"
+    apply: "callable"
+
+
+class DeviceRunner:
+    """A background thread that issues every engine call, behind a bounded
+    queue of ``depth`` quanta.
+
+    The main thread admits and books the next round while this thread
+    keeps the current quantum on the card; a submit past ``depth`` blocks
+    the producer (backpressure).  Lifecycle: ``start``, any number of
+    ``submit``, ``drain`` (a barrier: every submitted quantum ran and was
+    applied), ``close``.  An exception on the runner thread is kept and
+    raised on the next ``submit`` or ``drain``, tagged with the failing
+    work's label when it has a ``label`` of None (a ``ShardFailure``).
+
+    Every CUDA call of the service is made on this thread (the main
+    thread's admission stays on the host), so the CUDA-graph capture of a
+    device-resident loop, which refuses unsafe CUDA calls from any thread
+    in its default mode, never meets one from the main thread."""
+
+    def __init__(self, depth: int = 2):
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self._q: queue.Queue[QuantumWork | None] = queue.Queue(maxsize=depth)
+        self._cv = threading.Condition()
+        self._unfinished = 0
+        self._err: BaseException | None = None
+        self._thread: threading.Thread | None = None
+        self.quanta_run = 0
+        self.max_queue_depth = 0  # high-water mark of the handoff queue
+
+    def start(self) -> DeviceRunner:
+        if self._thread is not None:
+            raise RuntimeError("runner already started")
+        self._thread = threading.Thread(target=self._loop, name="pulse-device-runner",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while True:
+            work = self._q.get()
+            if work is None:
+                return
+            try:
+                if self._err is None:  # fail fast after the first error
+                    work.apply(work.run())
+                    self.quanta_run += 1
+            except BaseException as e:  # noqa: BLE001 -- must cross threads
+                if getattr(e, "label", "") is None:
+                    e.label = work.label
+                with self._cv:
+                    self._err = e
+            finally:
+                with self._cv:
+                    self._unfinished -= 1
+                    self._cv.notify_all()
+
+    def _raise_pending(self) -> None:
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, work: QuantumWork) -> None:
+        if self._thread is None:
+            raise RuntimeError("runner not started")
+        self._raise_pending()
+        with self._cv:
+            self._unfinished += 1
+        self.max_queue_depth = max(self.max_queue_depth,
+                                   min(self._q.maxsize, self._q.qsize() + 1))
+        self._q.put(work)  # blocks at depth: a bounded handoff
+
+    @property
+    def in_flight(self) -> int:
+        with self._cv:
+            return self._unfinished
+
+    def drain(self) -> None:
+        """Barrier: block until every submitted quantum has run and applied."""
+        with self._cv:
+            self._cv.wait_for(lambda: self._unfinished == 0)
+        self._raise_pending()
+
+    def close(self) -> None:
+        if self._thread is None:
+            return
+        self.drain()
+        self._q.put(None)
+        self._thread.join()
+        self._thread = None

@@ -43,7 +43,9 @@ def test_port_files_exist():
                  "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py", "models/ssm.py",
                  "core/commit.py", "core/structures/skiplist.py",
                  "kernels/pulse_commit/kernel.py", "kernels/pulse_commit/ops.py",
-                 "kernels/pulse_commit/ref.py", "core/faults.py", "core/prng.py"):
+                 "kernels/pulse_commit/ref.py", "core/faults.py", "core/prng.py",
+                 "serving/admission.py", "serving/traversal_service.py",
+                 "distributed/sharding.py", "distributed/elastic.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
                "pulse_commit.cu"):

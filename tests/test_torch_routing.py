@@ -221,6 +221,46 @@ def test_distributed_matches_jax_distributed_at_one_shard(name, compact):
     _assert_stats_equal(jst, st)
 
 
+@needs_jax
+def test_axis_name_passed_or_left_out_and_a_wrong_one(P=4):
+    """``axis_name`` naming the mesh's axis gives the call without it, bit
+    for bit, through ``distributed_execute`` and ``PulseEngine``, as in the
+    JAX package at one shard (this process's one device); a name the mesh
+    lacks raises in both packages."""
+    jit_, tit, jar, p0, s0, max_iters = _structure("list", 1)
+    jmesh = jax.make_mesh((1,), ("shards",))
+    jrec, _ = jrouting.distributed_execute(
+        jit_, jar, jnp.asarray(p0), jnp.asarray(s0), mesh=jmesh, axis_name="shards",
+        max_iters=max_iters, compact=True)
+    with pytest.raises(Exception):
+        jrouting.distributed_execute(jit_, jar, jnp.asarray(p0), jnp.asarray(s0), mesh=jmesh,
+                                     axis_name="mem", max_iters=max_iters, compact=True)
+    tmesh = trouting.EmulatedMesh(1, CPU, axis_name="shards")
+    got, _ = trouting.distributed_execute(
+        tit, _carry(jar), torch.as_tensor(p0), torch.as_tensor(s0), mesh=tmesh,
+        axis_name="shards", max_iters=max_iters, compact=True)
+    np.testing.assert_array_equal(np.asarray(jrec), got)
+    with pytest.raises(ValueError, match="axis"):
+        trouting.distributed_execute(tit, _carry(jar), torch.as_tensor(p0),
+                                     torch.as_tensor(s0), mesh=tmesh, max_iters=max_iters)
+    _, tit, jar, p0, s0, max_iters = _structure("hash", P)
+    tar = _carry(jar)
+    run = dict(max_iters=max_iters, compact=True)
+    base, bst = _run_port(tit, tar, p0, s0, P, **run)
+    named, nst = _run_port(tit, tar, p0, s0, P, axis_name="mem", **run)
+    assert torch.equal(base, named)
+    _assert_stats_equal(bst, nst)
+    p0, s0 = torch.from_numpy(p0), torch.from_numpy(s0)
+    eng = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(P, CPU, axis_name="mem_x"),
+                              axis_name="mem_x")
+    assert eng.axis_name == "mem_x"
+    res = eng.execute(tit, p0, s0, schedule="dispatched", **run)
+    assert torch.equal(res.scratch, base[:, trouting.F_SCRATCH:])
+    wrong = tengine.PulseEngine(tar, mesh=trouting.EmulatedMesh(P, CPU), axis_name="mem_x")
+    with pytest.raises(ValueError, match="axis"):
+        wrong.execute(tit, p0, s0, **run)
+
+
 # ------------- (c) against the JAX executor on four devices -------------------
 
 # (case id, structure, distributed_execute keyword arguments, shard 1's perms)
@@ -676,6 +716,15 @@ def test_superstep_plain_version_matches_jax_step_batch(case, route):
                                          logic_fn=tops.iterator_logic(tit), k_local=k_local,
                                          max_iters=max_iters)
     assert torch.equal(wrapped, got)
+    # the budget as a device operand (the device-resident loops' form)
+    budget = torch.tensor(max_iters, dtype=torch.int32)
+    for fn in (lambda b: tops.pulse_chase_superstep(
+                   data, pool, bounds, perms, logic_fn=tops.iterator_logic(tit),
+                   k_local=k_local, max_iters=b),
+               lambda b: trouting._local_superstep(tit, pool, data, bounds, perms,
+                                                   k_local=k_local, max_iters=b,
+                                                   backend="reference")):
+        assert torch.equal(fn(budget), got)
     _check_edge(case, pool.numpy(), got.numpy(), bounds.numpy())
 
 
@@ -757,7 +806,8 @@ CARD_BODIES = ["isa", "list_find", "list_sum", "hash_find", "bst_find", "btree_f
 def test_superstep_kernel_matches_plain_on_card(body):
     """Every superstep of a routed run, and a perturbed pool (budgets
     spent, a revoked shard, the access check elided), on the kernel and on
-    its plain version, on the same CUDA tensors."""
+    its plain version, on the same CUDA tensors; the kernel also with the
+    budget given as a device tensor, at two budgets."""
     _card()
     ar, it, p0, s0 = _card_structure(body)
     logic = tops.iterator_logic(it)
@@ -782,8 +832,14 @@ def test_superstep_kernel_matches_plain_on_card(body):
             want = tref.chase_superstep_reference(
                 ar.data, pool, ar.bounds, perms, logic, 4, scratch_words=it.scratch_words,
                 max_iters=max_iters, elide=elide)
+            # the budget as a device tensor, which the kernel reads
+            budget = torch.tensor(max_iters, dtype=torch.int32, device="cuda")
+            via = tops.pulse_chase_superstep(ar.data, pool, ar.bounds, perms, logic_fn=logic,
+                                             k_local=4, max_iters=budget,
+                                             elide_access_check=elide)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (body, step, elide, max_iters)
+            assert torch.equal(via, want), (body, step, elide, max_iters, "device budget")
         pools = route(pools, ar.data, ar.bounds, ar.perms)[0]
 
 

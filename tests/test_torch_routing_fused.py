@@ -386,9 +386,11 @@ def test_a_kill_fires_at_the_reference_superstep(schedule):
 @needs_jax
 def test_the_runner_cache_hits_on_the_same_key():
     """A second call with the same key builds nothing (a hit, no new trace);
-    another iteration budget is another key (one more trace) and gives the
-    dispatched run's results at that budget; a read runner goes when its
-    arena dies; a write runner serves the next call's committed arena."""
+    another iteration budget is the same key (the budget is a device
+    operand: a hit, no new trace) and gives the dispatched run's results at
+    that budget, on reads and writes; a read of another arena of the same
+    shapes is a hit too, its arena copied in; a write runner serves the
+    next call's committed arena."""
     trouting.reset_executable_caches()
     stats = trouting.CACHE_STATS
     _, tit, jar, p0, s0, max_iters = _structure("hash", 4)
@@ -399,19 +401,29 @@ def test_the_runner_cache_hits_on_the_same_key():
     assert stats.host_reads >= 1
     assert torch.equal(_run(tit, tar, p0, s0, 4, max_iters=max_iters, **kw)[0], first)
     assert (stats.misses, stats.hits, stats.traces) == (1, 1, 1)
-    budget = 3
-    got, st = _run(tit, tar, p0, s0, 4, max_iters=budget, **kw)
-    want, wst = _run(tit, tar, p0, s0, 4, max_iters=budget, compact=True)
-    assert (stats.misses, stats.traces) == (2, 2)
-    assert torch.equal(got, want) and st.supersteps == wst.supersteps
-    assert (got[:, trouting.F_STATUS] == titer.STATUS_MAXED).any()
-    del tar
-    assert len(trouting._FUSED_CACHE) == 0
+    for budget in (3, 5):
+        got, st = _run(tit, tar, p0, s0, 4, max_iters=budget, **kw)
+        want, wst = _run(tit, tar, p0, s0, 4, max_iters=budget, compact=True)
+        assert torch.equal(got, want) and st.supersteps == wst.supersteps
+        assert (got[:, trouting.F_STATUS] == titer.STATUS_MAXED).any()
+    assert (stats.misses, stats.hits, stats.traces) == (1, 3, 1)
+    other = _carry(jar)
+    assert torch.equal(_run(tit, other, p0, s0, 4, max_iters=max_iters, **kw)[0], first)
+    assert (stats.misses, stats.hits, stats.traces) == (1, 4, 1)
+    del tar, other
+    assert len(trouting._FUSED_CACHE) == 1
     jar, [(_, _, wit, _, targs, mi), *_] = _phases("skiplist_insert_delete", 4)
     war = _carry(jar)
     for _ in range(2):
         _, _, war = _run(wit, war, *wit.init(*targs), 4, max_iters=mi, schedule="fused")
-    assert (stats.misses, stats.traces) == (3, 3) and len(trouting._FUSED_CACHE) == 1
+    assert (stats.misses, stats.traces) == (2, 2) and len(trouting._FUSED_CACHE) == 2
+    budget = 7
+    got, st, gar = _run(wit, war, *wit.init(*targs), 4, max_iters=budget, schedule="fused")
+    want, wst, har = _run(wit, war, *wit.init(*targs), 4, max_iters=budget)
+    assert (stats.misses, stats.traces) == (2, 2)
+    assert torch.equal(got, want) and st.supersteps == wst.supersteps
+    assert (got[:, trouting.F_STATUS] == titer.STATUS_MAXED).any()
+    assert torch.equal(gar.data, har.data) and torch.equal(gar.heap, har.heap)
     trouting.reset_executable_caches()
     assert len(trouting._FUSED_CACHE) == 0 and stats.traces == 0
 
