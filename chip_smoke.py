@@ -190,6 +190,40 @@ Phases (any failure exits non-zero before the last line):
      p50/p99/p999 latency, rounds, engine calls, mean quantum, captures,
      ``pulse_chase`` and ``pulse_commit`` launches and the host's share of
      the run's wall time (outside the engine calls).
+ 15. fault tolerance and durability: ``PulseService(...,
+     fault_tolerance=FaultToleranceConfig(store=ArenaStore(tmp),
+     snapshot_every=8))`` over phase 14's heap, specs and requests, the
+     stores in a temporary directory on local disk.  Runs: (f) (a) made
+     durable (every write quantum's inputs in an fsynced log before it is
+     acknowledged, a snapshot every 8 logged quanta), no kill: every request
+     and every count equal to (a); (g) (f) with shard 0 killed
+     (``FaultPlan(kill_shard=0, kill_call=K, kill_superstep=1)``) at the
+     update quantum nearest the middle of (f)'s run whose log since the last
+     snapshot is not empty: the card equal to a CPU copy of the same service
+     and plan in every request and count, one recovery (the snapshot loaded
+     onto the card, the log replayed through the sequential commit, checked
+     against the resident arena), ``store.recover()`` after the run equal to
+     the resident arena, ``data`` equal to (a)'s; (h) (c)'s mesh with
+     failover replication (a log-shipped standby, each quantum replayed over
+     its mesh through ``distributed_execute`` and ``pulse_commit``, verified
+     after every write quantum) and shard 2 killed before superstep 2 of the read quantum
+     nearest the middle of (c)'s run, dead for 6 rounds: one recovery (the
+     log replayed over the mesh, as the standby), at
+     least one read quantum fanned out to the replica, no read retried, no
+     request ended ``STATUS_RETRY``, status, iters and result equal to (a),
+     ``data`` equal to (c)'s, the standby equal to the primary, one capture
+     a group; (i) the watchdog on a reads-only cut (4,096 reads, 512 a
+     round) over the mesh with failover replication, shard 1 delayed
+     (``FaultPlan(delay_shard=1, delay_s=...)``) 4x the watchdog's timeout,
+     itself 10x the slowest of 20 healthy probes timed first through the
+     service's own probe (at least 20 ms): at least one suspect and one fanned-out quantum, no retry, no
+     recovery, the probes on ``pulse_chase`` (their launches counted).
+     Every run's reads equal ``ref_find``.  Reported: requests/s beside the
+     run it extends, the log append's ms (mean and max, fsync included), a
+     snapshot's ms and bytes, the snapshots, the recovery's ms (snapshot
+     load and replay), the quanta replayed, the retries, the failover and
+     shipped quanta, the standby's ms a write quantum, the probe's ms and
+     the watchdog's settings, each with the card's name and power limit.
 
 Phases 11 and 12 then run every batch (each step of a write batch) on the
 device-resident schedules, ``schedule="fused"`` and ``"pipelined"`` on the
@@ -2678,16 +2712,20 @@ def serving_specs(heads, root, device: str):
 class _EngineTally:
     """Wraps one engine's ``execute`` to count its calls by iterator kind
     and add up their wall time (the host clock around each call, whose
-    result the service then copies to the host)."""
+    result the service then copies to the host).  ``kinds`` is the call
+    log: "r" or "w" for each call in order (a fault plan's ``kill_call``
+    counts the same calls on one node and on a mesh without a watchdog)."""
 
     def __init__(self, engine):
         self.reads = self.writes = 0
         self.seconds = 0.0
+        self.kinds: list[str] = []
         self._execute = engine.execute
         engine.execute = self
 
     def __call__(self, it, *args, **kw):
         t0 = time.perf_counter()
+        self.kinds.append("w" if it.mutates else "r")
         try:
             return self._execute(it, *args, **kw)
         finally:
@@ -2699,10 +2737,14 @@ class _EngineTally:
 
 
 def serve_run(tag, arena, specs, tuples, *, P: int, deadline_ms=None, reshard_at=None,
-              **svc_kw):
-    """One phase-14 run: a ``PulseService`` over ``arena`` (on a mesh of P
-    when P > 1) serving ``tuples``.  The launch counts are set to 0 just
-    before and read just after.  Returns (requests, metrics, engine, row)."""
+              fault_plan=None, on_service=None, extra=None, **svc_kw):
+    """One phase-14 (or 15) run: a ``PulseService`` over ``arena`` (on a
+    mesh of P when P > 1) serving ``tuples``, its engine killing or
+    delaying a shard by ``fault_plan``.  ``on_service(svc)`` runs after the
+    service is built, before the launch counts are set to 0 (just before
+    the run; they are read just after).  Returns (requests, metrics,
+    engine, row); ``extra``, a dict, receives the service and the call
+    log."""
     import numpy as np
     import torch
 
@@ -2713,11 +2755,18 @@ def serve_run(tag, arena, specs, tuples, *, P: int, deadline_ms=None, reshard_at
     from repro_torch.serving.admission import TraversalRequest
     from repro_torch.serving.traversal_service import PulseService
 
+    from repro_torch.core.faults import FaultInjector
+
     dev = arena.data.device.type
-    eng = PulseEngine(arena, mesh=routing.EmulatedMesh(P, dev) if P > 1 else None)
+    eng = PulseEngine(arena, mesh=routing.EmulatedMesh(P, dev) if P > 1 else None,
+                      fault_injector=FaultInjector(fault_plan) if fault_plan else None)
     tally = _EngineTally(eng)
     svc = PulseService(eng, specs, slots_per_structure=SERVE_SLOTS, quantum=SERVE_QUANTUM,
                        **svc_kw)
+    if on_service is not None:
+        on_service(svc)
+    if extra is not None:
+        extra.update(svc=svc, kinds=tally.kinds)
     quanta = []
     pick = svc._quantum_for_round
     svc._quantum_for_round = lambda now: quanta.append(pick(now)) or quanta[-1]
@@ -2762,7 +2811,11 @@ def serve_run(tag, arena, specs, tuples, *, P: int, deadline_ms=None, reshard_at
         pulse_chase_launches=launches, pulse_commit_launches=commits,
         supersteps=m.supersteps, commits=m.commits, reshards=m.reshards,
         reshard_after_retired=retired_at, wall_s=wall,
-        host_share=1.0 - tally.seconds / wall, engine_s=tally.seconds)
+        host_share=1.0 - tally.seconds / wall, engine_s=tally.seconds,
+        recoveries=m.recoveries, replayed_commits=m.replayed_commits, retries=m.retries,
+        mean_recovery_ms=m.mean_recovery_ms if m.recoveries else None,
+        failover_quanta=m.failover_quanta, replica_quanta=m.replica_quanta,
+        watchdog_probes=m.watchdog_probes, watchdog_suspects=m.watchdog_suspects)
     return reqs, m, eng, row
 
 
@@ -2789,9 +2842,10 @@ def _same_requests(tag, a, b, *, rounds: bool = True):
                                  f" vs {(y.status, y.iters, y.admit_round, y.finish_round, y.result)}")
 
 
-def _check_against_oracle(tag, reqs, heap):
+def _check_against_oracle(tag, reqs, heap, *, updates: bool = True):
     """Every request DONE, every read equal to its structure's
-    ``ref_find``, every update found its key."""
+    ``ref_find``, every update found its key (``updates=False``: a
+    reads-only run, which holds none)."""
     import numpy as np
 
     from repro_torch.core.iterator import STATUS_DONE
@@ -2812,8 +2866,11 @@ def _check_against_oracle(tag, reqs, heap):
     got = [(int(r.result[1]), int(r.result[2])) for r in by["wiredtiger"]]
     if got != [tuple(w[:2]) for w in want]:
         raise AssertionError(f"{tag}: B+tree finds disagree with ref_find")
-    if not all(int(r.result[btree.U_FOUND]) == 1 for r in by["wiredtiger_update"]):
+    if updates and not all(int(r.result[btree.U_FOUND]) == 1
+                           for r in by["wiredtiger_update"]):
         raise AssertionError(f"{tag}: an update missed its key")
+    if not updates and "wiredtiger_update" in by:
+        raise AssertionError(f"{tag}: a reads-only run served updates")
 
 
 def _updates_visible(tag, eng, root, updates):
@@ -2890,6 +2947,7 @@ def phase_serving(rng, smi):
     # (a) one node, sync, the card against a CPU copy of the same service
     ra, ma, ea, row = serve_run("a: one node, sync", one, serving_specs(heads, root, "cuda"),
                                 tuples, P=1)
+    a_row = row
     rows.append(row)
     cpu = arena_from_numpy(*cpu_fields, device="cpu")
     rc, mc, ec, crow = serve_run("a: CPU copy", cpu, serving_specs(heads, root, "cpu"), tuples,
@@ -2924,8 +2982,11 @@ def phase_serving(rng, smi):
     mesh_fields = [t.cpu().numpy() for t in (mesh_arena.data, mesh_arena.bounds,
                                              mesh_arena.perms, mesh_arena.heap)]
     routing.reset_executable_caches()
+    c_extra = {}
     rcm, mcm, ecm, row = serve_run("c: mesh of 4, sync", mesh_arena,
-                                   serving_specs(mheads, mroot, "cuda"), tuples, P=P)
+                                   serving_specs(mheads, mroot, "cuda"), tuples, P=P,
+                                   extra=c_extra)
+    c_row = row
     rows.append(row)
     _same_requests("(c) mesh vs (a)", ra, rcm, rounds=False)
     if row["captures"] != len(serving_specs(mheads, mroot, "cuda")):
@@ -2972,6 +3033,344 @@ def phase_serving(rng, smi):
     out = dict(phase="serving", seconds=secs, card=smi, runs=rows, budget_check=budget_row,
                cpu_copy=crow)
     log(json.dumps(out))
+    # what phase 15 runs against: (a)'s and (c)'s requests, final data and
+    # call log, and the heap they ran on
+    ctx = dict(heap=heap, tuples=tuples, updates=updates, heads=heads, root=root,
+               cpu_fields=cpu_fields, mesh_fields=mesh_fields, mheads=mheads, mroot=mroot,
+               a=(ra, ma, a_row, ea.arena.data.cpu()), c=(rcm, mcm, c_row, ecm.arena.data.cpu(),
+                                                           c_extra["kinds"]))
+    return out, ctx
+
+
+# ---------------------- fault tolerance and durability ------------------------
+
+FT_SNAPSHOT_EVERY = 8  # logged write quanta between snapshots in runs (f)-(i)
+WATCHDOG_READS = 4_096  # run (i)'s reads-only cut of phase 14's requests
+HEALTHY_PROBE_REPS = 5  # run (i)'s timed healthy probes a shard, after a warm-up
+WATCHDOG_PER_ROUND = 512  # its arrivals a round: rounds for the watchdog to act in
+
+
+class _Timed:
+    """Wraps a callable, keeping each call's wall seconds."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds: list[float] = []
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kw)
+        finally:
+            self.seconds.append(time.perf_counter() - t0)
+
+
+def _ms(seconds):
+    import numpy as np
+
+    if not seconds:
+        return dict(n=0, mean_ms=None, max_ms=None)
+    a = np.asarray(seconds) * 1e3
+    return dict(n=len(a), mean_ms=float(a.mean()), max_ms=float(a.max()))
+
+
+def _store_hooks(store):
+    """Times an ``ArenaStore``'s log appends (the fsync included) and
+    snapshots, sizes each snapshot on disk and keeps each recovery's
+    ``RecoveryInfo``.  Installed before the service is built, so the
+    baseline snapshot is among them."""
+    hooks = dict(append=_Timed(store.log.append), snapshot=_Timed(store.snapshot),
+                 snapshot_bytes=[], recoveries=[])
+    store.log.append = hooks["append"]
+    snap, recover = hooks["snapshot"], store.recover
+
+    def snapshot(arena, log_seq=None, **kw):
+        seq = snap(arena, log_seq, **kw)
+        d = store.dir / f"step_{seq:08d}"
+        hooks["snapshot_bytes"].append(sum(f.stat().st_size for f in d.iterdir()))
+        return seq
+
+    def recover_and_keep(**kw):
+        arena, info = recover(**kw)
+        hooks["recoveries"].append(info)
+        return arena, info
+
+    store.snapshot = snapshot
+    store.recover = recover_and_keep
+    return hooks
+
+
+def _pick_call(kinds, kind: str, *, skip=lambda n: False):
+    """The index of the engine call of ``kind`` ("r" or "w") nearest the
+    middle of the call log ``kinds``; ``skip(n)`` drops the one with ``n``
+    calls of that kind before it."""
+    idx, n = [], 0
+    for i, k in enumerate(kinds):
+        if k == kind:
+            if not skip(n):
+                idx.append(i)
+            n += 1
+    if not idx:
+        raise AssertionError(f"no engine call of kind {kind!r} to kill in {len(kinds)} calls")
+    return min(idx, key=lambda i: abs(i - len(kinds) / 2))
+
+
+def _same_arena(tag, a, b, fields=("data", "bounds", "perms", "heap")):
+    import torch
+
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{tag}: arena.{f} differs")
+
+
+def phase_fault_tolerance(ctx, smi):
+    """Phase 15: fault tolerance and durability, ``PulseService(...,
+    fault_tolerance=FaultToleranceConfig(...))`` over phase 14's heap,
+    specs and requests, runs (f)-(i); see the module docstring.  Returns
+    the phase's row and its ``pulse_chase`` and ``pulse_commit`` launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.faults import FaultInjector, FaultPlan
+    from repro_torch.core.iterator import STATUS_RETRY
+    from repro_torch.distributed.arena_ft import (
+        ArenaStore,
+        FaultToleranceConfig,
+        ReplicationConfig,
+    )
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+
+    t_phase = time.perf_counter()
+    heap, tuples, updates = ctx["heap"], ctx["tuples"], ctx["updates"]
+    heads, root, mheads, mroot = ctx["heads"], ctx["root"], ctx["mheads"], ctx["mroot"]
+    ra, ma, a_row, a_data = ctx["a"]
+    rcm, mcm, c_row, c_data, c_kinds = ctx["c"]
+    P = 4
+    rows = {}
+    launches = dict(pulse_chase=0, pulse_commit=0)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ft_")
+    root_dir = Path(tmp.name)
+
+    def count(row):
+        launches["pulse_chase"] += row["pulse_chase_launches"]
+        launches["pulse_commit"] += row["pulse_commit_launches"]
+
+    try:
+        # (f) (a) made durable: every write quantum logged and fsynced before
+        # it is acknowledged, a snapshot every 8 logged quanta, no kill
+        store = ArenaStore(root_dir / "f")
+        hooks = _store_hooks(store)
+        f_extra = {}
+        rf, mf, ef, row = serve_run(
+            "f: one node, sync, durable", arena_from_numpy(*ctx["cpu_fields"], device="cuda"),
+            serving_specs(heads, root, "cuda"), tuples, P=1, extra=f_extra,
+            fault_tolerance=FaultToleranceConfig(store=store, snapshot_every=FT_SNAPSHOT_EVERY))
+        store.close()
+        count(row)
+        _same_requests("(f) vs (a)", ra, rf)
+        if _serving_counts(mf) != _serving_counts(ma):
+            raise AssertionError(f"(f) metrics differ from (a): {_serving_counts(mf)} vs "
+                                 f"{_serving_counts(ma)}")
+        if not torch.equal(ef.arena.data.cpu(), a_data):
+            raise AssertionError("(f): the final data differs from (a)'s")
+        row.update(a_requests_per_s=a_row["requests_per_s"],
+                   log_append=_ms(hooks["append"].seconds),
+                   snapshot=_ms(hooks["snapshot"].seconds),
+                   snapshot_bytes=hooks["snapshot_bytes"], snapshots=store.snapshots_taken)
+        rows["f"] = row
+        log(f"  (f) == (a) in every request and count; {row['requests_per_s']:,.0f} requests/s "
+            f"beside (a)'s {a_row['requests_per_s']:,.0f}; log append (fsync included) mean "
+            f"{row['log_append']['mean_ms']:.3f} / max {row['log_append']['max_ms']:.3f} ms over "
+            f"{row['log_append']['n']} appends; snapshot mean {row['snapshot']['mean_ms']:.1f} / "
+            f"max {row['snapshot']['max_ms']:.1f} ms, {hooks['snapshot_bytes'][0]:,} bytes, "
+            f"{row['snapshots']} snapshots (the baseline included); {smi}")
+
+        # (g) (f) with shard 0 killed at the update quantum nearest the
+        # middle of (f)'s run whose log since the last snapshot is not empty
+        K = _pick_call(f_extra["kinds"], "w", skip=lambda n: n % FT_SNAPSHOT_EVERY == 0)
+        plan = FaultPlan(kill_shard=0, kill_call=K, kill_superstep=1)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            store = ArenaStore(root_dir / f"g_{dev}")
+            hooks = _store_hooks(store)
+            r, m, e, row = serve_run(
+                f"g: one node, kill shard 0 at call {K}" + (" (CPU copy)" if dev == "cpu" else ""),
+                arena_from_numpy(*ctx["cpu_fields"], device=dev),
+                serving_specs(heads, root, dev), tuples, P=1, fault_plan=plan,
+                fault_tolerance=FaultToleranceConfig(store=store,
+                                                     snapshot_every=FT_SNAPSHOT_EVERY))
+            infos = list(hooks["recoveries"])
+            rec, _ = store.recover(device=dev)
+            store.close()
+            _same_arena(f"(g, {dev}) store.recover() after the run vs the resident arena", rec,
+                        e.arena)
+            outs[dev] = (r, m, e, row, infos)
+        rg, mg, eg, row, infos = outs["cuda"]
+        count(row)
+        _same_requests("(g) card vs CPU copy", rg, outs["cpu"][0])
+        if _serving_counts(mg) != _serving_counts(outs["cpu"][1]):
+            raise AssertionError(f"(g) metrics differ: {_serving_counts(mg)} vs "
+                                 f"{_serving_counts(outs['cpu'][1])}")
+        if mg.recoveries != 1 or mg.replayed_commits <= 0 or len(infos) != 1:
+            raise AssertionError(f"(g): {mg.recoveries} recoveries, {mg.replayed_commits} "
+                                 f"replayed commits")
+        if not torch.equal(eg.arena.data.cpu(), a_data):
+            raise AssertionError("(g): the final data differs from (a)'s")
+        _check_against_oracle("(g)", rg, heap)
+        _updates_visible("(g)", eg, root, updates)
+        row.update(kill_call=K, quanta_replayed=infos[0].replayed_quanta,
+                   snapshot_seq=infos[0].snapshot_seq, cpu_copy_s=outs["cpu"][3]["wall_s"])
+        rows["g"] = row
+        log(f"  (g) kill of shard 0 at call {K} (an update quantum): card == CPU copy "
+            f"({row['cpu_copy_s']:.1f} s), 1 recovery, {row['quanta_replayed']} quanta and "
+            f"{mg.replayed_commits} commits replayed from the snapshot at seq "
+            f"{row['snapshot_seq']}, {mg.retries} retries, mean recovery "
+            f"{mg.mean_recovery_ms:.1f} ms (snapshot load and replay), "
+            f"{row['requests_per_s']:,.0f} requests/s; reads == ref_find, updates visible, "
+            f"data == (a); {smi}")
+
+        # (h) (c) with failover replication and shard 2 killed at the read
+        # quantum nearest the middle of (c)'s run
+        Kh = _pick_call(c_kinds, "r")
+        store = ArenaStore(root_dir / "h")
+        hooks = _store_hooks(store)
+        standby = {}
+
+        def time_standby(svc):
+            standby["apply"] = _Timed(svc._replicas.apply_quantum)
+            svc._replicas.apply_quantum = standby["apply"]
+
+        routing.reset_executable_caches()
+        h_extra = {}
+        rh, mh, eh, row = serve_run(
+            f"h: mesh of 4, failover replication, kill shard 2 at call {Kh}",
+            arena_from_numpy(*ctx["mesh_fields"], device="cuda"),
+            serving_specs(mheads, mroot, "cuda"), tuples, P=P,
+            fault_plan=FaultPlan(kill_shard=2, kill_call=Kh, kill_superstep=2),
+            on_service=time_standby, extra=h_extra,
+            fault_tolerance=FaultToleranceConfig(
+                store=store, snapshot_every=FT_SNAPSHOT_EVERY, dead_rounds=6,
+                replication=ReplicationConfig(policy="failover")))
+        store.close()
+        count(row)
+        if mh.recoveries != 1 or mh.failover_quanta < 1:
+            raise AssertionError(f"(h): {mh.recoveries} recoveries, {mh.failover_quanta} "
+                                 f"failover quanta")
+        bad = [r.req_id for r in rh if (not r.structure.endswith("_update") and r.retries)
+               or r.status == STATUS_RETRY]
+        if bad:
+            raise AssertionError(f"(h): {len(bad)} requests retried reads or ended "
+                                 f"STATUS_RETRY, first {bad[:5]}")
+        _same_requests("(h) vs (a)", ra, rh, rounds=False)
+        if not torch.equal(eh.arena.data.cpu(), c_data):
+            raise AssertionError("(h): the final data differs from (c)'s")
+        reps = h_extra["svc"]._replicas
+        reps.verify(eh.arena)
+        _same_arena("(h) the standby vs the primary", reps.shadow, eh.arena)
+        if row["captures"] != 3:
+            raise AssertionError(f"(h): {row['captures']} captures for three groups: the "
+                                 f"recovery or the fan-out captured again")
+        if mh.replica_quanta != row["write_calls"]:
+            raise AssertionError(f"(h): {mh.replica_quanta} quanta shipped for "
+                                 f"{row['write_calls']} write calls")
+        row.update(kill_call=Kh, c_requests_per_s=c_row["requests_per_s"],
+                   standby=_ms(standby["apply"].seconds),
+                   quanta_replayed=hooks["recoveries"][0].replayed_quanta)
+        rows["h"] = row
+        log(f"  (h) kill of shard 2 at call {Kh} (a read quantum): 1 recovery "
+            f"({row['quanta_replayed']} quanta replayed, mean {mh.mean_recovery_ms:.1f} ms), "
+            f"{mh.failover_quanta} failover quanta, no read retried, (h) == (a) per request, "
+            f"data == (c), the standby == the primary, {row['captures']} captures; "
+            f"{row['requests_per_s']:,.0f} requests/s beside (c)'s "
+            f"{c_row['requests_per_s']:,.0f}; {mh.replica_quanta} write quanta shipped, the "
+            f"standby {row['standby']['mean_ms']:.1f} ms a quantum (max "
+            f"{row['standby']['max_ms']:.1f}); {smi}")
+
+        # (i) the watchdog on a reads-only cut: a straggler that never raises
+        arena_i = arena_from_numpy(*ctx["mesh_fields"], device="cuda")
+        reads = [t for t in tuples if t[1] != "wiredtiger_update"][:WATCHDOG_READS]
+        reads = [(j, s_, q, t, j // WATCHDOG_PER_ROUND, v)
+                 for j, (_, s_, q, t, _, v) in enumerate(reads)]
+        probe_launches = [0]
+        healthy = []
+        ei_svc = {}
+
+        def arm_watchdog(svc):
+            # healthy probes of every shard through the service's own probe
+            # (warm: no fault injection; a warm-up each, then the reps), not
+            # the main path's launches; the watchdog's timeout and shard 1's
+            # delay are set from them before the run
+            for shard in range(P):
+                for rep in range(HEALTHY_PROBE_REPS + 1):
+                    dt = svc._probe_shard(shard, warm=True)
+                    if rep:
+                        healthy.append(dt)
+            timeout = max(0.02, 10 * max(healthy))
+            svc.ft.watchdog_timeout_s = timeout
+            svc.engine.fault_injector = FaultInjector(
+                FaultPlan(delay_shard=1, delay_s=4 * timeout))
+            probe = svc._probe_shard
+
+            def counted(shard, *, warm=False):
+                n0 = chase_ops.pulse_chase.launches
+                try:
+                    return probe(shard, warm=warm)
+                finally:
+                    probe_launches[0] += chase_ops.pulse_chase.launches - n0
+
+            svc._probe_shard = counted
+
+        store = ArenaStore(root_dir / "i")
+        routing.reset_executable_caches()
+        specs_i = {k: v for k, v in serving_specs(mheads, mroot, "cuda").items()
+                   if not v.writes}
+        ri, mi, ei, row = serve_run(
+            "i: mesh of 4, reads only, watchdog, shard 1 delayed", arena_i, specs_i, reads,
+            P=P, on_service=arm_watchdog, extra=ei_svc,
+            fault_tolerance=FaultToleranceConfig(
+                store=store, snapshot_every=FT_SNAPSHOT_EVERY, dead_rounds=1000,
+                replication=ReplicationConfig(policy="failover"),
+                watchdog_timeout_s=1.0))  # armed; set by arm_watchdog before the run
+        store.close()
+        timeout_s = ei_svc["svc"].ft.watchdog_timeout_s
+        delay_s = ei.fault_injector.plan.delay_s
+        count(row)
+        if (mi.watchdog_suspects < 1 or mi.failover_quanta < 1 or mi.retries
+                or mi.recoveries):
+            raise AssertionError(f"(i): {mi.watchdog_suspects} suspects, {mi.failover_quanta} "
+                                 f"failover quanta, {mi.retries} retries, {mi.recoveries} "
+                                 f"recoveries")
+        _check_against_oracle("(i)", ri, heap, updates=False)
+        if probe_launches[0] <= 0:
+            raise AssertionError("(i): the probes launched no pulse_chase kernel")
+        row.update(healthy_probe=_ms(healthy), watchdog_timeout_s=timeout_s, delay_s=delay_s,
+                   probe_launches=probe_launches[0])
+        rows["i"] = row
+        log(f"  (i) healthy probe mean {row['healthy_probe']['mean_ms']:.3f} / max "
+            f"{row['healthy_probe']['max_ms']:.3f} ms; watchdog timeout {timeout_s * 1e3:.1f} "
+            f"ms, shard 1 delayed {delay_s * 1e3:.1f} ms a superstep: {mi.watchdog_suspects} "
+            f"suspect(s) over {mi.watchdog_probes} probes ({probe_launches[0]} pulse_chase "
+            f"launches), {mi.failover_quanta} failover quanta, 0 retries, 0 recoveries, reads "
+            f"== ref_find; {row['requests_per_s']:,.0f} requests/s over {row['rounds']} "
+            f"rounds; {smi}")
+    finally:
+        tmp.cleanup()
+
+    for r in rows.values():
+        log(f"  [{r['run']}] {r['requests_per_s']:,.0f} requests/s, p50 {r['p50_ms']:.3f} / "
+            f"p99 {r['p99_ms']:.3f} ms, {r['rounds']} rounds, {r['engine_calls']} engine calls "
+            f"({r['read_calls']} read), captures {r['captures']}, pulse_chase "
+            f"{r['pulse_chase_launches']}, pulse_commit {r['pulse_commit_launches']}, "
+            f"{r['wall_s']:.2f} s; {smi}")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 15 took {secs:.1f} s (the CPU copy included)")
+    out = dict(phase="fault_tolerance", seconds=secs, card=smi, runs=rows, launches=launches)
+    log(json.dumps(out, default=float))
     return out
 
 
@@ -3768,7 +4167,7 @@ def main(argv=None) -> int:
                                "dispatched read, and the lossy fused and pipelined reads' first "
                                "calls' launches")
     log("== phase 14: traversal serving, PulseService over the engine on the card")
-    serving_row = phase_serving(rng, smi)
+    serving_row, serving_ctx = phase_serving(rng, smi)
     serve_runs = serving_row["runs"]
     entry["launches"] += sum(r["pulse_chase_launches"] for r in serve_runs)
     entry["launches_note"] += ("; in phase 14, one per read engine call of each one-node "
@@ -3777,6 +4176,14 @@ def main(argv=None) -> int:
                                "superstep and captured chunk)")
     entry["max_abs_err"] = max(entry["max_abs_err"], serving_row["budget_check"]["max_abs_err"])
     entry["budget_operand"] = serving_row["budget_check"]
+    log("== phase 15: fault tolerance and durability, PulseService(..., fault_tolerance=...)")
+    ft_row = phase_fault_tolerance(serving_ctx, smi)
+    del serving_ctx
+    entry["launches"] += ft_row["launches"]["pulse_chase"]
+    entry["launches_note"] += ("; in phase 15, one per read engine call of the one-node runs "
+                               "(f, g), and on the mesh the read group's first call's "
+                               "launches (h, i), one a superstep of each replica-window read "
+                               "while a shard was dead (h, i) and of each watchdog probe (i)")
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -3790,7 +4197,8 @@ def main(argv=None) -> int:
     head_commit = next(r for r in mesh_rows if r["batch"] == "wiredtiger_update")["commit_check"]
     commit_entry = dict(
         name="pulse_commit", route="cuda", source=COMMIT_SOURCE, replaces=COMMIT_REPLACES,
-        launches=commit_launches + sum(r["pulse_commit_launches"] for r in serve_runs),
+        launches=commit_launches + sum(r["pulse_commit_launches"] for r in serve_runs)
+        + ft_row["launches"]["pulse_commit"],
         max_abs_err=max(r["commit_check"]["max_abs_err"]
                                                   for r in mesh_rows),
         ms=head_commit["ms"], plain_ms=head_commit["plain_ms"], bound_ms=head_commit["bound_ms"],
@@ -3804,7 +4212,9 @@ def main(argv=None) -> int:
                       "and on the fused and pipelined schedules each step's first call's: "
                       "the warm-up superstep's and the captured chunk's (1 and 8; the "
                       "replays run the captured ones); in phase 14, those of each update "
-                      "group's device loop on the mesh runs (c, d, e)",
+                      "group's device loop on the mesh runs (c, d, e), and in phase 15 on "
+                      "run (h) those of the update group's loop and one a superstep of "
+                      "the standby's and the recovery's dispatched replays",
         batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[
             dict(step=x["step"], supersteps=x["supersteps"], launches=x["commit_launches"],
                  ms_per_superstep=x["commit_ms_per_superstep"],
@@ -3877,6 +4287,7 @@ def main(argv=None) -> int:
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
+            fault_tolerance=ft_row,
             **summary,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

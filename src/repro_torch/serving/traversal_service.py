@@ -32,23 +32,34 @@ schedule: admission sits above the dispatch decision, like the paper's CPU
 node.  ``pipeline="async"`` issues every engine call from a
 ``DeviceRunner`` thread while this thread admits the next round.
 
-Fault tolerance (snapshots and a commit log, shard-failure detection,
-replication, the watchdog) is ROADMAP item 8: ``fault_tolerance=`` raises,
-and a ``ShardFailure`` propagates to the caller.
+**Fault tolerance** (``fault_tolerance=distributed.arena_ft.
+FaultToleranceConfig``): a write quantum is acknowledged only once its
+inputs are in an fsynced commit log, and the arena is snapshotted every
+``snapshot_every`` logged quanta.  A ``ShardFailure`` marks the shard dead
+(``ShardFailureDetector``), the arena is recovered from the snapshot and
+the replayed log and checked against the resident one bit for bit, and
+the failed group is parked for a seeded, jittered backoff, each occupant
+charged a retry.  Optionally a log-shipped hot standby (R = 2) serves a
+dead primary's reads with no retry, and a per-round watchdog probes every
+shard (a one-record PULSE ISA traversal on the same superstep launch as
+real traffic) and suspects stragglers that never raise.  Without it a
+``ShardFailure`` propagates to the caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 from collections import deque
 
 import numpy as np
 import torch
 
-from repro_torch.core import routing
+from repro_torch.core import isa, routing
 from repro_torch.core.arena import NULL, remap_shards
 from repro_torch.core.engine import BACKENDS, PulseEngine
+from repro_torch.core.faults import ShardFailure
 from repro_torch.core.iterator import (
     STATUS_DONE,
     STATUS_FAULT,
@@ -57,7 +68,11 @@ from repro_torch.core.iterator import (
     STATUS_SHED,
     PulseIterator,
 )
-from repro_torch.distributed.elastic import ReshardPlanner
+from repro_torch.distributed.elastic import (
+    HeartbeatMonitor,
+    ReshardPlanner,
+    ShardFailureDetector,
+)
 from repro_torch.distributed.sharding import VersionedOwnerMap
 from repro_torch.serving.admission import (
     AdmissionController,
@@ -119,12 +134,15 @@ class ServiceMetrics:
     queue_depth_max: int = 0
     quantum_min_used: int = 0
     quantum_max_used: int = 0
-    # fault tolerance and replication (ROADMAP item 8): always 0 here
+    # fault tolerance: shard deaths recovered from, commits replayed out of
+    # the log, requests re-queued off dead shards
     recoveries: int = 0
     replayed_commits: int = 0
     retries: int = 0
     retry_exhausted: int = 0
     recovery_ms_total: float = 0.0
+    # replication: read quanta that fanned out to a replica while a primary
+    # was dead, write quanta shipped to the standby; the watchdog's probes
     failover_quanta: int = 0
     replica_quanta: int = 0
     watchdog_probes: int = 0
@@ -183,6 +201,25 @@ def _host(x):
     return x.detach().cpu() if isinstance(x, torch.Tensor) else x
 
 
+def _make_probe_iterator() -> PulseIterator:
+    """The shard watchdog's one-touch read: load one node of a chosen
+    shard's range, keep its first word and finish.  A PULSE ISA program,
+    so on the card it runs on ``pulse_chase``'s superstep launch like real
+    traffic, and a delayed straggler stalls the probe by its whole delay,
+    the signal the watchdog escalates (a straggler never raises
+    ``ShardFailure``).  ``n_instructions`` is the JAX package's count of
+    its probe."""
+    a = isa.Asm(scratch_words=1, node_words=1, name="shard_probe")
+    a.loadn(1, 0)
+    a.stores(0, 1)
+    a.ret()
+    it = isa.as_pulse_iterator(a.finish())
+    return dataclasses.replace(it, n_instructions=3)
+
+
+_PROBE_IT = _make_probe_iterator()
+
+
 class _SlotGroup:
     """The fixed-width slot block of one structure (one batch shape)."""
 
@@ -197,6 +234,11 @@ class _SlotGroup:
         self.iters = np.zeros(n_slots, np.int64)
         # admission runs init on the host, so its arguments live there
         self.host_init_args = tuple(_host(a) for a in spec.init_args)
+        # fault tolerance: a group whose quantum hit a dead shard is parked
+        # (occupants kept, admission blocked) until this round; failures in
+        # a row drive the exponential backoff
+        self.backoff_until = -1
+        self.fail_streak = 0
 
     def free_slots(self) -> int:
         return sum(r is None for r in self.req)
@@ -237,10 +279,6 @@ class PulseService:
         rate_limit_burst: float | None = None,
         fault_tolerance=None,
     ):
-        if fault_tolerance is not None:
-            raise NotImplementedError(
-                "fault_tolerance (snapshots, the commit log, shard-failure detection, "
-                "replication, the watchdog) comes with ROADMAP item 8")
         if backend == "xla":
             raise ValueError("backend 'xla' is the JAX package's plain executor; the port's "
                              "is backend='reference' (or None: the kernel on the card)")
@@ -286,6 +324,43 @@ class PulseService:
                    if rate_limit_rps is not None else None)
         self.admission = AdmissionController(max_pending=max_pending, rate_limiter=limiter)
         self.metrics = ServiceMetrics()
+        # fault tolerance (arena_ft.FaultToleranceConfig): the snapshot and
+        # the commit log of write quanta, shard-failure detection, and
+        # serving while recovering (backoff and a retry budget)
+        self.ft = fault_tolerance
+        self._detector: ShardFailureDetector | None = None
+        self._dead_until: dict[int, int] = {}  # shard -> revive round
+        self._ft_rng: random.Random | None = None
+        self._writes_since_snapshot = 0
+        # the log-shipped standby (arena_ft.ReplicaSet), and the per-round
+        # shard watchdog on a logical round clock
+        self._replicas = None
+        self._watchdog: HeartbeatMonitor | None = None
+        self._wd_round = -1
+        if self.ft is not None:
+            from repro_torch.distributed.arena_ft import ReplicaSet
+
+            P = engine.arena.num_shards
+            on_mesh = engine.mesh is not None and P >= 2
+            rep = self.ft.replication
+            if rep is not None and not on_mesh:
+                raise ValueError("replication needs a distributed engine (mesh) with >= 2 shards")
+            if self.ft.watchdog_timeout_s > 0 and not on_mesh:
+                raise ValueError("the shard watchdog needs a distributed engine (mesh)")
+            for name, spec in structures.items():
+                if spec.writes:
+                    self.ft.store.register_iterator(name, spec.iterator)
+            # recovery always needs a state to replay from
+            self.ft.store.ensure_baseline(engine.arena)
+            self._detector = ShardFailureDetector(P)
+            self._ft_rng = random.Random(self.ft.seed)
+            if rep is not None:
+                plan = routing.make_replica_plan(P, rep.primaries, policy=rep.policy)
+                self._replicas = ReplicaSet(plan, engine.arena, mesh=engine.mesh)
+            if self.ft.watchdog_timeout_s > 0:
+                # a timeout of one round on the logical clock: a shard is
+                # suspected only after two slow probes in a row
+                self._watchdog = HeartbeatMonitor(P, timeout_s=1, clock=lambda: self._wd_round)
         # live resharding: owner-function epochs and the drain/cutover planner
         self._owner_map = VersionedOwnerMap(engine.arena.bounds.tolist())
         self._reshard = ReshardPlanner()
@@ -293,6 +368,11 @@ class PulseService:
         # retirement events (writes?, request), pushed by whichever thread
         # retires and drained for accounting on the main thread
         self._emit: deque = deque()
+        if self._watchdog is not None:
+            # build and warm the probe's path, so the first timed round does
+            # not read a build as a stall
+            for s in range(engine.arena.num_shards):
+                self._probe_shard(s, warm=True)
 
     # ------------------------------ intake -----------------------------------
 
@@ -381,6 +461,12 @@ class PulseService:
         if self.preempt:
             self._maybe_preempt(now_s)
         free = {name: g.free_slots() for name, g in self.groups.items()}
+        # a group parked on a dead shard admits no one until its backoff
+        # ends: the retried batch re-runs as it was (the same batch, the
+        # same allocation order, the same arena after recovery)
+        for name, g in self.groups.items():
+            if g.backoff_until > rnd:
+                free[name] = 0
         free = apply_write_barriers(
             free,
             {n: g.spec.group or n for n, g in self.groups.items()},
@@ -473,6 +559,7 @@ class PulseService:
         now_s = time.perf_counter()
         m = self.metrics
         m.engine_calls += 1
+        g.fail_streak = 0  # a quantum landed: the group is healthy again
         if stats is not None and hasattr(stats, "supersteps"):
             m.supersteps += stats.supersteps
             m.wire_words += stats.total_wire_words
@@ -499,33 +586,228 @@ class PulseService:
         # NULL pointers in free slots fault on their first iteration, so a
         # fixed-width batch is one batch shape per group
         occ = g.occupied()
+        log_writes = self.ft is not None and g.spec.writes
+        rep = self._replicas
 
         def run():
             t0 = time.perf_counter()
             dev = self.engine.arena.data.device
+            p0 = g.ptr.copy()
+            s0 = g.scratch.copy()
+            rep_ctx = None if g.spec.writes else self._replica_ctx()
             res = self.engine.execute(
                 g.spec.iterator,
-                torch.from_numpy(g.ptr.copy()).to(dev),
-                torch.from_numpy(g.scratch.copy()).to(dev),
+                torch.from_numpy(p0).to(dev),
+                torch.from_numpy(s0).to(dev),
                 max_iters=quantum,
                 backend=self.backend,
                 compact=self.compact,
                 fused=self.fused,
                 schedule=self.schedule,
                 fabric=self.fabric,
+                replication=rep_ctx,
             )
+            fanned_out = rep_ctx is not None and bool(rep_ctx.dead_mask.any())
+            shipped = False
+            if log_writes:
+                # the durability point: the quantum is acknowledged once its
+                # inputs are in the fsynced log (their replay on the same
+                # executor rebuilds the arena bit for bit); a crash
+                # before this line loses an unacknowledged quantum only.
+                # k_local is engine.execute's default, logged so the replay
+                # chases as deep
+                store = self.ft.store
+                seq = store.log_quantum(g.name, p0, s0, max_iters=quantum, k_local=4,
+                                        compact=self.compact, commits=res.stats.commits,
+                                        epochs=res.stats.epochs)
+                self._writes_since_snapshot += 1
+                if self._writes_since_snapshot >= self.ft.snapshot_every:
+                    store.snapshot(res.arena, seq)
+                    self._writes_since_snapshot = 0
+                if rep is not None:
+                    # ship the quantum's inputs to the standby: both copies
+                    # apply the same serialized commit stream
+                    rep.apply_quantum(g.spec.iterator, p0, s0, max_iters=quantum, k_local=4,
+                                      compact=self.compact)
+                    if self.ft.replication.verify_every_quantum:
+                        rep.verify(res.arena)
+                    shipped = True
             S = g.spec.iterator.scratch_words
             # one copy to the host a quantum, not a read per slot
             flat = torch.cat([res.ptr[:, None], res.status[:, None], res.iters[:, None],
                               res.scratch.reshape(-1, S)], 1).to(torch.int32).cpu().numpy()
             host = (flat[:, 0], flat[:, 3:], flat[:, 1], flat[:, 2])
-            return host, res.stats, time.perf_counter() - t0
+            return host, res.stats, time.perf_counter() - t0, fanned_out, shipped
 
         def apply(out):
-            host, stats, dt_s = out
+            host, stats, dt_s, fanned_out, shipped = out
+            self.metrics.failover_quanta += int(fanned_out)
+            self.metrics.replica_quanta += int(shipped)
             self._apply_result(g, occ, host, stats, dt_s, rnd)
 
         return QuantumWork(label=g.name, run=run, apply=apply)
+
+    # --------------------------- fault tolerance ------------------------------
+
+    def _verify_recovery(self, recovered) -> None:
+        """No acknowledged commit lost: the snapshot and the replayed log
+        must rebuild the engine's resident arena exactly.  The engine swaps
+        its arena only after a quantum succeeds, and a successful write
+        quantum is logged before it is acknowledged, so any difference
+        means the durable state lost an acknowledged commit."""
+        cur = self.engine.arena
+        for field in ("data", "bounds", "perms", "heap"):
+            a, b = getattr(cur, field), getattr(recovered, field)
+            if not torch.equal(a, b.to(a.device)):
+                raise RuntimeError(f"recovery lost acknowledged commits: arena.{field} diverged")
+
+    def _register_retry(self, g: _SlotGroup, rnd: int) -> None:
+        """Park the failed group under a jittered exponential backoff and
+        charge each occupant one retry; a request past its budget retires
+        STATUS_RETRY (the client resubmits after recovery)."""
+        ft = self.ft
+        m = self.metrics
+        g.fail_streak += 1
+        backoff = min(ft.backoff_cap, ft.backoff_base * (1 << (g.fail_streak - 1)))
+        jitter = 1.0 + ft.backoff_jitter * (2.0 * self._ft_rng.random() - 1.0)
+        g.backoff_until = rnd + 1 + max(1, int(round(backoff * jitter)))
+        now_s = time.perf_counter()
+        for s, r in enumerate(g.req):
+            if r is None:
+                continue
+            r.retries += 1
+            m.retries += 1
+            if r.retries > ft.retry_budget:
+                self._fast_retire(g, s, STATUS_RETRY, now_s, rnd)
+
+    def _on_shard_failure(self, e: ShardFailure, rnd: int) -> None:
+        """Fail over: mark the shard dead, recover the arena from the
+        latest snapshot and the log onto the engine's device, check it
+        against the resident arena, and park the failed group for a
+        backed-off retry.  Runs on the main thread; in async mode the
+        runner is idle (it fails fast, and its error surfaced here), so
+        swapping the arena races nothing."""
+        m = self.metrics
+        self._detector.suspect(e.shard, rnd)
+        self._detector.sweep()
+        t0 = time.perf_counter()
+        eng = self.engine
+        # replay on the executor that wrote the log: the mesh's on a mesh
+        mesh = eng.mesh if eng.mesh is not None and eng.arena.num_shards > 1 else None
+        recovered, info = self.ft.store.recover(device=eng.arena.data.device, mesh=mesh)
+        self._verify_recovery(recovered)
+        self.engine.arena = recovered
+        m.recoveries += 1
+        m.replayed_commits += info.replayed_commits
+        m.recovery_ms_total += (time.perf_counter() - t0) * 1e3
+        self._dead_until[e.shard] = rnd + 1 + self.ft.dead_rounds
+        g = self.groups.get(e.label) if e.label else None
+        if g is None:
+            return
+        if not g.spec.writes and self._has_live_replica(e.shard):
+            # the failed call mutated nothing, so the group's slots are
+            # intact and re-run next round, reading from the replica: read
+            # tenants ride through the death with no retry and no backoff
+            return
+        self._register_retry(g, rnd)
+
+    def _has_live_replica(self, shard: int) -> bool:
+        """True when ``shard``'s range can be served by a replica holder
+        that is alive (policy "primary" never redirects)."""
+        if self._replicas is None or self._replicas.plan.policy == "primary":
+            return False
+        rm = self._replicas.plan.replica_map
+        if not 0 <= shard < len(rm):
+            return False
+        holder = int(rm[shard])
+        return holder >= 0 and holder not in self._detector.dead_shards()
+
+    def _replica_ctx(self) -> routing.ReplicaContext | None:
+        """This quantum's read fan-out operands; None when replication is
+        off or nothing would redirect (policy "failover" with every primary
+        alive keeps the device-resident schedule; "spread" always fans
+        out).  The dead mask is built on the host."""
+        if self._replicas is None:
+            return None
+        P = self.engine.arena.num_shards
+        rm = self._replicas.plan.replica_map
+        down = {s for s in self._detector.dead_shards() if 0 <= s < P}
+        dead = np.zeros(P, bool)
+        for s in down:
+            # fan out only ranges whose holder is alive: a primary marked
+            # dead with a dead holder would leave its range unservable
+            holder = int(rm[s]) if s < len(rm) else -1
+            if holder >= 0 and holder not in down:
+                dead[s] = True
+        if not dead.any() and self._replicas.plan.policy != "spread":
+            return None
+        return routing.ReplicaContext(plan=self._replicas.plan,
+                                      rep_rows=self._replicas.rep_rows(), dead_mask=dead)
+
+    def _probe_shard(self, shard: int, *, warm: bool = False) -> float:
+        """Seconds of one single-record read of ``shard`` through the
+        dispatched superstep path.  ``warm=True`` only builds and warms (no
+        fault injection, no failure handling).  Live probes share the
+        engine's fault-injector calls: ``kill_call`` counts them too."""
+        arena = self.engine.arena
+        bounds = arena.bounds.tolist()
+        if bounds[shard + 1] - bounds[shard] <= 0:
+            return 0.0  # an empty range: nothing to probe
+        dev = arena.data.device
+        ptr0 = torch.tensor([bounds[shard]], dtype=torch.int32, device=dev)
+        scr0 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        try:
+            routing.distributed_execute(
+                _PROBE_IT, arena, ptr0, scr0, mesh=self.engine.mesh,
+                axis_name=self.engine.axis_name, max_iters=2, k_local=1, compact=True,
+                schedule="dispatched",
+                fault_injector=None if warm else self.engine.fault_injector)
+        except ShardFailure as e:
+            if e.label is None:
+                e.label = "watchdog"
+            self._on_shard_failure(e, max(self._wd_round, 0))
+            return float("inf")
+        return time.perf_counter() - t0
+
+    def _run_watchdog(self, rnd: int) -> None:
+        """The per-round shard watchdog: probe every live shard, beat those
+        that answered within ``ft.watchdog_timeout_s``, and turn missed
+        beats into suspected deaths.  It catches stragglers (delay faults)
+        that stall supersteps without raising: the next round's reads fan
+        out to the replica."""
+        m = self.metrics
+        if self._wd_round < 0:
+            # the first round (or just resharded): every shard as if beaten
+            # last round, so the two-misses window counts from here
+            self._wd_round = rnd - 1
+            for s in self._watchdog.hosts:
+                self._watchdog.beat(s)
+        self._wd_round = rnd
+        dead_now = set(self._detector.dead_shards())
+        for s in range(self.engine.arena.num_shards):
+            if s in dead_now:
+                continue  # already degraded: do not stall on it
+            dt = self._probe_shard(s)
+            m.watchdog_probes += 1
+            if dt <= self.ft.watchdog_timeout_s:
+                self._watchdog.beat(s)
+        for s in self._watchdog.sweep():
+            if s in dead_now or s in self._detector.dead_shards():
+                continue
+            m.watchdog_suspects += 1
+            self._detector.suspect(s, rnd)
+            self._detector.sweep()
+            self._dead_until[s] = rnd + 1 + self.ft.dead_rounds
+
+    def _revive_dead_shards(self, rnd: int) -> None:
+        for k in [k for k, until in self._dead_until.items() if until <= rnd]:
+            self._detector.revive(k)
+            if self._watchdog is not None and k in self._watchdog.hosts:
+                # re-arm the beat, so a revived shard that is still slow is
+                # suspected again (a sweep reports new misses only)
+                self._watchdog.beat(k)
+            del self._dead_until[k]
 
     # ------------------------------ elasticity --------------------------------
 
@@ -551,7 +833,44 @@ class PulseService:
             new_mesh = routing.EmulatedMesh(target, self.engine.mesh.device,
                                             axis_name=self.engine.axis_name)
         ep = self._owner_map.advance(new_arena.bounds.tolist())
+        old_epoch = ep.epoch - 1
+
+        def fwd(s: int) -> tuple[int, ...]:
+            return self._owner_map.forward_shard(s, from_epoch=old_epoch, to_epoch=ep.epoch)
+
+        # per-shard serving state minted under the old owner function
+        # forwards through the new epoch: a shard index never survives a
+        # reshard raw, only by range translation
+        self._dead_until = {d: until for s, until in self._dead_until.items() for d in fwd(s)}
+        if self._detector is not None:
+            old_dead = self._detector.dead_shards()
+            self._detector = ShardFailureDetector(target)
+            for s in old_dead:
+                for d in fwd(s):
+                    self._detector.suspect(d, rnd)
+            self._detector.sweep()
         self.engine.reshard(new_arena, new_mesh)
+        if self._replicas is not None:
+            repc = self.ft.replication
+            prim = repc.primaries
+            if prim is not None:
+                prim = tuple(sorted({d for p in prim for d in fwd(p)}))
+            plan = routing.make_replica_plan(target, prim, policy=repc.policy)
+            # the standby reshards through the same deterministic remap, so
+            # primary and replica stay bit-identical across the cutover
+            self._replicas.reset(remap_shards(self._replicas.shadow, target), plan,
+                                 mesh=new_mesh)
+        if self._watchdog is not None:
+            self._watchdog = HeartbeatMonitor(target, timeout_s=1, clock=lambda: self._wd_round)
+            self._wd_round = -1  # re-arm the baseline
+        if self.ft is not None:
+            # a marker and a snapshot in the log: replay never straddles two
+            # partitions
+            store = self.ft.store
+            seq = store.log.append({"kind": "reshard", "old_shards": old_p,
+                                    "new_shards": target, "owner_epoch": ep.epoch})
+            store.snapshot(self.engine.arena, seq)
+            self._writes_since_snapshot = 0
         ev = self._reshard.complete(rnd=rnd, old_shards=old_p, owner_epoch=ep.epoch)
         m.reshards += 1
         m.reshard_drain_rounds += ev.drain_rounds
@@ -603,6 +922,8 @@ class PulseService:
         m = self.metrics
         rnd = m.rounds if rnd is None else rnd
         now = time.perf_counter()
+        if self._detector is not None:
+            self._revive_dead_shards(rnd)
         if self._reshard.phase == "draining":
             # the reshard barrier: arrivals queue, nothing admits, and the
             # cutover fires the round the last in-flight quantum retires
@@ -621,17 +942,35 @@ class PulseService:
             occupied_before = int(g.occupied().sum())
             m.slot_rounds += occupied_before
             m.capacity_rounds += g.n_slots
-            if occupied_before == 0:
-                continue
+            if occupied_before == 0 or g.backoff_until > rnd:
+                continue  # empty, or parked for a backed-off retry
             work = self._make_work(g, rnd, quantum)
-            if runner is not None:
-                runner.submit(work)  # a pending runner error surfaces here
-            else:
-                work.apply(work.run())
+            try:
+                if runner is not None:
+                    # a pending runner error surfaces here, before the work
+                    # is queued: this group simply re-runs next round
+                    runner.submit(work)
+                else:
+                    work.apply(work.run())
+            except ShardFailure as e:
+                if self.ft is None:
+                    raise
+                if e.label is None:
+                    e.label = g.name
+                self._on_shard_failure(e, rnd)
         if runner is not None:
             self._drain_emit()  # overlap: account retirements mid-flight
-            runner.drain()  # barrier: slot state settled for the next admission
+            try:
+                runner.drain()  # barrier: slot state settled for the next admission
+            except ShardFailure as e:
+                if self.ft is None:
+                    raise
+                self._on_shard_failure(e, rnd)
         self._drain_emit()
+        if self._watchdog is not None:
+            self._run_watchdog(rnd)
+        if self._detector is not None:
+            self._detector.beat_all(rnd)
         m.rounds += 1
 
     def close(self) -> None:

@@ -45,7 +45,8 @@ def test_port_files_exist():
                  "kernels/pulse_commit/kernel.py", "kernels/pulse_commit/ops.py",
                  "kernels/pulse_commit/ref.py", "core/faults.py", "core/prng.py",
                  "serving/admission.py", "serving/traversal_service.py",
-                 "distributed/sharding.py", "distributed/elastic.py"):
+                 "distributed/sharding.py", "distributed/elastic.py",
+                 "distributed/checkpoint.py", "distributed/arena_ft.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
                "pulse_commit.cu"):

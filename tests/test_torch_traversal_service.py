@@ -23,7 +23,8 @@ must be bit-equal:
 Rate limits, shedding and SLO quantum sizing read the wall clock, so they
 are held to their JAX tests' properties, not bit for bit; so are the
 device runner, the verify-at-registration rejection and the refusals
-(``fault_tolerance=``, ``backend="xla"``).  The ``gpu`` test runs the async
+(``backend="xla"``; fault tolerance's are in
+``tests/test_torch_fault_tolerance.py``).  The ``gpu`` test runs the async
 service on the fused schedule on the card against a CPU copy.
 
 Run as a script (``python tests/test_torch_traversal_service.py OUT.npz``
@@ -633,8 +634,6 @@ def test_service_verifies_isa_specs_at_registration():
 def test_refusals_name_what_to_use():
     arrays, specs, _ = list_scenario()
     eng = _engine("torch", arrays, 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsvc.PulseService(eng, specs("torch"), fault_tolerance=object())
     with pytest.raises(ValueError, match="'reference'"):
         tsvc.PulseService(eng, specs("torch"), backend="xla")
     with pytest.raises(ValueError, match="backend"):
