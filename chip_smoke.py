@@ -34,9 +34,12 @@ Phases (any failure exits non-zero before the last line):
      bytes bound (each distinct row the run visits read once);
   4. ``flash_attention`` against its plain version (``mha_reference``) on
      the shapes of ``tests/test_kernels.py``, at head dims 112 (kimi's G =
-     8, zamba2's G = 1) and 16 (the reduced configs), in f32 and bf16, and
-     at the serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32) and a
-     D = 112 shape (B=4, H=64, Hk=8, L=512, causal, f32); tolerance 2e-5
+     8, zamba2's G = 1) and 16 (the reduced configs), at zamba2_7b's and
+     granite_moe_1b_a400m's prefill shapes, in f32 and bf16, and timed at
+     the serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32), kimi's
+     D = 112 shape (B=4, H=64, Hk=8, L=512, causal, f32), zamba2's (B=4,
+     H=32, Hk=32, L=512, D=112) and granite's (B=4, H=16, Hk=8, L=512,
+     D=64); tolerance 2e-5
      (f32) and 2e-2 (bf16), absolute and relative; timed beside
      ``scaled_dot_product_attention`` (the library yardstick, never used by
      the port), with its bound at the f32 FMA peak and, for the 3xTF32
@@ -64,10 +67,11 @@ Phases (any failure exits non-zero before the last line):
      attention over the same KV (2e-5);
   8. ``ssd_scan`` against its plain version (``ssd_chunked_batched``) on
      the shapes of ``tests/test_kernels.py``, the reduced mamba2_780m's
-     (N 16, dh 16, chunk = prompt length) and the serve shape (B 4, L 512,
-     H 48, dh 64, N 128, chunk 128), in f32 and bf16 x; tolerance 1e-4
-     (f32) and 2e-2 (bf16), absolute and relative; one call runs three
-     CUDA kernels (``SSD_KERNELS``), timed together and one by one;
+     (N 16, dh 16, chunk = prompt length), the serve shape (B 4, L 512,
+     H 48, dh 64, N 128, chunk 128) and zamba2_7b's (H 112, N 64), in f32
+     and bf16 x; tolerance 1e-4 (f32) and 2e-2 (bf16), absolute and
+     relative; one call runs three CUDA kernels (``SSD_KERNELS``), timed
+     together and one by one at the two prefill shapes;
   9. the serve path of the full-width ``mamba2_780m`` (seeded weights; 8
      requests, 4 slots, prompt 512, 16 new tokens): every request
      finishes and ``ssd_scan`` launches 48 times per prefill call; then the
@@ -223,7 +227,31 @@ Phases (any failure exits non-zero before the last line):
      snapshot's ms and bytes, the snapshots, the recovery's ms (snapshot
      load and replay), the quanta replayed, the retries, the failover and
      shipped quanta, the standby's ms a write quantum, the probe's ms and
-     the watchdog's settings, each with the card's name and power limit.
+     the watchdog's settings, each with the card's name and power limit;
+ 16. the serve path of the full-width ``zamba2_7b`` (hybrid: 81 mamba2
+     layers, one shared attention+MLP block after every 6; 6.75 B
+     parameters, 27 GB in f32; phase 6's traffic): every request finishes,
+     ``flash_attention`` launches 13 and ``ssd_scan`` 81 times per prefill
+     call; then the same requests on the plain route (``attn_backend`` and
+     ``ssm_backend`` "chunked"): prefill logits within 1e-3 absolute, the
+     residual stream's difference between the routes reported after every
+     layer, tokens compared;
+ 17. the serve path of the full-width ``granite_moe_1b_a400m`` (24 layers,
+     32 experts, top-8, capacity factor 1.25): every request finishes,
+     ``flash_attention`` launches 24 times per prefill call; on one prefill
+     of four prompts, each layer's ``flash_attention`` output within 2e-5
+     of ``mha_reference`` on that layer's own q/k/v; every layer's top-k
+     on both routes: a token whose expert set differs (a flip) only at a
+     near-tie (the plain route's k-th and (k+1)-th probabilities within
+     1e-4), each flip printed with its margin; the logits of every token no
+     flip or changed drop reached (through causal attention, the rest of
+     its sequence from the next layer on) within 1e-3.  Reported: the
+     capacity and the dropped copies a layer, and the MoE layers' share of
+     a warm prefill.  Phases 6, 9, 16 and 17 report tokens/s, prefill ms a
+     call, decode ms a step, peak device memory and a warm profiled
+     breakdown.
+
+Each phase logs its seconds.
 
 Phases 11 and 12 then run every batch (each step of a write batch) on the
 device-resident schedules, ``schedule="fused"`` and ``"pipelined"`` on the
@@ -238,7 +266,9 @@ in the first call (which launched the kernels: a warm-up superstep and the
 captured chunk), none in the second, whose chunk reads are counted
 (ceil(supersteps / CHUNK)).  Reported: the rate over the median of three
 calls beside the dispatched one, the capture's time, and a profiled call's
-kernel time, busy share and each kernel's executions.
+kernel time, busy share and each kernel's executions (not for
+``skiplist_rw``'s steps, whose ~270-superstep calls took 33-64 s each to
+parse the trace of).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -266,11 +296,16 @@ KERNEL_SOURCE = "src/repro_torch/csrc/pulse_chase.cu"
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:133,177
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:201-202
 SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")  # one ssd_scan call
-LOGIT_TOL = 1e-3  # kernel vs chunked prefill logits, 28 (qwen) or 48 (mamba2) f32 layers
+# kernel vs chunked prefill logits, absolute: 28 (qwen), 48 (mamba2), 24
+# (granite) f32 layers, or zamba2's 81 SSD layers and 13 attention blocks
+LOGIT_TOL = 1e-3
 SERVE_SHAPE = ["--requests", "8", "--max-batch", "4", "--prompt-len", "512", "--max-len",
                "1024", "--max-new", "16"]
 SERVE_ARGS = ["--arch", "qwen3_0_6b", *SERVE_SHAPE]
 SSM_SERVE_ARGS = ["--arch", "mamba2_780m", *SERVE_SHAPE]
+HYBRID_SERVE_ARGS = ["--arch", "zamba2_7b", *SERVE_SHAPE]
+MOE_SERVE_ARGS = ["--arch", "granite_moe_1b_a400m", *SERVE_SHAPE]
+ROUTE_TIE = 1e-4  # a top-k flip between the routes is allowed within this margin
 
 
 def log(msg: str) -> None:
@@ -1507,7 +1542,8 @@ def log_spans(name, spans, wall_ms, supersteps):
         f"decode {spans['routing.decode']['ms']:.3f} ms, the rest of the call {rest:.3f} ms")
 
 
-def device_resident_runs(name, engine_for, it, p0, s0, run, ref, combos, ref_arena=None):
+def device_resident_runs(name, engine_for, it, p0, s0, run, ref, combos, ref_arena=None,
+                         profile=True):
     """The batch on each device-resident ``(schedule, fabric)`` of
     ``combos``, every call through ``engine_for().execute`` (a fresh
     ``PulseEngine`` on the batch's input arena over the card's mesh), held
@@ -1520,9 +1556,9 @@ def device_resident_runs(name, engine_for, it, p0, s0, run, ref, combos, ref_are
     counts set to 0 just before it and read just after: the warm-up
     superstep's launches and the captured chunk's); the second captures
     nothing and its host reads are counted; the rate is over the median of
-    three more calls; one more call is profiled (its kernels' device time,
-    the card's busy share, each kernel's executions).  Returns the rows
-    and the launch counts summed over the first calls."""
+    three more calls; with ``profile``, one more call is profiled (its
+    kernels' device time, the card's busy share, each kernel's executions).
+    Returns the rows and the launch counts summed over the first calls."""
     import numpy as np
     import torch
 
@@ -1589,7 +1625,8 @@ def device_resident_runs(name, engine_for, it, p0, s0, run, ref, combos, ref_are
             calls.append(time.perf_counter() - t0)
         med = float(np.median(calls))
         t0 = time.perf_counter()
-        prof = call_breakdown(lambda: engine_for().execute(it, p0, s0, **kw), warm=False)
+        prof = (call_breakdown(lambda: engine_for().execute(it, p0, s0, **kw), warm=False)
+                if profile else None)
         profile_s = time.perf_counter() - t0
         row = dict(schedule=schedule, fabric=fabric, ops=B, per_s=B / med, execute_s=calls,
                    first_call_s=first_s, second_call_s=second_s, capture_s=capture_s,
@@ -1597,23 +1634,25 @@ def device_resident_runs(name, engine_for, it, p0, s0, run, ref, combos, ref_are
                    chunk=routing.CHUNK, chunk_reads=reads, first_call_launches=first,
                    supersteps=st.supersteps, local_only_steps=st.local_only_steps,
                    wire_words=st.total_wire_words, ring_hops=st.ring_hops,
-                   kernel_share_of_call=prof["device_ms"] / (med * 1e3),
-                   profiled_call=dict(wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
-                                      device_busy=prof["device_busy"],
-                                      top_kernels=prof["top_kernels"],
-                                      kernel_calls=prof["kernel_calls"]),
+                   kernel_share_of_call=prof and prof["device_ms"] / (med * 1e3),
+                   profiled_call=prof and dict(
+                       wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                       device_busy=prof["device_busy"], top_kernels=prof["top_kernels"],
+                       kernel_calls=prof["kernel_calls"]),
                    equals_dispatched=True, profile_s=profile_s,
                    seconds=time.perf_counter() - t_run)
         rows.append(row)
+        profiled = ("no profiled call" if prof is None else
+                    f"a profiled call {prof['wall_ms']:.2f} ms wall, kernels "
+                    f"{prof['device_ms']:.3f} ms (busy {100 * prof['device_busy']:.1f}% of the "
+                    f"profiled call, {100 * row['kernel_share_of_call']:.1f}% of the median "
+                    f"call)")
         log(f"{tag}: {B / med:.4g} a second (median of {[round(x, 4) for x in calls]} s; first "
             f"call {first_s:.3f} s with the capture {capture_s:.3f} s, second {second_s:.4f} s); "
             f"{st.supersteps} supersteps ({st.local_only_steps} local-only), {reads} chunk reads "
             f"of {routing.CHUNK} supersteps; captures 1 then 0; first call's launches {first}; "
-            f"a profiled call {prof['wall_ms']:.2f} ms wall, kernels {prof['device_ms']:.3f} ms "
-            f"(busy {100 * prof['device_busy']:.1f}% of the profiled call, "
-            f"{100 * row['kernel_share_of_call']:.1f}% of the median call); == the dispatched "
-            f"run; this run "
-            f"{row['seconds']:.1f} s, the profiled call's trace {profile_s:.1f} s of it")
+            f"{profiled}; == the dispatched run; this run {row['seconds']:.1f} s, the profiled "
+            f"call's trace {profile_s:.1f} s of it")
     return rows, launches
 
 
@@ -2195,10 +2234,12 @@ def phase_write_mesh(rng):
         t_dr = time.perf_counter()
         for (sname, it, *_), (before, g, *_r, p0c, s0c), row in zip(wb["steps"], main, steps):
             combos = ROUTE_SCHEDULES + (WRITE_RING if name == "webservice_rw" else [])
+            # the skip list's ~270-superstep calls go unprofiled: parsing
+            # the trace of one took 33-64 s (180 s of the phase)
             dr_rows, dr_launches = device_resident_runs(
                 f"{name}/{sname}",
                 lambda b=before: PulseEngine(b, mesh=routing.EmulatedMesh(P, "cuda")), it, p0c,
-                s0c, run, g, combos, ref_arena=g.arena)
+                s0c, run, g, combos, ref_arena=g.arena, profile=name != "skiplist_rw")
             if dr_launches["pulse_chase"]:
                 raise AssertionError(f"{name}/{sname}: a device-resident write run launched "
                                      f"pulse_chase")
@@ -3474,6 +3515,9 @@ def phase_flash(seed):
         (2, 4, 4, 136, 136, 112, False, 8),
         (2, 4, 2, 128, 128, 16, True, 64),
         (1, 4, 4, 64, 200, 16, True, 8),
+        # zamba2_7b's prefill (G = 1, D 112, 32 heads) and granite's (G = 2, D 64)
+        (4, 32, 32, 512, 512, 112, True, 128),
+        (4, 16, 8, 512, 512, 64, True, 128),
     ]
     checks = []
     for dtype in ("float32", "bfloat16"):
@@ -3490,9 +3534,11 @@ def phase_flash(seed):
                 raise AssertionError("flash_attention kernel disagrees with its plain version")
 
     rows = [time_flash(gen, *shape) for shape in ((4, 16, 8, 512, 128),  # the serve shape
-                                                  (4, 64, 8, 512, 112))]  # kimi's heads
+                                                  (4, 64, 8, 512, 112),  # kimi's heads
+                                                  (4, 32, 32, 512, 112),  # zamba2_7b's
+                                                  (4, 16, 8, 512, 64))]  # granite's
     row = rows[0]
-    row["d112"] = rows[1]
+    row["d112"], row["zamba"], row["granite"] = rows[1:]
     log(json.dumps({"phase": "flash_vs_plain", "name": "flash_attention", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -3681,43 +3727,50 @@ def phase_ssd(seed):
         (1, 128, 2, 64, 64, 32), (1, 128, 2, 64, 64, 64),
         (4, 5, 8, 16, 16, 5), (4, 100, 8, 16, 16, 100), (4, 256, 8, 16, 16, 128),
     ]
-    serve_case = (4, 512, 48, 64, 128, 128)
+    serve_case = (4, 512, 48, 64, 128, 128)  # mamba2_780m's prefill
+    zamba_case = (4, 512, 112, 64, 64, 128)  # zamba2_7b's: 112 heads, N 64
     checks = [check(c, dtype)[1] for dtype in ("float32", "bfloat16") for c in cases]
-    checks.append(check(serve_case, "bfloat16")[1])
+    checks += [check(c, "bfloat16")[1] for c in (serve_case, zamba_case)]
 
-    # the serve shape: one prefill call's scan in one layer
-    args, row = check(serve_case, "float32")
-    checks.append(dict(row))
-    chunk = serve_case[-1]
-    events_ms = time_cuda(lambda: ops.ssd_scan(*args, chunk=chunk), 50)
-    call = [lambda: ops.ssd_scan(*args, chunk=chunk)]
-    device_ms = kernel_device_ms(call, 20, *SSD_KERNELS)
-    ms = events_ms if device_ms is None else device_ms
-    per_kernel = {name: kernel_device_ms(call, 20, name) for name in SSD_KERNELS}
-    plain_ms = time_cuda(lambda: ref.ssd_chunked_batched(*args, chunk=chunk), 10)
-    flops, nbytes = ssd_work(*serve_case)
-    bound_ms, bound_by = bound(flops, nbytes)
-    Bt, L, H, dh, N, Q = serve_case
-    nc = L // Q
-    full_square = 2 * Bt * nc * Q * Q * N + 2 * Bt * H * nc * (Q * Q * dh + 2 * Q * N * dh)
-    per_head = 2 * Bt * H * nc * (Q * Q * N + Q * Q * dh + 2 * Q * N * dh)
-    row.update(ms=ms, ms_source="events" if device_ms is None else "profiler",
-               ms_events=events_ms, ms_per_kernel=per_kernel,
-               heads_per_block=kernel.default_heads_per_block(Bt, L, H, Q),
-               plain_ms=plain_ms, flops=flops, bytes=nbytes,
-               bound_ms=bound_ms, bound_by=bound_by,
-               bound_ms_tensor_core=tensor_core_bound_ms(flops),
-               flops_full_square=full_square, flops_per_head_tpu=per_head,
-               bound_ms_full_square=full_square / F32_FLOP_PER_S * 1e3,
-               bound_ms_per_head_tpu=per_head / F32_FLOP_PER_S * 1e3)
-    log(f"  ssd serve shape: {len(SSD_KERNELS)} kernels per call, {ms:.4f} ms "
-        f"({row['ms_source']}; by kernel {per_kernel}; CUDA events over 50 calls "
-        f"{events_ms:.4f} ms; {row['heads_per_block']} heads per block), plain {plain_ms:.4f} "
-        f"ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP over the causal "
-        f"half, {nbytes / 1e6:.1f} MB; 3xTF32 on the tensor cores "
-        f"{row['bound_ms_tensor_core']:.5f} ms; {full_square / 1e9:.3f} GFLOP full-square, "
-        f"{per_head / 1e9:.3f} per head as the TPU kernel counts), "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    def timed(case):
+        """One prefill call's scan in one layer at ``case``, checked (f32)
+        then timed: kernel, plain version, bound."""
+        args, row = check(case, "float32")
+        checks.append(dict(row))
+        chunk = case[-1]
+        events_ms = time_cuda(lambda: ops.ssd_scan(*args, chunk=chunk), 50)
+        call = [lambda: ops.ssd_scan(*args, chunk=chunk)]
+        device_ms = kernel_device_ms(call, 20, *SSD_KERNELS)
+        ms = events_ms if device_ms is None else device_ms
+        per_kernel = {name: kernel_device_ms(call, 20, name) for name in SSD_KERNELS}
+        plain_ms = time_cuda(lambda: ref.ssd_chunked_batched(*args, chunk=chunk), 10)
+        flops, nbytes = ssd_work(*case)
+        bound_ms, bound_by = bound(flops, nbytes)
+        Bt, L, H, dh, N, Q = case
+        nc = L // Q
+        full_square = 2 * Bt * nc * Q * Q * N + 2 * Bt * H * nc * (Q * Q * dh + 2 * Q * N * dh)
+        per_head = 2 * Bt * H * nc * (Q * Q * N + Q * Q * dh + 2 * Q * N * dh)
+        row.update(ms=ms, ms_source="events" if device_ms is None else "profiler",
+                   ms_events=events_ms, ms_per_kernel=per_kernel,
+                   heads_per_block=kernel.default_heads_per_block(Bt, L, H, Q),
+                   plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_ms_tensor_core=tensor_core_bound_ms(flops),
+                   flops_full_square=full_square, flops_per_head_tpu=per_head,
+                   bound_ms_full_square=full_square / F32_FLOP_PER_S * 1e3,
+                   bound_ms_per_head_tpu=per_head / F32_FLOP_PER_S * 1e3)
+        log(f"  ssd B={Bt} L={L} H={H} dh={dh} N={N} chunk={Q}: {len(SSD_KERNELS)} kernels "
+            f"per call, {ms:.4f} ms ({row['ms_source']}; by kernel {per_kernel}; CUDA events "
+            f"over 50 calls {events_ms:.4f} ms; {row['heads_per_block']} heads per block), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{flops / 1e9:.3f} GFLOP over the causal half, {nbytes / 1e6:.1f} MB; 3xTF32 on "
+            f"the tensor cores {row['bound_ms_tensor_core']:.5f} ms; {full_square / 1e9:.3f} "
+            f"GFLOP full-square, {per_head / 1e9:.3f} per head as the TPU kernel counts), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        return row
+
+    row = timed(serve_case)
+    row["zamba"] = timed(zamba_case)
     log(json.dumps({"phase": "ssd_vs_plain", "name": "ssd_scan", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -3726,10 +3779,13 @@ def phase_ssd(seed):
 def phase_ssm_serve():
     """The mamba2_780m serve path through the user's entry point, then the
     plain route."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    row, params = serve_and_compare(SSM_SERVE_ARGS, ssd_ops.ssd_scan, "ssm_backend")
-    row["ssd_launches"] = row.pop("kernel_launches")
+    layers = get_config("mamba2_780m").n_layers
+    row, params = serve_and_compare(SSM_SERVE_ARGS, [(ssd_ops.ssd_scan, layers)],
+                                    ("ssm_backend",))
+    row["ssd_launches"] = row["launches"]["ssd_scan"]
     del params
     log(json.dumps({"phase": "ssm_serve", **row}))
     return row
@@ -3741,19 +3797,40 @@ def phase_ssm_serve():
 def phase_serve():
     """The qwen3_0_6b serve path through the user's entry point, then the
     plain route."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
-    row, params = serve_and_compare(SERVE_ARGS, flash_ops.flash_attention, "attn_backend")
-    row["flash_launches"] = row.pop("kernel_launches")
+    layers = get_config("qwen3_0_6b").n_layers
+    row, params = serve_and_compare(SERVE_ARGS, [(flash_ops.flash_attention, layers)],
+                                    ("attn_backend",))
+    row["flash_launches"] = row["launches"]["flash_attention"]
     log(json.dumps({"phase": "serve", **row}))
     return row, params
 
 
-def serve_and_compare(serve_args, kernel_op, backend_field):
-    """``serve.main(serve_args)`` with ``kernel_op.launches`` counted around
-    it (one launch per layer per prefill call), then the same requests on
-    the plain route (``backend_field="chunked"``) with the same weights:
-    prefill logits within LOGIT_TOL, tokens compared, and a warm
+def logits_within_tol(kmodel, pmodel, params, toks):
+    """The default gate of ``serve_and_compare``: the kernel route's and the
+    plain route's prefill logits on the same prompts within LOGIT_TOL."""
+    import torch
+
+    with torch.no_grad():
+        lk, _ = kmodel.prefill(params, {"tokens": toks}, toks.shape[1])
+        lp, _ = pmodel.prefill(params, {"tokens": toks}, toks.shape[1])
+        err = float((lk - lp).abs().max().item())
+        top = float(lp.abs().max().item())
+    log(f"  prefill logits kernel vs plain: max_abs_err={err:.3g}, largest |logit| {top:.3g} "
+        f"(tolerance {LOGIT_TOL})")
+    if err > LOGIT_TOL:
+        raise AssertionError("serve: kernel and plain prefill logits disagree")
+    return dict(prefill_logit_max_abs_err=err, prefill_logit_max_abs=top,
+                prefill_logit_tol=LOGIT_TOL)
+
+
+def serve_and_compare(serve_args, kernels, backend_fields, compare=logits_within_tol):
+    """``serve.main(serve_args)`` with each kernel's ``launches`` counted
+    around it (``kernels``: (op, launches per prefill call)), then the same
+    requests on the plain route (every field of ``backend_fields`` set to
+    "chunked") with the same weights: ``compare`` on the first four prompts, tokens compared, and a warm
     breakdown of the kernel route.  Returns (row, params)."""
     import numpy as np
     import torch
@@ -3768,40 +3845,41 @@ def serve_and_compare(serve_args, kernel_op, backend_field):
     max_new = int(serve_args[serve_args.index("--max-new") + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel_op.launches = 0
+    for op, _ in kernels:
+        op.launches = 0
     m, reqs = serve.main(serve_args)
     torch.cuda.synchronize()
-    launches = kernel_op.launches
+    launches = {op.__name__: op.launches for op, _ in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(r.finished_step >= 0 for r in reqs):
         raise AssertionError("serve: requests left unfinished")
-    if m.prefill_calls == 0 or launches != cfg.n_layers * m.prefill_calls:
-        raise AssertionError(f"serve: {kernel_op.__name__} launched {launches} times for "
-                             f"{m.prefill_calls} prefill calls of {cfg.n_layers} layers")
+    for op, per_call in kernels:
+        if m.prefill_calls == 0 or op.launches != per_call * m.prefill_calls:
+            raise AssertionError(f"serve: {op.__name__} launched {op.launches} times for "
+                                 f"{m.prefill_calls} prefill calls, {per_call} a call")
     row = dict(arch=cfg.arch_id, requests=len(reqs), steps=m.steps, tokens_out=m.tokens_out,
                wall_s=m.wall_s, tokens_per_s=m.tokens_per_s, prefill_calls=m.prefill_calls,
                prefill_ms_per_call=m.prefill_s / m.prefill_calls * 1e3,
                decode_ms_per_step=m.decode_s / m.steps * 1e3, peak_device_gb=peak_gb,
-               kernel_launches=launches)
+               launches=launches)
     log(f"  serve {cfg.arch_id} (kernel route): {row['tokens_per_s']:.1f} tokens/s, "
         f"prefill {row['prefill_ms_per_call']:.2f} ms/call x {m.prefill_calls}, "
         f"decode {row['decode_ms_per_step']:.2f} ms/step x {m.steps}, wall {m.wall_s:.3f} s, "
-        f"peak {peak_gb:.2f} GB, {kernel_op.__name__} launches {launches}")
+        f"peak {peak_gb:.2f} GB, launches {launches}")
 
     # the plain route on the same weights and prompts
     kmodel = build_model(cfg)
-    pmodel = build_model(cfg.replace(**{backend_field: "chunked"}))
+    pmodel = build_model(cfg.replace(**{f: "chunked" for f in backend_fields}))
     params = serve.init_params(kmodel, "cuda")
     preqs = serve.make_requests(cfg, len(reqs), prompt_len, max_new)
     b = ContinuousBatcher(pmodel, max_batch=4, max_len=1024)
     b.model_params = params
     pm = b.serve(preqs)
     toks = torch.from_numpy(np.stack([r.prompt for r in preqs[:4]])).cuda()
-    with torch.no_grad():
-        lk, _ = kmodel.prefill(params, {"tokens": toks}, prompt_len)
-        lp, _ = pmodel.prefill(params, {"tokens": toks}, prompt_len)
-        logit_err = float((lk - lp).abs().max().item())
-    del lk, lp
+    log(f"  serve {cfg.arch_id} (plain route): {pm.tokens_per_s:.1f} tokens/s, prefill "
+        f"{pm.prefill_s / pm.prefill_calls * 1e3:.2f} ms/call, decode "
+        f"{pm.decode_s / pm.steps * 1e3:.2f} ms/step")
+    gate = compare(kmodel, pmodel, params, toks)
     agree = sum(a == c for r, p in zip(reqs, preqs) for a, c in zip(r.output, p.output))
     total = sum(len(r.output) for r in reqs)
     first_diffs = []
@@ -3810,23 +3888,240 @@ def serve_and_compare(serve_args, kernel_op, backend_field):
         if j is None:
             continue
         seq = torch.from_numpy(np.concatenate([p.prompt, np.asarray(p.output[:j], np.int32)]))
-        lg, _ = pmodel.prefill(params, {"tokens": seq[None].cuda()}, len(seq))
+        with torch.no_grad():
+            lg, _ = pmodel.prefill(params, {"tokens": seq[None].cuda()}, len(seq))
         top = lg[0, -1].topk(2).values
         first_diffs.append(dict(req=r.req_id, index=j, margin=float(top[0] - top[1])))
-    log(f"  serve {cfg.arch_id} (plain route): {pm.tokens_per_s:.1f} tokens/s, prefill "
-        f"{pm.prefill_s / pm.prefill_calls * 1e3:.2f} ms/call, decode "
-        f"{pm.decode_s / pm.steps * 1e3:.2f} ms/step")
-    log(f"  prefill logits kernel vs plain: max_abs_err={logit_err:.3g} (tolerance {LOGIT_TOL}); "
-        f"tokens agreeing {agree}/{total}; first differences {first_diffs}")
-    if logit_err > LOGIT_TOL:
-        raise AssertionError("serve: kernel and plain prefill logits disagree")
+    log(f"  tokens agreeing {agree}/{total}; first differences {first_diffs}")
     row.update(warm_breakdown(kmodel, params, toks))
     row.update(plain_tokens_per_s=pm.tokens_per_s,
                plain_prefill_ms_per_call=pm.prefill_s / pm.prefill_calls * 1e3,
                plain_decode_ms_per_step=pm.decode_s / pm.steps * 1e3,
-               prefill_logit_max_abs_err=logit_err, tokens_agree=agree, tokens_total=total,
-               first_differences=first_diffs)
+               tokens_agree=agree, tokens_total=total, first_differences=first_diffs, **gate)
     return row, params
+
+
+# ------------------------ hybrid and MoE serving ----------------------------
+
+
+def phase_hybrid_serve():
+    """The zamba2_7b serve path through the user's entry point (flash_attention
+    once a group, ssd_scan once a layer), then the plain route; the prefill
+    logits gate, with each layer's difference between the routes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    cfg = get_config("zamba2_7b")
+    row, params = serve_and_compare(
+        HYBRID_SERVE_ARGS, [(flash_ops.flash_attention, cfg.n_layers // cfg.hybrid_attn_every),
+                            (ssd_ops.ssd_scan, cfg.n_layers)],
+        ("attn_backend", "ssm_backend"), compare=hybrid_compare)
+    row["flash_launches"] = row["launches"]["flash_attention"]
+    row["ssd_launches"] = row["launches"]["ssd_scan"]
+    del params
+    log(json.dumps({"phase": "hybrid_serve", **row}))
+    return row
+
+
+def hybrid_compare(kmodel, pmodel, params, toks):
+    """Both routes' prefill on the same prompts, the residual stream recorded
+    after every mamba layer (with the shared block behind it where a group
+    ends): the logits within LOGIT_TOL, and the routes' difference layer by
+    layer, each relative to that layer's largest magnitude (how the 94
+    blocks grow it)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    real = transformer._ssm_block
+    stream = {"kernel": [], "plain": []}
+
+    def spy(key):
+        def block(lp, cfg, x):
+            out = real(lp, cfg, x)
+            stream[key].append(out[0])
+            return out
+        return block
+
+    T = toks.shape[1]
+    try:
+        with torch.no_grad():
+            transformer._ssm_block = spy("kernel")
+            lk, _ = kmodel.prefill(params, {"tokens": toks}, T)
+            transformer._ssm_block = spy("plain")
+            lp, _ = pmodel.prefill(params, {"tokens": toks}, T)
+    finally:
+        transformer._ssm_block = real
+    growth = [float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(stream["kernel"], stream["plain"])]
+    del stream
+    err, top = float((lk - lp).abs().max()), float(lp.abs().max())
+    del lk, lp
+    every = kmodel.cfg.hybrid_attn_every
+    log(f"  prefill logits kernel vs plain: max_abs_err={err:.3g}, largest |logit| {top:.3g} "
+        f"(tolerance {LOGIT_TOL}); the residual stream's "
+        f"difference / its largest magnitude after layers 1, {every}, 2x{every}, ...: "
+        + ", ".join(f"{g:.2e}" for i, g in enumerate(growth)
+                    if i == 0 or (i + 1) % every == 0 or i + 1 == len(growth)))
+    if err > LOGIT_TOL:
+        raise AssertionError("serve: kernel and plain prefill logits disagree")
+    return dict(prefill_logit_max_abs_err=err, prefill_logit_max_abs=top,
+                prefill_logit_tol=LOGIT_TOL, residual_rel_diff_by_layer=growth)
+
+
+def phase_moe_serve():
+    """The granite_moe_1b_a400m serve path through the user's entry point,
+    then the plain route; the routing-aware gate (``moe_compare``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    cfg = get_config("granite_moe_1b_a400m")
+    row, params = serve_and_compare(MOE_SERVE_ARGS, [(flash_ops.flash_attention, cfg.n_layers)],
+                                    ("attn_backend",), compare=moe_compare)
+    row["flash_launches"] = row["launches"]["flash_attention"]
+    del params
+    log(json.dumps({"phase": "moe_serve", **row}))
+    return row
+
+
+def moe_compare(kmodel, pmodel, params, toks):
+    """Both routes' prefill of the same prompts with every layer's routing
+    recorded (``moe.route``) and, on the kernel route, the q/k/v each
+    layer hands ``flash_attention`` with its output.
+
+    Gates: each layer's flash output within TOL of ``mha_reference`` on its
+    own inputs; a token whose top-k set differs between the routes (a flip)
+    is allowed only at a near-tie, the plain route's k-th and (k+1)-th
+    router probabilities within ROUTE_TIE; a flip, or a copy whose drop
+    differs, changes that token's layer output, and through causal
+    attention every later position of its sequence from the next layer on:
+    those tokens are "touched", and the logits of every untouched token are
+    within LOGIT_TOL.  Reported: the flips with their margins, the
+    capacity and the dropped copies each layer, and the MoE layers' share
+    of a warm prefill (CUDA events around each ``moe_apply``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import attention, moe
+
+    cfg = kmodel.cfg
+    B, T = toks.shape
+    K, E = cfg.moe_top_k, cfg.n_experts
+    C = moe.capacity(cfg, B * T)
+    real_route, real_flash = moe.route, attention.flash_attention
+    routes = {"kernel": [], "plain": []}
+    flash_calls = []
+
+    def spy_route(key):
+        def route(p, c, x):
+            out = real_route(p, c, x)
+            routes[key].append(out)
+            return out
+        return route
+
+    def spy_flash(q, k, v, *args):
+        o = real_flash(q, k, v, *args)
+        flash_calls.append((q, k, v, o))
+        return o
+
+    try:
+        with torch.no_grad():
+            moe.route, attention.flash_attention = spy_route("kernel"), spy_flash
+            lk, _ = kmodel.prefill(params, {"tokens": toks}, T)
+            moe.route, attention.flash_attention = spy_route("plain"), real_flash
+            lp, _ = pmodel.prefill(params, {"tokens": toks}, T)
+    finally:
+        moe.route, attention.flash_attention = real_route, real_flash
+
+    flash_errs = []
+    for layer, (q, k, v, o) in enumerate(flash_calls):
+        ok, err = _close(o, flash_ref.mha_reference(q, k, v, causal=True), "float32")
+        flash_errs.append(err)
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain version on layer "
+                                 f"{layer}'s prefill inputs (max_abs_err {err:.3g})")
+    del flash_calls
+    log(f"  flash_attention on each of {len(flash_errs)} layers' prefill q/k/v: max_abs_err "
+        f"{max(flash_errs):.3g} (tolerance {TOL['float32']} abs + rel)")
+
+    touched = torch.zeros((B, T), dtype=torch.bool, device=toks.device)
+    flips, drops = [], []
+    for layer, ((_, _, ek), (pp, _, ep)) in enumerate(zip(routes["kernel"], routes["plain"])):
+        flipped = (ek.sort(-1).values != ep.sort(-1).values).any(-1).view(B, T)
+        top = pp.topk(K + 1, dim=-1).values
+        margin = (top[:, K - 1] - top[:, K]).view(B, T)
+        for b, t in (flipped & ~touched).nonzero().tolist():
+            flips.append(dict(layer=layer, seq=b, pos=t, margin=float(margin[b, t])))
+        kept = []
+        for e in (ek, ep):
+            fits = (moe.rank_in_expert(e.reshape(-1), E) < C).view(B * T, K)
+            kept.append(torch.where(fits, e, -1).sort(-1).values)
+        drops.append(int((kept[0] < 0).sum()))
+        hit = (flipped | (kept[0] != kept[1]).any(-1).view(B, T))
+        first = torch.where(hit.any(-1), hit.float().argmax(-1), T)  # first hit a sequence
+        touched |= torch.arange(T, device=toks.device)[None, :] >= first[:, None]
+    del routes
+    bad = [f for f in flips if f["margin"] > ROUTE_TIE]
+    log(f"  routing: capacity C = {C} slots an expert for {B * T} tokens x top-{K}; dropped "
+        f"copies a layer {drops} ({sum(drops)} of {B * T * K * len(drops)} in the prefill); "
+        f"{len(flips)} flip(s) between the routes, margins "
+        f"{[round(f['margin'], 8) for f in flips]} (allowed up to {ROUTE_TIE}): {flips}")
+    if bad:
+        raise AssertionError(f"moe: a top-k choice differs between the routes away from a "
+                             f"near-tie: {bad}")
+    keep = ~touched
+    n_cmp = int(keep.sum())
+    err = float((lk - lp).abs()[keep].max()) if n_cmp else float("nan")
+    log(f"  prefill logits kernel vs plain on the {n_cmp} of {B * T} tokens no flip touched: "
+        f"max_abs_err={err:.3g} (tolerance {LOGIT_TOL})")
+    if n_cmp == 0 or not err <= LOGIT_TOL:
+        raise AssertionError("serve: kernel and plain prefill logits disagree")
+    del lk, lp
+    out = dict(flash_layer_max_abs_err=flash_errs, capacity=C, dropped_copies_by_layer=drops,
+               dropped_copies=sum(drops), copies=B * T * K * len(drops), flips=flips,
+               tokens_compared=n_cmp, prefill_logit_max_abs_err=err,
+               prefill_logit_tol=LOGIT_TOL)
+    out.update(moe_share(kmodel, params, toks))
+    return out
+
+
+def moe_share(model, params, toks):
+    """The MoE layers' share of a warm prefill: CUDA events around each
+    ``moe_apply`` (router, switch, experts and combine) and around the whole
+    prefill, on the stream."""
+    import torch
+
+    from repro_torch.models import moe
+
+    real = moe.moe_apply
+    spans = []
+
+    def timed(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    with torch.no_grad():
+        model.prefill(params, {"tokens": toks}, toks.shape[1])  # warm
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        try:
+            moe.moe_apply = timed
+            start.record()
+            model.prefill(params, {"tokens": toks}, toks.shape[1])
+            end.record()
+        finally:
+            moe.moe_apply = real
+    torch.cuda.synchronize()
+    moe_ms = sum(a.elapsed_time(b) for a, b in spans)
+    total_ms = start.elapsed_time(end)
+    log(f"  MoE layers: {moe_ms:.2f} ms of a {total_ms:.2f} ms warm prefill "
+        f"({100 * moe_ms / total_ms:.1f}%, CUDA events on the stream, {len(spans)} layers)")
+    return dict(moe_ms_in_prefill=moe_ms, prefill_stream_ms=total_ms,
+                moe_share_of_prefill=moe_ms / total_ms)
 
 
 def _device_ms(prof, events=None):
@@ -3898,20 +4193,31 @@ def warm_breakdown(model, params, toks):
                 pos += 1
         d_dev, d_top = _device_ms(prof)
     p_med, d_med = float(np.median(prefill_ms)), float(np.median(decode_ms))
-    # least times: the prefill's matmul and attention (or SSD) FLOPs at the
-    # f32 peak; a decode step's weights and live cache (or recurrent state,
-    # read and written) once at the HBM rate
+    # least times: the prefill's matmul, attention and SSD FLOPs at the f32
+    # peak (a token's routed experts only, in a moe; the shared block once a
+    # group, in a hybrid); a decode step's weights (every expert) and live
+    # cache (K/V, and the recurrent state read and written) once at the HBM
+    # rate
     cfg = model.cfg
-    mm_params = cfg.param_count() - cfg.vocab * cfg.d_model  # the embedding is a gather
-    if cfg.family == "ssm":
-        H, N, dh = 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
-        mix_flops, _ = ssd_work(B, T, H, dh, N, min(cfg.ssm_chunk, T))
-        cache_bytes = 2 * cfg.n_layers * B * H * N * dh
-    else:
-        mix_flops, _ = flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)
-        cache_bytes = 2 * cfg.n_layers * B * (T + 4) * cfg.n_kv_heads * cfg.hd
-    prefill_flops = 2 * B * T * mm_params + cfg.n_layers * mix_flops
-    decode_bytes = 4 * (mm_params + cache_bytes)
+    emb = cfg.vocab * cfg.d_model  # the embedding is a gather
+    weight_params = cfg.param_count() - emb
+    token_params = cfg.active_param_count() - emb
+    n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.hybrid_attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+    if cfg.family == "hybrid":
+        D, hd = cfg.d_model, cfg.hd
+        shared = D * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * D \
+            + 3 * D * cfg.d_ff
+        token_params += (n_attn - 1) * shared
+    H, N, dh = 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+    mix_flops = n_attn * flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)[0]
+    cache_bytes = 2 * n_attn * B * (T + 4) * cfg.n_kv_heads * cfg.hd
+    if n_ssm:
+        mix_flops += n_ssm * ssd_work(B, T, H, dh, N, min(cfg.ssm_chunk, T))[0]
+        cache_bytes += 2 * n_ssm * B * H * N * dh
+    prefill_flops = 2 * B * T * token_params + mix_flops
+    decode_bytes = 4 * (weight_params + cache_bytes)
     bounds = dict(prefill_flops=prefill_flops,
                   prefill_bound_ms=prefill_flops / F32_FLOP_PER_S * 1e3,
                   prefill_tflop_per_s=prefill_flops / p_med / 1e9,
@@ -4082,18 +4388,26 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     t_start = time.perf_counter()
-    log("== phase 1: device and build")
-    name, smi, build_report = phase_device()
-    log("== phase 2: pulse_chase kernel against its plain version")
-    checks = phase_kernel_vs_plain(rng)
-    log("== phase 3: PulseEngine.execute, backend='kernel'")
+    seconds = {}
+
+    def phase(num, title, fn, *fn_args):
+        log(f"== phase {num}: {title}")
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[num] = time.perf_counter() - t0
+        log(f"  phase {num}: {seconds[num]:.1f} s")
+        return out
+
+    name, smi, build_report = phase(1, "device and build", phase_device)
+    checks = phase(2, "pulse_chase kernel against its plain version", phase_kernel_vs_plain,
+                   rng)
     ws, wt = pulse_paper.WEBSERVICE, pulse_paper.WIREDTIGER
     workloads = [
         dict(name=ws.name, structure="hash", n_keys=ws.n_keys, n_buckets=ws.n_buckets),
         dict(name=wt.name, structure="btree", n_keys=wt.n_keys, n_buckets=0),
         dict(name="wiredtiger_2p24", structure="btree", n_keys=2**24, n_buckets=0),
     ]
-    rows = phase_main(rng, workloads)
+    rows = phase(3, "PulseEngine.execute, backend='kernel'", phase_main, rng, workloads)
 
     # the headline is the workload whose gathers come from HBM, where the
     # bytes bound at the HBM rate is the card's own
@@ -4111,28 +4425,27 @@ def main(argv=None) -> int:
         launches_note="one per PulseEngine.execute: three workloads x two routes",
         workloads=rows,
     )
-    log("== phase 4: flash_attention kernel against its plain version")
-    flash_checks, flash_row = phase_flash(args.seed)
-    log("== phase 5: paged_attention kernel against its plain version")
-    paged_checks, paged_row = phase_paged(args.seed)
-    log("== phase 6: the serve path, qwen3_0_6b at full width")
-    serve_row, params = phase_serve()
-    log("== phase 7: paged decode at full width")
-    decode_row = phase_paged_decode(params)
+    flash_checks, flash_row = phase(4, "flash_attention kernel against its plain version",
+                                    phase_flash, args.seed)
+    paged_checks, paged_row = phase(5, "paged_attention kernel against its plain version",
+                                    phase_paged, args.seed)
+    serve_row, params = phase(6, "the serve path, qwen3_0_6b at full width", phase_serve)
+    decode_row = phase(7, "paged decode at full width", phase_paged_decode, params)
     del params
     torch.cuda.empty_cache()
-    log("== phase 8: ssd_scan kernel against its plain version")
-    ssd_checks, ssd_row = phase_ssd(args.seed)
-    log("== phase 9: the serve path, mamba2_780m at full width")
-    ssm_row = phase_ssm_serve()
-    log("== phase 10: the write path on the card, against the CPU; read-back on the kernel")
-    write_rows, skip_body, write_launches, store_class = phase_write(rng)
+    ssd_checks, ssd_row = phase(8, "ssd_scan kernel against its plain version", phase_ssd,
+                                args.seed)
+    ssm_row = phase(9, "the serve path, mamba2_780m at full width", phase_ssm_serve)
+    write_rows, skip_body, write_launches, store_class = phase(
+        10, "the write path on the card, against the CPU; read-back on the kernel",
+        phase_write, rng)
     entry["launches"] += write_launches
     entry["launches_note"] = ("one per PulseEngine.execute: three workloads x two routes "
                               "(phase 3) and one read-back per write batch (phase 10)")
     entry["native_bodies"] = native_bodies(checks, rows, write_rows, skip_body)
-    log("== phase 11: routing over four emulated memory nodes, card against a CPU copy")
-    route_rows, route_launches = phase_routing(rng)
+    route_rows, route_launches = phase(
+        11, "routing over four emulated memory nodes, card against a CPU copy", phase_routing,
+        rng)
     entry["launches"] += route_launches
     entry["launches_note"] = ("one per PulseEngine.execute: three workloads x two routes "
                               "(phase 3) and one read-back per write batch (phase 10); one "
@@ -4153,21 +4466,23 @@ def main(argv=None) -> int:
                             launches=r["launches"], supersteps=r["supersteps"])
            for r in route_rows})
 
-    log("== phase 12: the write path over four emulated memory nodes, card against a CPU copy")
-    mesh_rows, commit_launches, mesh_readback = phase_write_mesh(rng)
+    mesh_rows, commit_launches, mesh_readback = phase(
+        12, "the write path over four emulated memory nodes, card against a CPU copy",
+        phase_write_mesh, rng)
     entry["launches"] += mesh_readback
     entry["launches_note"] += ("; one superstep-mode launch per superstep of each phase-12 "
                                "read-back")
-    log("== phase 13: faults and replication over four emulated memory nodes")
-    faults_row, fault_launches = phase_faults(rng, smi)
+    faults_row, fault_launches = phase(
+        13, "faults and replication over four emulated memory nodes", phase_faults, rng, smi)
     entry["launches"] += fault_launches
     entry["launches_note"] += ("; one superstep-mode launch per superstep of each of three "
                                "timed calls of each phase-13 replicated read (the replica "
                                "windows in the launch) and of each lossy "
                                "dispatched read, and the lossy fused and pipelined reads' first "
                                "calls' launches")
-    log("== phase 14: traversal serving, PulseService over the engine on the card")
-    serving_row, serving_ctx = phase_serving(rng, smi)
+    serving_row, serving_ctx = phase(
+        14, "traversal serving, PulseService over the engine on the card", phase_serving, rng,
+        smi)
     serve_runs = serving_row["runs"]
     entry["launches"] += sum(r["pulse_chase_launches"] for r in serve_runs)
     entry["launches_note"] += ("; in phase 14, one per read engine call of each one-node "
@@ -4176,14 +4491,19 @@ def main(argv=None) -> int:
                                "superstep and captured chunk)")
     entry["max_abs_err"] = max(entry["max_abs_err"], serving_row["budget_check"]["max_abs_err"])
     entry["budget_operand"] = serving_row["budget_check"]
-    log("== phase 15: fault tolerance and durability, PulseService(..., fault_tolerance=...)")
-    ft_row = phase_fault_tolerance(serving_ctx, smi)
+    ft_row = phase(15, "fault tolerance and durability, PulseService(..., fault_tolerance=...)",
+                   phase_fault_tolerance, serving_ctx, smi)
     del serving_ctx
     entry["launches"] += ft_row["launches"]["pulse_chase"]
     entry["launches_note"] += ("; in phase 15, one per read engine call of the one-node runs "
                                "(f, g), and on the mesh the read group's first call's "
                                "launches (h, i), one a superstep of each replica-window read "
                                "while a shard was dead (h, i) and of each watchdog probe (i)")
+    hybrid_row = phase(16, "the serve path, zamba2_7b at full width (hybrid)", phase_hybrid_serve)
+    torch.cuda.empty_cache()
+    moe_row = phase(17, "the serve path, granite_moe_1b_a400m at full width (moe)",
+                    phase_moe_serve)
+    torch.cuda.empty_cache()
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -4238,7 +4558,11 @@ def main(argv=None) -> int:
     flash_entry = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:26",
-        launches=serve_row["flash_launches"], max_abs_err=f32_err(flash_checks, flash_row),
+        launches=serve_row["flash_launches"] + hybrid_row["flash_launches"]
+        + moe_row["flash_launches"],
+        launches_note="one per layer of each prefill call of phase 6 (28 x 2), one per group "
+                      "of phase 16's (13 x 2), one per layer of phase 17's (24 x 2)",
+        max_abs_err=max(f32_err(flash_checks, flash_row), *moe_row["flash_layer_max_abs_err"]),
         max_abs_err_bf16=bf16_err(flash_checks), ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
@@ -4249,6 +4573,12 @@ def main(argv=None) -> int:
         **{f"{k}_d112": flash_row["d112"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                         "library_ms", "bound_ms_tensor_core")},
         timed_on_d112="B=4 H=64 Hk=8 L=512 D=112 causal f32 (kimi_k2_1t_a32b's heads)",
+        **{f"{k}_{shape}": flash_row[shape][k] for shape in ("zamba", "granite")
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "bound_ms_tensor_core")},
+        timed_on_zamba="B=4 H=32 Hk=32 L=512 D=112 causal f32 (zamba2_7b's prefill)",
+        timed_on_granite="B=4 H=16 Hk=8 L=512 D=64 causal f32 (granite_moe_1b_a400m's)",
+        serve_hybrid=hybrid_row, serve_moe=moe_row,
     )
     paged_entry = dict(
         name="paged_attention", route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
@@ -4272,12 +4602,21 @@ def main(argv=None) -> int:
     ssd_entry = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:24",
-        launches=ssm_row["ssd_launches"], max_abs_err=f32_err(ssd_checks, ssd_row),
+        launches=ssm_row["ssd_launches"] + hybrid_row["ssd_launches"],
+        launches_note="one call (three kernels) per layer of each prefill call of phase 9 "
+                      "(48 x 2) and of phase 16 (81 x 2)",
+        max_abs_err=f32_err(ssd_checks, ssd_row),
         max_abs_err_bf16=bf16_err(ssd_checks), ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"], library_ms=None,
-        bound_ms_tensor_core=ssd_row["bound_ms_tensor_core"], ms_per_kernel=ssd_row["ms_per_kernel"],
+        bound_ms_tensor_core=ssd_row["bound_ms_tensor_core"],
+        ms_per_kernel=ssd_row["ms_per_kernel"],
         timed_on="serve shape B=4 L=512 H=48 dh=64 N=128 chunk=128 f32, one layer",
         serve=ssm_row,
+        **{f"{k}_zamba": ssd_row["zamba"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_tensor_core", "ms_per_kernel",
+            "heads_per_block")},
+        timed_on_zamba="B=4 L=512 H=112 dh=64 N=64 chunk=128 f32 (zamba2_7b's prefill), one "
+                       "layer",
     )
     summary = {"kernels": [entry, flash_entry, paged_entry, ssd_entry, commit_entry]}
     if args.json is not None:
@@ -4287,10 +4626,11 @@ def main(argv=None) -> int:
             flash_checks=flash_checks, paged_checks=paged_checks, ssd_checks=ssd_checks,
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
-            fault_tolerance=ft_row,
-            **summary,
+            fault_tolerance=ft_row, hybrid_serve=hybrid_row, moe_serve=moe_row,
+            **summary, phase_seconds=seconds,
             seconds=time.perf_counter() - t_start), indent=1))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase "
+        + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
     log(smi)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

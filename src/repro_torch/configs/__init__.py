@@ -3,9 +3,10 @@
 
 Each ``<arch>.py`` exports ``CONFIG`` (the published dims) and
 ``reduced()`` (the same family at tiny dims, for CPU tests); ``get_config``
-maps ``--arch <id>`` to it.  Only the architectures in ``ARCH_IDS`` are
-ported so far (the dense and ssm families); the rest of the JAX package's
-(moe, hybrid, vlm, encdec) come with ROADMAP queue 1, item 10.
+maps ``--arch <id>`` to it.  ``ARCH_IDS`` holds the architectures ported so
+far (the dense, ssm, hybrid and moe families); the JAX package's vlm and
+encdec ones (``internvl2_2b``, ``whisper_large_v3``) come with ROADMAP
+queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -97,8 +98,19 @@ class ArchConfig:
             )
         return self.n_layers * (attn + mlp) + 2 * V * D
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        D = self.d_model
+        attn = D * self.hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * self.hd * D
+        mlp = (self.moe_top_k + self.n_shared_experts) * 3 * D * self.moe_d_ff
+        mlp += D * self.n_experts  # router
+        return self.n_layers * (attn + mlp) + 2 * self.vocab * D
 
-ARCH_IDS = ["qwen3_0_6b", "mamba2_780m"]
+
+ARCH_IDS = ["qwen3_0_6b", "mamba2_780m", "zamba2_7b", "granite_moe_1b_a400m",
+            "kimi_k2_1t_a32b", "olmo_1b", "qwen1_5_4b", "qwen3_4b"]
 
 
 def _module(arch_id: str):

@@ -1,7 +1,12 @@
 """Serving launcher: continuous batching over the model zoo.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b|mamba2_780m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch <id> \
         [--reduced] [--device cuda|cpu] [--requests 8] [--max-new 16]
+
+``<id>`` is one of ``repro_torch.configs.ARCH_IDS``: qwen3_0_6b, olmo_1b,
+qwen1_5_4b, qwen3_4b (dense), mamba2_780m (ssm), zamba2_7b (hybrid),
+granite_moe_1b_a400m, kimi_k2_1t_a32b (moe; kimi only ``--reduced``: it
+does not fit one card).
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device;
 prompts come from a seeded numpy generator.  Runs on the card unless

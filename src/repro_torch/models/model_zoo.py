@@ -47,9 +47,12 @@ def params_from_numpy(cfg, tree, *, device="cuda"):
 
     ``tree`` is what ``jax.tree.map(np.asarray, model.init(key))`` gives for
     the same ``cfg``: the same nested dicts, with the layer stack on a
-    leading L axis, which is split into a list of per-layer dicts.  Weights
-    stay ``(in, out)``.  Leaves become ``cfg.param_dtype``, except those the
-    JAX init fixes in f32 (the ssm's ``A_log`` and ``dt_bias``).
+    leading L axis, which is split into a list of per-layer dicts (the MoE's
+    experts ``(L, E, a, b)`` become ``(E, a, b)`` a layer, with the router
+    and the shared expert); the hybrid's ``shared_attn`` is one unstacked
+    block and stays whole.  Weights stay ``(in, out)``.  Leaves become
+    ``cfg.param_dtype`` (a bf16 leaf passes through f32, exactly), except
+    those the JAX init fixes in f32 (the ssm's ``A_log`` and ``dt_bias``).
     """
     transformer.require_ported(cfg)
 

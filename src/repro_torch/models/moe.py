@@ -1,0 +1,140 @@
+"""Mixture-of-Experts layer with PULSE-style switch routing, the JAX
+package's ``models/moe.py``.
+
+Token -> expert dispatch reuses the paper's in-network routing shape: the
+router ("switch") computes each token copy's owner from a range partition
+of expert ids (``owner = e // E_loc``), as the arena routes addresses to
+memory nodes; records go to the owning shard, and the results combine
+back in the same record format.  Capacity overflow drops copies (standard
+MoE), mirroring the paper's bounded per-link capacity; the residual
+connection stands in for the retry.
+
+The port runs the single-shard path (``moe_apply``).  ``_moe_local`` keeps
+the shard's ``my_rank`` and ``ep`` arguments, so the sum of its partial
+outputs over ``ep`` ranks equals one rank's; the JAX package's
+expert-parallel ``shard_map`` over a mesh's ``model`` axis needs more than
+one card and is parked with 6(e) (ROADMAP queue 1).  The router, the
+ranks and the combine are plain torch ops, and the grouped SwiGLU is
+batched matmuls: the JAX package computes them outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import dense_apply, dense_init, swiglu_apply, swiglu_init
+
+
+def moe_init(gen: torch.Generator, cfg):
+    """Random params from ``gen``, on ``gen``'s device: the router (D, E),
+    the experts' ``wi``/``wg`` (E, D, F) and ``wo`` (E, F, D) at std
+    1/sqrt(fan-in), and the shared expert when ``cfg.n_shared_experts``."""
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def ew(a, b):
+        w = torch.randn((E, a, b), generator=gen, device=gen.device) / math.sqrt(a)
+        return w.to(cfg.param_dtype)
+
+    p = {
+        "router": dense_init(gen, D, E, cfg.param_dtype),
+        "wi": ew(D, Fd),
+        "wg": ew(D, Fd),
+        "wo": ew(Fd, D),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = swiglu_init(gen, D, Fd * cfg.n_shared_experts, cfg.param_dtype)
+    return p
+
+
+def capacity(cfg, T: int) -> int:
+    """Slots per expert for ``T`` tokens: ``max(8, ceil(T*K/E * factor))``."""
+    return max(8, int(math.ceil(T * cfg.moe_top_k / cfg.n_experts * cfg.moe_capacity_factor)))
+
+
+def route(p, cfg, x_flat):
+    """The router: x_flat (T, D) -> (probs (T, E), top_p (T, K), top_e (T, K)).
+
+    Logits and softmax in f32; ``torch.topk`` in descending order, as
+    ``lax.top_k`` (which breaks exact ties by the lower index, where
+    ``torch.topk`` promises no order; f32 probabilities from real inputs
+    do not tie exactly); ``top_p`` renormalised to sum 1 when
+    ``cfg.moe_renormalize``."""
+    logits = dense_apply(p["router"], x_flat, torch.float32)
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    if cfg.moe_renormalize:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, top_p, top_e
+
+
+def rank_in_expert(copies_e, n_experts: int):
+    """Each copy's rank among the copies of its expert, in copy order (the
+    stable sort by expert id): copy ``i`` keeps its slot iff its rank is
+    below the capacity."""
+    n = copies_e.shape[0]
+    order = torch.argsort(copies_e, stable=True)
+    sorted_e = copies_e[order]
+    start = torch.searchsorted(sorted_e, torch.arange(n_experts, device=copies_e.device))
+    rank = torch.empty_like(copies_e)
+    rank[order] = torch.arange(n, device=copies_e.device) - start[sorted_e]
+    return rank
+
+
+def _expert_ffn(wi, wg, wo, xb, compute_dtype):
+    """Grouped SwiGLU: xb (E_loc, C, D) through each expert's weights."""
+    xb = xb.to(compute_dtype)
+    h = F.silu(torch.bmm(xb, wg.to(compute_dtype))) * torch.bmm(xb, wi.to(compute_dtype))
+    return torch.bmm(h, wo.to(compute_dtype))
+
+
+def _moe_local(p, cfg, x_flat, my_rank: int, ep: int, compute_dtype):
+    """One expert shard's body: route, compact, grouped FFN, weighted
+    combine.
+
+    x_flat (T, D): the tokens, the same on every shard.  ``p``'s experts are
+    this shard's ``E // ep`` (its slice of the expert axis); the router is
+    whole.  Returns the shard's partial output (T, D), to be summed over
+    the ``ep`` shards."""
+    T, D = x_flat.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    E_loc = E // ep
+    C = capacity(cfg, T)
+    dev = x_flat.device
+    _, top_p, top_e = route(p, cfg, x_flat)
+
+    # the switch: owner = range partition of expert ids
+    copies_e = top_e.reshape(-1)  # (T*K,) expert id per copy
+    copies_t = torch.arange(T, device=dev).repeat_interleave(K)  # token of each copy
+    copies_w = top_p.reshape(-1)
+    mine = copies_e // E_loc == my_rank
+    rank = rank_in_expert(copies_e, E)
+    fits = mine & (rank < C)
+    trash = E_loc * C  # the slot a dropped or foreign copy goes to
+    slot = torch.where(fits, (copies_e % E_loc) * C + rank, trash)
+
+    # gather tokens into the expert buffer (E_loc, C, D); T is the zero row
+    buf_tok = torch.full((trash + 1,), T, dtype=torch.long, device=dev)
+    buf_tok[slot] = torch.where(fits, copies_t, T)
+    x_pad = torch.cat([x_flat, x_flat.new_zeros((1, D))])
+    xb = x_pad[buf_tok[:trash]].reshape(E_loc, C, D)
+    yb = _expert_ffn(p["wi"], p["wg"], p["wo"], xb, compute_dtype).reshape(trash, D)
+
+    # combine: scatter-add the weighted expert outputs back to their tokens
+    yb_pad = torch.cat([yb, yb.new_zeros((1, D))])
+    y_copies = yb_pad[slot] * torch.where(fits, copies_w, 0.0)[:, None].to(yb.dtype)
+    return yb.new_zeros((T, D)).index_add_(0, copies_t, y_copies)
+
+
+def moe_apply(p, cfg, x, *, compute_dtype=None):
+    """x (B, L, D) -> (B, L, D): every expert on one shard, plus the shared
+    expert when the config has one."""
+    compute_dtype = compute_dtype or cfg.compute_dtype
+    B, L, D = x.shape
+    xf = x.reshape(B * L, D)
+    y = _moe_local(p, cfg, xf, 0, 1, compute_dtype)
+    if "shared" in p:
+        y = y + swiglu_apply(p["shared"], xf, compute_dtype)
+    return y.reshape(B, L, D)

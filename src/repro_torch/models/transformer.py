@@ -1,9 +1,12 @@
-"""Decoder LM, dense and ssm families: init, the layer stack, prefill and
-decode.
+"""Decoder LM, the dense, moe, ssm and hybrid families: init, the layer
+stack, prefill and decode.
 
 The layer stack is a list of per-layer param dicts applied by a plain loop
-(the JAX package scans over a stacked leading L axis).  The JAX package's
-other families (moe, hybrid, vlm, encdec) come with later slices and raise
+(the JAX package scans over a stacked leading L axis).  Hybrid (Zamba2):
+ONE weight-shared attention+MLP block, ``params["shared_attn"]``, applied
+after every ``hybrid_attn_every`` mamba layers; the mamba layers past the
+last whole group are the tail (81 = 13 x 6 + 3).  The JAX package's other
+families (vlm, encdec) come with a later slice and raise
 ``NotImplementedError`` here.
 """
 
@@ -11,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, moe, ssm
 from repro_torch.models.common import (
     dense_apply,
     dense_init,
@@ -22,10 +25,8 @@ from repro_torch.models.common import (
     uniform_scale_init,
 )
 
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "hybrid", "moe")
 _LATER = {
-    "moe": "ROADMAP queue 1, item 10 (models/moe.py)",
-    "hybrid": "ROADMAP queue 1, item 10 (zamba2_7b: ssd_scan and flash_attention)",
     "vlm": "ROADMAP queue 1, item 10 (the patch frontend)",
     "encdec": "ROADMAP queue 1, item 10 (models/whisper.py)",
 }
@@ -39,6 +40,34 @@ def require_ported(cfg):
         )
 
 
+def hybrid_split(cfg):
+    """(n_groups, tail): 81 layers, every=6 -> 13 groups + 3 tail layers."""
+    every = cfg.hybrid_attn_every
+    return cfg.n_layers // every, cfg.n_layers % every
+
+
+def _shared_after(cfg, i: int):
+    """The group whose shared attention block follows mamba layer ``i``
+    (hybrid), or None: layers [g*every, (g+1)*every) are group g's."""
+    if cfg.family != "hybrid" or (i + 1) % cfg.hybrid_attn_every:
+        return None
+    return (i + 1) // cfg.hybrid_attn_every - 1
+
+
+def _attn_block_init(gen, cfg, *, parametric=True, is_moe=False):
+    D, dev = cfg.d_model, gen.device
+    p = {
+        "attn_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
+        "attn": attention.attention_init(gen, cfg),
+        "mlp_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
+    }
+    if is_moe:
+        p["moe"] = moe.moe_init(gen, cfg)
+    else:
+        p["mlp"] = swiglu_init(gen, D, cfg.d_ff, cfg.param_dtype)
+    return p
+
+
 def lm_init(gen: torch.Generator, cfg):
     """Random params from ``gen``, on ``gen``'s device."""
     require_ported(cfg)
@@ -49,30 +78,33 @@ def lm_init(gen: torch.Generator, cfg):
         "final_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
         "unembed": dense_init(gen, D, V, cfg.param_dtype),
     }
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         p["layers"] = [
             {"norm": rmsnorm_init(D, cfg.param_dtype, dev), "ssm": ssm.ssm_init(gen, cfg)}
             for _ in range(cfg.n_layers)
         ]
+        if cfg.family == "hybrid":  # unstacked: one block, shared by every group
+            p["shared_attn"] = _attn_block_init(gen, cfg)
         return p
-    p["layers"] = [
-        {
-            "attn_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
-            "attn": attention.attention_init(gen, cfg),
-            "mlp_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
-            "mlp": swiglu_init(gen, D, cfg.d_ff, cfg.param_dtype),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    p["layers"] = [_attn_block_init(gen, cfg, parametric=parametric, is_moe=cfg.family == "moe")
+                   for _ in range(cfg.n_layers)]
     return p
 
 
 def _dense_block(lp, cfg, x, positions):
+    """Attention then the MLP (MoE where ``lp`` has one), each pre-norm with a
+    residual; also the hybrid's shared block (the JAX package's
+    ``_shared_attn_block``) on ``params["shared_attn"]``."""
     h = rmsnorm_apply(lp["attn_norm"], x)
     a, kv = attention.attention_apply(lp["attn"], cfg, h, positions=positions, causal=True)
     x = x + a
-    h = rmsnorm_apply(lp["mlp_norm"], x)
-    return x + swiglu_apply(lp["mlp"], h, cfg.compute_dtype), kv
+    return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x)), kv
+
+
+def _mlp(lp, cfg, h):
+    if "moe" in lp:
+        return moe.moe_apply(lp["moe"], cfg, h)
+    return swiglu_apply(lp["mlp"], h, cfg.compute_dtype)
 
 
 def _ssm_block(lp, cfg, x):
@@ -84,31 +116,33 @@ def _ssm_block(lp, cfg, x):
 def backbone_apply(params, cfg, x, *, positions=None, collect=False):
     """Layer stack on embeddings x (B, T, D) -> (h, cache parts | None).
 
-    ``collect=True`` also returns the cache ingredients prefill needs, every
-    layer's stacked on a leading L axis: K/V as (L, B, T, Hk, hd) (dense),
-    or the SSM state S (L, B, H, N, dh) and conv state (L, B, 3, d_inner+2N)
-    (ssm).
+    ``collect=True`` also returns the cache ingredients prefill needs, stacked
+    on a leading axis: K/V as (L, B, T, Hk, hd) (dense, moe); the SSM state
+    S (L, B, H, N, dh) and conv state (L, B, 3, d_inner+2N) (ssm); both,
+    with K/V one per group, (n_groups, B, T, Hk, hd) (hybrid).
     """
     require_ported(cfg)
-    if cfg.family == "ssm":
-        states = []
-        for lp in params["layers"]:
-            x, st = _ssm_block(lp, cfg, x)
-            if collect:
-                states.append(st)
-        aux = ({k: torch.stack([st[k] for st in states]) for k in ("S", "conv")}
-               if collect else None)
-        return rmsnorm_apply(params["final_norm"], x), aux
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device).expand(B, T)
-    ks, vs = [], []
-    for lp in params["layers"]:
+    states, ks, vs = [], [], []
+    for i, lp in enumerate(params["layers"]):
+        if cfg.family in ("ssm", "hybrid"):
+            x, st = _ssm_block(lp, cfg, x)
+            if collect:
+                states.append(st)
+            if _shared_after(cfg, i) is None:
+                continue
+            lp = params["shared_attn"]
         x, (k, v) = _dense_block(lp, cfg, x, positions)
         if collect:
             ks.append(k)
             vs.append(v)
-    aux = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect else None
+    aux = None
+    if collect:
+        aux = {k: torch.stack([st[k] for st in states]) for k in ("S", "conv")} if states else {}
+        if ks:
+            aux.update(k=torch.stack(ks), v=torch.stack(vs))
     return rmsnorm_apply(params["final_norm"], x), aux
 
 
@@ -122,43 +156,52 @@ def lm_logits(params, cfg, h):
 
 def decode_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
     """Zeros: the KV cache {"k", "v"}, each (L, batch, max_len, Hk, hd)
-    (dense), or the recurrent state {"S": (L, batch, H, N, dh) f32, "conv":
-    (L, batch, 3, d_inner+2N)} (ssm, which needs no max_len)."""
+    (dense, moe); the recurrent state {"S": (L, batch, H, N, dh) f32, "conv":
+    (L, batch, 3, d_inner+2N)} (ssm, which needs no max_len); or both, with
+    K/V (n_groups, batch, max_len, Hk, hd) (hybrid)."""
     require_ported(cfg)
     dtype = dtype or cfg.compute_dtype
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache = ssm.ssm_decode_init(cfg, (cfg.n_layers, batch), dtype, device=device)
     if cfg.family == "ssm":
-        return ssm.ssm_decode_init(cfg, (cfg.n_layers, batch), dtype, device=device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+        return cache
+    n_kv = hybrid_split(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+    shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def _dense_decode(lp, cfg, x, cache_k, cache_v, pos):
+    hn = rmsnorm_apply(lp["attn_norm"], x)
+    x = x + attention.decode_attention_apply(lp["attn"], cfg, hn, cache_k, cache_v, pos)
+    return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x))
 
 
 def decode_step(params, cfg, cache, tokens, pos):
     """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache).
 
-    The new token's K/V (dense), or the new recurrent state (ssm, which
-    reads no ``pos``), are written into ``cache`` in place; the cache
-    returned is the one passed in."""
+    The new token's K/V (dense, moe, hybrid) and the new recurrent state
+    (ssm, hybrid) are written into ``cache`` in place; the cache returned
+    is the one passed in.  The hybrid runs each group's mamba layers, then
+    the shared block on that group's K/V, then the tail."""
     require_ported(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])  # (B, 1, D)
-    if cfg.family == "ssm":
-        for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(params["layers"]):
+        if cfg.family in ("ssm", "hybrid"):
             hn = rmsnorm_apply(lp["norm"], x)
             out, st = ssm.ssm_decode_apply(
                 lp["ssm"], cfg, hn, {"S": cache["S"][i], "conv": cache["conv"][i]})
             cache["S"][i].copy_(st["S"])
             cache["conv"][i].copy_(st["conv"])
             x = x + out
-        h = rmsnorm_apply(params["final_norm"], x)
-        return lm_logits(params, cfg, h)[:, 0], cache
-    for i, lp in enumerate(params["layers"]):
-        hn = rmsnorm_apply(lp["attn_norm"], x)
-        x = x + attention.decode_attention_apply(
-            lp["attn"], cfg, hn, cache["k"][i], cache["v"][i], pos)
-        hn = rmsnorm_apply(lp["mlp_norm"], x)
-        x = x + swiglu_apply(lp["mlp"], hn, cfg.compute_dtype)
+            g = _shared_after(cfg, i)
+            if g is not None:
+                x = _dense_decode(params["shared_attn"], cfg, x, cache["k"][g],
+                                  cache["v"][g], pos)
+        else:
+            x = _dense_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos)
     h = rmsnorm_apply(params["final_norm"], x)
     return lm_logits(params, cfg, h)[:, 0], cache
 
@@ -166,7 +209,8 @@ def decode_step(params, cfg, cache, tokens, pos):
 def prefill(params, cfg, tokens, max_len: int):
     """Full-sequence prefill: tokens (B, T) -> (logits (B, T, V), cache):
     the prompt's K/V at positions [0, T) and zeros up to max(max_len, T)
-    (dense), or the recurrent state after the prompt (ssm)."""
+    (dense, moe, hybrid), and the recurrent state after the prompt (ssm,
+    hybrid)."""
     B, T = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(T, device=x.device).expand(B, T)
@@ -177,4 +221,7 @@ def prefill(params, cfg, tokens, max_len: int):
     cache = decode_cache_init(cfg, B, max(max_len, T), device=x.device)
     cache["k"][:, :, :T] = aux["k"]
     cache["v"][:, :, :T] = aux["v"]
+    if cfg.family == "hybrid":
+        cache["S"].copy_(aux["S"])
+        cache["conv"].copy_(aux["conv"])
     return logits, cache

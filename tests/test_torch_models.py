@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from repro.configs import get_reduced_config as jget
 from repro.models.model_zoo import build_model as jbuild
+from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import get_config as tget_full
 from repro_torch.configs import get_reduced_config as tget
 from repro_torch.models import transformer as ttransformer
@@ -114,15 +115,26 @@ def test_backends_agree_and_unknown_backend_raises(ref):
         tbuild(tcfg.replace(attn_backend="xla")).prefill(tparams, {"tokens": x}, T)
 
 
+FAMILY_ARCH = {"ssm": "mamba2_780m", "hybrid": "zamba2_7b", "moe": "granite_moe_1b_a400m"}
+
+
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "encdec"])
 def test_other_families_name_their_roadmap_item(family):
-    """The families not ported yet raise, naming their ROADMAP item; ssm is
-    ported (with the ssd_scan slice) and builds its recurrent cache."""
-    if family == "ssm":
-        cfg = tget("mamba2_780m")
+    """The families not ported yet (vlm, encdec) raise, naming their ROADMAP
+    item; ssm (the ssd_scan slice), hybrid and moe are ported and build
+    their caches: the recurrent state (ssm), K/V one a layer (moe), or both
+    with K/V one a group (hybrid)."""
+    if family in FAMILY_ARCH:
+        cfg = tget(FAMILY_ARCH[family])
         tbuild(cfg)
         cache = ttransformer.decode_cache_init(cfg, 1, 8, device="cpu")
-        assert set(cache) == {"S", "conv"} and cache["S"].dtype == torch.float32
+        want = {"ssm": {"S", "conv"}, "moe": {"k", "v"}, "hybrid": {"S", "conv", "k", "v"}}
+        assert set(cache) == want[family]
+        if "S" in cache:
+            assert cache["S"].dtype == torch.float32 and cache["S"].shape[0] == cfg.n_layers
+        if "k" in cache:
+            n_kv = cfg.n_layers // cfg.hybrid_attn_every if family == "hybrid" else cfg.n_layers
+            assert tuple(cache["k"].shape) == (n_kv, 1, 8, cfg.n_kv_heads, cfg.hd)
         return
     cfg = tget("qwen3_0_6b").replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -131,23 +143,41 @@ def test_other_families_name_their_roadmap_item(family):
         ttransformer.decode_cache_init(cfg, 1, 8, device="cpu")
 
 
-def test_configs_match_the_jax_package():
+def _port_fields():
+    import dataclasses
+
+    from repro_torch.configs import ArchConfig
+
+    # the backends are named per package ("kernel"/"chunked" here,
+    # "pallas"/"xla" there); every other field is the JAX package's
+    return [f.name for f in dataclasses.fields(ArchConfig)
+            if f.name not in ("attn_backend", "ssm_backend")]
+
+
+def _as_jax_value(v):
+    return getattr(jnp, str(v).removeprefix("torch.")) if isinstance(v, torch.dtype) else v
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_match_the_jax_package(arch):
+    """Every ported config, full and reduced, equals the JAX package's field
+    by field (dtypes mapped), with the same parameter counts."""
     from repro.configs import get_config as jget_full
 
-    for name in ("arch_id", "family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                 "vocab", "hd", "qk_norm", "qkv_bias", "rope_theta", "attn_chunk",
-                 "decode_kv_f32"):
-        assert getattr(tget_full("qwen3_0_6b"), name) == getattr(jget_full("qwen3_0_6b"), name)
-        assert getattr(tget("qwen3_0_6b"), name) == getattr(jget("qwen3_0_6b"), name)
-    assert tget_full("qwen3_0_6b").param_count() == jget_full("qwen3_0_6b").param_count()
-    assert tget_full("qwen3-0.6b".replace(".", "_")).arch_id == "qwen3_0_6b"
-    for name in ("arch_id", "family", "n_layers", "d_model", "vocab", "ssm_state", "ssm_expand",
-                 "ssm_head_dim", "ssm_chunk", "source"):
-        assert getattr(tget_full("mamba2_780m"), name) == getattr(jget_full("mamba2_780m"), name)
-        assert getattr(tget("mamba2_780m"), name) == getattr(jget("mamba2_780m"), name)
-    assert tget_full("mamba2_780m").param_count() == jget_full("mamba2_780m").param_count()
+    for t, j in ((tget_full(arch), jget_full(arch)), (tget(arch), jget(arch))):
+        for name in _port_fields():
+            assert _as_jax_value(getattr(t, name)) == getattr(j, name), name
+        assert t.hd == j.hd
+        assert t.param_count() == j.param_count()
+        assert t.active_param_count() == j.active_param_count()
+    assert tget_full(arch.replace("_", "-")).arch_id == arch
+
+
+def test_unported_configs_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        tget_full("zamba2_7b")
+        tget_full("whisper_large_v3")
+    with pytest.raises(KeyError, match="ROADMAP"):
+        tget("internvl2_2b")
 
 
 # ------------------------------ ssm family ----------------------------------

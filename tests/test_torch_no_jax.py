@@ -46,7 +46,10 @@ def test_port_files_exist():
                  "kernels/pulse_commit/ref.py", "core/faults.py", "core/prng.py",
                  "serving/admission.py", "serving/traversal_service.py",
                  "distributed/sharding.py", "distributed/elastic.py",
-                 "distributed/checkpoint.py", "distributed/arena_ft.py"):
+                 "distributed/checkpoint.py", "distributed/arena_ft.py", "models/moe.py",
+                 "configs/zamba2_7b.py", "configs/granite_moe_1b_a400m.py",
+                 "configs/kimi_k2_1t_a32b.py", "configs/olmo_1b.py", "configs/qwen1_5_4b.py",
+                 "configs/qwen3_4b.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
                "pulse_commit.cu"):
