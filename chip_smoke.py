@@ -35,11 +35,18 @@ Phases (any failure exits non-zero before the last line):
   4. ``flash_attention`` against its plain version (``mha_reference``) on
      the shapes of ``tests/test_kernels.py``, at head dims 112 (kimi's G =
      8, zamba2's G = 1) and 16 (the reduced configs), at zamba2_7b's and
-     granite_moe_1b_a400m's prefill shapes, in f32 and bf16, and timed at
-     the serve shape (B=4, H=16, Hk=8, L=512, D=128, causal, f32), kimi's
-     D = 112 shape (B=4, H=64, Hk=8, L=512, causal, f32), zamba2's (B=4,
-     H=32, Hk=32, L=512, D=112) and granite's (B=4, H=16, Hk=8, L=512,
-     D=64); tolerance 2e-5
+     granite_moe_1b_a400m's prefill shapes, and, with no blocks (the
+     models' route, any lengths: the ragged last tiles), at Whisper's
+     encoder (B=4, H=20, L=1,500, D=64, full) and cross-attention (128
+     queries over 1,500 keys), a causal square shape of 200 and causal
+     100 over 300 (the causal offset inside a key tile), in f32 and bf16,
+     and timed at the serve shape (B=4, H=16, Hk=8, L=512, D=128, causal,
+     f32), kimi's D = 112 shape (B=4, H=64, Hk=8, L=512, causal, f32),
+     zamba2's (B=4, H=32, Hk=32, L=512, D=112), granite's (B=4, H=16,
+     Hk=8, L=512, D=64), Whisper's encoder and cross-attention and
+     internvl2_2b's patch prefill (B=4, H=16, Hk=8, L=768, D=128,
+     causal), and the encoder's shape again at L = 1,536, which the 64-row
+     tiles divide (what the ragged tiles cost); tolerance 2e-5
      (f32) and 2e-2 (bf16), absolute and relative; timed beside
      ``scaled_dot_product_attention`` (the library yardstick, never used by
      the port), with its bound at the f32 FMA peak and, for the 3xTF32
@@ -247,9 +254,34 @@ Phases (any failure exits non-zero before the last line):
      flip or changed drop reached (through causal attention, the rest of
      its sequence from the next layer on) within 1e-3.  Reported: the
      capacity and the dropped copies a layer, and the MoE layers' share of
-     a warm prefill.  Phases 6, 9, 16 and 17 report tokens/s, prefill ms a
-     call, decode ms a step, peak device memory and a warm profiled
-     breakdown.
+     a warm prefill;
+ 18. the serve path of the full-width ``internvl2_2b`` (vlm: 24 layers, d
+     2048, 16/8 heads of 128, vocab 92,553; 1.89 B parameters; phase 6's
+     traffic, tokens only, as the batcher prefills): every request
+     finishes, ``flash_attention`` launches 24 times per prefill call, the
+     plain route's logits within 1e-3; then the entry point that carries
+     the patches, ``build_model(cfg).prefill(params, {"tokens",
+     "patches"}, 1024)`` on 4 prompts of 512 tokens behind 256 seeded patch
+     embeddings each (T = 768): 24 launches, the logits of all 768 rows
+     and the K/V cache within 1e-3 of the plain route, then 16 greedy
+     decode steps from 768 on both routes in lock step (``greedy_pair``: a
+     token may differ only where the plain route's top two logits lie
+     within 2e-3, and the logits agree within 1e-3 until it does);
+ 19. the full-width ``whisper_large_v3`` (encdec: 32 encoder and 32
+     decoder layers, d 1280, 20 heads of 64, QKV bias, vocab 51,866; 1.53
+     B parameters): ``build_model(cfg).prefill(params, {"tokens",
+     "frames"}, 448)`` on 4 prompts of 128 tokens and 4 clips of 1,500
+     seeded frame embeddings (the encoder's 30 s window; 448 is the
+     decoder's published context): 96 ``flash_attention`` launches (32
+     encoder, 32 causal, 32 cross over 1,500 frames), the encoder's
+     output, the logits and the four caches within 1e-3 of the plain
+     route, 16 greedy decode steps on both, held as in phase 18; then
+     ``serve.main`` with 4 requests of 8 tokens, 8 new, max_len 448, a
+     functional check with no rate: every request finishes in token mode
+     (the batcher's for encdec, as in the reference: no prefill call, no
+     kernel launch).  Phases 6, 9 and 16-18 report tokens/s, and phases 6,
+     9 and 16-19 prefill ms a call, decode ms a step, peak device memory
+     and a warm profiled breakdown.
 
 Each phase logs its seconds.
 
@@ -305,7 +337,17 @@ SERVE_ARGS = ["--arch", "qwen3_0_6b", *SERVE_SHAPE]
 SSM_SERVE_ARGS = ["--arch", "mamba2_780m", *SERVE_SHAPE]
 HYBRID_SERVE_ARGS = ["--arch", "zamba2_7b", *SERVE_SHAPE]
 MOE_SERVE_ARGS = ["--arch", "granite_moe_1b_a400m", *SERVE_SHAPE]
+VLM_SERVE_ARGS = ["--arch", "internvl2_2b", *SERVE_SHAPE]
+VLM_PROMPT, VLM_MAX_LEN, VLM_NEW = 512, 1024, 16  # phase 18's patch prefill: T = 256 + 512
+# phase 19: Whisper's 30 s window of 1,500 frames and its published decoder
+# context of 448 tokens
+WHISPER_PROMPT, WHISPER_MAX_LEN, WHISPER_NEW = 128, 448, 16
+WHISPER_SERVE_ARGS = ["--arch", "whisper_large_v3", "--requests", "4", "--max-batch", "4",
+                      "--prompt-len", "8", "--max-len", "448", "--max-new", "8"]
 ROUTE_TIE = 1e-4  # a top-k flip between the routes is allowed within this margin
+# a greedy token may differ between the routes only where the plain route's
+# top two logits lie within this: each route's logits within LOGIT_TOL
+TOKEN_TIE = 2 * LOGIT_TOL
 
 
 def log(msg: str) -> None:
@@ -3445,56 +3487,64 @@ def flash_work(B, H, Hk, Lq, Lk, D, causal, elem_bytes=4):
     return flops, nbytes
 
 
-def tensor_core_bound_ms(flops):
-    """Least ms of ``flops`` f32 operations done in 3xTF32 on the tensor
-    cores: three TF32 products each at the TF32 peak."""
-    return TF32X3 * flops / TF32_FLOP_PER_S * 1e3
-
-
-def bound(flops, nbytes):
+def bound(flops, nbytes, flop_per_s=F32_FLOP_PER_S):
     """(least ms, what bounds it): the larger of the two times, the
-    operations at the f32 peak outside the tensor cores."""
-    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    operations at ``flop_per_s`` (by default the f32 peak outside the
+    tensor cores) and the bytes at the HBM rate."""
+    t_ops, t_bytes = flops / flop_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_flash(gen, B, H, Hk, L, D):
-    """Kernel, plain version and SDPA at one causal f32 shape: a prefill
-    call's attention in one layer."""
+def tensor_core_bound(flops, nbytes):
+    """``bound`` for a kernel whose f32 products run in 3xTF32 on the
+    tensor cores (flash_attention, ssd_scan): three TF32 products for each
+    f32 one, at the TF32 peak."""
+    return bound(flops, nbytes, TF32_FLOP_PER_S / TF32X3)
+
+
+def time_flash(gen, B, H, Hk, L, D, *, Lk=None, causal=True):
+    """Kernel, plain version and SDPA at one f32 shape, on the models' route
+    (no blocks: any lengths): a prefill call's attention in one layer, L
+    queries over Lk keys (L by default), causal (square) or full."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
+    Lk = L if Lk is None else Lk
     q = _randn(gen, (B, H, L, D), "float32")
-    k, v = _randn(gen, (B, Hk, L, D), "float32"), _randn(gen, (B, Hk, L, D), "float32")
-    got = ops.flash_attention(q, k, v, True, 128, 128)
-    want = ref.mha_reference(q, k, v, causal=True)
-    ok, err = _close(got, want, "float32")
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    _, lib_err = _close(lib, want, "float32")
-    log(f"  flash B={B} H={H} Hk={Hk} L={L} D={D} causal f32: max_abs_err={err:.3g} ok={ok} "
-        f"(SDPA vs plain {lib_err:.3g})")
+    k, v = _randn(gen, (B, Hk, Lk, D), "float32"), _randn(gen, (B, Hk, Lk, D), "float32")
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+    want = ref.mha_reference(q, k, v, causal=causal)
+    ok, err = _close(kernel(), want, "float32")
+    _, lib_err = _close(library(), want, "float32")
+    del want
+    what = f"B={B} H={H} Hk={Hk} Lq={L} Lk={Lk} D={D} {'causal' if causal else 'full'} f32"
+    log(f"  flash {what}: max_abs_err={err:.3g} ok={ok} (SDPA vs plain {lib_err:.3g})")
     if not ok:
         raise AssertionError("flash_attention kernel disagrees with its plain version")
-    events_ms = time_cuda(lambda: ops.flash_attention(q, k, v, True, 128, 128), 50)
-    device_ms = kernel_device_ms([lambda: ops.flash_attention(q, k, v, True, 128, 128)], 20,
-                                 "flash_fwd")
+    events_ms = time_cuda(kernel, 50)
+    device_ms = kernel_device_ms([kernel], 20, "flash_fwd")
     ms = events_ms if device_ms is None else device_ms
-    plain_ms = time_cuda(lambda: ref.mha_reference(q, k, v, causal=True), 10)
-    library_ms = time_cuda(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 50)
-    flops, nbytes = flash_work(B, H, Hk, L, L, D, True)
-    bound_ms, bound_by = bound(flops, nbytes)
-    tc_ms = tensor_core_bound_ms(flops)
-    row = dict(shape=[B, H, Hk, L, L, D], causal=True, dtype="float32", max_abs_err=err,
+    plain_ms = time_cuda(lambda: ref.mha_reference(q, k, v, causal=causal), 10)
+    library_ms = time_cuda(library, 50)
+    flops, nbytes = flash_work(B, H, Hk, L, Lk, D, causal)
+    bound_ms, bound_by = tensor_core_bound(flops, nbytes)
+    fma_ms = bound(flops, nbytes)[0]
+    row = dict(shape=[B, H, Hk, L, Lk, D], causal=causal, dtype="float32", max_abs_err=err,
                ms=ms, ms_source="events" if device_ms is None else "profiler",
                ms_events=events_ms, plain_ms=plain_ms, library_ms=library_ms,
                library_max_abs_err=lib_err, flops=flops, bytes=nbytes, bound_ms=bound_ms,
-               bound_by=bound_by, bound_ms_tensor_core=tc_ms)
-    log(f"  flash B={B} H={H} Hk={Hk} L={L} D={D}: kernel {ms:.4f} ms ({row['ms_source']}; "
+               bound_by=bound_by, bound_ms_f32_fma=fma_ms)
+    log(f"  flash {what}: kernel {ms:.4f} ms ({row['ms_source']}; "
         f"CUDA events over 50 launches {events_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; 3xTF32 on the tensor cores {tc_ms:.5f} ms), "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, 3xTF32 on the tensor cores: "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; at the f32 FMA rate {fma_ms:.5f} ms), "
         f"{flops / ms / 1e9:.1f} TFLOP/s")
     return row
 
@@ -3518,6 +3568,14 @@ def phase_flash(seed):
         # zamba2_7b's prefill (G = 1, D 112, 32 heads) and granite's (G = 2, D 64)
         (4, 32, 32, 512, 512, 112, True, 128),
         (4, 16, 8, 512, 512, 64, True, 128),
+        # the models' route, no blocks, at lengths 128 does not divide: the
+        # ragged last tiles.  Whisper's encoder and cross-attention (1,500
+        # frames, full), a causal square shape, and causal Lq < Lk, whose
+        # q_offset (200) falls inside a key tile
+        (4, 20, 20, 1500, 1500, 64, False, None),
+        (4, 20, 20, 128, 1500, 64, False, None),
+        (2, 16, 8, 200, 200, 128, True, None),
+        (1, 8, 8, 100, 300, 64, True, None),
     ]
     checks = []
     for dtype in ("float32", "bfloat16"):
@@ -3527,9 +3585,9 @@ def phase_flash(seed):
             got = ops.flash_attention(q, k, v, causal, blk, blk)
             ok, err = _close(got, ref.mha_reference(q, k, v, causal=causal), dtype)
             checks.append(dict(shape=[B, H, Hk, Lq, Lk, D], causal=causal, dtype=dtype,
-                               within_tol=ok, max_abs_err=err))
+                               blocks=blk, within_tol=ok, max_abs_err=err))
             log(f"  flash {dtype:8s} B={B} H={H} Hk={Hk} Lq={Lq} Lk={Lk} D={D} "
-                f"causal={causal}: max_abs_err={err:.3g} ok={ok}")
+                f"causal={causal} blocks={blk}: max_abs_err={err:.3g} ok={ok}")
             if not ok:
                 raise AssertionError("flash_attention kernel disagrees with its plain version")
 
@@ -3539,6 +3597,22 @@ def phase_flash(seed):
                                                   (4, 16, 8, 512, 64))]  # granite's
     row = rows[0]
     row["d112"], row["zamba"], row["granite"] = rows[1:]
+    # Whisper's encoder (1,500 frames) and cross-attention (128 prompt
+    # tokens over them), and internvl2_2b's patch prefill (256 + 512)
+    row["whisper_enc"] = time_flash(gen, 4, 20, 20, 1500, 64, causal=False)
+    row["whisper_cross"] = time_flash(gen, 4, 20, 20, 128, 64, Lk=1500, causal=False)
+    row["internvl"] = time_flash(gen, 4, 16, 8, 768, 128)
+    # what the ragged last tiles cost: the encoder's shape beside the next
+    # length the 64-row tiles divide (1,536), per pair of (query, key) kept
+    aligned = time_flash(gen, 4, 20, 20, 1536, 64, causal=False)
+    per_pair = (row["whisper_enc"]["ms"] / row["whisper_enc"]["flops"]) / (
+        aligned["ms"] / aligned["flops"])
+    row["ragged"] = dict(aligned_ms=aligned["ms"], ragged_ms=row["whisper_enc"]["ms"],
+                         time_per_pair_ratio=per_pair)
+    log(f"  ragged tiles: L 1,500 {row['whisper_enc']['ms']:.4f} ms against L 1,536 "
+        f"{aligned['ms']:.4f} ms; time per (query, key) pair kept {per_pair:.4f}x the "
+        f"aligned length's (1,536^2 / 1,500^2 = {1536 ** 2 / 1500 ** 2:.4f}x if each ragged "
+        f"tile cost a whole one)")
     log(json.dumps({"phase": "flash_vs_plain", "name": "flash_attention", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -3745,7 +3819,7 @@ def phase_ssd(seed):
         per_kernel = {name: kernel_device_ms(call, 20, name) for name in SSD_KERNELS}
         plain_ms = time_cuda(lambda: ref.ssd_chunked_batched(*args, chunk=chunk), 10)
         flops, nbytes = ssd_work(*case)
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = tensor_core_bound(flops, nbytes)
         Bt, L, H, dh, N, Q = case
         nc = L // Q
         full_square = 2 * Bt * nc * Q * Q * N + 2 * Bt * H * nc * (Q * Q * dh + 2 * Q * N * dh)
@@ -3755,16 +3829,16 @@ def phase_ssd(seed):
                    heads_per_block=kernel.default_heads_per_block(Bt, L, H, Q),
                    plain_ms=plain_ms, flops=flops, bytes=nbytes,
                    bound_ms=bound_ms, bound_by=bound_by,
-                   bound_ms_tensor_core=tensor_core_bound_ms(flops),
+                   bound_ms_f32_fma=bound(flops, nbytes)[0],
                    flops_full_square=full_square, flops_per_head_tpu=per_head,
-                   bound_ms_full_square=full_square / F32_FLOP_PER_S * 1e3,
-                   bound_ms_per_head_tpu=per_head / F32_FLOP_PER_S * 1e3)
+                   bound_ms_full_square=TF32X3 * full_square / TF32_FLOP_PER_S * 1e3,
+                   bound_ms_per_head_tpu=TF32X3 * per_head / TF32_FLOP_PER_S * 1e3)
         log(f"  ssd B={Bt} L={L} H={H} dh={dh} N={N} chunk={Q}: {len(SSD_KERNELS)} kernels "
             f"per call, {ms:.4f} ms ({row['ms_source']}; by kernel {per_kernel}; CUDA events "
             f"over 50 calls {events_ms:.4f} ms; {row['heads_per_block']} heads per block), "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-            f"{flops / 1e9:.3f} GFLOP over the causal half, {nbytes / 1e6:.1f} MB; 3xTF32 on "
-            f"the tensor cores {row['bound_ms_tensor_core']:.5f} ms; {full_square / 1e9:.3f} "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, 3xTF32 on the tensor "
+            f"cores: {flops / 1e9:.3f} GFLOP over the causal half, {nbytes / 1e6:.1f} MB; at the "
+            f"f32 FMA rate {row['bound_ms_f32_fma']:.5f} ms; {full_square / 1e9:.3f} "
             f"GFLOP full-square, {per_head / 1e9:.3f} per head as the TPU kernel counts), "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
         return row
@@ -4124,6 +4198,246 @@ def moe_share(model, params, toks):
                 moe_share_of_prefill=moe_ms / total_ms)
 
 
+# ------------------------- vlm and encdec serving ---------------------------
+
+
+def greedy_pair(kmodel, pmodel, params, ck, cp, lk, lp, pos, steps: int):
+    """Greedy decoding on both routes in lock step from the prefill's last
+    logits ``lk``/``lp`` (B, vocab) and caches ``ck``/``cp``: the
+    prefill's token, then ``steps`` decode steps' from positions ``pos``.
+    While a sequence's tokens agree, so do its inputs, and its logits are
+    compared; at its first difference the plain route's top-2 margin must
+    lie within TOKEN_TIE (else AssertionError), and after it the two
+    routes decode different text and are no longer compared.  Returns the
+    report and the kernel route's decode ms a step (host clock around each
+    step, which ends in the argmax's read)."""
+    import torch
+
+    B = lk.shape[0]
+    first, agree, logit_err, ms = {}, 0, 0.0, []
+    pos = pos.clone()
+    cur_k, cur_p = lk.argmax(-1).int(), lp.argmax(-1).int()
+    for i in range(steps + 1):
+        if i:
+            t0 = time.perf_counter()
+            lk, ck = kmodel.decode_step(params, ck, cur_k, pos)
+            cur_k = lk.argmax(-1).int()
+            cur_k.cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            lp, cp = pmodel.decode_step(params, cp, cur_p, pos)
+            cur_p = lp.argmax(-1).int()
+            pos += 1
+        live = [b for b in range(B) if b not in first]
+        if not live:
+            continue
+        logit_err = max(logit_err, float((lk[live] - lp[live]).abs().max()))
+        same = (cur_k == cur_p).cpu()
+        top = lp.float().topk(2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]).cpu()
+        for b in live:
+            if same[b]:
+                agree += 1
+            else:
+                first[b] = dict(seq=b, index=i, margin=float(margin[b]))
+    report = dict(tokens_agree=agree, tokens_compared=agree + len(first),
+                  tokens_total=B * (steps + 1), first_differences=list(first.values()),
+                  decode_logit_max_abs_err=logit_err, token_tie=TOKEN_TIE)
+    log(f"  greedy tokens, kernel vs plain route: {agree} of {agree + len(first)} compared "
+        f"agree ({B} x {steps + 1}, each sequence up to its first difference); first "
+        f"differences {report['first_differences']} (plain top-2 margin allowed up to "
+        f"{TOKEN_TIE}); logits while the tokens agree max_abs_err={logit_err:.3g} "
+        f"(tolerance {LOGIT_TOL})")
+    bad = [f for f in first.values() if f["margin"] > TOKEN_TIE]
+    if bad:
+        raise AssertionError(f"greedy tokens differ between the routes where the plain "
+                             f"route's margin exceeds {TOKEN_TIE}: {bad}")
+    if logit_err > LOGIT_TOL:
+        raise AssertionError(f"decode logits differ between the routes by {logit_err:.3g} "
+                             f"while their tokens agree")
+    return report, ms
+
+
+def _timed_prefill(model, params, batch, max_len):
+    """(logits, cache, ms): one prefill call by the host clock around work
+    that ends in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    return logits, cache, (time.perf_counter() - t0) * 1e3
+
+
+def phase_vlm_serve(seed):
+    """internvl2_2b through the user's entry point (``serve_and_compare``:
+    the batcher's prompts are tokens, so the dense backbone with no patch
+    prefix), then the entry point that carries the patches:
+    ``build_model(cfg).prefill`` on 4 prompts of 512 tokens behind 256
+    seeded patch embeddings each (T = 768), kernel against plain logits
+    over every row, then 16 greedy decode steps from position 768 on both
+    routes, tokens compared."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("internvl2_2b")
+    flash = flash_ops.flash_attention
+    row, params = serve_and_compare(VLM_SERVE_ARGS, [(flash, cfg.n_layers)], ("attn_backend",))
+    row["flash_launches"] = row["launches"]["flash_attention"]
+
+    kmodel, pmodel = build_model(cfg), build_model(cfg.replace(attn_backend="chunked"))
+    reqs = serve.make_requests(cfg, 4, VLM_PROMPT, VLM_NEW)
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    patches = torch.randn((4, cfg.n_patches, cfg.d_model), generator=gen, device="cuda")
+    batch = {"tokens": toks, "patches": patches}
+    T = cfg.n_patches + VLM_PROMPT
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        flash.launches = 0
+        lk, ck, first_ms = _timed_prefill(kmodel, params, batch, VLM_MAX_LEN)
+        launches = flash.launches
+        lp, cp, plain_ms = _timed_prefill(pmodel, params, batch, VLM_MAX_LEN)
+        if tuple(lk.shape) != (4, T, cfg.vocab) or ck["k"].shape[2] != max(VLM_MAX_LEN, T):
+            raise AssertionError(f"vlm: patch prefill logits {tuple(lk.shape)}, cache "
+                                 f"{tuple(ck['k'].shape)}")
+        err, top = float((lk - lp).abs().max()), float(lp.abs().max())
+        cache_err = {key: float((ck[key] - cp[key]).abs().max()) for key in ("k", "v")}
+        finite = bool(torch.isfinite(lk).all())
+        lk_last, lp_last = lk[:, -1].clone(), lp[:, -1].clone()
+        del lk, lp
+    log(f"  patch prefill ({cfg.n_patches} patches + {VLM_PROMPT} tokens, T = {T}): "
+        f"{launches} flash launches (want {cfg.n_layers}); logits over all {T} rows kernel vs "
+        f"plain max_abs_err={err:.3g}, largest |logit| {top:.3g}, cache k {cache_err['k']:.3g} "
+        f"v {cache_err['v']:.3g} (tolerance {LOGIT_TOL})")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"vlm: flash_attention launched {launches} times in the patch "
+                             f"prefill, {cfg.n_layers} wanted")
+    if not finite or max(err, *cache_err.values()) > LOGIT_TOL:
+        raise AssertionError(f"vlm: kernel and plain patch prefill disagree: logits {err}, "
+                             f"cache {cache_err}")
+    with torch.no_grad():
+        pos = torch.full((4,), T, dtype=torch.int32, device="cuda")
+        tokens, k_ms = greedy_pair(kmodel, pmodel, params, ck, cp, lk_last, lp_last, pos,
+                                   VLM_NEW)
+        del ck, cp
+        _, _, warm_ms = _timed_prefill(kmodel, params, batch, VLM_MAX_LEN)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  patch prefill: first call {first_ms:.2f} ms, warm {warm_ms:.2f} ms (plain "
+        f"{plain_ms:.2f} ms); decode {float(np.median(k_ms)):.2f} ms a step (median of "
+        f"{VLM_NEW}); peak {peak_gb:.2f} GB")
+    row["patch_prefill"] = dict(
+        patches=cfg.n_patches, prompt=VLM_PROMPT, T=T, max_len=VLM_MAX_LEN,
+        flash_launches=launches, logit_max_abs_err=err, logit_max_abs=top,
+        cache_max_abs_err=cache_err, logit_tol=LOGIT_TOL, first_ms=first_ms,
+        warm_ms=warm_ms, plain_ms=plain_ms, decode_ms=k_ms, peak_device_gb=peak_gb,
+        **tokens)
+    row["flash_launches"] += launches
+    del params
+    log(json.dumps({"phase": "vlm_serve", **row}))
+    return row
+
+
+def phase_whisper_serve(seed):
+    """whisper_large_v3 at full width: ``build_model(cfg).prefill`` on 4
+    prompts of 128 tokens and 4 clips of 1,500 seeded frame embeddings,
+    max_len 448 (one flash_attention launch a layer of the encoder, and two
+    a decoder layer: causal self-attention and the cross-attention over
+    the frames); the encoder's output, the prefill logits and every cache
+    tensor against the plain route; 16 greedy decode steps on both routes;
+    the warm breakdown; then ``serve.main`` in token mode (the batcher's,
+    as in the reference: no prefill call, no kernel launch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import whisper
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("whisper_large_v3")
+    flash = flash_ops.flash_attention
+    per_call = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    kmodel, pmodel = build_model(cfg), build_model(cfg.replace(attn_backend="chunked"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = serve.init_params(kmodel, "cuda")
+    reqs = serve.make_requests(cfg, 4, WHISPER_PROMPT, WHISPER_NEW)
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn((4, cfg.n_audio_frames, cfg.d_model), generator=gen, device="cuda")
+    batch = {"tokens": toks, "frames": frames}
+    with torch.no_grad():
+        flash.launches = 0
+        lk, ck, first_ms = _timed_prefill(kmodel, params, batch, WHISPER_MAX_LEN)
+        launches = flash.launches
+        lp, cp, plain_ms = _timed_prefill(pmodel, params, batch, WHISPER_MAX_LEN)
+        errs = {"enc_out": float((whisper.encode(params, kmodel.cfg, frames)
+                                  - whisper.encode(params, pmodel.cfg, frames)).abs().max()),
+                "logits": float((lk - lp).abs().max())}
+        errs.update({key: float((ck[key] - cp[key]).abs().max()) for key in ck})
+        top = float(lp.abs().max())
+        finite = bool(torch.isfinite(lk).all())
+        shapes = {key: tuple(t.shape) for key, t in ck.items()}
+        lk_last, lp_last = lk[:, -1].clone(), lp[:, -1].clone()
+        del lk, lp
+    want = {"k": WHISPER_MAX_LEN, "v": WHISPER_MAX_LEN, "xk": cfg.n_audio_frames,
+            "xv": cfg.n_audio_frames}
+    log(f"  prefill (4 x {WHISPER_PROMPT} tokens, 4 x {cfg.n_audio_frames} frames, max_len "
+        f"{WHISPER_MAX_LEN}): {launches} flash launches (want {per_call}); kernel vs plain "
+        f"max_abs_err {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; largest |logit| "
+        f"{top:.3g} (tolerance {LOGIT_TOL}); first call {first_ms:.2f} ms (plain "
+        f"{plain_ms:.2f} ms); cache {shapes}")
+    if launches != per_call:
+        raise AssertionError(f"whisper: flash_attention launched {launches} times in a "
+                             f"prefill call, {per_call} wanted")
+    if any(shapes[k][2] != n for k, n in want.items()):
+        raise AssertionError(f"whisper: cache shapes {shapes}")
+    if not finite or max(errs.values()) > LOGIT_TOL:
+        raise AssertionError(f"whisper: kernel and plain prefill disagree: {errs}")
+    with torch.no_grad():
+        pos = torch.full((4,), WHISPER_PROMPT, dtype=torch.int32, device="cuda")
+        tokens, k_ms = greedy_pair(kmodel, pmodel, params, ck, cp, lk_last, lp_last, pos,
+                                   WHISPER_NEW)
+        del ck, cp
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  decode {float(np.median(k_ms)):.2f} ms a step (median of {WHISPER_NEW}); peak "
+        f"{peak_gb:.2f} GB")
+    row = dict(arch=cfg.arch_id, prompts=4, prompt_len=WHISPER_PROMPT,
+               frames=cfg.n_audio_frames, max_len=WHISPER_MAX_LEN, flash_launches=launches,
+               flash_launches_per_prefill=per_call, max_abs_err=errs, logit_max_abs=top,
+               logit_tol=LOGIT_TOL, first_prefill_ms=first_ms, plain_prefill_ms=plain_ms,
+               decode_ms=k_ms, peak_device_gb=peak_gb, **tokens)
+    row.update(warm_breakdown(kmodel, params, toks, batch=batch, max_len=WHISPER_MAX_LEN))
+    del params
+    torch.cuda.empty_cache()
+
+    flash.launches = 0
+    m, sreqs = serve.main(WHISPER_SERVE_ARGS)
+    torch.cuda.synchronize()
+    if not all(r.finished_step >= 0 for r in sreqs):
+        raise AssertionError("whisper: served requests left unfinished")
+    if m.prefill_calls or flash.launches:
+        raise AssertionError(f"whisper: token mode made {m.prefill_calls} prefill calls and "
+                             f"{flash.launches} flash launches")
+    # a functional check of the batcher's token mode at a toy size (4
+    # requests of 8 tokens, 8 new), not a serving rate
+    row["serve_check"] = dict(requests=len(sreqs), finished=len(sreqs), steps=m.steps,
+                              tokens_out=m.tokens_out, prefill_calls=m.prefill_calls,
+                              flash_launches=flash.launches)
+    log(f"  serve.main in token mode ({len(sreqs)} requests of 8 tokens, 8 new; a functional "
+        f"check, not a rate): every request finished in {m.steps} steps, {m.tokens_out} "
+        f"tokens out, no prefill call, no flash launch")
+    log(json.dumps({"phase": "whisper_serve", **row}))
+    return row
+
+
 def _device_ms(prof, events=None):
     """(kernel ms summed over the profiled window, the top 6 kernels by
     time); (None, []) when the profiler saw no kernel.  Only the kernels'
@@ -4144,20 +4458,73 @@ def _device_ms(prof, events=None):
                         calls=e.count) for e in top]
 
 
-def warm_breakdown(model, params, toks):
-    """The kernel route warm: a prefill call (4 x 512) and decode steps by
-    the host clock around work that ends in a synchronise, then one
-    profiled window of each for the kernels' time; the device's busy share
-    is that time over the unprofiled wall time (the profiler slows the
-    host)."""
+def lm_work(cfg, B, T):
+    """(prefill FLOPs, decode-step bytes) of a decoder LM on B prompts of T:
+    the prefill's matmul, attention and SSD FLOPs (a token's routed experts
+    only, in a moe; the shared block once a group, in a hybrid); a decode
+    step's weights (every expert) and live cache (K/V, and the recurrent
+    state read and written) once, in f32.  Their least times are these at
+    the f32 peak and at the HBM rate."""
+    emb = cfg.vocab * cfg.d_model  # the embedding is a gather
+    weight_params = cfg.param_count() - emb
+    token_params = cfg.active_param_count() - emb
+    n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.hybrid_attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+    if cfg.family == "hybrid":
+        D, hd = cfg.d_model, cfg.hd
+        shared = D * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * D \
+            + 3 * D * cfg.d_ff
+        token_params += (n_attn - 1) * shared
+    H, N, dh = 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+    mix_flops = n_attn * flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)[0]
+    cache_bytes = 2 * n_attn * B * (T + 4) * cfg.n_kv_heads * cfg.hd
+    if n_ssm:
+        mix_flops += n_ssm * ssd_work(B, T, H, dh, N, min(cfg.ssm_chunk, T))[0]
+        cache_bytes += 2 * n_ssm * B * H * N * dh
+    return 2 * B * T * token_params + mix_flops, 4 * (weight_params + cache_bytes)
+
+
+def whisper_work(cfg, B, T):
+    """(prefill FLOPs, decode-step bytes) of Whisper on B prompts of T
+    tokens and ``n_audio_frames`` frames each: the encoder over the frames
+    (projections, full attention, MLP), the decoder over the prompt (self
+    and cross projections, the cross K/V over the frames, causal and cross
+    attention, MLP) and the tied logits; a decode step's decoder weights
+    but the cross K/V projections (the cache holds them), the embedding
+    (the tied logits read it whole) and the self and cross caches once, in
+    f32.  Biases and norms left out."""
+    D, F, hd = cfg.d_model, cfg.n_audio_frames, cfg.hd
+    H, Hk = cfg.n_heads, cfg.n_kv_heads
+    q_o, k_v, mlp = 2 * D * H * hd, 2 * D * Hk * hd, 2 * D * cfg.d_ff
+    enc = 2 * B * F * (q_o + k_v + mlp) + flash_work(B, H, Hk, F, F, hd, False)[0]
+    dec = (2 * B * T * (2 * q_o + k_v + mlp) + 2 * B * F * k_v
+           + flash_work(B, H, Hk, T, T, hd, True)[0] + flash_work(B, H, Hk, T, F, hd, False)[0])
+    flops = (cfg.n_enc_layers * enc + cfg.n_dec_layers * dec + 2 * B * F * D * D
+             + 2 * B * T * D * cfg.vocab)
+    weights = cfg.n_dec_layers * (2 * q_o + k_v + mlp) + cfg.vocab * D
+    cache = cfg.n_dec_layers * B * 2 * ((T + 4) + F) * Hk * hd
+    return flops, 4 * (weights + cache)
+
+
+def warm_breakdown(model, params, toks, *, batch=None, max_len=1024):
+    """The kernel route warm: a prefill call (``batch``, by default the
+    prompts ``toks``, 4 x 512) and decode steps by the host clock around
+    work that ends in a synchronise, then one profiled window of each for
+    the kernels' time.  The device's busy share is given two ways: the
+    kernels over the profiled window's own wall time (the profiler slows
+    the host, so this reads low), and over the median unprofiled wall time
+    of other calls, which can read above 100% by the spread between calls
+    (about 1% on a device-bound prefill)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     B, T = toks.shape
+    batch = {"tokens": toks} if batch is None else batch
 
     def prefill():
-        logits, cache = model.prefill(params, {"tokens": toks}, 1024)
+        logits, cache = model.prefill(params, batch, max_len)
         return logits[:, -1].argmax(-1).int(), cache
 
     def decode(cur, cache, pos):
@@ -4193,31 +4560,8 @@ def warm_breakdown(model, params, toks):
                 pos += 1
         d_dev, d_top = _device_ms(prof)
     p_med, d_med = float(np.median(prefill_ms)), float(np.median(decode_ms))
-    # least times: the prefill's matmul, attention and SSD FLOPs at the f32
-    # peak (a token's routed experts only, in a moe; the shared block once a
-    # group, in a hybrid); a decode step's weights (every expert) and live
-    # cache (K/V, and the recurrent state read and written) once at the HBM
-    # rate
-    cfg = model.cfg
-    emb = cfg.vocab * cfg.d_model  # the embedding is a gather
-    weight_params = cfg.param_count() - emb
-    token_params = cfg.active_param_count() - emb
-    n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.hybrid_attn_every, 1)}.get(
-        cfg.family, cfg.n_layers)
-    if cfg.family == "hybrid":
-        D, hd = cfg.d_model, cfg.hd
-        shared = D * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * D \
-            + 3 * D * cfg.d_ff
-        token_params += (n_attn - 1) * shared
-    H, N, dh = 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
-    mix_flops = n_attn * flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)[0]
-    cache_bytes = 2 * n_attn * B * (T + 4) * cfg.n_kv_heads * cfg.hd
-    if n_ssm:
-        mix_flops += n_ssm * ssd_work(B, T, H, dh, N, min(cfg.ssm_chunk, T))[0]
-        cache_bytes += 2 * n_ssm * B * H * N * dh
-    prefill_flops = 2 * B * T * token_params + mix_flops
-    decode_bytes = 4 * (weight_params + cache_bytes)
+    work = whisper_work if model.cfg.family == "encdec" else lm_work
+    prefill_flops, decode_bytes = work(model.cfg, B, T)
     bounds = dict(prefill_flops=prefill_flops,
                   prefill_bound_ms=prefill_flops / F32_FLOP_PER_S * 1e3,
                   prefill_tflop_per_s=prefill_flops / p_med / 1e9,
@@ -4227,21 +4571,26 @@ def warm_breakdown(model, params, toks):
         f"TFLOP/s warm, bound {bounds['prefill_bound_ms']:.2f} ms; decode step: "
         f"{decode_bytes / 1e9:.3f} GB, bound {bounds['decode_bound_ms']:.3f} ms")
     busy = dict(prefill=None if p_dev is None else p_dev / p_med,
-                decode=None if d_dev is None else d_dev / 3 / d_med)
+                decode=None if d_dev is None else d_dev / 3 / d_med,
+                prefill_window=None if p_dev is None else p_dev / p_wall,
+                decode_window=None if d_dev is None else d_dev / d_wall)
     out = dict(warm_prefill_ms=prefill_ms, warm_decode_ms=decode_ms,
                profiled_prefill_wall_ms=p_wall, prefill_kernel_ms=p_dev,
                profiled_decode_wall_ms_3_steps=d_wall, decode_kernel_ms_3_steps=d_dev,
                prefill_device_busy=busy["prefill"], decode_device_busy=busy["decode"],
+               prefill_device_busy_profiled_window=busy["prefill_window"],
+               decode_device_busy_profiled_window=busy["decode_window"],
                prefill_top_kernels=p_top, decode_top_kernels=d_top, **bounds)
     log(f"  warm kernel route: prefill ms {[round(x, 2) for x in prefill_ms]}, decode ms/step "
         f"{[round(x, 2) for x in decode_ms]}")
-    for what, dev, per, med, top in (("prefill", p_dev, 1, p_med, p_top),
-                                     ("decode step", d_dev, 3, d_med, d_top)):
+    for what, dev, per, med, wall, top in (("prefill", p_dev, 1, p_med, p_wall, p_top),
+                                           ("decode step", d_dev, 3, d_med, d_wall, d_top)):
         if dev is None:
             log(f"  profiled {what}: the profiler saw no kernel (device time not measured)")
             continue
         log(f"  profiled {what}: kernels {dev / per:.2f} ms of {med:.2f} ms warm wall, device "
-            f"busy {100 * dev / per / med:.1f}%, idle {100 * (1 - dev / per / med):.1f}%; top "
+            f"busy {100 * dev / per / med:.1f}%, idle {100 * (1 - dev / per / med):.1f}% (over "
+            f"the profiled window's own {wall / per:.2f} ms: busy {100 * dev / wall:.1f}%); top "
             + "; ".join(f"{t['kernel'][:60]} {t['device_ms'] / per:.2f} ms x{t['calls'] // per}"
                         for t in top))
     return out
@@ -4504,6 +4853,12 @@ def main(argv=None) -> int:
     moe_row = phase(17, "the serve path, granite_moe_1b_a400m at full width (moe)",
                     phase_moe_serve)
     torch.cuda.empty_cache()
+    vlm_row = phase(18, "the serve path and the patch prefill, internvl2_2b at full width (vlm)",
+                    phase_vlm_serve, args.seed)
+    torch.cuda.empty_cache()
+    whisper_row = phase(19, "whisper_large_v3 at full width (encdec): prefill over 1,500 frames, "
+                            "decode, token-mode serving", phase_whisper_serve, args.seed)
+    torch.cuda.empty_cache()
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -4559,26 +4914,44 @@ def main(argv=None) -> int:
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:26",
         launches=serve_row["flash_launches"] + hybrid_row["flash_launches"]
-        + moe_row["flash_launches"],
+        + moe_row["flash_launches"] + vlm_row["flash_launches"]
+        + whisper_row["flash_launches"],
         launches_note="one per layer of each prefill call of phase 6 (28 x 2), one per group "
-                      "of phase 16's (13 x 2), one per layer of phase 17's (24 x 2)",
-        max_abs_err=max(f32_err(flash_checks, flash_row), *moe_row["flash_layer_max_abs_err"]),
+                      "of phase 16's (13 x 2), one per layer of phase 17's (24 x 2) and of "
+                      "phase 18's (24 x 2 served, 24 in the patch prefill), one per encoder "
+                      "layer and two per decoder layer of phase 19's prefill call (32 + 64)",
+        max_abs_err=max(f32_err(flash_checks, flash_row), *moe_row["flash_layer_max_abs_err"],
+                        *(flash_row[k]["max_abs_err"] for k in (
+                            "d112", "zamba", "granite", "whisper_enc", "whisper_cross",
+                            "internvl"))),
         max_abs_err_bf16=bf16_err(flash_checks), ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
-        bound_ms_tensor_core=flash_row["bound_ms_tensor_core"],
+        bound_ms_f32_fma=flash_row["bound_ms_f32_fma"],
         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
         timed_on="serve shape B=4 H=16 Hk=8 L=512 D=128 causal f32", serve=serve_row,
         **{f"{k}_d112": flash_row["d112"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                        "library_ms", "bound_ms_tensor_core")},
+                                                        "library_ms", "bound_ms_f32_fma")},
         timed_on_d112="B=4 H=64 Hk=8 L=512 D=112 causal f32 (kimi_k2_1t_a32b's heads)",
         **{f"{k}_{shape}": flash_row[shape][k] for shape in ("zamba", "granite")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                     "bound_ms_tensor_core")},
+                     "bound_ms_f32_fma")},
         timed_on_zamba="B=4 H=32 Hk=32 L=512 D=112 causal f32 (zamba2_7b's prefill)",
         timed_on_granite="B=4 H=16 Hk=8 L=512 D=64 causal f32 (granite_moe_1b_a400m's)",
-        serve_hybrid=hybrid_row, serve_moe=moe_row,
+        **{f"{k}_{shape}": flash_row[shape][k]
+           for shape in ("whisper_enc", "whisper_cross", "internvl")
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "bound_ms_f32_fma")},
+        timed_on_whisper_enc="B=4 H=20 Hk=20 L=1500 D=64 full f32 (whisper_large_v3's encoder; "
+                             "no blocks, ragged last tiles)",
+        timed_on_whisper_cross="B=4 H=20 Hk=20 Lq=128 Lk=1500 D=64 full f32 (its "
+                               "cross-attention)",
+        timed_on_internvl="B=4 H=16 Hk=8 L=768 D=128 causal f32 (internvl2_2b's patch prefill: "
+                          "256 patches + 512 tokens)",
+        ragged=flash_row["ragged"],
+        serve_hybrid=hybrid_row, serve_moe=moe_row, serve_vlm=vlm_row,
+        whisper=whisper_row,
     )
     paged_entry = dict(
         name="paged_attention", route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
@@ -4608,12 +4981,12 @@ def main(argv=None) -> int:
         max_abs_err=f32_err(ssd_checks, ssd_row),
         max_abs_err_bf16=bf16_err(ssd_checks), ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"], library_ms=None,
-        bound_ms_tensor_core=ssd_row["bound_ms_tensor_core"],
+        bound_ms_f32_fma=ssd_row["bound_ms_f32_fma"],
         ms_per_kernel=ssd_row["ms_per_kernel"],
         timed_on="serve shape B=4 L=512 H=48 dh=64 N=128 chunk=128 f32, one layer",
         serve=ssm_row,
         **{f"{k}_zamba": ssd_row["zamba"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_tensor_core", "ms_per_kernel",
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_f32_fma", "ms_per_kernel",
             "heads_per_block")},
         timed_on_zamba="B=4 L=512 H=112 dh=64 N=64 chunk=128 f32 (zamba2_7b's prefill), one "
                        "layer",
@@ -4627,6 +5000,7 @@ def main(argv=None) -> int:
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
             fault_tolerance=ft_row, hybrid_serve=hybrid_row, moe_serve=moe_row,
+            vlm_serve=vlm_row, whisper_serve=whisper_row,
             **summary, phase_seconds=seconds,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase "

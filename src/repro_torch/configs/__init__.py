@@ -3,10 +3,8 @@
 
 Each ``<arch>.py`` exports ``CONFIG`` (the published dims) and
 ``reduced()`` (the same family at tiny dims, for CPU tests); ``get_config``
-maps ``--arch <id>`` to it.  ``ARCH_IDS`` holds the architectures ported so
-far (the dense, ssm, hybrid and moe families); the JAX package's vlm and
-encdec ones (``internvl2_2b``, ``whisper_large_v3``) come with ROADMAP
-queue 1, item 10.
+maps ``--arch <id>`` to it.  ``ARCH_IDS`` holds the LM architectures, the
+JAX package's ten: the dense, vlm, ssm, hybrid, moe and encdec families.
 """
 
 from __future__ import annotations
@@ -110,16 +108,14 @@ class ArchConfig:
 
 
 ARCH_IDS = ["qwen3_0_6b", "mamba2_780m", "zamba2_7b", "granite_moe_1b_a400m",
-            "kimi_k2_1t_a32b", "olmo_1b", "qwen1_5_4b", "qwen3_4b"]
+            "kimi_k2_1t_a32b", "olmo_1b", "qwen1_5_4b", "qwen3_4b", "internvl2_2b",
+            "whisper_large_v3"]
 
 
 def _module(arch_id: str):
     arch_id = arch_id.replace("-", "_")
     if arch_id not in ARCH_IDS:
-        raise KeyError(
-            f"unknown or not yet ported arch {arch_id!r}; the port has {ARCH_IDS} "
-            f"(the others come with ROADMAP queue 1, item 10)"
-        )
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

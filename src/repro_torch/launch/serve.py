@@ -4,9 +4,13 @@
         [--reduced] [--device cuda|cpu] [--requests 8] [--max-new 16]
 
 ``<id>`` is one of ``repro_torch.configs.ARCH_IDS``: qwen3_0_6b, olmo_1b,
-qwen1_5_4b, qwen3_4b (dense), mamba2_780m (ssm), zamba2_7b (hybrid),
-granite_moe_1b_a400m, kimi_k2_1t_a32b (moe; kimi only ``--reduced``: it
-does not fit one card).
+qwen1_5_4b, qwen3_4b (dense), internvl2_2b (vlm), mamba2_780m (ssm),
+zamba2_7b (hybrid), granite_moe_1b_a400m, kimi_k2_1t_a32b (moe; kimi only
+``--reduced``: it does not fit one card), whisper_large_v3 (encdec).  As in
+the JAX package, the batcher's prompts are tokens only: a vlm is served
+without a patch prefix, and Whisper in token mode, its cross-attention over
+zero K/V (``serving/batching.py``); ``build_model(cfg).prefill`` with
+``batch["patches"]`` or ``batch["frames"]`` runs the whole model.
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device;
 prompts come from a seeded numpy generator.  Runs on the card unless

@@ -1,5 +1,8 @@
 """GQA attention: init + prefill apply + decode-with-cache apply.
 
+Covers the configs' variants: GQA, qk-norm, QKV bias, bidirectional (the
+Whisper encoder) and cross-attention (the Whisper decoder, ``kv_x``).
+
 The prefill path is ``attn_backend="kernel"`` (the hand-written CUDA
 flash-attention kernel on a card, its plain version on the CPU; the JAX
 package's ``"pallas"``) or ``"chunked"`` (blockwise online-softmax
@@ -93,20 +96,27 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024, q_offset: int
     return out.to(q.dtype)
 
 
-def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True):
-    """Prefill self-attention -> (out (B, L, D), (k, v) each (B, L, Hk, hd)).
+def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=None):
+    """Prefill attention -> (out (B, L, D), (k, v) each (B, Lk, Hk, hd)).
 
+    ``kv_x`` (B, Lk, D) switches to cross-attention: K/V are projected from
+    it, at positions [0, Lk).  The kernel route takes any lengths (the
+    CUDA kernel's own tiling), as the JAX package's default ``"xla"`` route
+    does; its ``"pallas"`` route raises where 128 does not divide them.
     Sharding hints (the JAX package's ``shard_hint``) are nothing on one
-    device; the sharding port comes later (ROADMAP queue 1, item 10).
+    device; the sharding port comes with ROADMAP queue 1, item 12.
     """
     B, L, _ = x.shape
     if positions is None:
         positions = torch.arange(L, device=x.device).expand(B, L)
     q = _project_q(p, cfg, x, positions, rope=rope)
-    k, v = _project_kv(p, cfg, x, positions, rope=rope)
+    src = x if kv_x is None else kv_x
+    kv_pos = positions if kv_x is None else torch.arange(
+        src.shape[1], device=x.device).expand(B, src.shape[1])
+    k, v = _project_kv(p, cfg, src, kv_pos, rope=rope)
     if cfg.attn_backend == "kernel":
         o = flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal, 128, 128,
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
         ).transpose(1, 2)
     elif cfg.attn_backend == "chunked":
         o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)

@@ -13,6 +13,8 @@ Conventions, as in the JAX package:
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -52,6 +54,20 @@ def rmsnorm_apply(p, x, eps=1e-6):
     return y.to(x.dtype)
 
 
+def layernorm_init(dim, dtype, device):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -69,6 +85,18 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """(length, dim) f32: sin on the even columns, cos on the odd ones
+    (interleaved, as the JAX package's), the frequencies computed in f32."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    step = torch.tensor(-math.log(10000.0), dtype=torch.float32) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device) * step.item())
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 def swiglu_init(gen, d_model, d_ff, dtype):
     return {
         "wi": dense_init(gen, d_model, d_ff, dtype),
@@ -79,4 +107,17 @@ def swiglu_init(gen, d_model, d_ff, dtype):
 
 def swiglu_apply(p, x, compute_dtype):
     h = F.silu(dense_apply(p["wg"], x, compute_dtype)) * dense_apply(p["wi"], x, compute_dtype)
+    return dense_apply(p["wo"], h, compute_dtype)
+
+
+def gelu_mlp_init(gen, d_model, d_ff, dtype):
+    return {
+        "wi": dense_init(gen, d_model, d_ff, dtype, bias=True),
+        "wo": dense_init(gen, d_ff, d_model, dtype, bias=True),
+    }
+
+
+def gelu_mlp_apply(p, x, compute_dtype):
+    """The tanh approximation, ``jax.nn.gelu``'s default."""
+    h = F.gelu(dense_apply(p["wi"], x, compute_dtype), approximate="tanh")
     return dense_apply(p["wo"], h, compute_dtype)

@@ -1,13 +1,14 @@
-"""Decoder LM, the dense, moe, ssm and hybrid families: init, the layer
-stack, prefill and decode.
+"""Decoder LM, the dense, vlm, moe, ssm and hybrid families: init, the
+layer stack, prefill and decode.
 
 The layer stack is a list of per-layer param dicts applied by a plain loop
 (the JAX package scans over a stacked leading L axis).  Hybrid (Zamba2):
 ONE weight-shared attention+MLP block, ``params["shared_attn"]``, applied
 after every ``hybrid_attn_every`` mamba layers; the mamba layers past the
-last whole group are the tail (81 = 13 x 6 + 3).  The JAX package's other
-families (vlm, encdec) come with a later slice and raise
-``NotImplementedError`` here.
+last whole group are the tail (81 = 13 x 6 + 3).  The vlm is the dense
+stack with ``patch_proj``, whose projection of the precomputed patch
+embeddings a prefill puts in front of the prompt.  The encdec family
+(Whisper) is ``models/whisper.py``.
 """
 
 from __future__ import annotations
@@ -25,19 +26,13 @@ from repro_torch.models.common import (
     uniform_scale_init,
 )
 
-PORTED = ("dense", "ssm", "hybrid", "moe")
-_LATER = {
-    "vlm": "ROADMAP queue 1, item 10 (the patch frontend)",
-    "encdec": "ROADMAP queue 1, item 10 (models/whisper.py)",
-}
+FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
 
 
-def require_ported(cfg):
-    if cfg.family not in PORTED:
-        where = _LATER.get(cfg.family, "no ROADMAP item")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: {where}; the port runs {PORTED}"
-        )
+def require_decoder(cfg):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only LM ({FAMILIES}); "
+                         f"model_zoo.build_model builds every family")
 
 
 def hybrid_split(cfg):
@@ -70,7 +65,7 @@ def _attn_block_init(gen, cfg, *, parametric=True, is_moe=False):
 
 def lm_init(gen: torch.Generator, cfg):
     """Random params from ``gen``, on ``gen``'s device."""
-    require_ported(cfg)
+    require_decoder(cfg)
     D, V, dev = cfg.d_model, cfg.vocab, gen.device
     parametric = not cfg.nonparametric_norm
     p = {
@@ -88,6 +83,8 @@ def lm_init(gen: torch.Generator, cfg):
         return p
     p["layers"] = [_attn_block_init(gen, cfg, parametric=parametric, is_moe=cfg.family == "moe")
                    for _ in range(cfg.n_layers)]
+    if cfg.family == "vlm":  # the stub frontend's adapter: patch embeddings -> d_model
+        p["patch_proj"] = dense_init(gen, D, D, cfg.param_dtype)
     return p
 
 
@@ -117,11 +114,11 @@ def backbone_apply(params, cfg, x, *, positions=None, collect=False):
     """Layer stack on embeddings x (B, T, D) -> (h, cache parts | None).
 
     ``collect=True`` also returns the cache ingredients prefill needs, stacked
-    on a leading axis: K/V as (L, B, T, Hk, hd) (dense, moe); the SSM state
+    on a leading axis: K/V as (L, B, T, Hk, hd) (dense, vlm, moe); the SSM state
     S (L, B, H, N, dh) and conv state (L, B, 3, d_inner+2N) (ssm); both,
     with K/V one per group, (n_groups, B, T, Hk, hd) (hybrid).
     """
-    require_ported(cfg)
+    require_decoder(cfg)
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device).expand(B, T)
@@ -156,10 +153,10 @@ def lm_logits(params, cfg, h):
 
 def decode_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
     """Zeros: the KV cache {"k", "v"}, each (L, batch, max_len, Hk, hd)
-    (dense, moe); the recurrent state {"S": (L, batch, H, N, dh) f32, "conv":
+    (dense, vlm, moe); the recurrent state {"S": (L, batch, H, N, dh) f32, "conv":
     (L, batch, 3, d_inner+2N)} (ssm, which needs no max_len); or both, with
     K/V (n_groups, batch, max_len, Hk, hd) (hybrid)."""
-    require_ported(cfg)
+    require_decoder(cfg)
     dtype = dtype or cfg.compute_dtype
     cache = {}
     if cfg.family in ("ssm", "hybrid"):
@@ -182,11 +179,11 @@ def _dense_decode(lp, cfg, x, cache_k, cache_v, pos):
 def decode_step(params, cfg, cache, tokens, pos):
     """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache).
 
-    The new token's K/V (dense, moe, hybrid) and the new recurrent state
+    The new token's K/V (dense, vlm, moe, hybrid) and the new recurrent state
     (ssm, hybrid) are written into ``cache`` in place; the cache returned
     is the one passed in.  The hybrid runs each group's mamba layers, then
     the shared block on that group's K/V, then the tail."""
-    require_ported(cfg)
+    require_decoder(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])  # (B, 1, D)
     for i, lp in enumerate(params["layers"]):
         if cfg.family in ("ssm", "hybrid"):
@@ -206,13 +203,18 @@ def decode_step(params, cfg, cache, tokens, pos):
     return lm_logits(params, cfg, h)[:, 0], cache
 
 
-def prefill(params, cfg, tokens, max_len: int):
-    """Full-sequence prefill: tokens (B, T) -> (logits (B, T, V), cache):
-    the prompt's K/V at positions [0, T) and zeros up to max(max_len, T)
-    (dense, moe, hybrid), and the recurrent state after the prompt (ssm,
-    hybrid)."""
-    B, T = tokens.shape
+def prefill(params, cfg, tokens, max_len: int, *, patches=None):
+    """Full-sequence prefill: tokens (B, L) -> (logits (B, T, V), cache):
+    the sequence's K/V at positions [0, T) and zeros up to max(max_len, T)
+    (dense, vlm, moe, hybrid), and the recurrent state after it (ssm,
+    hybrid).  A vlm given ``patches`` (B, P, D) puts their projection in
+    front of the prompt's embeddings, so T = P + L; otherwise T = L."""
+    B, L = tokens.shape
     x = embed_tokens(params, cfg, tokens)
+    if cfg.family == "vlm" and patches is not None:
+        pe = dense_apply(params["patch_proj"], patches.to(cfg.compute_dtype), cfg.compute_dtype)
+        x = torch.cat([pe, x], dim=1)
+    T = x.shape[1]
     positions = torch.arange(T, device=x.device).expand(B, T)
     h, aux = backbone_apply(params, cfg, x, positions=positions, collect=True)
     logits = lm_logits(params, cfg, h)

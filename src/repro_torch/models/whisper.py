@@ -1,0 +1,171 @@
+"""Whisper-large-v3 backbone: the encoder-decoder transformer (the encdec
+family).
+
+Backbone only, as in the JAX package: the mel-spectrogram conv frontend is
+a stub, and a prefill takes precomputed frame embeddings (B, T_frames,
+d_model).  LayerNorm, a GELU MLP, sinusoidal positions and QKV bias; the
+encoder is bidirectional self-attention, the decoder causal
+self-attention then cross-attention to the encoder's output.  The layer
+stacks are lists of per-layer dicts (``enc``, ``dec``), applied by a plain
+loop.
+
+Prefill's attention goes through ``attention.attention_apply``, so on the
+kernel route every one of its three attentions a layer is a
+``flash_attention`` launch at any length (1,500 frames included).  Decode
+is plain torch, as the JAX package's is plain einsum: the self-attention
+writes its K/V in place, and the cross-attention reads the fixed
+``xk``/``xv`` the prefill took from the encoder.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention
+from repro_torch.models.common import (
+    dense_apply,
+    dense_init,
+    gelu_mlp_apply,
+    gelu_mlp_init,
+    layernorm_apply,
+    layernorm_init,
+    sinusoidal_positions,
+    uniform_scale_init,
+)
+
+
+def whisper_init(gen: torch.Generator, cfg):
+    """Random params from ``gen``, on ``gen``'s device."""
+    D, V, dt, dev = cfg.d_model, cfg.vocab, cfg.param_dtype, gen.device
+
+    def enc_layer():
+        return {"attn_norm": layernorm_init(D, dt, dev),
+                "attn": attention.attention_init(gen, cfg),
+                "mlp_norm": layernorm_init(D, dt, dev),
+                "mlp": gelu_mlp_init(gen, D, cfg.d_ff, dt)}
+
+    def dec_layer():
+        return {"self_norm": layernorm_init(D, dt, dev),
+                "self_attn": attention.attention_init(gen, cfg),
+                "cross_norm": layernorm_init(D, dt, dev),
+                "cross_attn": attention.attention_init(gen, cfg),
+                "mlp_norm": layernorm_init(D, dt, dev),
+                "mlp": gelu_mlp_init(gen, D, cfg.d_ff, dt)}
+
+    return {
+        "frame_proj": dense_init(gen, D, D, dt, bias=True),
+        "embed": uniform_scale_init(gen, (V, D), 1.0, dt),
+        "enc": [enc_layer() for _ in range(cfg.n_enc_layers)],
+        "enc_norm": layernorm_init(D, dt, dev),
+        "dec": [dec_layer() for _ in range(cfg.n_dec_layers)],
+        "dec_norm": layernorm_init(D, dt, dev),
+    }
+
+
+def _with_positions(cfg, x):
+    T, D = x.shape[1], x.shape[2]
+    return x + sinusoidal_positions(T, D, x.device)[None].to(cfg.compute_dtype)
+
+
+def encode(params, cfg, frames):
+    """frames (B, T, D), precomputed (the stub frontend) -> the encoder's
+    states (B, T, D)."""
+    cdt = cfg.compute_dtype
+    x = _with_positions(cfg, dense_apply(params["frame_proj"], frames.to(cdt), cdt))
+    for lp in params["enc"]:
+        a, _ = attention.attention_apply(lp["attn"], cfg, layernorm_apply(lp["attn_norm"], x),
+                                         causal=False, rope=False)
+        x = x + a
+        x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["mlp_norm"], x), cdt)
+    return layernorm_apply(params["enc_norm"], x)
+
+
+def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False):
+    """The teacher-forced decoder over tokens (B, L) -> (h (B, L, D), aux):
+    with ``collect_kv``, aux is ((k, v), (xk, xv)), the self-attention's
+    K/V (Ld, B, L, Hk, hd) and the cross-attention's (Ld, B, T, Hk, hd);
+    else None."""
+    cdt = cfg.compute_dtype
+    x = _with_positions(cfg, params["embed"][tokens.long()].to(cdt))
+    kv = ([], [], [], [])
+    for lp in params["dec"]:
+        a, (k, v) = attention.attention_apply(
+            lp["self_attn"], cfg, layernorm_apply(lp["self_norm"], x), causal=True, rope=False)
+        x = x + a
+        a, (xk, xv) = attention.attention_apply(
+            lp["cross_attn"], cfg, layernorm_apply(lp["cross_norm"], x), kv_x=enc_out,
+            causal=False, rope=False)
+        x = x + a
+        x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["mlp_norm"], x), cdt)
+        if collect_kv:
+            for acc, t in zip(kv, (k, v, xk, xv)):
+                acc.append(t)
+    h = layernorm_apply(params["dec_norm"], x)
+    if not collect_kv:
+        return h, None
+    k, v, xk, xv = (torch.stack(a) for a in kv)
+    return h, ((k, v), (xk, xv))
+
+
+def _tied_logits(params, cfg, h):
+    return dense_apply({"w": params["embed"].T}, h, cfg.compute_dtype)
+
+
+def whisper_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
+    """Zeros: the self-attention's ``k``/``v`` (Ld, batch, max_len, Hk, hd)
+    and the cross-attention's ``xk``/``xv`` (Ld, batch, n_audio_frames, Hk,
+    hd); the batch on axis 1, as every cache of the batcher."""
+    dtype = dtype or cfg.compute_dtype
+    Ld, Hk, hd = cfg.n_dec_layers, cfg.n_kv_heads, cfg.hd
+    shapes = {"k": max_len, "v": max_len, "xk": cfg.n_audio_frames, "xv": cfg.n_audio_frames}
+    return {key: torch.zeros((Ld, batch, n, Hk, hd), dtype=dtype, device=device)
+            for key, n in shapes.items()}
+
+
+def whisper_prefill(params, cfg, tokens, frames, max_len: int):
+    """tokens (B, L), frames (B, T, D) -> (logits (B, L, V), cache): the
+    prompt's K/V at positions [0, L) and zeros up to ``max_len``, and the
+    cross K/V of the encoder's output."""
+    enc_out = encode(params, cfg, frames)
+    h, ((k, v), (xk, xv)) = decode_train(params, cfg, tokens, enc_out, collect_kv=True)
+    logits = _tied_logits(params, cfg, h)
+    B, L = tokens.shape
+    if max_len < L:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt ({L} tokens)")
+    cache = {}
+    for key, t in (("k", k), ("v", v)):
+        cache[key] = torch.zeros(t.shape[:2] + (max_len,) + t.shape[3:], dtype=t.dtype,
+                                 device=t.device)
+        cache[key][:, :, :L] = t
+    cache["xk"], cache["xv"] = xk, xv
+    return logits, cache
+
+
+def whisper_decode_step(params, cfg, cache, tokens, pos):
+    """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache).
+
+    The new token's self-attention K/V are written into ``cache`` in place
+    (the cache returned is the one passed in); the cross-attention is a
+    plain f32 softmax over every one of the fixed ``xk``/``xv``, unmasked,
+    as in the JAX package."""
+    B = tokens.shape[0]
+    D, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // Hk
+    cdt = cfg.compute_dtype
+    pos = pos if pos.dim() == 1 else pos[:, 0]
+    x = params["embed"][tokens[:, None].long()].to(cdt)
+    table = sinusoidal_positions(cache["k"].shape[2], D, x.device)
+    x = x + table[pos.long()][:, None].to(cdt)
+    for i, lp in enumerate(params["dec"]):
+        x = x + attention.decode_attention_apply(
+            lp["self_attn"], cfg, layernorm_apply(lp["self_norm"], x), cache["k"][i],
+            cache["v"][i], pos, rope=False)
+        hn = layernorm_apply(lp["cross_norm"], x)
+        q = dense_apply(lp["cross_attn"]["wq"], hn, cdt)
+        qg = q.float().reshape(B, Hk, G, hd) * hd ** -0.5
+        s = torch.einsum("bkgd,bskd->bkgs", qg, cache["xk"][i].float())
+        o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), cache["xv"][i].float())
+        x = x + dense_apply(lp["cross_attn"]["wo"], o.reshape(B, 1, H * hd).to(cdt), cdt)
+        x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["mlp_norm"], x), cdt)
+    h = layernorm_apply(params["dec_norm"], x)
+    return _tied_logits(params, cfg, h)[:, 0], cache

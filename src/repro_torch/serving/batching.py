@@ -59,7 +59,10 @@ class ContinuousBatcher:
     admitted slots' cache entries merge into the live cache, other slots
     are untouched.  ``"token"`` feeds prompt tokens one by one through
     ``decode_step`` (one full-batch decode per prompt token), slot-isolated,
-    from a zeroed recurrent state, so it equals ``"batched"``.
+    from a zeroed recurrent state, so it equals ``"batched"``.  The encdec
+    family is always served in token mode, as in the JAX package: its
+    prefill needs frames, so the encoder never runs here, and the
+    cross-attention attends over the zero ``xk``/``xv`` of ``cache_init``.
     Set ``.model_params`` before ``serve``; the batcher runs on their device.
     """
 
@@ -67,6 +70,8 @@ class ContinuousBatcher:
                  prefill_mode: str = "batched"):
         if prefill_mode not in ("batched", "token"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        if model.cfg.family == "encdec":
+            prefill_mode = "token"
         self.model = model
         self.cfg = model.cfg
         self.max_batch = max_batch

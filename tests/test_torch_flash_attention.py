@@ -15,10 +15,12 @@ import pytest
 import torch
 
 try:
+    import jax
     import jax.numpy as jnp
 
     from repro.kernels.flash_attention.ops import flash_attention as jflash
     from repro.kernels.flash_attention.ref import mha_reference as jref
+    from repro.models import attention as jattention
 except ImportError:  # the card's machine has no JAX; its gpu tests need none
     jnp = None
 from repro_torch.kernels.flash_attention import kernel as tkernel
@@ -83,6 +85,88 @@ def test_lengths_that_do_not_divide_raise(Lq, Lk, bq, bk):
         tops.flash_attention(q, k, k, True, bq, bk)
     with pytest.raises(ValueError, match="divide"):  # the JAX kernel raises the same
         jflash(*(jnp.asarray(t.numpy()) for t in (q, k, k)), True, bq, bk, True, True)
+
+
+# lengths 128 does not divide: square causal, Lq < Lk causal (q_offset = 200
+# meets a partial tile), cross non-causal at Lq != Lk
+RAGGED = [(1, 4, 2, 200, 200, 32, True), (1, 4, 4, 100, 300, 16, True),
+          (2, 4, 4, 100, 300, 64, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RAGGED)
+def test_no_blocks_take_any_length_as_jax_chunked(shape, dtype):
+    """No blocks (the default), the kernel route of ``attention_apply``,
+    refuses no length: the CPU tensor's plain version against the JAX
+    ``mha_reference`` and the JAX default route's ``chunked_attention``
+    (causal queries aligned to the end of the keys, ``q_offset = Lk - Lq``),
+    where the JAX Pallas launcher raises."""
+    B, H, Hk, Lq, Lk, D, causal = shape
+    q, k, v = _inputs(shape, seed=sum(shape[:6]))
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(x).astype(jd) for x in (q, k, v))
+    got = tops.flash_attention(*(_torch(x, dtype) for x in (q, k, v)), causal)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == q.shape
+    want_ref = np.asarray(jref(jq, jk, jv, causal=causal), np.float32)
+    want_chunked = np.asarray(jattention.chunked_attention(
+        jq.swapaxes(1, 2), jk.swapaxes(1, 2), jv.swapaxes(1, 2), causal=causal, chunk=128,
+        q_offset=Lk - Lq if causal else 0).swapaxes(1, 2), np.float32)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), want_ref, atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), want_chunked, atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="divide"):
+        jflash(jq, jk, jv, causal, 128, 128, True, True)
+
+
+@pytest.mark.parametrize("arch,cross", [("qwen3_0_6b", False), ("whisper_large_v3", False),
+                                        ("whisper_large_v3", True)])
+def test_attention_apply_kernel_route_at_lengths_128_does_not_divide(arch, cross):
+    """``attention_apply`` on the kernel route against the JAX default
+    route, with the JAX init's weights: causal self-attention over 200
+    tokens (qk-norm and rope; QKV bias, no rope), and Whisper's
+    cross-attention, 100 queries over 300 frames, non-causal."""
+    from repro.configs import get_reduced_config as jget
+    from repro_torch.configs import get_reduced_config as tget
+    from repro_torch.models import attention as tattention
+
+    jcfg, tcfg = jget(arch), tget(arch).replace(attn_backend="kernel")
+    jp = jattention.attention_init(jax.random.PRNGKey(1), jcfg)
+    rng = np.random.default_rng(3)
+    jp = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape).astype(np.float32)
+                                            * 0.2), jp)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    rope = arch != "whisper_large_v3"
+    x = rng.standard_normal((2, 100 if cross else 200, jcfg.d_model)).astype(np.float32)
+    kv_x = rng.standard_normal((2, 300, jcfg.d_model)).astype(np.float32) if cross else None
+    want, (wk, _) = jattention.attention_apply(
+        jp, jcfg, jnp.asarray(x), causal=not cross, rope=rope,
+        kv_x=None if kv_x is None else jnp.asarray(kv_x))
+    got, (gk, _) = tattention.attention_apply(
+        tp, tcfg, torch.from_numpy(x), causal=not cross, rope=rope,
+        kv_x=None if kv_x is None else torch.from_numpy(kv_x))
+    assert tuple(gk.shape) == (2, 300 if cross else 200, tcfg.n_kv_heads, tcfg.hd)
+    want = np.asarray(want)
+    np.testing.assert_allclose(gk.numpy(), np.asarray(wk), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-5 * max(1.0, float(np.abs(want).max())))
+
+
+def test_no_blocks_launch_once_on_a_cuda_tensor(monkeypatch):
+    """With no blocks (the default) a CUDA tensor at a ragged length goes to
+    the kernel, counted once (checked with a fake launch, no card); given
+    blocks, the same length raises before any launch, and so does one
+    block alone that does not divide its length."""
+    monkeypatch.setattr(tops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tops._kernel, "launch", lambda q, k, v, **kw: torch.zeros_like(q))
+    q, k = torch.zeros((1, 2, 100, 32)), torch.zeros((1, 2, 300, 32))
+    before = tops.flash_attention.launches
+    tops.flash_attention(q, k, k, True)
+    assert tops.flash_attention.launches == before + 1
+    with pytest.raises(ValueError, match="divide"):
+        tops.flash_attention(q, k, k, True, 128, 128)
+    with pytest.raises(ValueError, match="divide"):
+        tops.flash_attention(q, k, k, True, None, 128)
+    assert tops.flash_attention.launches == before + 1
 
 
 def test_blocks_are_cut_to_short_lengths(monkeypatch):
@@ -163,6 +247,27 @@ def test_kernel_matches_plain_on_card(shape, dtype):
     want = tref.mha_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.is_cuda
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RAGGED + [(1, 4, 4, 128, 1500, 64, False),  # Whisper's cross
+                                            (1, 4, 4, 1500, 1500, 64, False),  # its encoder
+                                            (1, 8, 8, 100, 300, 64, True),
+                                            (2, 16, 8, 200, 200, 128, True)])
+def test_kernel_matches_plain_at_any_length_on_card(shape, dtype):
+    """The ragged last tiles (rows past Lq, keys past Lk, a causal offset
+    inside a tile) against the plain version."""
+    _card()
+    causal = shape[-1]
+    q, k, v = (_torch(x, dtype, "cuda") for x in _inputs(shape, seed=sum(shape[:6])))
+    before = tops.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal)
+    assert tops.flash_attention.launches == before + 1
+    want = tref.mha_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 

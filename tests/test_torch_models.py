@@ -115,32 +115,29 @@ def test_backends_agree_and_unknown_backend_raises(ref):
         tbuild(tcfg.replace(attn_backend="xla")).prefill(tparams, {"tokens": x}, T)
 
 
-FAMILY_ARCH = {"ssm": "mamba2_780m", "hybrid": "zamba2_7b", "moe": "granite_moe_1b_a400m"}
+FAMILY_ARCH = {"ssm": "mamba2_780m", "hybrid": "zamba2_7b", "moe": "granite_moe_1b_a400m",
+               "vlm": "internvl2_2b", "encdec": "whisper_large_v3"}
 
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "encdec"])
 def test_other_families_name_their_roadmap_item(family):
-    """The families not ported yet (vlm, encdec) raise, naming their ROADMAP
-    item; ssm (the ssd_scan slice), hybrid and moe are ported and build
-    their caches: the recurrent state (ssm), K/V one a layer (moe), or both
-    with K/V one a group (hybrid)."""
-    if family in FAMILY_ARCH:
-        cfg = tget(FAMILY_ARCH[family])
-        tbuild(cfg)
-        cache = ttransformer.decode_cache_init(cfg, 1, 8, device="cpu")
-        want = {"ssm": {"S", "conv"}, "moe": {"k", "v"}, "hybrid": {"S", "conv", "k", "v"}}
-        assert set(cache) == want[family]
-        if "S" in cache:
-            assert cache["S"].dtype == torch.float32 and cache["S"].shape[0] == cfg.n_layers
-        if "k" in cache:
-            n_kv = cfg.n_layers // cfg.hybrid_attn_every if family == "hybrid" else cfg.n_layers
-            assert tuple(cache["k"].shape) == (n_kv, 1, 8, cfg.n_kv_heads, cfg.hd)
-        return
-    cfg = tget("qwen3_0_6b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttransformer.decode_cache_init(cfg, 1, 8, device="cpu")
+    """Every family of the JAX package is ported and builds its cache: the
+    recurrent state (ssm), K/V one a layer (moe, vlm), both with K/V one a
+    group (hybrid), or the decoder's self K/V and the cross K/V over the
+    audio frames (encdec)."""
+    cfg = tget(FAMILY_ARCH[family])
+    cache = tbuild(cfg).cache_init(1, 8, device="cpu")
+    want = {"ssm": {"S", "conv"}, "moe": {"k", "v"}, "hybrid": {"S", "conv", "k", "v"},
+            "vlm": {"k", "v"}, "encdec": {"k", "v", "xk", "xv"}}
+    assert set(cache) == want[family]
+    if "S" in cache:
+        assert cache["S"].dtype == torch.float32 and cache["S"].shape[0] == cfg.n_layers
+    n_kv = {"hybrid": cfg.n_layers // max(cfg.hybrid_attn_every, 1),
+            "encdec": cfg.n_dec_layers}.get(family, cfg.n_layers)
+    if "k" in cache:
+        assert tuple(cache["k"].shape) == (n_kv, 1, 8, cfg.n_kv_heads, cfg.hd)
+    if "xk" in cache:
+        assert tuple(cache["xk"].shape) == (n_kv, 1, cfg.n_audio_frames, cfg.n_kv_heads, cfg.hd)
 
 
 def _port_fields():
@@ -174,10 +171,20 @@ def test_configs_match_the_jax_package(arch):
 
 
 def test_unported_configs_raise_naming_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tget_full("whisper_large_v3")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tget("internvl2_2b")
+    """Every LM config of the JAX package is ported (``ARCH_IDS`` holds its
+    ten, all but ``pulse_paper``); an unknown arch raises ``KeyError``
+    naming the known ones, and a decoder-only entry point refuses the
+    encdec family."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS) - {"pulse_paper"}
+    for bad in ("whisper_large_v4", "pulse_paper"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            tget_full(bad)
+        with pytest.raises(KeyError, match="unknown arch"):
+            tget(bad)
+    with pytest.raises(ValueError, match="decoder-only"):
+        ttransformer.decode_cache_init(tget("whisper_large_v3"), 1, 8, device="cpu")
 
 
 # ------------------------------ ssm family ----------------------------------

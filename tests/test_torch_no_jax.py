@@ -49,7 +49,8 @@ def test_port_files_exist():
                  "distributed/checkpoint.py", "distributed/arena_ft.py", "models/moe.py",
                  "configs/zamba2_7b.py", "configs/granite_moe_1b_a400m.py",
                  "configs/kimi_k2_1t_a32b.py", "configs/olmo_1b.py", "configs/qwen1_5_4b.py",
-                 "configs/qwen3_4b.py"):
+                 "configs/qwen3_4b.py", "configs/internvl2_2b.py",
+                 "configs/whisper_large_v3.py", "models/whisper.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
                "pulse_commit.cu"):
