@@ -50,7 +50,12 @@ Phases (any failure exits non-zero before the last line):
      (f32) and 2e-2 (bf16), absolute and relative; timed beside
      ``scaled_dot_product_attention`` (the library yardstick, never used by
      the port), with its bound at the f32 FMA peak and, for the 3xTF32
-     products the kernel runs on the tensor cores, at the TF32 peak;
+     products the kernel runs on the tensor cores, at the TF32 peak; then
+     the ``autograd.Function`` at Qwen3-0.6B's training shape (B=8, H=16,
+     Hk=8, L=512, D=128, causal) against plain autograd of
+     ``mha_reference``: the forward within 2e-5, one launch, dq, dk and dv
+     bit for bit (the backward is the same recompute; the largest
+     difference printed), and the recompute's time beside the forward's;
   5. ``paged_attention`` (two CUDA kernels a call when it splits:
      ``paged_decode_split`` and ``paged_decode_merge``, timed together)
      against its plain version on the shapes of ``tests/test_kernels.py``,
@@ -78,7 +83,11 @@ Phases (any failure exits non-zero before the last line):
      H 48, dh 64, N 128, chunk 128) and zamba2_7b's (H 112, N 64), in f32
      and bf16 x; tolerance 1e-4 (f32) and 2e-2 (bf16), absolute and
      relative; one call runs three CUDA kernels (``SSD_KERNELS``), timed
-     together and one by one at the two prefill shapes;
+     together and one by one at the two prefill shapes; then the
+     ``autograd.Function`` at Mamba2-780M's training shape (B 8, L 512, H
+     48, dh 64, N 128, chunk 128) against plain autograd of
+     ``ssd_chunked_batched`` as phase 4's (within 1e-4; dx, ddt, dA, dB,
+     dC bit for bit; the final state's gradient None, as in training);
   9. the serve path of the full-width ``mamba2_780m`` (seeded weights; 8
      requests, 4 slots, prompt 512, 16 new tokens): every request
      finishes and ``ssd_scan`` launches 48 times per prefill call; then the
@@ -283,6 +292,28 @@ Phases (any failure exits non-zero before the last line):
      9 and 16-19 prefill ms a call, decode ms a step, peak device memory
      and a warm profiled breakdown.
 
+ 20. training at full width: ``repro_torch.launch.train.main`` on
+     ``qwen3_0_6b`` (seeded weights, AdamW, batch 8 x 512 tokens, 8 steps,
+     lr 1e-3 with the launcher's warmup of 5): every loss finite and the
+     last below the first, ``flash_attention`` launched 28 times a step;
+     the same steps on ``attn_backend="chunked"`` from the same weights and
+     data: the first loss within 1e-5 and its grad norm within 1e-4, every
+     later loss within 1e-3, relative (the gaps printed); an exact resume
+     (4 steps through ``TrainLoop``, ``CheckpointManager.save(block=True)``
+     into a temporary directory, a fresh state and ``DataIterator``
+     restored, 4 more): the 8 losses equal the uninterrupted run's bit for
+     bit (within 1e-6 relative where the card is not deterministic, which
+     is reported); then one step under the profiler.  Reported: step ms
+     (the median of the 7 warm steps), tokens/s, model FLOP/s (6 x
+     ``param_count()`` x tokens a step) and its share of the f32 peak (67
+     TFLOP/s) and of the TF32 peak, peak device memory, the checkpoint's
+     save and restore, and the profiled step's kernels split by the port's
+     spans: forward (the float kernels' own), backward (the plain
+     recompute's ``flash_attention.backward``/``ssd_scan.backward``),
+     optimizer, and the GEMMs;
+ 21. the same for ``mamba2_780m`` (``ssm_backend="chunked"`` the plain
+     route), ``ssd_scan`` launched 48 times a step.
+
 Each phase logs its seconds.
 
 Phases 11 and 12 then run every batch (each step of a write batch) on the
@@ -298,9 +329,10 @@ in the first call (which launched the kernels: a warm-up superstep and the
 captured chunk), none in the second, whose chunk reads are counted
 (ceil(supersteps / CHUNK)).  Reported: the rate over the median of three
 calls beside the dispatched one, the capture's time, and a profiled call's
-kernel time, busy share and each kernel's executions (not for
-``skiplist_rw``'s steps, whose ~270-superstep calls took 33-64 s each to
-parse the trace of).
+kernel time, busy share and each kernel's executions (in phase 12 for
+``wiredtiger_update`` only: the traces of ``skiplist_rw``'s ~270-superstep
+calls took 33-64 s each to parse, and ``webservice_rw``'s most of the rest
+of ~95 s).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -348,6 +380,14 @@ ROUTE_TIE = 1e-4  # a top-k flip between the routes is allowed within this margi
 # a greedy token may differ between the routes only where the plain route's
 # top two logits lie within this: each route's logits within LOGIT_TOL
 TOKEN_TIE = 2 * LOGIT_TOL
+# phases 20-21: full-width training through repro_torch.launch.train.main
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
+TRAIN_ARGS = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--lr", "1e-3", "--log-every", "1"]
+# kernel route vs the plain ("chunked") route over the same steps: the first
+# step's loss and grad norm, then every later loss, relative
+TRAIN_LOSS0_TOL, TRAIN_GNORM0_TOL, TRAIN_LOSS_TOL = 1e-5, 1e-4, 1e-3
+RESUME_TOL = 1e-6  # relative, only where the card is not deterministic
 
 
 def log(msg: str) -> None:
@@ -2276,12 +2316,14 @@ def phase_write_mesh(rng):
         t_dr = time.perf_counter()
         for (sname, it, *_), (before, g, *_r, p0c, s0c), row in zip(wb["steps"], main, steps):
             combos = ROUTE_SCHEDULES + (WRITE_RING if name == "webservice_rw" else [])
-            # the skip list's ~270-superstep calls go unprofiled: parsing
-            # the trace of one took 33-64 s (180 s of the phase)
+            # only wiredtiger_update's few-superstep calls are profiled: the
+            # trace of one of skiplist_rw's ~270-superstep calls took 33-64 s
+            # to parse, and webservice_rw's ~120 supersteps of ~1,000
+            # kernels most of the rest of ~95 s
             dr_rows, dr_launches = device_resident_runs(
                 f"{name}/{sname}",
                 lambda b=before: PulseEngine(b, mesh=routing.EmulatedMesh(P, "cuda")), it, p0c,
-                s0c, run, g, combos, ref_arena=g.arena, profile=name != "skiplist_rw")
+                s0c, run, g, combos, ref_arena=g.arena, profile=name == "wiredtiger_update")
             if dr_launches["pulse_chase"]:
                 raise AssertionError(f"{name}/{sname}: a device-resident write run launched "
                                      f"pulse_chase")
@@ -3613,9 +3655,74 @@ def phase_flash(seed):
         f"{aligned['ms']:.4f} ms; time per (query, key) pair kept {per_pair:.4f}x the "
         f"aligned length's (1,536^2 / 1,500^2 = {1536 ** 2 / 1500 ** 2:.4f}x if each ragged "
         f"tile cost a whole one)")
+    row["train_backward"] = backward_vs_plain(
+        "flash_attention", ("q", "k", "v"),
+        lambda: [_randn(gen, shape, "float32") for shape in (
+            (8, 16, 512, 128), (8, 8, 512, 128), (8, 8, 512, 128))],
+        lambda q, k, v: ops.flash_attention(q, k, v, True),
+        lambda q, k, v: ref.mha_reference(q, k, v, causal=True), ops.flash_attention,
+        TOL["float32"], ("flash_fwd",),
+        what="Qwen3-0.6B's training shape B=8 H=16 Hk=8 L=512 D=128 causal f32")
     log(json.dumps({"phase": "flash_vs_plain", "name": "flash_attention", "checks": checks,
                     "serve_shape": row}))
     return checks, row
+
+
+def backward_vs_plain(name, names, make_inputs, kernel_fn, plain_fn, op, fwd_tol, kernel_names,
+                      *, what):
+    """A float kernel's ``autograd.Function`` at a training shape against
+    plain autograd of its plain version on the same CUDA inputs: the
+    forward within ``fwd_tol`` (absolute and relative), one launch, and
+    every input's gradient bit for bit (the Function's backward is the
+    same recompute; a difference fails, its size printed); then the times
+    of the kernel's forward, the Function's backward (the recompute) and
+    the plain forward and backward.  The cotangent of the first output is
+    standard normal; a second output (``ssd_scan``'s final state) gets
+    none, as in training."""
+    import torch
+
+    inputs = make_inputs()
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    g = torch.randn_like(first(plain_fn(*inputs)))
+
+    def run(fn):
+        xs = [t.clone().requires_grad_() for t in inputs]
+        out = first(fn(*xs))
+        return out.detach(), torch.autograd.grad(out, xs, g)
+
+    before = op.launches
+    out, grads = run(kernel_fn)
+    launched = op.launches - before
+    want, wgrads = run(plain_fn)
+    ok, fwd_err = _close(out, want, "float32", {"float32": fwd_tol})
+    diffs = {n: float((a - b).abs().max().item()) for n, a, b in zip(names, grads, wgrads)}
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads, wgrads))
+    log(f"  {name} backward at {what}: forward max_abs_err {fwd_err:.3g} (tolerance {fwd_tol}), "
+        f"{launched} launch; gradients vs plain autograd, largest |difference| "
+        + ", ".join(f"d{n} {d:.3g}" for n, d in diffs.items())
+        + f" (bit-equal: {bit_equal})")
+    if not ok or launched != 1 or not bit_equal:
+        raise AssertionError(f"{name}: the autograd.Function disagrees with plain autograd")
+    xs = [t.clone().requires_grad_() for t in inputs]
+    out = first(kernel_fn(*xs))
+    backward_ms = time_cuda(lambda: torch.autograd.grad(out, xs, g, retain_graph=True), 5)
+    forward_ms = kernel_device_ms([lambda: kernel_fn(*inputs)], 10, *kernel_names)
+    px = [t.clone().requires_grad_() for t in inputs]
+    pout = first(plain_fn(*px))
+    plain_backward_ms = time_cuda(lambda: torch.autograd.grad(pout, px, g, retain_graph=True), 5)
+    plain_forward_ms = time_cuda(lambda: plain_fn(*inputs), 5)
+    row = dict(route="recompute: plain autograd of the plain version (no backward kernel, as in "
+                     "the JAX package)", timed_on=what, forward_max_abs_err=fwd_err,
+               grad_max_abs_diff=max(diffs.values()), grad_max_abs_diff_by_input=diffs,
+               bit_equal=bit_equal, forward_ms=forward_ms, backward_recompute_ms=backward_ms,
+               plain_forward_ms=plain_forward_ms, plain_backward_ms=plain_backward_ms)
+    log(f"  {name} at {what}: forward kernel {forward_ms} ms (profiler), the Function's backward "
+        f"(the recompute) {backward_ms:.4f} ms, plain forward {plain_forward_ms:.4f} ms, plain "
+        f"backward {plain_backward_ms:.4f} ms")
+    return row
 
 
 def paged_inputs(gen, B, H, Hk, D, page, lengths, dtype):
@@ -3845,6 +3952,14 @@ def phase_ssd(seed):
 
     row = timed(serve_case)
     row["zamba"] = timed(zamba_case)
+    # Mamba2-780M's training shape; the inputs as the model gives them
+    # (dt and A through the softplus and -exp are leaves here)
+    row["train_backward"] = backward_vs_plain(
+        "ssd_scan", ("x", "dt", "A", "B", "C"),
+        lambda: list(inputs(8, 512, 48, 64, 128, "float32")),
+        lambda *a: ops.ssd_scan(*a, chunk=128), lambda *a: ref.ssd_chunked_batched(*a, chunk=128),
+        ops.ssd_scan, SSD_TOL["float32"], SSD_KERNELS,
+        what="Mamba2-780M's training shape B=8 L=512 H=48 dh=64 N=128 chunk=128 f32")
     log(json.dumps({"phase": "ssd_vs_plain", "name": "ssd_scan", "checks": checks,
                     "serve_shape": row}))
     return checks, row
@@ -3983,8 +4098,11 @@ def phase_hybrid_serve():
     once a group, ssd_scan once a layer), then the plain route; the prefill
     logits gate, with each layer's difference between the routes."""
     from repro_torch.configs import get_config
+    from repro_torch.core import routing
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    routing.reset_executable_caches()  # the captured runners' buffers
 
     cfg = get_config("zamba2_7b")
     row, params = serve_and_compare(
@@ -4596,6 +4714,245 @@ def warm_breakdown(model, params, toks, *, batch=None, max_len=1024):
     return out
 
 
+# -------------------------------- training ----------------------------------
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+TRAIN_SPANS = ("train.forward", "train.backward", "train.optimizer", "flash_attention.backward",
+               "ssd_scan.backward")  # the port's profiler spans around a train step's parts
+
+
+def train_step_breakdown(prof):
+    """A profiled train step's kernel ms, split: every kernel; those inside
+    the ``train.forward`` span (and of them the float kernels' own); those
+    inside the kernels' backward spans (``flash_attention.backward``,
+    ``ssd_scan.backward``: the recompute) and ``train.optimizer``; the
+    backward as the rest; the GEMMs wherever they ran.  A span's kernels
+    are its launching operators' (the profiler's device time of a CPU
+    span); None where the profiler saw none."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in TRAIN_SPANS
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def span(name):
+        ms = sum(e.device_time_total for e in events
+                 if e.device_type == DeviceType.CPU and e.key == name) / 1e3
+        return ms or None
+
+    def named(*parts):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(p in e.key.lower() for p in parts)) / 1e3
+
+    out = dict(kernel_ms=total or None, forward_ms=span("train.forward"),
+               recompute_ms=(span("flash_attention.backward") or 0.0)
+               + (span("ssd_scan.backward") or 0.0) or None,
+               optimizer_ms=span("train.optimizer"),
+               forward_kernels_ms=named("flash_fwd", *SSD_KERNELS),
+               gemm_ms=named("gemm", "xmma", "cutlass", "sm90_", "sm80_"),
+               kernels=len(kernels),
+               top=[dict(kernel=kernel_name(e.key)[:60], ms=e.self_device_time_total / 1e3,
+                         calls=e.count)
+                    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                                    reverse=True)[:6]])
+    if total and out["forward_ms"] is not None and out["optimizer_ms"] is not None:
+        out["backward_ms"] = total - out["forward_ms"] - out["optimizer_ms"]
+    return out
+
+
+class _Trainer:
+    """What ``repro_torch.launch.train.main`` builds from ``argv`` (the
+    model, train config and data iterator, and the seeded state), for
+    ``cfg`` in place of ``--arch``'s config: the plain route's run and the
+    resume drive ``TrainLoop`` on it themselves."""
+
+    def __init__(self, cfg, argv):
+        from repro_torch.launch import train
+        from repro_torch.models.model_zoo import build_model
+
+        self.cfg, self.args = cfg, train.parser().parse_args(argv)
+        self.model, self.tcfg = build_model(cfg), train.train_config(cfg, self.args)
+
+    def data(self):
+        from repro_torch.launch import train
+
+        return train.data_iterator(self.cfg, self.args, "cuda")
+
+    def state(self, seed=None):
+        import torch
+
+        from repro_torch.training.train_loop import init_state
+
+        seed = self.args.seed if seed is None else seed
+        return init_state(self.model, self.tcfg, torch.Generator(device="cuda").manual_seed(seed))
+
+    def loop(self, data):
+        from repro_torch.training.train_loop import TrainLoop
+
+        return TrainLoop(self.model, self.tcfg, data)
+
+
+def resume_and_profile(cfg, argv, losses):
+    """Exact resume at full width: four steps from the seeded init through
+    ``TrainLoop`` (the same state and data ``train.main`` builds),
+    ``CheckpointManager.save(block=True)`` into a temporary directory, a
+    fresh state (another seed) and data iterator restored, four more steps;
+    all eight losses against the uninterrupted run's ``losses``.  Then one
+    more step under the profiler (``train_step_breakdown``)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.checkpoint import CheckpointManager, tree_leaves
+
+    trainer = _Trainer(cfg, argv)
+    half = TRAIN_STEPS // 2
+    data = trainer.data()
+    state, log_a = trainer.loop(data).run(trainer.state(), 0, half)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        ckpt = CheckpointManager(d)
+        t0 = time.perf_counter()
+        ckpt.save(state, half, extra=data.state_dict(), block=True)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+        del state
+        fresh = trainer.state(trainer.args.seed + 1)
+        t0 = time.perf_counter()
+        state, extra, step = ckpt.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del fresh
+    data_b = trainer.data()
+    data_b.load_state_dict(extra)
+    loop = trainer.loop(data_b)
+    state, log_b = loop.run(state, step, TRAIN_STEPS - half)
+    got = [r["loss"] for r in log_a + log_b]
+    bit_equal = got == losses
+    worst = max(_rel(a, b) for a, b in zip(got, losses))
+    log(f"  exact resume: {half} steps, save {save_s:.2f} s ({nbytes / 1e9:.2f} GB, fsync-free "
+        f"npz), restore onto the card {restore_s:.2f} s, {TRAIN_STEPS - half} more steps: losses "
+        f"{'bit-equal to' if bit_equal else 'differ from'} the uninterrupted run's (largest "
+        f"relative difference {worst:.3g})")
+    if not bit_equal and worst > RESUME_TOL:
+        raise AssertionError(f"{cfg.arch_id}: the resumed losses {got} differ from {losses}")
+    batch = next(data_b)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = loop.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = train_step_breakdown(prof)
+    split.update(state_gb=state_gb, step_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state
+    return dict(resume_bit_equal=bit_equal, resume_max_rel_diff=worst, resume_losses=got,
+                ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_bytes=nbytes,
+                profiled_step_wall_ms=wall_ms, profiled_step=split)
+
+
+def phase_train(arch, kernels, backend_fields):
+    """``arch`` trained at full width through ``repro_torch.launch.train.main``
+    (seeded weights, the config's optimizer, TRAIN_ARGS), each kernel of
+    ``kernels`` ((op, launches a step)) counted around it; then the same
+    steps on the plain route (every field of ``backend_fields`` "chunked",
+    with ``remat="full"``: the same values, and room on the card, where
+    the plain attention's and the plain scan's saved intermediates would
+    not fit beside the state) from the same weights and data, and the
+    exact resume and a profiled
+    step (``resume_and_profile``).  Gates: every loss finite, the last below
+    the first; each kernel's launches a step; the routes within
+    TRAIN_LOSS0_TOL (first loss), TRAIN_GNORM0_TOL (first grad norm) and
+    TRAIN_LOSS_TOL (later losses), relative; the resume."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config(arch)
+    argv = ["--arch", arch, *TRAIN_ARGS]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for op, _ in kernels:
+        op.launches = 0
+    t0 = time.perf_counter()
+    log_k = train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {op.__name__: op.launches for op, _ in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in log_k]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the losses {losses} are not finite and falling")
+    for op, per_step in kernels:
+        if op.launches != per_step * TRAIN_STEPS:
+            raise AssertionError(f"{arch}: {op.__name__} launched {op.launches} times in "
+                                 f"{TRAIN_STEPS} steps, {per_step} a step")
+    step_ms = float(np.median([r["dt"] for r in log_k[1:]])) * 1e3
+    n_params = cfg.param_count()
+    flop_per_s = 6 * n_params * tokens / (step_ms / 1e3)
+    row = dict(arch=arch, optimizer=cfg.optimizer, remat=cfg.remat, steps=TRAIN_STEPS,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, params=n_params, losses=losses,
+               grad_norms=[r["grad_norm"] for r in log_k], step_ms=[r["dt"] * 1e3 for r in log_k],
+               step_ms_median_warm=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               model_flop_per_s=flop_per_s, f32_peak_share=flop_per_s / F32_FLOP_PER_S,
+               tf32_peak_share=flop_per_s / TF32_FLOP_PER_S, peak_device_gb=peak_gb,
+               allocated_before_gb=before_gb,
+               wall_s=wall_s, launches=launches)
+    log(f"  train {arch} (kernel route): losses {[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in row['step_ms']]}; median warm step {step_ms:.1f} ms, "
+        f"{row['tokens_per_s']:.0f} tokens/s, model {flop_per_s / 1e12:.2f} TFLOP/s (6 x "
+        f"{n_params / 1e9:.3f} B params x {tokens} tokens a step) = "
+        f"{100 * row['f32_peak_share']:.1f}% of the f32 peak (67 TFLOP/s), "
+        f"{100 * row['tf32_peak_share']:.1f}% of the TF32 peak (495); peak {peak_gb:.2f} GB "
+        f"({before_gb:.2f} GB allocated before); "
+        f"launches {launches}")
+
+    torch.cuda.empty_cache()
+    plain = _Trainer(cfg.replace(remat="full", **{f: "chunked" for f in backend_fields}), argv)
+    state, log_p = plain.loop(plain.data()).run(plain.state(), 0, TRAIN_STEPS)
+    del state
+    loss_gaps = [_rel(a["loss"], b["loss"]) for a, b in zip(log_k, log_p)]
+    gnorm_gaps = [_rel(a["grad_norm"], b["grad_norm"]) for a, b in zip(log_k, log_p)]
+    log(f"  kernel vs plain route, relative gaps a step: loss {[f'{g:.2e}' for g in loss_gaps]}, "
+        f"grad norm {[f'{g:.2e}' for g in gnorm_gaps]}; plain route (remat full) median warm "
+        f"step "
+        f"{float(np.median([r['dt'] for r in log_p[1:]])) * 1e3:.1f} ms")
+    if (loss_gaps[0] > TRAIN_LOSS0_TOL or gnorm_gaps[0] > TRAIN_GNORM0_TOL
+            or max(loss_gaps[1:]) > TRAIN_LOSS_TOL):
+        raise AssertionError(f"{arch}: the kernel and plain routes' training disagree")
+    row.update(plain_losses=[r["loss"] for r in log_p], loss_gaps=loss_gaps,
+               grad_norm_gaps=gnorm_gaps,
+               plain_step_ms_median_warm=float(np.median([r["dt"] for r in log_p[1:]])) * 1e3)
+    torch.cuda.empty_cache()
+    row.update(resume_and_profile(cfg, argv, losses))
+    split = row["profiled_step"]
+    fmt = lambda v: "not measured" if v is None else f"{v:.1f} ms"  # noqa: E731
+    log(f"  profiled warm step: wall {row['profiled_step_wall_ms']:.1f} ms, kernels "
+        f"{fmt(split['kernel_ms'])} ({split['kernels']} kernels): forward {fmt(split['forward_ms'])} "
+        f"(the float kernels' forward {fmt(split['forward_kernels_ms'])}), backward "
+        f"{fmt(split.get('backward_ms'))} (of it the kernels' plain recompute "
+        f"{fmt(split['recompute_ms'])}), optimizer {fmt(split['optimizer_ms'])}; GEMMs "
+        f"{fmt(split['gemm_ms'])}; memory: the state (params, moments, step) and the batch "
+        f"{split['state_gb']:.2f} GB, the step's peak {split['step_peak_gb']:.2f} GB; top "
+        + "; ".join(
+            f"{t['kernel']} {t['ms']:.1f} ms x{t['calls']}" for t in split["top"]))
+    log(json.dumps({"phase": f"train_{arch}", **row}))
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_paged_decode(params):
     """Paged decode at full width on one prefill's K/V."""
     import numpy as np
@@ -4859,6 +5216,16 @@ def main(argv=None) -> int:
     whisper_row = phase(19, "whisper_large_v3 at full width (encdec): prefill over 1,500 frames, "
                             "decode, token-mode serving", phase_whisper_serve, args.seed)
     torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    train_qwen = phase(20, "training, qwen3_0_6b at full width", phase_train, "qwen3_0_6b",
+                       [(flash_ops.flash_attention, get_config("qwen3_0_6b").n_layers)],
+                       ("attn_backend",))
+    train_mamba = phase(21, "training, mamba2_780m at full width", phase_train, "mamba2_780m",
+                        [(ssd_ops.ssd_scan, get_config("mamba2_780m").n_layers)],
+                        ("ssm_backend",))
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -4915,15 +5282,19 @@ def main(argv=None) -> int:
         replaces="src/repro/kernels/flash_attention/kernel.py:26",
         launches=serve_row["flash_launches"] + hybrid_row["flash_launches"]
         + moe_row["flash_launches"] + vlm_row["flash_launches"]
-        + whisper_row["flash_launches"],
+        + whisper_row["flash_launches"] + train_qwen["launches"]["flash_attention"],
         launches_note="one per layer of each prefill call of phase 6 (28 x 2), one per group "
                       "of phase 16's (13 x 2), one per layer of phase 17's (24 x 2) and of "
                       "phase 18's (24 x 2 served, 24 in the patch prefill), one per encoder "
-                      "layer and two per decoder layer of phase 19's prefill call (32 + 64)",
+                      "layer and two per decoder layer of phase 19's prefill call (32 + 64); "
+                      "one per layer of each training step of phase 20's train.main (28 x 8; "
+                      "the backward recomputes the plain version and launches none)",
         max_abs_err=max(f32_err(flash_checks, flash_row), *moe_row["flash_layer_max_abs_err"],
                         *(flash_row[k]["max_abs_err"] for k in (
                             "d112", "zamba", "granite", "whisper_enc", "whisper_cross",
                             "internvl"))),
+        training_launches=train_qwen["launches"]["flash_attention"],
+        backward=dict(flash_row["train_backward"], training_phase=20),
         max_abs_err_bf16=bf16_err(flash_checks), ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
@@ -4975,9 +5346,14 @@ def main(argv=None) -> int:
     ssd_entry = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:24",
-        launches=ssm_row["ssd_launches"] + hybrid_row["ssd_launches"],
+        launches=ssm_row["ssd_launches"] + hybrid_row["ssd_launches"]
+        + train_mamba["launches"]["ssd_scan"],
         launches_note="one call (three kernels) per layer of each prefill call of phase 9 "
-                      "(48 x 2) and of phase 16 (81 x 2)",
+                      "(48 x 2) and of phase 16 (81 x 2), and of each training step of phase "
+                      "21's train.main (48 x 8; the backward recomputes the plain version and "
+                      "launches none)",
+        training_launches=train_mamba["launches"]["ssd_scan"],
+        backward=dict(ssd_row["train_backward"], training_phase=21),
         max_abs_err=f32_err(ssd_checks, ssd_row),
         max_abs_err_bf16=bf16_err(ssd_checks), ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"], library_ms=None,
@@ -5000,7 +5376,8 @@ def main(argv=None) -> int:
             write_path=dict(batches=write_rows, store_class=store_class), routing=route_rows,
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
             fault_tolerance=ft_row, hybrid_serve=hybrid_row, moe_serve=moe_row,
-            vlm_serve=vlm_row, whisper_serve=whisper_row,
+            vlm_serve=vlm_row, whisper_serve=whisper_row, train_qwen=train_qwen,
+            train_mamba=train_mamba,
             **summary, phase_seconds=seconds,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase "

@@ -54,12 +54,15 @@ class ArchConfig:
     # numerics / execution
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+    remat: str = "none"  # none | dots | full: what a layer keeps for its backward
+    optimizer: str = "adamw"  # adamw | adafactor
     # "kernel": the flash_attention CUDA kernel (the JAX package's "pallas");
     # "chunked": plain blockwise attention in torch (its "xla")
     attn_backend: str = "kernel"
     # "kernel": the ssd_scan CUDA kernel (the JAX package's "pallas");
     # "chunked": the plain chunked SSD in torch (its "xla")
     ssm_backend: str = "kernel"
+    ce_chunk: int = 512  # sequence chunk of the fused unembed + cross entropy
     decode_kv_f32: bool = True  # False: read the cache in its storage dtype
     source: str = ""
 

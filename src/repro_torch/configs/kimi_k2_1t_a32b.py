@@ -1,9 +1,9 @@
 """Kimi-K2 [moe]: trillion-param MoE, 384 experts top-8 + 1 shared.
 [arXiv:2501.kimi2; unverified (paper-table)]
 
-bf16 params and compute at full size (about 1 T parameters, 2 TB in bf16:
-no single card holds it, so the port runs it only reduced); the JAX
-package's Adafactor and full remat come with the training slice."""
+bf16 params, Adafactor (factored second moment) and full remat at full
+size (about 1 T parameters, 2 TB in bf16: no single card holds it, so the
+port runs it only reduced)."""
 
 import torch
 
@@ -25,6 +25,8 @@ CONFIG = ArchConfig(
     n_shared_experts=1,
     param_dtype=torch.bfloat16,
     compute_dtype=torch.bfloat16,
+    optimizer="adafactor",
+    remat="full",
     source="arXiv:2501.kimi2; unverified",
 )
 
@@ -33,5 +35,6 @@ def reduced() -> ArchConfig:
     return CONFIG.replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=64, vocab=512,
         head_dim=16, n_experts=8, moe_top_k=2, moe_d_ff=64, n_shared_experts=1,
-        param_dtype=torch.float32, compute_dtype=torch.float32,
+        param_dtype=torch.float32, compute_dtype=torch.float32, remat="none",
+        optimizer="adamw",
     )

@@ -10,7 +10,9 @@ The layout is the JAX package's (``repro.distributed.checkpoint``) exactly:
 the leaves follow JAX's flatten order (a dict's keys sorted, a list or
 tuple by index, ``None`` an empty subtree), the paths are ``"a/b/0"`` and
 the dtypes numpy's names, so a checkpoint written by either package loads
-in the other.
+in the other.  A bfloat16 leaf (numpy has none) is written as the JAX
+package writes it: its 2-byte words, ``'<V2'`` in the ``.npy`` header and
+``"bfloat16"`` in the manifest, and read back by the manifest, bit for bit.
 
   * atomic commit: the files go into a ``.tmp_save_*`` directory, which is
     renamed into place, then ``LATEST`` flips through ``os.replace``; a
@@ -29,6 +31,7 @@ import os
 import shutil
 import tempfile
 import threading
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -48,52 +51,89 @@ def _children(x):
     return list(enumerate(x))
 
 
-def _flatten_with_path(tree, path=()):
+def tree_flatten_with_path(tree, path=()):
     """``[(path, leaf)]`` in JAX's order (``jax.tree_util.
     tree_flatten_with_path`` on dicts, lists, tuples and None)."""
     if not _is_node(tree):
         return [(path, tree)]
     out = []
     for k, child in _children(tree):
-        out.extend(_flatten_with_path(child, path + (k,)))
+        out.extend(tree_flatten_with_path(child, path + (k,)))
     return out
 
 
 def tree_leaves(tree) -> list:
-    return [leaf for _, leaf in _flatten_with_path(tree)]
+    return [leaf for _, leaf in tree_flatten_with_path(tree)]
 
 
 def tree_paths(tree) -> list[str]:
     """The manifest's ``paths``: each leaf's keys joined by ``/``."""
-    return ["/".join(str(k) for k in p) for p, _ in _flatten_with_path(tree)]
+    return ["/".join(str(k) for k in p) for p, _ in tree_flatten_with_path(tree)]
 
 
 def tree_unflatten(like, leaves):
     """``like``'s structure with its leaves replaced, in flatten order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(x):
-        if not _is_node(x):
-            return next(it)
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            new = {k: build(x[k]) for k in sorted(x)}
-            return type(x)((k, new[k]) for k in x)  # the caller's key order
-        return type(x)(build(c) for c in x)
 
-    return build(like)
+def _build(x, it):
+    # a module function, not a recursive closure: a closure that calls
+    # itself is a reference cycle, which would hold ``leaves`` (a train
+    # step's gradients, say) until the garbage collector runs
+    if not _is_node(x):
+        return next(it)
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        new = {k: _build(x[k], it) for k in sorted(x)}
+        return type(x)((k, new[k]) for k in x)  # the caller's key order
+    return type(x)(_build(c, it) for c in x)
+
+
+BF16_WORDS = np.dtype("V2")  # a bfloat16 leaf on the host: its raw 2-byte words
 
 
 def _to_host(x) -> np.ndarray:
-    """A leaf as a numpy array, copied now (the state may change next step)."""
+    """A leaf as a numpy array, copied now (the state may change next step);
+    a bfloat16 tensor as its words (``BF16_WORDS``)."""
     if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:
-            raise TypeError(
-                "a bfloat16 leaf has no numpy dtype; checkpoints of bf16 training state "
-                "come with ROADMAP item 11 (training)")
-        return x.detach().cpu().numpy().copy()
+        x = x.detach()
+        words = x.dtype == torch.bfloat16
+        host = (x.view(torch.int16) if words else x).cpu().numpy()
+        if not x.is_cuda:  # .cpu() of a CPU tensor shares its storage
+            host = host.copy()
+        return host.view(BF16_WORDS) if words else host
     return np.array(x)
+
+
+def _dtype_name(x: np.ndarray) -> str:
+    return "bfloat16" if x.dtype == BF16_WORDS else str(x.dtype)
+
+
+def _savez(path: Path, arrays: dict[str, np.ndarray]) -> None:
+    """``np.savez``, but a ``BF16_WORDS`` array gets the header the JAX
+    package's bfloat16 arrays get (``'<V2'``, ml_dtypes' descriptor), so
+    its ``.npy`` member is byte for byte the JAX package's."""
+    if not any(a.dtype == BF16_WORDS for a in arrays.values()):
+        np.savez(path, **arrays)
+        return
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if a.dtype != BF16_WORDS:
+                    np.lib.format.write_array(fid, np.asanyarray(a))
+                    continue
+                np.lib.format.write_array_header_1_0(
+                    fid, {"descr": "<V2", "fortran_order": False, "shape": a.shape})
+                fid.write(np.ascontiguousarray(a).tobytes())
+
+
+def _from_host(x: np.ndarray, dtype: str) -> torch.Tensor:
+    """A leaf ``np.load`` read (its own array, not a view of the file)."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 class CheckpointManager:
@@ -119,7 +159,7 @@ class CheckpointManager:
         final = self.dir / f"step_{step:08d}"
         tmp = Path(tempfile.mkdtemp(dir=self.dir, prefix=".tmp_save_"))
         try:
-            np.savez(tmp / f"shard_{self.host_id}.npz", **arrays)
+            _savez(tmp / f"shard_{self.host_id}.npz", arrays)
             (tmp / "manifest.json").write_text(json.dumps(manifest))
             if final.exists():
                 shutil.rmtree(final)
@@ -142,7 +182,7 @@ class CheckpointManager:
             "num_hosts": self.num_hosts,
             "paths": tree_paths(state),
             "shapes": [list(x.shape) for x in host_leaves],
-            "dtypes": [str(x.dtype) for x in host_leaves],
+            "dtypes": [_dtype_name(x) for x in host_leaves],
             "extra": extra or {},
         }
         arrays = {f"a{i}": x for i, x in enumerate(host_leaves)}
@@ -198,5 +238,5 @@ class CheckpointManager:
             raise ValueError(f"checkpoint has {len(leaves)} leaves, expected {len(like_leaves)}")
         if device is None:
             device = next((x.device for x in like_leaves if isinstance(x, torch.Tensor)), "cpu")
-        out = [torch.from_numpy(np.array(x)).to(device) for x in leaves]
+        out = [_from_host(x, dt).to(device) for x, dt in zip(leaves, manifest["dtypes"])]
         return tree_unflatten(like_state, out), manifest["extra"], step

@@ -2,8 +2,13 @@
 (``ref.mha_reference``) for CPU tensors; never one in place of the other.
 ``flash_attention.launches`` counts kernel launches.
 
-Forward only: the training slice brings the ``autograd.Function`` (the JAX
-package's ``custom_vjp`` recomputes through the reference).
+Where an input requires grad, the call goes through ``FlashAttention``, a
+``torch.autograd.Function``: its forward is the same kernel (or plain
+version), and its backward recomputes ``mha_reference`` and returns that
+recompute's vector-Jacobian product, as the JAX package's ``custom_vjp``
+does (``_bwd`` is ``jax.vjp`` of its reference): neither package has a
+backward kernel.  The backward runs inside a ``flash_attention.backward``
+profiler span.
 """
 
 from __future__ import annotations
@@ -18,6 +23,34 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _forward(q, k, v, causal):
+    if not _on_cuda(q):
+        return mha_reference(q, k, v, causal=causal)
+    out = _kernel.launch(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
+    flash_attention.launches += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or ``mha_reference`` (CPU), keeping q, k
+    and v.  Backward: ``mha_reference`` recomputed and differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        with torch.no_grad():
+            return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.profiler.record_function("flash_attention.backward"), torch.enable_grad():
+            out = mha_reference(q, k, v, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal=True, block_q=None, block_k=None):
     """q: (B, H, Lq, D); k, v: (B, Hk, Lk, D) -> (B, H, Lq, D) in q's dtype.
 
@@ -27,18 +60,16 @@ def flash_attention(q, k, v, causal=True, block_q=None, block_k=None):
     its block does not divide raises ``ValueError`` on every device, as the
     JAX kernel does; they decide only what to refuse.
     """
-    B, H, Lq, D = q.shape
+    H, Lq = q.shape[1], q.shape[2]
     Hk, Lk = k.shape[1], k.shape[2]
     if H % Hk:
         raise ValueError(f"H={H} not a multiple of Hk={Hk}")
     for length, block in ((Lq, block_q), (Lk, block_k)):
         if block is not None and length % min(block, length):
             raise ValueError("sequence lengths must divide block sizes")
-    if not _on_cuda(q):
-        return mha_reference(q, k, v, causal=causal)
-    out = _kernel.launch(q, k, v, causal=causal, scale=D ** -0.5)
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
 
 
 flash_attention.launches = 0

@@ -17,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def uniform_scale_init(gen: torch.Generator, shape, scale, dtype):
@@ -121,3 +122,57 @@ def gelu_mlp_apply(p, x, compute_dtype):
     """The tanh approximation, ``jax.nn.gelu``'s default."""
     h = F.gelu(dense_apply(p["wi"], x, compute_dtype), approximate="tanh")
     return dense_apply(p["wo"], h, compute_dtype)
+
+
+def _nll(logits, labels, z_loss):
+    """Per-token negative log-likelihood of f32 ``logits`` (..., V), with
+    the z-loss ``z_loss * logsumexp^2`` added where ``z_loss`` is set."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    return nll
+
+
+def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0, mask=None):
+    """logits (..., V), cast to f32 inside; labels int.  Returns the mean
+    nll (over ``mask``'s ones where given)."""
+    nll = _nll(logits.float(), labels, z_loss)
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1)
+    return nll.mean()
+
+
+def _xent_chunk(hq, w, lq, mq, z_loss):
+    logits = (hq.to(w.dtype) @ w).float()  # (B, chunk, V)
+    return (_nll(logits, lq, z_loss) * mq).sum()
+
+
+def chunked_softmax_xent(h, unembed_w, labels, *, chunk: int = 512, z_loss: float = 0.0,
+                         mask=None):
+    """Fused unembed projection + cross entropy, chunked over the sequence.
+
+    Never holds the whole (B, L, V) logits: each chunk computes its (B,
+    chunk, V) logits, reduces them to per-token nll, and is recomputed in
+    the backward (``checkpoint``, as the JAX package's ``jax.checkpoint`` on
+    the chunk body), so one chunk's logits and their gradient are live at a
+    time.  A length ``chunk`` does not divide is padded, the mask with it
+    (padding masked out).  Returns the masked mean nll.
+    """
+    B, L, _ = h.shape
+    chunk = min(chunk, L)
+    if mask is None:
+        mask = torch.ones((B, L), dtype=torch.float32, device=h.device)
+    if L % chunk:
+        pad = chunk - L % chunk
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[1], chunk):
+        hq, lq, mq = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
+        tot = tot + checkpoint(_xent_chunk, hq, unembed_w, lq, mq, z_loss, use_reentrant=False)
+        cnt = cnt + mq.sum()
+    return tot / cnt.clamp_min(1.0)

@@ -9,14 +9,28 @@ last whole group are the tail (81 = 13 x 6 + 3).  The vlm is the dense
 stack with ``patch_proj``, whose projection of the precomputed patch
 embeddings a prefill puts in front of the prompt.  The encdec family
 (Whisper) is ``models/whisper.py``.
+
+``lm_loss`` is the training objective: the layer stack, then the fused
+chunked unembed + cross entropy.  ``cfg.remat`` picks what each layer keeps
+for its backward, where the JAX package's ``_remat`` wraps its scanned
+bodies: each dense, vlm and moe block and each mamba block (ssm, hybrid),
+not the hybrid's shared attention block.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention, moe, ssm
 from repro_torch.models.common import (
+    chunked_softmax_xent,
     dense_apply,
     dense_init,
     rmsnorm_apply,
@@ -110,6 +124,34 @@ def _ssm_block(lp, cfg, x):
     return x + out, st
 
 
+# "dots": the outputs of matrix products with no batch dimension are kept
+# (a linear layer on a (B, T, D) input reaches aten.mm, with a bias
+# aten.addmm), everything else is recomputed -- batched products (bmm)
+# too, as jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+REMAT = ("none", "dots", "full")
+
+
+def _remat(f, policy: str):
+    """``f`` with ``policy``'s rematerialisation where autograd records:
+    "none" keeps every activation, "full" keeps only ``f``'s inputs and
+    recomputes the rest in the backward, "dots" keeps the unbatched
+    products' outputs as well."""
+    if policy not in REMAT:
+        raise ValueError(f"unknown remat {policy!r}; known: {REMAT}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return f
+    kw = {"context_fn": _DOTS_CONTEXT} if policy == "dots" else {}
+    return functools.partial(checkpoint, f, use_reentrant=False, **kw)
+
+
 def backbone_apply(params, cfg, x, *, positions=None, collect=False):
     """Layer stack on embeddings x (B, T, D) -> (h, cache parts | None).
 
@@ -123,15 +165,17 @@ def backbone_apply(params, cfg, x, *, positions=None, collect=False):
     if positions is None:
         positions = torch.arange(T, device=x.device).expand(B, T)
     states, ks, vs = [], [], []
+    ssm_block, dense_block = _remat(_ssm_block, cfg.remat), _remat(_dense_block, cfg.remat)
     for i, lp in enumerate(params["layers"]):
         if cfg.family in ("ssm", "hybrid"):
-            x, st = _ssm_block(lp, cfg, x)
+            x, st = ssm_block(lp, cfg, x)
             if collect:
                 states.append(st)
             if _shared_after(cfg, i) is None:
                 continue
-            lp = params["shared_attn"]
-        x, (k, v) = _dense_block(lp, cfg, x, positions)
+            x, (k, v) = _dense_block(params["shared_attn"], cfg, x, positions)
+        else:
+            x, (k, v) = dense_block(lp, cfg, x, positions)
         if collect:
             ks.append(k)
             vs.append(v)
@@ -149,6 +193,23 @@ def embed_tokens(params, cfg, tokens):
 
 def lm_logits(params, cfg, h):
     return dense_apply(params["unembed"], h, cfg.compute_dtype)
+
+
+def lm_loss(params, cfg, batch):
+    """batch: {tokens (B, L), labels (B, L), [mask (B, L)], [patches (B, P,
+    D): a vlm's patch embeddings, projected and put in front of the
+    tokens]} -> the mean next-token nll (z-loss 1e-4) over the tokens' rows,
+    through the fused chunked unembed + cross entropy."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    n_prefix = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        pe = dense_apply(params["patch_proj"], batch["patches"].to(cfg.compute_dtype),
+                         cfg.compute_dtype)
+        x = torch.cat([pe, x], dim=1)
+        n_prefix = pe.shape[1]
+    h, _ = backbone_apply(params, cfg, x)
+    return chunked_softmax_xent(h[:, n_prefix:], params["unembed"]["w"], batch["labels"],
+                                chunk=cfg.ce_chunk, z_loss=1e-4, mask=batch.get("mask"))
 
 
 def decode_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import attention
 from repro_torch.models.common import (
+    chunked_softmax_xent,
     dense_apply,
     dense_init,
     gelu_mlp_apply,
@@ -105,6 +106,17 @@ def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False):
         return h, None
     k, v, xk, xv = (torch.stack(a) for a in kv)
     return h, ((k, v), (xk, xv))
+
+
+def whisper_loss(params, cfg, batch):
+    """batch: {frames (B, T, D), tokens (B, L), labels (B, L), [mask]} -> the
+    mean next-token nll (z-loss 1e-4): the encoder, the teacher-forced
+    decoder, and the fused chunked cross entropy against the tied
+    ``embed.T``.  Never rematerialised, as in the JAX package."""
+    enc_out = encode(params, cfg, batch["frames"])
+    h, _ = decode_train(params, cfg, batch["tokens"], enc_out)
+    return chunked_softmax_xent(h, params["embed"].T, batch["labels"], chunk=cfg.ce_chunk,
+                                z_loss=1e-4, mask=batch.get("mask"))
 
 
 def _tied_logits(params, cfg, h):

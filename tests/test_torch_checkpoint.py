@@ -12,7 +12,9 @@
   * ``plan_mesh_shape``, ``HeartbeatMonitor`` with ``ElasticCoordinator``
     and ``ShardFailureDetector``'s targeted suspect, each against the JAX
     one on the same inputs;
-  * a bfloat16 leaf is refused (numpy has no bfloat16).
+  * a bfloat16 leaf round trips bit for bit (its 2-byte words, as the JAX
+    package writes them; ``test_torch_training.py`` holds the bytes
+    against the JAX package's).
 """
 
 import json
@@ -192,10 +194,18 @@ def test_restore_refuses_a_tree_of_another_size(tmp_path):
 
 
 def test_bf16_leaf_is_refused_naming_training(tmp_path):
+    """Training (ROADMAP item 11) lifted the refusal: a bfloat16 leaf is
+    saved as its words, ``"bfloat16"`` in the manifest, and restored to
+    ``torch.bfloat16`` bit for bit."""
     ck = tckpt.CheckpointManager(tmp_path, async_save=False)
-    with pytest.raises(TypeError, match="item 11"):
-        ck.save({"w": torch.zeros(2, dtype=torch.bfloat16)}, 1)
-    assert ck.latest_step() is None
+    w = torch.tensor([1.0, -2.5, 3.1415, 1e-30, float("inf")], dtype=torch.bfloat16)
+    ck.save({"w": w}, 1)
+    assert ck.latest_step() == 1
+    manifest = json.loads((tmp_path / "step_00000001" / "manifest.json").read_text())
+    assert manifest["dtypes"] == ["bfloat16"] and manifest["shapes"] == [[5]]
+    back, _, _ = ck.restore({"w": torch.zeros(1)})
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16), w.view(torch.int16))
 
 
 # ------------------------------- elastic ------------------------------------

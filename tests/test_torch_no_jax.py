@@ -50,7 +50,9 @@ def test_port_files_exist():
                  "configs/zamba2_7b.py", "configs/granite_moe_1b_a400m.py",
                  "configs/kimi_k2_1t_a32b.py", "configs/olmo_1b.py", "configs/qwen1_5_4b.py",
                  "configs/qwen3_4b.py", "configs/internvl2_2b.py",
-                 "configs/whisper_large_v3.py", "models/whisper.py"):
+                 "configs/whisper_large_v3.py", "models/whisper.py", "data/pipeline.py",
+                 "training/optimizer.py", "training/compression.py", "training/train_loop.py",
+                 "launch/train.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
                "pulse_commit.cu"):
