@@ -313,6 +313,32 @@ Phases (any failure exits non-zero before the last line):
      optimizer, and the GEMMs;
  21. the same for ``mamba2_780m`` (``ssm_backend="chunked"`` the plain
      route), ``ssd_scan`` launched 48 times a step.
+ 22. the launch tooling (``repro_torch.launch``): (a) the meta dry run
+     (``dryrun.main``) of ``qwen3_0_6b``'s four cells on both H100 meshes,
+     (data 32, model 8) and (pod 2, data 32, model 8), and its ``report``
+     table, printed (counts and datasheet peaks, not measurements); (b)
+     ``steps.build_step(cfg, shape, make_test_mesh(), device="cuda")`` for
+     the full-width ``qwen3_0_6b`` at the production lengths with the batch
+     cut to one card: prefill 1 x 32,768 (``flash_attention`` 28 a call),
+     decode 4 over a 32,768-token cache (seeded normal draws), train 1 x
+     4,096 (28 a call); (c) ``mamba2_780m``'s prefill at 1 x 32,768
+     (``ssd_scan`` 48 a call).  Gates: each step's first call equals the
+     direct ``make_train_step`` / ``Model.prefill`` / ``Model.decode_step``
+     call on the same arguments bit for bit; the kernel's first call in
+     that direct call, on its own inputs at the step's shape, agrees with
+     its plain version (``chunked_attention``, ``ssd_chunked_batched``)
+     within the f32 tolerance; the prefill and train steps agree with the
+     plain route (``attn_backend`` / ``ssm_backend`` "chunked") on the same
+     arguments: logits within LOGIT_TOL, the train step's loss and grad norm
+     within TRAIN_LOSS0_TOL and TRAIN_GNORM0_TOL; the launches of the first
+     call and of three warm ones exact; a shape that does not fit is cut
+     (batch, then length) and the cut logged.  Reported: the median ms of
+     the three warm calls, peak device memory beside the specs' argument
+     bytes, measured / the floor of the step's own work (``step_floor``:
+     its products, each input read once and each output written once), and
+     measured / the meta counter's count of the port's own eager traffic
+     (``step_roofline``); then ``python -m repro_torch.tools.pulse_verify
+     --all --golden tests/golden/pulse_verify``, gated on exit 0.
 
 Each phase logs its seconds.
 
@@ -342,6 +368,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -388,6 +415,10 @@ TRAIN_ARGS = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
 # step's loss and grad norm, then every later loss, relative
 TRAIN_LOSS0_TOL, TRAIN_GNORM0_TOL, TRAIN_LOSS_TOL = 1e-5, 1e-4, 1e-3
 RESUME_TOL = 1e-6  # relative, only where the card is not deterministic
+# phase 22: the launch tooling's steps on the card, each timed over this
+# many warm calls after the first, which is compared with the direct call
+# and the plain route
+LAUNCH_ARCH, LAUNCH_SSM_ARCH, LAUNCH_REPS, LAUNCH_SEED = "qwen3_0_6b", "mamba2_780m", 3, 0
 
 
 def log(msg: str) -> None:
@@ -401,7 +432,10 @@ def make_keys(rng, n: int):
     """``n`` distinct non-negative int32 keys in rank order (rank 1 first)."""
     import numpy as np
 
-    k = np.unique(rng.integers(0, 2**31 - 1, size=n + n // 8 + 1024, dtype=np.int64))
+    # np.unique's result by a sort and a mask: numpy 2.3's np.unique took most
+    # of the 2^24-key tree's 51 s set-up on the card's host (9 s since)
+    k = np.sort(rng.integers(0, 2**31 - 1, size=n + n // 8 + 1024, dtype=np.int64))
+    k = k[np.concatenate(([True], k[1:] != k[:-1]))]
     if len(k) < n:
         raise RuntimeError("key draw came up short")
     return rng.permutation(k)[:n].astype(np.int32)
@@ -3519,16 +3553,6 @@ def _randn(gen, shape, dtype):
         getattr(torch, dtype))
 
 
-def flash_work(B, H, Hk, Lq, Lk, D, causal, elem_bytes=4):
-    """(FLOPs, bytes) the function needs: 4*D per (query, key) pair kept
-    (q.k and p.v, a multiply-add each), and q, k, v, o once."""
-    off = Lk - Lq if causal else 0
-    pairs = sum(min(Lk, max(0, off + r + 1)) if causal else Lk for r in range(Lq))
-    flops = 4 * D * B * H * pairs
-    nbytes = (2 * B * H * Lq * D + 2 * B * Hk * Lk * D) * elem_bytes
-    return flops, nbytes
-
-
 def bound(flops, nbytes, flop_per_s=F32_FLOP_PER_S):
     """(least ms, what bounds it): the larger of the two times, the
     operations at ``flop_per_s`` (by default the f32 peak outside the
@@ -3551,6 +3575,7 @@ def time_flash(gen, B, H, Hk, L, D, *, Lk=None, causal=True):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.work import flash_work
 
     Lk = L if Lk is None else Lk
     q = _randn(gen, (B, H, L, D), "float32")
@@ -3858,24 +3883,11 @@ def phase_paged(seed):
 # ------------------------------- ssd_scan -----------------------------------
 
 
-def ssd_work(Bt, L, H, dh, N, chunk, elem_bytes=4):
-    """(FLOPs, bytes) the function needs: per (batch, chunk) C B^T over the
-    pairs j <= i (a multiply-add each per state dim; one B/C group serves
-    all heads); per (batch, head, chunk) the intra-chunk product over the
-    same pairs, C S and the state update (a multiply-add each); x (and y)
-    at ``elem_bytes``, dt, A, B, C and the final state in f32, each once."""
-    nc = L // chunk
-    pairs = chunk * (chunk + 1) // 2
-    flops = 2 * Bt * nc * N * pairs + 2 * Bt * H * nc * (dh * pairs + 2 * chunk * N * dh)
-    nbytes = (2 * Bt * L * H * dh * elem_bytes
-              + 4 * (Bt * L * H + H + 2 * Bt * L * N + Bt * H * N * dh))
-    return flops, nbytes
-
-
 def phase_ssd(seed):
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
+    from repro_torch.kernels.work import ssd_work
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
 
@@ -4130,8 +4142,8 @@ def hybrid_compare(kmodel, pmodel, params, toks):
     stream = {"kernel": [], "plain": []}
 
     def spy(key):
-        def block(lp, cfg, x):
-            out = real(lp, cfg, x)
+        def block(lp, cfg, x, *rest):
+            out = real(lp, cfg, x, *rest)
             stream[key].append(out[0])
             return out
         return block
@@ -4576,31 +4588,46 @@ def _device_ms(prof, events=None):
                         calls=e.count) for e in top]
 
 
-def lm_work(cfg, B, T):
-    """(prefill FLOPs, decode-step bytes) of a decoder LM on B prompts of T:
-    the prefill's matmul, attention and SSD FLOPs (a token's routed experts
-    only, in a moe; the shared block once a group, in a hybrid); a decode
-    step's weights (every expert) and live cache (K/V, and the recurrent
-    state read and written) once, in f32.  Their least times are these at
-    the f32 peak and at the HBM rate."""
-    emb = cfg.vocab * cfg.d_model  # the embedding is a gather
-    weight_params = cfg.param_count() - emb
-    token_params = cfg.active_param_count() - emb
+def _lm_layers(cfg):
+    """(attention layers, SSD layers, SSD heads, state N, head dim) of a
+    decoder LM."""
     n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.hybrid_attn_every, 1)}.get(
         cfg.family, cfg.n_layers)
+    return n_attn, n_ssm, 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+
+
+def lm_flops(cfg, B, T):
+    """(matmul FLOPs, attention and SSD FLOPs) of a decoder LM's forward
+    over B prompts of T (a token's routed experts only, in a moe; the
+    shared block once a group, in a hybrid; the embedding is a gather)."""
+    from repro_torch.kernels.work import flash_work, ssd_work
+
+    token_params = cfg.active_param_count() - cfg.vocab * cfg.d_model
+    n_attn, n_ssm, H, N, dh = _lm_layers(cfg)
     if cfg.family == "hybrid":
         D, hd = cfg.d_model, cfg.hd
         shared = D * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * D \
             + 3 * D * cfg.d_ff
         token_params += (n_attn - 1) * shared
-    H, N, dh = 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
     mix_flops = n_attn * flash_work(B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd, True)[0]
-    cache_bytes = 2 * n_attn * B * (T + 4) * cfg.n_kv_heads * cfg.hd
     if n_ssm:
         mix_flops += n_ssm * ssd_work(B, T, H, dh, N, min(cfg.ssm_chunk, T))[0]
+    return 2 * B * T * token_params, mix_flops
+
+
+def lm_work(cfg, B, T):
+    """(prefill FLOPs, decode-step bytes) of a decoder LM on B prompts of T:
+    the prefill's ``lm_flops``; a decode step's weights (every expert) and
+    live cache (K/V, and the recurrent state read and written) once, in
+    f32.  Their least times are these at the f32 peak and at the HBM
+    rate."""
+    weight_params = cfg.param_count() - cfg.vocab * cfg.d_model
+    n_attn, n_ssm, H, N, dh = _lm_layers(cfg)
+    cache_bytes = 2 * n_attn * B * (T + 4) * cfg.n_kv_heads * cfg.hd
+    if n_ssm:
         cache_bytes += 2 * n_ssm * B * H * N * dh
-    return 2 * B * T * token_params + mix_flops, 4 * (weight_params + cache_bytes)
+    return sum(lm_flops(cfg, B, T)), 4 * (weight_params + cache_bytes)
 
 
 def whisper_work(cfg, B, T):
@@ -4612,6 +4639,8 @@ def whisper_work(cfg, B, T):
     but the cross K/V projections (the cache holds them), the embedding
     (the tied logits read it whole) and the self and cross caches once, in
     f32.  Biases and norms left out."""
+    from repro_torch.kernels.work import flash_work
+
     D, F, hd = cfg.d_model, cfg.n_audio_frames, cfg.hd
     H, Hk = cfg.n_heads, cfg.n_kv_heads
     q_o, k_v, mlp = 2 * D * H * hd, 2 * D * Hk * hd, 2 * D * cfg.d_ff
@@ -4953,6 +4982,371 @@ def phase_train(arch, kernels, backend_fields):
     return row
 
 
+# ------------------------------ launch tooling ------------------------------
+
+
+def step_roofline(cfg, shape):
+    """(least ms, its terms) of ``cfg``'s step at ``shape`` over the port's
+    own eager traffic, from the launch tooling's meta counter
+    (``dryrun.count_step``, the same step run on meta): the products
+    outside the kernels at the f32 peak (the config computes in f32;
+    torch's f32 GEMMs run no TF32), the kernels' own work at the 3xTF32
+    rate (``tensor_core_bound``'s), and the bytes of every eager op at the
+    HBM rate.  Those bytes count the implementation's own copies and
+    recomputes, so this reads closer than ``step_floor``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+
+    counter, *_ = dryrun.count_step(cfg, shape, make_test_mesh())
+    t_ops = (counter.aten_flops / F32_FLOP_PER_S
+             + counter.kernel_flops / (TF32_FLOP_PER_S / TF32X3))
+    t_bytes = counter.total_bytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, dict(
+        aten_flops=counter.aten_flops, kernel_flops=counter.kernel_flops,
+        bytes=counter.total_bytes, bound_by="operations" if t_ops >= t_bytes else "bytes",
+        ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3)
+
+
+def step_floor(cfg, kind, B, T, args, out):
+    """(least ms, its terms) of the step's own work, whatever the
+    implementation: the forward's ``lm_flops`` (the matmuls at the f32
+    peak, attention or SSD at the 3xTF32 rate), three times them in a train
+    step (the backward's two products for each forward one), beside each
+    input read once and each output written once at the HBM rate.  A
+    prefill or decode step reads only its tokens' embedding rows; a decode
+    step reads only the live part of its K/V cache (each sequence's
+    ``pos + 1`` positions, all at the f32 peak) and writes one position of
+    it."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    f32_flops = 0
+    if kind == "train":
+        mm, mix = (3 * f for f in lm_flops(cfg, B, T))
+        read, written = nbytes(args), nbytes(out)
+    else:
+        params, table = args[0], args[0]["embed"]
+        read = nbytes(params) - nbytes(table) + min(B * T, table.shape[0]) * nbytes(table[0])
+        if kind == "prefill":
+            mm, mix = lm_flops(cfg, B, T)
+            read += nbytes(args[1])
+            written = nbytes(out)
+        else:
+            cache, tok, pos = args[1:]
+            live = int((pos.long() + 1).sum())
+            mm, mix = 0, 0
+            f32_flops = (2 * B * (cfg.active_param_count() - cfg.vocab * cfg.d_model)
+                         + 4 * _lm_layers(cfg)[0] * cfg.n_heads * cfg.hd * live)
+            read += nbytes(tok) + nbytes(pos)
+            written = nbytes(out[0])
+            for name, t in cache.items():
+                if name in ("k", "v"):  # (layers, B, S, Hk, hd)
+                    row = t[:, 0, 0].numel() * t.element_size()
+                    read += live * row
+                    written += B * row
+                else:
+                    read += nbytes(t)
+                    written += nbytes(t)
+    t_ops = (mm + f32_flops) / F32_FLOP_PER_S + mix / (TF32_FLOP_PER_S / TF32X3)
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, dict(
+        floor_flops=mm + mix + f32_flops, floor_bytes=read + written,
+        floor_bound_by="operations" if t_ops >= t_bytes else "bytes",
+        floor_ops_ms=t_ops * 1e3, floor_bytes_ms=t_bytes * 1e3)
+
+
+def _max_abs_diff(a, b, dim=1, piece=4096):
+    """max |a - b| over ``dim`` in pieces (a 32k prefill's logits are 20 GB)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a.split(piece, dim), b.split(piece, dim)))
+
+
+def _first_call(mod, attr, seen):
+    """Context: ``mod.attr`` wrapped so that its first call's arguments and
+    result are kept (detached) in ``seen``."""
+    import contextlib
+
+    import torch
+    from torch.utils._pytree import tree_map
+
+    real = getattr(mod, attr)
+
+    def keep(t):
+        return t.detach() if isinstance(t, torch.Tensor) else t
+
+    def spy(*a, **kw):
+        o = real(*a, **kw)
+        if not seen:
+            seen.append((tree_map(keep, a), kw, tree_map(keep, o)))
+        return o
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(mod, attr, spy)
+        try:
+            yield
+        finally:
+            setattr(mod, attr, real)
+
+    return patched()
+
+
+def _kernel_vs_plain(name, seen):
+    """The kernel's first call inside a step, on that call's own inputs,
+    against its plain version at the f32 tolerance -> max_abs_err.  Flash
+    against ``chunked_attention`` (``mha_reference``'s L x L scores do not
+    fit at 32k), ``ssd_scan`` (seen at ``ops._forward``: the wrapper's own
+    name counts its launches) against ``ssd_chunked_batched``."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models.attention import chunked_attention
+
+    (a, kw, o), = seen
+    with torch.no_grad():
+        if name == "flash_attention":
+            q, k, v, causal = a[:4]
+            want = [chunked_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      causal=causal).transpose(1, 2)]
+            got, tols = [o], TOL
+        else:  # ssd_ops._forward(x, dt, A, B, C, chunk)
+            want = ssd_ref.ssd_chunked_batched(*a[:5], chunk=a[5])
+            got, tols = o, SSD_TOL
+        errs = [_close(g, w, "float32", tols) for g, w in zip(got, want)]
+    err = max(e for _, e in errs)
+    shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
+    log(f"    {name} on the step's first call's own inputs {shapes}: max_abs_err {err:.3g} "
+        f"vs its plain version (tolerance {tols['float32']} abs + rel)")
+    if not all(ok for ok, _ in errs):
+        raise AssertionError(f"{name} disagrees with its plain version at {shapes} "
+                             f"(max_abs_err {err:.3g})")
+    return err
+
+
+def launch_step(arch, kind, batch, length, kernel=None, plain=None):
+    """``build_step(cfg, shape, make_test_mesh(), device="cuda")`` for the
+    full-width ``arch`` at ``kind``, ``batch`` x ``length``.  The step's
+    first call (its peak memory beside the arguments alone) is held bit for
+    bit against the direct call (``make_train_step`` / ``Model.prefill`` /
+    ``Model.decode_step``) on the same arguments; the direct call's first
+    ``kernel`` call against the kernel's plain version on its own inputs
+    (``_kernel_vs_plain``); and, where ``plain`` gives the config's plain
+    backends, the step against the plain route on the same arguments:
+    logits within LOGIT_TOL, a train step's loss and grad norm within
+    TRAIN_LOSS0_TOL and TRAIN_GNORM0_TOL relative (its plain route with
+    remat "full", which changes no value, for room).  Then LAUNCH_REPS warm
+    calls are timed.  ``kernel`` ((op, launches a call)) is counted around
+    each step call.  Where the shape does not fit, the batch is cut, then
+    the length, by halves, and the cut logged.  A decode step's cache is
+    filled with seeded normal draws first (the step and the direct call
+    write the same slots with the same values before they read them); it
+    launches no kernel, so it has no plain route to hold."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.dryrun import arg_bytes_per_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import attention
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    cfg = get_config(arch)
+    asked = (batch, length)
+
+    def direct(c, args):
+        model = build_model(c)
+        if kind == "train":
+            return make_train_step(model, TrainConfig(opt=OptimizerConfig(name=c.optimizer)))(
+                *args)
+        if kind == "prefill":
+            return model.prefill(args[0], args[1], shape.seq_len)[0]
+        return model.decode_step(*args)
+
+    def counted(step, args):
+        if kernel:
+            kernel[0].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches.append(kernel[0].launches if kernel else 0)
+        return out, ms
+
+    while True:
+        shape = ShapeSpec(f"{kind}_card", length, batch, kind)
+        args = got = want = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        try:
+            step, args, in_sh = build_step(cfg, shape, make_test_mesh(), device="cuda",
+                                           seed=LAUNCH_SEED)
+            if kind == "decode":
+                gen = torch.Generator(device="cuda").manual_seed(LAUNCH_SEED)
+                for t in args[1].values():
+                    t.normal_(generator=gen)
+            arg_bytes = arg_bytes_per_device(args, in_sh)
+            torch.cuda.synchronize()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            launches = []
+            got, first_ms = counted(step, args)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            floor_ms, floor = step_floor(cfg, kind, batch, length, args, got)
+            seen = []
+            spy = (_first_call(attention, "flash_attention", seen) if kernel and
+                   kernel[0].__name__ == "flash_attention" else
+                   _first_call(ssd_ops, "_forward", seen) if kernel else contextlib.nullcontext())
+            with spy:
+                want = direct(cfg, args)
+            g, w = tree_leaves(got), tree_leaves(want)
+            same = len(g) == len(w) and all(
+                a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(g, w))
+            if kind == "decode":
+                same = same and got[1] is args[1]
+            if not same:
+                raise AssertionError(f"{arch} {kind}: build_step's step differs from the "
+                                     f"direct call")
+            want = g = w = None
+            check = {}
+            if kernel:
+                check["kernel_max_abs_err"] = _kernel_vs_plain(kernel[0].__name__, seen)
+            seen.clear()
+            if plain and kind == "train":
+                got = {k: float(v) for k, v in got[1].items()}
+                ref = direct(cfg.replace(remat="full", **plain), args)[1]
+                gaps = {k: abs(got[k] - float(ref[k])) / abs(float(ref[k]))
+                        for k in ("loss", "grad_norm")}
+                ref = None
+                check.update(plain_loss_rel_gap=gaps["loss"],
+                             plain_grad_norm_rel_gap=gaps["grad_norm"])
+                ok = gaps["loss"] <= TRAIN_LOSS0_TOL and gaps["grad_norm"] <= TRAIN_GNORM0_TOL
+                what = (f"loss {gaps['loss']:.3g} (tolerance {TRAIN_LOSS0_TOL}), grad norm "
+                        f"{gaps['grad_norm']:.3g} ({TRAIN_GNORM0_TOL}) relative")
+            elif plain:
+                ref = direct(cfg.replace(**plain), args)
+                err = _max_abs_diff(got, ref)
+                ref = None
+                check.update(plain_logit_max_abs_err=err)
+                ok, what = err <= LOGIT_TOL, f"logits {err:.3g} (tolerance {LOGIT_TOL}) absolute"
+            if plain:
+                log(f"    the step vs the plain route ({plain}) on the same arguments: {what}")
+                if not ok:
+                    raise AssertionError(f"{arch} {kind}: the step and the plain route differ: "
+                                         f"{what}")
+            got = None
+            times = [counted(step, args)[1] for _ in range(LAUNCH_REPS)]
+            break
+        except torch.cuda.OutOfMemoryError:
+            args = got = want = ref = None
+            if batch > 1:
+                batch //= 2
+            elif length > 1:
+                length //= 2
+            else:
+                raise
+            log(f"  {arch} {kind}: out of memory at {asked[0]} x {asked[1]}; cut to {batch} x "
+                f"{length}")
+    args = None
+    torch.cuda.empty_cache()
+    if kernel and launches != [kernel[1]] * (LAUNCH_REPS + 1):
+        raise AssertionError(f"{arch} {kind}: {kernel[0].__name__} launched {launches} times "
+                             f"a call, {kernel[1]} expected")
+    ms = float(np.median(times))
+    bound_ms, terms = step_roofline(cfg, shape)
+    row = dict(arch=arch, kind=kind, batch=batch, length=length, asked=list(asked),
+               cut=(batch, length) != asked, ms=ms, times_ms=times, first_call_ms=first_ms,
+               bitwise_equal=True, launches=sum(launches),
+               kernel=kernel[0].__name__ if kernel else None, plain_route=plain, **check,
+               peak_device_gb=peak_gb, allocated_before_gb=base_gb,
+               arg_bytes_gb=arg_bytes / 1e9, floor_ms=floor_ms,
+               measured_over_floor=ms / floor_ms, **floor, eager_roofline_ms=bound_ms,
+               measured_over_eager_roofline=ms / bound_ms, **terms)
+    log(f"  {arch} {kind} B {batch} x {length}: median {ms:.1f} ms of {LAUNCH_REPS} warm calls "
+        f"({[round(t, 1) for t in times]}; the first, compared call {first_ms:.1f}); floor "
+        f"{floor_ms:.2f} ms from the step's own work ({floor['floor_bound_by']}: "
+        f"{floor['floor_flops'] / 1e12:.2f} TFLOP, {floor['floor_bytes'] / 1e9:.2f} GB), "
+        f"measured / floor {row['measured_over_floor']:.2f}; over the port's own eager traffic "
+        f"{bound_ms:.2f} ms ({terms['bound_by']}: {terms['aten_flops'] / 1e12:.2f} TFLOP "
+        f"products at the f32 peak + {terms['kernel_flops'] / 1e12:.2f} TFLOP in the kernels "
+        f"at 3xTF32, {terms['bytes'] / 1e9:.1f} GB at the HBM rate), measured / that "
+        f"{row['measured_over_eager_roofline']:.2f}; == the direct call bit for bit; launches "
+        f"a call {launches}; peak {peak_gb:.2f} GB, arguments {arg_bytes / 1e9:.2f} GB (the "
+        f"specs' bytes on one card)")
+    return row
+
+
+def phase_launch(smi):
+    """Phase 22, the launch tooling: (a) the meta dry run of qwen3_0_6b's
+    four cells on both H100 meshes and its report table; (b)
+    ``build_step`` on the card for the full-width qwen3_0_6b at the
+    production lengths, the batch cut to one card (prefill 1 x 32,768,
+    decode 4 over a 32,768-token cache, train 1 x 4,096) and (c)
+    mamba2_780m's prefill at 1 x 32,768: each step equal to the direct
+    call bit for bit, its kernel's launches exact, the median ms beside
+    the meta counter's roofline at that shape; then the ``pulse_verify``
+    CLI against the golden files."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import dryrun, report
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun.json"
+        if dryrun.main(["--arch", LAUNCH_ARCH, "--out", str(out)]) != 0:
+            raise AssertionError("the meta dry run failed")
+        table = report.render(str(out))
+        dry = json.loads(out.read_text())
+    print(table, flush=True)
+    dry_s = time.perf_counter() - t0
+    log(f"  (a) meta dry run of {LAUNCH_ARCH}'s 4 cells on 32x8 and 2x32x8: {dry_s:.1f} s "
+        "(counts and datasheet peaks, not measurements)")
+
+    flash = (flash_ops.flash_attention, get_config(LAUNCH_ARCH).n_layers)
+    ssd = (ssd_ops.ssd_scan, get_config(LAUNCH_SSM_ARCH).n_layers)
+    attn_plain, ssm_plain = {"attn_backend": "chunked"}, {"ssm_backend": "chunked"}
+    steps = [launch_step(LAUNCH_ARCH, "prefill", 1, 32768, flash, attn_plain),
+             launch_step(LAUNCH_ARCH, "decode", 4, 32768),
+             launch_step(LAUNCH_ARCH, "train", 1, 4096, flash, attn_plain),
+             launch_step(LAUNCH_SSM_ARCH, "prefill", 1, 32768, ssd, ssm_plain)]
+
+    t1 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tools.pulse_verify", "--all", "--golden",
+         str(ROOT / "tests" / "golden" / "pulse_verify")],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, capture_output=True,
+        text=True, timeout=300, check=False)
+    log(cli.stdout.rstrip())
+    if cli.returncode != 0:
+        raise AssertionError(f"pulse_verify --all --golden exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    log(f"  pulse_verify --all --golden tests/golden/pulse_verify: exit 0 "
+        f"({time.perf_counter() - t1:.1f} s)")
+    return dict(
+        dry_run=dict(seconds=dry_s, cells={k: {f: v.get(f) for f in (
+            "compute_s", "memory_s", "collective_s", "dominant", "useful_ratio",
+            "bytes_per_device", "hlo_flops", "hlo_bytes")} for k, v in dry.items()
+            if "skipped" not in v}),
+        steps=steps, pulse_verify_rc=cli.returncode, device=smi,
+        flash_launches=sum(s["launches"] for s in steps if s["kernel"] == "flash_attention"),
+        ssd_launches=sum(s["launches"] for s in steps if s["kernel"] == "ssd_scan"))
+
+
 def phase_paged_decode(params):
     """Paged decode at full width on one prefill's K/V."""
     import numpy as np
@@ -5226,6 +5620,9 @@ def main(argv=None) -> int:
     train_mamba = phase(21, "training, mamba2_780m at full width", phase_train, "mamba2_780m",
                         [(ssd_ops.ssd_scan, get_config("mamba2_780m").n_layers)],
                         ("ssm_backend",))
+    torch.cuda.empty_cache()
+    launch_row = phase(22, "the launch tooling: meta dry run, build_step's steps on the card, "
+                           "pulse_verify", phase_launch, smi)
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -5277,19 +5674,26 @@ def main(argv=None) -> int:
     def bf16_err(cks):
         return max(c["max_abs_err"] for c in cks if c["dtype"] == "bfloat16")
 
+    def launch_errs(kernel):  # phase 22: each step's first call, on its own inputs
+        return [r["kernel_max_abs_err"] for r in launch_row["steps"] if r["kernel"] == kernel]
+
     flash_entry = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:26",
         launches=serve_row["flash_launches"] + hybrid_row["flash_launches"]
         + moe_row["flash_launches"] + vlm_row["flash_launches"]
-        + whisper_row["flash_launches"] + train_qwen["launches"]["flash_attention"],
+        + whisper_row["flash_launches"] + train_qwen["launches"]["flash_attention"]
+        + launch_row["flash_launches"],
         launches_note="one per layer of each prefill call of phase 6 (28 x 2), one per group "
                       "of phase 16's (13 x 2), one per layer of phase 17's (24 x 2) and of "
                       "phase 18's (24 x 2 served, 24 in the patch prefill), one per encoder "
                       "layer and two per decoder layer of phase 19's prefill call (32 + 64); "
                       "one per layer of each training step of phase 20's train.main (28 x 8; "
-                      "the backward recomputes the plain version and launches none)",
+                      "the backward recomputes the plain version and launches none); one per "
+                      "layer of each call of phase 22's build_step prefill and train steps "
+                      "(28 x 4 each: the compared call and three warm ones)",
         max_abs_err=max(f32_err(flash_checks, flash_row), *moe_row["flash_layer_max_abs_err"],
+                        *launch_errs("flash_attention"),
                         *(flash_row[k]["max_abs_err"] for k in (
                             "d112", "zamba", "granite", "whisper_enc", "whisper_cross",
                             "internvl"))),
@@ -5347,14 +5751,15 @@ def main(argv=None) -> int:
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:24",
         launches=ssm_row["ssd_launches"] + hybrid_row["ssd_launches"]
-        + train_mamba["launches"]["ssd_scan"],
+        + train_mamba["launches"]["ssd_scan"] + launch_row["ssd_launches"],
         launches_note="one call (three kernels) per layer of each prefill call of phase 9 "
                       "(48 x 2) and of phase 16 (81 x 2), and of each training step of phase "
                       "21's train.main (48 x 8; the backward recomputes the plain version and "
-                      "launches none)",
+                      "launches none), and of each call of phase 22's build_step prefill (48 x "
+                      "4: the compared call and three warm ones)",
         training_launches=train_mamba["launches"]["ssd_scan"],
         backward=dict(ssd_row["train_backward"], training_phase=21),
-        max_abs_err=f32_err(ssd_checks, ssd_row),
+        max_abs_err=max(f32_err(ssd_checks, ssd_row), *launch_errs("ssd_scan")),
         max_abs_err_bf16=bf16_err(ssd_checks), ms=ssd_row["ms"], plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"], library_ms=None,
         bound_ms_f32_fma=ssd_row["bound_ms_f32_fma"],
@@ -5367,7 +5772,8 @@ def main(argv=None) -> int:
         timed_on_zamba="B=4 L=512 H=112 dh=64 N=64 chunk=128 f32 (zamba2_7b's prefill), one "
                        "layer",
     )
-    summary = {"kernels": [entry, flash_entry, paged_entry, ssd_entry, commit_entry]}
+    summary = {"kernels": [entry, flash_entry, paged_entry, ssd_entry, commit_entry],
+               "launch_tooling": {k: launch_row[k] for k in ("steps", "pulse_verify_rc")}}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(
@@ -5377,8 +5783,8 @@ def main(argv=None) -> int:
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
             fault_tolerance=ft_row, hybrid_serve=hybrid_row, moe_serve=moe_row,
             vlm_serve=vlm_row, whisper_serve=whisper_row, train_qwen=train_qwen,
-            train_mamba=train_mamba,
-            **summary, phase_seconds=seconds,
+            train_mamba=train_mamba, **summary | {"launch_tooling": launch_row},
+            phase_seconds=seconds,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase "
         + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))

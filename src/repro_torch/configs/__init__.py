@@ -4,7 +4,9 @@
 Each ``<arch>.py`` exports ``CONFIG`` (the published dims) and
 ``reduced()`` (the same family at tiny dims, for CPU tests); ``get_config``
 maps ``--arch <id>`` to it.  ``ARCH_IDS`` holds the LM architectures, the
-JAX package's ten: the dense, vlm, ssm, hybrid, moe and encdec families.
+JAX package's ten in its order: the dense, vlm, ssm, hybrid, moe and encdec
+families.  The input shapes of the launch tooling's cells are defined here
+too (train_4k / prefill_32k / decode_32k / long_500k).
 """
 
 from __future__ import annotations
@@ -110,9 +112,38 @@ class ArchConfig:
         return self.n_layers * (attn + mlp) + 2 * self.vocab * D
 
 
-ARCH_IDS = ["qwen3_0_6b", "mamba2_780m", "zamba2_7b", "granite_moe_1b_a400m",
-            "kimi_k2_1t_a32b", "olmo_1b", "qwen1_5_4b", "qwen3_4b", "internvl2_2b",
-            "whisper_large_v3"]
+ARCH_IDS = ["internvl2_2b", "granite_moe_1b_a400m", "kimi_k2_1t_a32b", "whisper_large_v3",
+            "zamba2_7b", "qwen3_0_6b", "qwen1_5_4b", "qwen3_4b", "olmo_1b", "mamba2_780m"]
+
+
+# ---------------------------- input shapes ----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# cells skipped, with the reason
+SKIPPED_CELLS = {("whisper_large_v3", "long_500k"):
+                 "enc-dec decoder: 30s audio source; no meaningful 500k self-attn KV"}
+
+
+def all_cells(include_skipped: bool = False):
+    """Every (arch, shape) cell of the launch tooling, the skips left out
+    unless ``include_skipped``."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES
+            if include_skipped or (a, s) not in SKIPPED_CELLS]
 
 
 def _module(arch_id: str):

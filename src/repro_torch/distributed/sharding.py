@@ -1,17 +1,244 @@
-"""The versioned shard-of-slot owner function of an elastic arena.
+"""Logical sharding rules (param path -> spec), and the versioned
+shard-of-slot owner function of an elastic arena.
 
-An arena is range partitioned: shard ``s`` owns the global rows
-``[bounds[s], bounds[s + 1])``.  A live reshard (``arena.remap_shards``)
-installs new bounds; per-shard serving state minted under the old ones
-forwards to the new shards covering the same rows.  Pure index
-translation on the host: pointers are global, so no record is rewritten.
+The rules are the JAX package's Megatron TP + FSDP hybrid, written as data:
+  * ``model`` axis: TP for attention heads and the MLP hidden, EP for
+    experts, vocab-parallel for embed/unembed;
+  * ``data`` (+ ``pod``): FSDP shards the other matrix dimension, so every
+    large matrix is 2-D sharded; DP carries the batch;
+  * norm scales, biases and small vectors: replicated.
+A spec is a tuple with one entry per tensor dim: an axis name, a tuple of
+names, or None (the JAX ``PartitionSpec`` as data).  A mesh is anything
+with ``.axis_names`` and ``.shape`` (name -> size), as
+``launch.mesh.MeshSpec``.  The port's layer stacks are lists of per-layer
+dicts (``layers``, Whisper's ``enc``/``dec``): a per-layer leaf's spec is
+the reference's spec of the stacked leaf without its leading entry.  One
+process constrains nothing, so ``shard_hint`` returns its input; it
+resolves its axes as the reference does (``hint_axes``).
+
+The arena side: an arena is range partitioned, shard ``s`` owning the
+global rows ``[bounds[s], bounds[s + 1])``.  A live reshard
+(``arena.remap_shards``) installs new bounds; per-shard serving state
+minted under the old ones forwards to the new shards covering the same
+rows.  Pure index translation on the host: pointers are global, so no
+record is rewritten.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
+
+STACK_KEYS = ("layers", "enc", "dec")  # top-level keys of the per-layer lists
+
+
+def fsdp_axes(mesh):
+    """The data-parallel axes usable for FSDP sharding."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _axis_size(mesh, ax) -> int:
+    size = 1
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        size *= mesh.shape[a]
+    return size
+
+
+def hint_axes(shape, mesh, *axes):
+    """The spec ``shard_hint`` would constrain a tensor of ``shape`` to, or
+    None where the reference's hint is the identity (no mesh, or a rank
+    that is not ``len(axes)``).  ``"dp"`` resolves to the (pod, data) axes
+    present; an axis missing from the mesh or not dividing its dim is
+    dropped."""
+    if mesh is None or len(shape) != len(axes):
+        return None
+    resolved = []
+    for dim, ax in zip(shape, axes):
+        if ax == "dp":
+            ax = fsdp_axes(mesh) or None
+        if ax is None:
+            resolved.append(None)
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        if not all(a in mesh.axis_names for a in names):
+            resolved.append(None)
+            continue
+        size = _axis_size(mesh, ax)
+        resolved.append(_entry(ax) if (dim % size == 0 and dim >= size) else None)
+    return tuple(resolved)
+
+
+def shard_hint(x, mesh, *axes):
+    """The reference's ``with_sharding_constraint`` hint: ``x`` unchanged,
+    since one process has nothing to constrain.  The spec the reference
+    would ask for is ``hint_axes(x.shape, mesh, *axes)``."""
+    return x
+
+
+def param_rules(mesh):
+    fsdp = fsdp_axes(mesh)
+    fs = fsdp if fsdp else None
+    return [
+        # embeddings: vocab-parallel x fsdp
+        (r"embed$", ("model", fs)),
+        (r"unembed/w$", (fs, "model")),
+        (r"patch_proj/w$", (fs, "model")),
+        (r"frame_proj/w$", (fs, "model")),
+        # attention
+        (r"(attn|self_attn|cross_attn)/wq/w$", (fs, "model")),
+        (r"(attn|self_attn|cross_attn)/wk/w$", (fs, "model")),
+        (r"(attn|self_attn|cross_attn)/wv/w$", (fs, "model")),
+        (r"(attn|self_attn|cross_attn)/wo/w$", ("model", fs)),
+        (r"(attn|self_attn|cross_attn)/w[qkv]/b$", ("model",)),
+        (r"(attn|self_attn|cross_attn)/wo/b$", ()),
+        # dense mlp
+        (r"mlp/wi/w$", (fs, "model")),
+        (r"mlp/wg/w$", (fs, "model")),
+        (r"mlp/wo/w$", ("model", fs)),
+        (r"mlp/wi/b$", ("model",)),
+        (r"mlp/wo/b$", ()),
+        # moe: experts over model (EP), dims over fsdp
+        (r"moe/wi$", ("model", fs, None)),
+        (r"moe/wg$", ("model", fs, None)),
+        (r"moe/wo$", ("model", None, fs)),
+        (r"moe/router/w$", (fs, None)),
+        (r"moe/shared/wi/w$", (fs, "model")),
+        (r"moe/shared/wg/w$", (fs, "model")),
+        (r"moe/shared/wo/w$", ("model", fs)),
+        # ssm
+        (r"ssm/in_proj/w$", (fs, "model")),
+        (r"ssm/out_proj/w$", ("model", fs)),
+        (r"ssm/conv_w$", (None, "model")),
+        (r"ssm/conv_b$", ("model",)),
+        (r"ssm/(A_log|dt_bias|D_skip)$", ()),
+        (r"ssm/norm/scale$", ("model",)),
+        # everything else (norms, small vectors): replicated
+        (r".*", ()),
+    ]
+
+
+def spec_for(path_str: str, ndim: int, rules) -> tuple:
+    """The first matching rule's spec for a leaf of rank ``ndim``, padded
+    on the left with None (the stacked leading axes); a leaf of lower rank
+    than its rule replicates."""
+    for pat, spec in rules:
+        if re.search(pat, path_str):
+            pad = ndim - len(spec)
+            if pad < 0:
+                return ()
+            return (None,) * pad + tuple(spec)
+    return ()
+
+
+def _entry(ax):
+    """A spec entry as ``PartitionSpec`` keeps it: a tuple of one axis is
+    that axis."""
+    return ax[0] if isinstance(ax, tuple) and len(ax) == 1 else ax
+
+
+def valid_spec(spec, shape, mesh) -> tuple:
+    """``spec`` over ``shape``, one entry per dim: an axis (or axes) whose
+    size does not divide its dim, or exceeds it, is dropped."""
+    fixed = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if ax is None:
+            fixed.append(None)
+            continue
+        size = _axis_size(mesh, ax)
+        fixed.append(_entry(ax) if dim % size == 0 and dim >= size else None)
+    return tuple(fixed)
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and lists (a leaf is anything
+    else: a tensor, a spec tuple), the structure kept."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def in_layer_stack(path, tree) -> bool:
+    """Whether ``path`` lies in a per-layer list of ``tree``'s top level."""
+    return (len(path) >= 2 and path[0] in STACK_KEYS and isinstance(path[1], int)
+            and isinstance(tree.get(path[0]), list))
+
+
+def param_specs(params, mesh):
+    """The tree of specs of a param tree.  A per-layer leaf takes the spec
+    the reference gives the stacked leaf, ``(n_layers,) + shape``, without
+    its leading entry; its path is the reference's (the layer index left
+    out)."""
+    rules = param_rules(mesh)
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        stacked = in_layer_stack(path, params)
+        if stacked:
+            shape = (len(params[path[0]]),) + shape
+            path = path[:1] + path[2:]
+        spec = valid_spec(spec_for("/".join(str(k) for k in path), len(shape), rules),
+                          shape, mesh)
+        return spec[1:] if stacked else spec
+
+    return map_with_path(one, params)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, the JAX ``NamedSharding`` as data: what a tensor
+    would be split into, each device holding one shard."""
+
+    mesh: object
+    spec: tuple
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of one device's shard of a tensor of ``shape``."""
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(d if ax is None else d // _axis_size(self.mesh, ax)
+                     for d, ax in zip(shape, spec))
+
+
+def shardings(spec_tree, mesh):
+    """A tree of specs as a tree of ``NamedSharding`` on ``mesh``."""
+    return map_with_path(lambda _p, spec: NamedSharding(mesh, spec), spec_tree)
+
+
+def param_shardings(params, mesh):
+    return shardings(param_specs(params, mesh), mesh)
+
+
+def opt_state_specs(opt_state, param_spec_tree):
+    """Optimizer moments mirror their param's spec; scalars replicate.
+    AdamW ``{mu, nu, step}``; Adafactor ``{v, step}``, whose factored
+    statistics the reference replicates here (``launch.steps._opt_shardings``
+    gives them their params' axes)."""
+    out = {}
+    for k, v in opt_state.items():
+        if k == "step":
+            out[k] = ()
+        elif k in ("mu", "nu"):
+            out[k] = param_spec_tree
+        else:
+            out[k] = map_with_path(lambda _p, _leaf: (), v)
+    return out
+
+
+def batch_specs(batch, mesh):
+    """Batch dim over (pod, data); everything else replicated."""
+    dp = fsdp_axes(mesh)
+    dp = dp if dp else None
+    return map_with_path(
+        lambda _p, leaf: () if leaf.dim() == 0 else (_entry(dp),) + (None,) * (leaf.dim() - 1),
+        batch)
+
+
+# ---------------------------------------------------------------------------
+# Versioned shard-of-slot owner function (elastic arenas)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,9 @@
 """flash_attention: the CUDA kernel for CUDA tensors, the plain version
 (``ref.mha_reference``) for CPU tensors; never one in place of the other.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches.  Meta tensors (the
+launch tooling's dry run) take a third route: an output of the right shape,
+the function's own work (``work.flash_work``, the causal pairs only)
+reported to the active counters, and nothing computed.
 
 Where an input requires grad, the call goes through ``FlashAttention``, a
 ``torch.autograd.Function``: its forward is the same kernel (or plain
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention.ref import mha_reference
 
@@ -23,7 +27,16 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _meta(q, k, v, causal):
+    B, H, Lq, D = q.shape
+    work.report("flash_attention", *work.flash_work(B, H, k.shape[1], Lq, k.shape[2], D, causal,
+                                                    q.element_size()))
+    return torch.empty_like(q)
+
+
 def _forward(q, k, v, causal):
+    if q.is_meta:
+        return _meta(q, k, v, causal)
     if not _on_cuda(q):
         return mha_reference(q, k, v, causal=causal)
     out = _kernel.launch(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)

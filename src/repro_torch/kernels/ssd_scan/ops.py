@@ -2,7 +2,9 @@
 (``ref.ssd_chunked_batched``) for CPU tensors; never one in place of the
 other.  ``ssd_scan.launches`` counts the calls that launched the kernels
 (each call launches the three CUDA kernels of one scan: one per layer on the
-prefill path).
+prefill path).  Meta tensors (the launch tooling's dry run) take a third
+route: outputs of the right shapes, the function's own work
+(``work.ssd_work``) reported to the active counters, nothing computed.
 
 Where an input requires grad, the call goes through ``SSDScan``, a
 ``torch.autograd.Function``: its forward is the same kernel (or plain
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.ssd_scan import kernel as _kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched
 
@@ -30,7 +33,16 @@ def _plain(x, dt, A, B, C, chunk):
     return y.to(x.dtype), S
 
 
+def _meta(x, B, chunk):
+    Bt, L, H, dh = x.shape
+    N = B.shape[-1]
+    work.report("ssd_scan", *work.ssd_work(Bt, L, H, dh, N, chunk, x.element_size()))
+    return torch.empty_like(x), x.new_empty((Bt, H, N, dh), dtype=torch.float32)
+
+
 def _forward(x, dt, A, B, C, chunk):
+    if x.is_meta:
+        return _meta(x, B, chunk)
     if not _on_cuda(x):
         return _plain(x, dt, A, B, C, chunk)
     out = _kernel.launch(x, dt, A, B, C, chunk=chunk)

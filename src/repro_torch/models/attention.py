@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import apply_rope, dense_apply, dense_init, rmsnorm_apply
 from repro_torch.models.common import rmsnorm_init
@@ -22,17 +23,18 @@ NEG_INF = -1e30
 BACKENDS = ("kernel", "chunked")
 
 
-def attention_init(gen, cfg):
+def attention_init(gen, cfg, device=None):
     D, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    device, dt, bias = device or gen.device, cfg.param_dtype, cfg.qkv_bias
     p = {
-        "wq": dense_init(gen, D, H * hd, cfg.param_dtype, bias=cfg.qkv_bias),
-        "wk": dense_init(gen, D, Hk * hd, cfg.param_dtype, bias=cfg.qkv_bias),
-        "wv": dense_init(gen, D, Hk * hd, cfg.param_dtype, bias=cfg.qkv_bias),
-        "wo": dense_init(gen, H * hd, D, cfg.param_dtype),
+        "wq": dense_init(gen, D, H * hd, dt, bias=bias, device=device),
+        "wk": dense_init(gen, D, Hk * hd, dt, bias=bias, device=device),
+        "wv": dense_init(gen, D, Hk * hd, dt, bias=bias, device=device),
+        "wo": dense_init(gen, H * hd, D, dt, device=device),
     }
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_init(hd, cfg.param_dtype, gen.device)
-        p["k_norm"] = rmsnorm_init(hd, cfg.param_dtype, gen.device)
+        p["q_norm"] = rmsnorm_init(hd, dt, device)
+        p["k_norm"] = rmsnorm_init(hd, dt, device)
     return p
 
 
@@ -96,15 +98,15 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024, q_offset: int
     return out.to(q.dtype)
 
 
-def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=None):
+def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=None, mesh=None):
     """Prefill attention -> (out (B, L, D), (k, v) each (B, Lk, Hk, hd)).
 
     ``kv_x`` (B, Lk, D) switches to cross-attention: K/V are projected from
     it, at positions [0, Lk).  The kernel route takes any lengths (the
     CUDA kernel's own tiling), as the JAX package's default ``"xla"`` route
     does; its ``"pallas"`` route raises where 128 does not divide them.
-    Sharding hints (the JAX package's ``shard_hint``) are nothing on one
-    device; the sharding port comes with ROADMAP queue 1, item 12.
+    ``mesh`` takes the reference's sharding hints (``shard_hint``: the
+    identity in one process).
     """
     B, L, _ = x.shape
     if positions is None:
@@ -114,6 +116,18 @@ def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=N
     kv_pos = positions if kv_x is None else torch.arange(
         src.shape[1], device=x.device).expand(B, src.shape[1])
     k, v = _project_kv(p, cfg, src, kv_pos, rope=rope)
+    # heads on the TP axis and the batch on DP through the quadratic part;
+    # where the heads do not divide over TP (Whisper's 20 over 16), the
+    # query rows instead, K/V replicated
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    if cfg.n_heads % max(tp, 1) == 0:
+        q = shard_hint(q, mesh, "dp", None, "model", None)
+        k = shard_hint(k, mesh, "dp", None, "model", None)
+        v = shard_hint(v, mesh, "dp", None, "model", None)
+    else:
+        q = shard_hint(q, mesh, "dp", "model", None, None)
+        k = shard_hint(k, mesh, "dp", None, None, None)
+        v = shard_hint(v, mesh, "dp", None, None, None)
     if cfg.attn_backend == "kernel":
         o = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,

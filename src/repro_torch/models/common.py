@@ -8,29 +8,36 @@ Conventions, as in the JAX package:
   * compute happens in ``cfg.compute_dtype``, master params in
     ``cfg.param_dtype``; norms, softmax and rope always in f32.
   * init draws from an explicit ``torch.Generator`` and places every tensor
-    on that generator's device.
+    on ``device``, by default that generator's.  ``device="meta"`` with a
+    CPU generator gives a state of shapes and dtypes only (the launch
+    tooling's abstract state); the draws on the CPU and on a card do not
+    change.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import shard_hint
 
-def uniform_scale_init(gen: torch.Generator, shape, scale, dtype):
+
+def uniform_scale_init(gen: torch.Generator, shape, scale, dtype, device=None):
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale / (fan_in ** 0.5)
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    x = torch.randn(shape, generator=gen, device=device or gen.device, dtype=torch.float32)
     return (x * std).to(dtype)
 
 
-def dense_init(gen, in_dim, out_dim, dtype, *, bias=False, scale=1.0):
-    p = {"w": uniform_scale_init(gen, (in_dim, out_dim), scale, dtype)}
+def dense_init(gen, in_dim, out_dim, dtype, *, bias=False, scale=1.0, device=None):
+    device = device or gen.device
+    p = {"w": uniform_scale_init(gen, (in_dim, out_dim), scale, dtype, device)}
     if bias:
-        p["b"] = torch.zeros((out_dim,), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((out_dim,), dtype=dtype, device=device)
     return p
 
 
@@ -90,19 +97,19 @@ def sinusoidal_positions(length: int, dim: int, device=None):
     """(length, dim) f32: sin on the even columns, cos on the odd ones
     (interleaved, as the JAX package's), the frequencies computed in f32."""
     pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
-    step = torch.tensor(-math.log(10000.0), dtype=torch.float32) / dim
-    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device) * step.item())
+    step = float(np.float32(-math.log(10000.0)) / np.float32(dim))  # in f32, on the host
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device) * step)
     pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
 
 
-def swiglu_init(gen, d_model, d_ff, dtype):
+def swiglu_init(gen, d_model, d_ff, dtype, device=None):
     return {
-        "wi": dense_init(gen, d_model, d_ff, dtype),
-        "wg": dense_init(gen, d_model, d_ff, dtype),
-        "wo": dense_init(gen, d_ff, d_model, dtype),
+        "wi": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "wg": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "wo": dense_init(gen, d_ff, d_model, dtype, device=device),
     }
 
 
@@ -111,10 +118,10 @@ def swiglu_apply(p, x, compute_dtype):
     return dense_apply(p["wo"], h, compute_dtype)
 
 
-def gelu_mlp_init(gen, d_model, d_ff, dtype):
+def gelu_mlp_init(gen, d_model, d_ff, dtype, device=None):
     return {
-        "wi": dense_init(gen, d_model, d_ff, dtype, bias=True),
-        "wo": dense_init(gen, d_ff, d_model, dtype, bias=True),
+        "wi": dense_init(gen, d_model, d_ff, dtype, bias=True, device=device),
+        "wo": dense_init(gen, d_ff, d_model, dtype, bias=True, device=device),
     }
 
 
@@ -144,20 +151,21 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0, mask=None):
     return nll.mean()
 
 
-def _xent_chunk(hq, w, lq, mq, z_loss):
-    logits = (hq.to(w.dtype) @ w).float()  # (B, chunk, V)
+def _xent_chunk(hq, w, lq, mq, z_loss, mesh):
+    logits = shard_hint((hq.to(w.dtype) @ w).float(), mesh, "dp", None, "model")  # (B, chunk, V)
     return (_nll(logits, lq, z_loss) * mq).sum()
 
 
 def chunked_softmax_xent(h, unembed_w, labels, *, chunk: int = 512, z_loss: float = 0.0,
-                         mask=None):
+                         mask=None, mesh=None):
     """Fused unembed projection + cross entropy, chunked over the sequence.
 
     Never holds the whole (B, L, V) logits: each chunk computes its (B,
     chunk, V) logits, reduces them to per-token nll, and is recomputed in
     the backward (``checkpoint``, as the JAX package's ``jax.checkpoint`` on
     the chunk body), so one chunk's logits and their gradient are live at a
-    time.  A length ``chunk`` does not divide is padded, the mask with it
+    time.  The chunk draws no random numbers, so no RNG state is kept for
+    the recompute.  A length ``chunk`` does not divide is padded, the mask with it
     (padding masked out).  Returns the masked mean nll.
     """
     B, L, _ = h.shape
@@ -173,6 +181,7 @@ def chunked_softmax_xent(h, unembed_w, labels, *, chunk: int = 512, z_loss: floa
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, h.shape[1], chunk):
         hq, lq, mq = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
-        tot = tot + checkpoint(_xent_chunk, hq, unembed_w, lq, mq, z_loss, use_reentrant=False)
+        tot = tot + checkpoint(_xent_chunk, hq, unembed_w, lq, mq, z_loss, mesh,
+                               use_reentrant=False, preserve_rng_state=False)
         cnt = cnt + mq.sum()
     return tot / cnt.clamp_min(1.0)

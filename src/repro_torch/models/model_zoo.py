@@ -3,7 +3,7 @@
 params and training state across, ``state_to_numpy`` back.
 
 One interface, as in the JAX package:
-  init(gen)                               -> params (on gen's device)
+  init(gen, device=None)                  -> params (on device, by default gen's)
   loss(params, batch)                     -> scalar (the train objective)
   prefill(params, batch, max_len)         -> (logits, cache)
   decode_step(params, cache, tokens, pos) -> (logits, cache)
@@ -31,16 +31,17 @@ class Model:
     cache_init: Callable
 
 
-def build_model(cfg) -> Model:
+def build_model(cfg, mesh=None) -> Model:
     """The encdec family's prefill reads ``batch["frames"]``; a vlm's takes
-    ``batch.get("patches")``."""
+    ``batch.get("patches")``.  ``mesh`` goes to the model code's sharding
+    hints, as in the JAX package."""
     if cfg.family == "encdec":
         return Model(
             cfg=cfg,
-            init=lambda gen: whisper.whisper_init(gen, cfg),
-            loss=lambda p, batch: whisper.whisper_loss(p, cfg, batch),
+            init=lambda gen, device=None: whisper.whisper_init(gen, cfg, device),
+            loss=lambda p, batch: whisper.whisper_loss(p, cfg, batch, mesh=mesh),
             prefill=lambda p, batch, max_len: whisper.whisper_prefill(
-                p, cfg, batch["tokens"], batch["frames"], max_len),
+                p, cfg, batch["tokens"], batch["frames"], max_len, mesh=mesh),
             decode_step=lambda p, cache, tokens, pos: whisper.whisper_decode_step(
                 p, cfg, cache, tokens, pos),
             cache_init=lambda batch, max_len, device="cuda": whisper.whisper_cache_init(
@@ -49,12 +50,12 @@ def build_model(cfg) -> Model:
     transformer.require_decoder(cfg)
     return Model(
         cfg=cfg,
-        init=lambda gen: transformer.lm_init(gen, cfg),
-        loss=lambda p, batch: transformer.lm_loss(p, cfg, batch),
+        init=lambda gen, device=None: transformer.lm_init(gen, cfg, device),
+        loss=lambda p, batch: transformer.lm_loss(p, cfg, batch, mesh=mesh),
         prefill=lambda p, batch, max_len: transformer.prefill(
-            p, cfg, batch["tokens"], max_len, patches=batch.get("patches")),
+            p, cfg, batch["tokens"], max_len, patches=batch.get("patches"), mesh=mesh),
         decode_step=lambda p, cache, tokens, pos: transformer.decode_step(
-            p, cfg, cache, tokens, pos),
+            p, cfg, cache, tokens, pos, mesh=mesh),
         cache_init=lambda batch, max_len, device="cuda": transformer.decode_cache_init(
             cfg, batch, max_len, device=device),
     )
@@ -135,27 +136,39 @@ def state_to_numpy(cfg, state):
     """``state_from_numpy``'s inverse: the JAX package's layout, each layer
     stack restacked on a leading axis, numpy arrays (bf16 leaves as f32,
     exactly: numpy has no bfloat16)."""
-    stacks = layer_stacks(cfg)
 
     def host(t):
         t = t.detach()
         return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
+    return jax_layout(cfg, state, host, np.stack)
+
+
+def jax_layout(cfg, tree, leaf, stack):
+    """``tree`` (the port's layout) in the JAX package's: each leaf mapped
+    by ``leaf``, each layer stack's per-layer leaves joined by ``stack``
+    (a list of mapped leaves -> one).  ``shapes_to_jax`` reads shapes only,
+    so a meta state maps too."""
+    stacks = layer_stacks(cfg)
+
     def conv(node):
         if isinstance(node, dict):
-            out = {}
-            for k, v in node.items():
-                if k in stacks and isinstance(v, list):
-                    out[k] = _restack([conv(x) for x in v])
-                else:
-                    out[k] = conv(v)
-            return out
-        return host(node)
+            return {k: _restack([conv(x) for x in v], stack)
+                    if k in stacks and isinstance(v, list) else conv(v)
+                    for k, v in node.items()}
+        return leaf(node)
 
-    return conv(state)
+    return conv(tree)
 
 
-def _restack(layers):
+def shapes_to_jax(cfg, tree):
+    """The JAX package's layout of ``tree``'s shapes: ``(n_layers,) +
+    shape`` for a layer stack's leaves."""
+    return jax_layout(cfg, tree, lambda t: tuple(t.shape),
+                      lambda shapes: (len(shapes),) + shapes[0])
+
+
+def _restack(layers, stack):
     if isinstance(layers[0], dict):
-        return {k: _restack([lp[k] for lp in layers]) for k in layers[0]}
-    return np.stack(layers)
+        return {k: _restack([lp[k] for lp in layers], stack) for k in layers[0]}
+    return stack(layers)

@@ -28,24 +28,26 @@ import torch.nn.functional as F
 from repro_torch.models.common import dense_apply, dense_init, swiglu_apply, swiglu_init
 
 
-def moe_init(gen: torch.Generator, cfg):
-    """Random params from ``gen``, on ``gen``'s device: the router (D, E),
-    the experts' ``wi``/``wg`` (E, D, F) and ``wo`` (E, F, D) at std
-    1/sqrt(fan-in), and the shared expert when ``cfg.n_shared_experts``."""
+def moe_init(gen: torch.Generator, cfg, device=None):
+    """Random params from ``gen``, on ``device`` (by default ``gen``'s):
+    the router (D, E), the experts' ``wi``/``wg`` (E, D, F) and ``wo`` (E,
+    F, D) at std 1/sqrt(fan-in), and the shared expert when
+    ``cfg.n_shared_experts``."""
     D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    device = device or gen.device
 
     def ew(a, b):
-        w = torch.randn((E, a, b), generator=gen, device=gen.device) / math.sqrt(a)
+        w = torch.randn((E, a, b), generator=gen, device=device) / math.sqrt(a)
         return w.to(cfg.param_dtype)
 
     p = {
-        "router": dense_init(gen, D, E, cfg.param_dtype),
+        "router": dense_init(gen, D, E, cfg.param_dtype, device=device),
         "wi": ew(D, Fd),
         "wg": ew(D, Fd),
         "wo": ew(Fd, D),
     }
     if cfg.n_shared_experts:
-        p["shared"] = swiglu_init(gen, D, Fd * cfg.n_shared_experts, cfg.param_dtype)
+        p["shared"] = swiglu_init(gen, D, Fd * cfg.n_shared_experts, cfg.param_dtype, device)
     return p
 
 

@@ -33,17 +33,17 @@ def ssm_dims(cfg):
     return d_inner, n_heads
 
 
-def ssm_init(gen: torch.Generator, cfg):
-    """Random params from ``gen``, on ``gen``'s device."""
+def ssm_init(gen: torch.Generator, cfg, device=None):
+    """Random params from ``gen``, on ``device`` (by default ``gen``'s)."""
     D, N = cfg.d_model, cfg.ssm_state
     d_inner, H = ssm_dims(cfg)
     conv_dim = d_inner + 2 * N  # x, B, C all pass the conv
-    dev, dt = gen.device, cfg.param_dtype
+    dev, dt = device or gen.device, cfg.param_dtype
 
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
-    in_proj = dense_init(gen, D, 2 * d_inner + 2 * N + H, dt)  # emits [z, x, B, C, dt]
+    in_proj = dense_init(gen, D, 2 * d_inner + 2 * N + H, dt, device=dev)  # [z, x, B, C, dt]
     conv_w = (torch.randn((CONV_K, conv_dim), generator=gen, device=dev) * 0.1).to(dt)
     A_log = torch.log(uniform((H,), 1.0, 16.0))
     # dt bias: the log of a uniform draw in [1e-3, 1e-1], as the JAX package
@@ -57,7 +57,7 @@ def ssm_init(gen: torch.Generator, cfg):
         "dt_bias": dt_bias,
         "D_skip": torch.ones((H,), dtype=dt, device=dev),
         "norm": rmsnorm_init(d_inner, dt, dev),
-        "out_proj": dense_init(gen, d_inner, D, dt),
+        "out_proj": dense_init(gen, d_inner, D, dt, device=dev),
     }
 
 

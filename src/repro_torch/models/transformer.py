@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models import attention, moe, ssm
 from repro_torch.models.common import (
     chunked_softmax_xent,
@@ -63,51 +64,54 @@ def _shared_after(cfg, i: int):
     return (i + 1) // cfg.hybrid_attn_every - 1
 
 
-def _attn_block_init(gen, cfg, *, parametric=True, is_moe=False):
-    D, dev = cfg.d_model, gen.device
+def _attn_block_init(gen, cfg, dev, *, parametric=True, is_moe=False):
+    D = cfg.d_model
     p = {
         "attn_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
-        "attn": attention.attention_init(gen, cfg),
+        "attn": attention.attention_init(gen, cfg, dev),
         "mlp_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
     }
     if is_moe:
-        p["moe"] = moe.moe_init(gen, cfg)
+        p["moe"] = moe.moe_init(gen, cfg, dev)
     else:
-        p["mlp"] = swiglu_init(gen, D, cfg.d_ff, cfg.param_dtype)
+        p["mlp"] = swiglu_init(gen, D, cfg.d_ff, cfg.param_dtype, dev)
     return p
 
 
-def lm_init(gen: torch.Generator, cfg):
-    """Random params from ``gen``, on ``gen``'s device."""
+def lm_init(gen: torch.Generator, cfg, device=None):
+    """Random params from ``gen``, on ``device`` (by default ``gen``'s)."""
     require_decoder(cfg)
-    D, V, dev = cfg.d_model, cfg.vocab, gen.device
+    D, V, dev = cfg.d_model, cfg.vocab, device or gen.device
     parametric = not cfg.nonparametric_norm
     p = {
-        "embed": uniform_scale_init(gen, (V, D), 1.0, cfg.param_dtype),
+        "embed": uniform_scale_init(gen, (V, D), 1.0, cfg.param_dtype, dev),
         "final_norm": rmsnorm_init(D, cfg.param_dtype, dev, parametric=parametric),
-        "unembed": dense_init(gen, D, V, cfg.param_dtype),
+        "unembed": dense_init(gen, D, V, cfg.param_dtype, device=dev),
     }
     if cfg.family in ("ssm", "hybrid"):
         p["layers"] = [
-            {"norm": rmsnorm_init(D, cfg.param_dtype, dev), "ssm": ssm.ssm_init(gen, cfg)}
+            {"norm": rmsnorm_init(D, cfg.param_dtype, dev), "ssm": ssm.ssm_init(gen, cfg, dev)}
             for _ in range(cfg.n_layers)
         ]
         if cfg.family == "hybrid":  # unstacked: one block, shared by every group
-            p["shared_attn"] = _attn_block_init(gen, cfg)
+            p["shared_attn"] = _attn_block_init(gen, cfg, dev)
         return p
-    p["layers"] = [_attn_block_init(gen, cfg, parametric=parametric, is_moe=cfg.family == "moe")
+    p["layers"] = [_attn_block_init(gen, cfg, dev, parametric=parametric,
+                                    is_moe=cfg.family == "moe")
                    for _ in range(cfg.n_layers)]
     if cfg.family == "vlm":  # the stub frontend's adapter: patch embeddings -> d_model
-        p["patch_proj"] = dense_init(gen, D, D, cfg.param_dtype)
+        p["patch_proj"] = dense_init(gen, D, D, cfg.param_dtype, device=dev)
     return p
 
 
-def _dense_block(lp, cfg, x, positions):
+def _dense_block(lp, cfg, x, positions, mesh=None):
     """Attention then the MLP (MoE where ``lp`` has one), each pre-norm with a
     residual; also the hybrid's shared block (the JAX package's
     ``_shared_attn_block``) on ``params["shared_attn"]``."""
+    x = shard_hint(x, mesh, "dp", None, None)
     h = rmsnorm_apply(lp["attn_norm"], x)
-    a, kv = attention.attention_apply(lp["attn"], cfg, h, positions=positions, causal=True)
+    a, kv = attention.attention_apply(lp["attn"], cfg, h, positions=positions, causal=True,
+                                      mesh=mesh)
     x = x + a
     return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x)), kv
 
@@ -118,7 +122,8 @@ def _mlp(lp, cfg, h):
     return swiglu_apply(lp["mlp"], h, cfg.compute_dtype)
 
 
-def _ssm_block(lp, cfg, x):
+def _ssm_block(lp, cfg, x, mesh=None):
+    x = shard_hint(x, mesh, "dp", None, None)
     h = rmsnorm_apply(lp["norm"], x)
     out, st = ssm.ssm_apply(lp["ssm"], cfg, h, return_state=True)
     return x + out, st
@@ -143,16 +148,17 @@ def _remat(f, policy: str):
     """``f`` with ``policy``'s rematerialisation where autograd records:
     "none" keeps every activation, "full" keeps only ``f``'s inputs and
     recomputes the rest in the backward, "dots" keeps the unbatched
-    products' outputs as well."""
+    products' outputs as well.  No block draws random numbers, so no RNG
+    state is kept for the recompute."""
     if policy not in REMAT:
         raise ValueError(f"unknown remat {policy!r}; known: {REMAT}")
     if policy == "none" or not torch.is_grad_enabled():
         return f
     kw = {"context_fn": _DOTS_CONTEXT} if policy == "dots" else {}
-    return functools.partial(checkpoint, f, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, f, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
-def backbone_apply(params, cfg, x, *, positions=None, collect=False):
+def backbone_apply(params, cfg, x, *, positions=None, collect=False, mesh=None):
     """Layer stack on embeddings x (B, T, D) -> (h, cache parts | None).
 
     ``collect=True`` also returns the cache ingredients prefill needs, stacked
@@ -168,14 +174,14 @@ def backbone_apply(params, cfg, x, *, positions=None, collect=False):
     ssm_block, dense_block = _remat(_ssm_block, cfg.remat), _remat(_dense_block, cfg.remat)
     for i, lp in enumerate(params["layers"]):
         if cfg.family in ("ssm", "hybrid"):
-            x, st = ssm_block(lp, cfg, x)
+            x, st = ssm_block(lp, cfg, x, mesh)
             if collect:
                 states.append(st)
             if _shared_after(cfg, i) is None:
                 continue
-            x, (k, v) = _dense_block(params["shared_attn"], cfg, x, positions)
+            x, (k, v) = _dense_block(params["shared_attn"], cfg, x, positions, mesh)
         else:
-            x, (k, v) = dense_block(lp, cfg, x, positions)
+            x, (k, v) = dense_block(lp, cfg, x, positions, mesh)
         if collect:
             ks.append(k)
             vs.append(v)
@@ -195,7 +201,7 @@ def lm_logits(params, cfg, h):
     return dense_apply(params["unembed"], h, cfg.compute_dtype)
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, *, mesh=None):
     """batch: {tokens (B, L), labels (B, L), [mask (B, L)], [patches (B, P,
     D): a vlm's patch embeddings, projected and put in front of the
     tokens]} -> the mean next-token nll (z-loss 1e-4) over the tokens' rows,
@@ -207,9 +213,11 @@ def lm_loss(params, cfg, batch):
                          cfg.compute_dtype)
         x = torch.cat([pe, x], dim=1)
         n_prefix = pe.shape[1]
-    h, _ = backbone_apply(params, cfg, x)
+    x = shard_hint(x, mesh, "dp", None, None)
+    h, _ = backbone_apply(params, cfg, x, mesh=mesh)
     return chunked_softmax_xent(h[:, n_prefix:], params["unembed"]["w"], batch["labels"],
-                                chunk=cfg.ce_chunk, z_loss=1e-4, mask=batch.get("mask"))
+                                chunk=cfg.ce_chunk, z_loss=1e-4, mask=batch.get("mask"),
+                                mesh=mesh)
 
 
 def decode_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
@@ -237,7 +245,7 @@ def _dense_decode(lp, cfg, x, cache_k, cache_v, pos):
     return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x))
 
 
-def decode_step(params, cfg, cache, tokens, pos):
+def decode_step(params, cfg, cache, tokens, pos, *, mesh=None):
     """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache).
 
     The new token's K/V (dense, vlm, moe, hybrid) and the new recurrent state
@@ -245,7 +253,7 @@ def decode_step(params, cfg, cache, tokens, pos):
     is the one passed in.  The hybrid runs each group's mamba layers, then
     the shared block on that group's K/V, then the tail."""
     require_decoder(cfg)
-    x = embed_tokens(params, cfg, tokens[:, None])  # (B, 1, D)
+    x = shard_hint(embed_tokens(params, cfg, tokens[:, None]), mesh, "dp", None, None)
     for i, lp in enumerate(params["layers"]):
         if cfg.family in ("ssm", "hybrid"):
             hn = rmsnorm_apply(lp["norm"], x)
@@ -264,7 +272,7 @@ def decode_step(params, cfg, cache, tokens, pos):
     return lm_logits(params, cfg, h)[:, 0], cache
 
 
-def prefill(params, cfg, tokens, max_len: int, *, patches=None):
+def prefill(params, cfg, tokens, max_len: int, *, patches=None, mesh=None):
     """Full-sequence prefill: tokens (B, L) -> (logits (B, T, V), cache):
     the sequence's K/V at positions [0, T) and zeros up to max(max_len, T)
     (dense, vlm, moe, hybrid), and the recurrent state after it (ssm,
@@ -277,7 +285,7 @@ def prefill(params, cfg, tokens, max_len: int, *, patches=None):
         x = torch.cat([pe, x], dim=1)
     T = x.shape[1]
     positions = torch.arange(T, device=x.device).expand(B, T)
-    h, aux = backbone_apply(params, cfg, x, positions=positions, collect=True)
+    h, aux = backbone_apply(params, cfg, x, positions=positions, collect=True, mesh=mesh)
     logits = lm_logits(params, cfg, h)
     if cfg.family == "ssm":
         return logits, aux

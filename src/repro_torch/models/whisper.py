@@ -35,27 +35,27 @@ from repro_torch.models.common import (
 )
 
 
-def whisper_init(gen: torch.Generator, cfg):
-    """Random params from ``gen``, on ``gen``'s device."""
-    D, V, dt, dev = cfg.d_model, cfg.vocab, cfg.param_dtype, gen.device
+def whisper_init(gen: torch.Generator, cfg, device=None):
+    """Random params from ``gen``, on ``device`` (by default ``gen``'s)."""
+    D, V, dt, dev = cfg.d_model, cfg.vocab, cfg.param_dtype, device or gen.device
 
     def enc_layer():
         return {"attn_norm": layernorm_init(D, dt, dev),
-                "attn": attention.attention_init(gen, cfg),
+                "attn": attention.attention_init(gen, cfg, dev),
                 "mlp_norm": layernorm_init(D, dt, dev),
-                "mlp": gelu_mlp_init(gen, D, cfg.d_ff, dt)}
+                "mlp": gelu_mlp_init(gen, D, cfg.d_ff, dt, dev)}
 
     def dec_layer():
         return {"self_norm": layernorm_init(D, dt, dev),
-                "self_attn": attention.attention_init(gen, cfg),
+                "self_attn": attention.attention_init(gen, cfg, dev),
                 "cross_norm": layernorm_init(D, dt, dev),
-                "cross_attn": attention.attention_init(gen, cfg),
+                "cross_attn": attention.attention_init(gen, cfg, dev),
                 "mlp_norm": layernorm_init(D, dt, dev),
-                "mlp": gelu_mlp_init(gen, D, cfg.d_ff, dt)}
+                "mlp": gelu_mlp_init(gen, D, cfg.d_ff, dt, dev)}
 
     return {
-        "frame_proj": dense_init(gen, D, D, dt, bias=True),
-        "embed": uniform_scale_init(gen, (V, D), 1.0, dt),
+        "frame_proj": dense_init(gen, D, D, dt, bias=True, device=dev),
+        "embed": uniform_scale_init(gen, (V, D), 1.0, dt, dev),
         "enc": [enc_layer() for _ in range(cfg.n_enc_layers)],
         "enc_norm": layernorm_init(D, dt, dev),
         "dec": [dec_layer() for _ in range(cfg.n_dec_layers)],
@@ -68,20 +68,20 @@ def _with_positions(cfg, x):
     return x + sinusoidal_positions(T, D, x.device)[None].to(cfg.compute_dtype)
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, *, mesh=None):
     """frames (B, T, D), precomputed (the stub frontend) -> the encoder's
     states (B, T, D)."""
     cdt = cfg.compute_dtype
     x = _with_positions(cfg, dense_apply(params["frame_proj"], frames.to(cdt), cdt))
     for lp in params["enc"]:
         a, _ = attention.attention_apply(lp["attn"], cfg, layernorm_apply(lp["attn_norm"], x),
-                                         causal=False, rope=False)
+                                         causal=False, rope=False, mesh=mesh)
         x = x + a
         x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["mlp_norm"], x), cdt)
     return layernorm_apply(params["enc_norm"], x)
 
 
-def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False):
+def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False, mesh=None):
     """The teacher-forced decoder over tokens (B, L) -> (h (B, L, D), aux):
     with ``collect_kv``, aux is ((k, v), (xk, xv)), the self-attention's
     K/V (Ld, B, L, Hk, hd) and the cross-attention's (Ld, B, T, Hk, hd);
@@ -91,11 +91,12 @@ def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False):
     kv = ([], [], [], [])
     for lp in params["dec"]:
         a, (k, v) = attention.attention_apply(
-            lp["self_attn"], cfg, layernorm_apply(lp["self_norm"], x), causal=True, rope=False)
+            lp["self_attn"], cfg, layernorm_apply(lp["self_norm"], x), causal=True, rope=False,
+            mesh=mesh)
         x = x + a
         a, (xk, xv) = attention.attention_apply(
             lp["cross_attn"], cfg, layernorm_apply(lp["cross_norm"], x), kv_x=enc_out,
-            causal=False, rope=False)
+            causal=False, rope=False, mesh=mesh)
         x = x + a
         x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["mlp_norm"], x), cdt)
         if collect_kv:
@@ -108,13 +109,13 @@ def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False):
     return h, ((k, v), (xk, xv))
 
 
-def whisper_loss(params, cfg, batch):
+def whisper_loss(params, cfg, batch, *, mesh=None):
     """batch: {frames (B, T, D), tokens (B, L), labels (B, L), [mask]} -> the
     mean next-token nll (z-loss 1e-4): the encoder, the teacher-forced
     decoder, and the fused chunked cross entropy against the tied
     ``embed.T``.  Never rematerialised, as in the JAX package."""
-    enc_out = encode(params, cfg, batch["frames"])
-    h, _ = decode_train(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["frames"], mesh=mesh)
+    h, _ = decode_train(params, cfg, batch["tokens"], enc_out, mesh=mesh)
     return chunked_softmax_xent(h, params["embed"].T, batch["labels"], chunk=cfg.ce_chunk,
                                 z_loss=1e-4, mask=batch.get("mask"))
 
@@ -134,12 +135,13 @@ def whisper_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cud
             for key, n in shapes.items()}
 
 
-def whisper_prefill(params, cfg, tokens, frames, max_len: int):
+def whisper_prefill(params, cfg, tokens, frames, max_len: int, *, mesh=None):
     """tokens (B, L), frames (B, T, D) -> (logits (B, L, V), cache): the
     prompt's K/V at positions [0, L) and zeros up to ``max_len``, and the
     cross K/V of the encoder's output."""
-    enc_out = encode(params, cfg, frames)
-    h, ((k, v), (xk, xv)) = decode_train(params, cfg, tokens, enc_out, collect_kv=True)
+    enc_out = encode(params, cfg, frames, mesh=mesh)
+    h, ((k, v), (xk, xv)) = decode_train(params, cfg, tokens, enc_out, collect_kv=True,
+                                         mesh=mesh)
     logits = _tied_logits(params, cfg, h)
     B, L = tokens.shape
     if max_len < L:

@@ -30,8 +30,7 @@ import math
 import torch
 
 from repro_torch.distributed.checkpoint import tree_flatten_with_path, tree_leaves, tree_unflatten
-
-STACK_KEYS = ("layers", "enc", "dec")  # top-level keys of the per-layer lists
+from repro_torch.distributed.sharding import in_layer_stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +80,7 @@ def groups(params):
     ``tree_leaves(params)``."""
     out, where = [], {}
     for i, (path, _) in enumerate(tree_flatten_with_path(params)):
-        stacked = (len(path) >= 2 and path[0] in STACK_KEYS and isinstance(path[1], int)
-                   and isinstance(params[path[0]], list))
+        stacked = in_layer_stack(path, params)
         key = (path[0],) + path[2:] if stacked else path
         if key not in where:
             where[key] = len(out)

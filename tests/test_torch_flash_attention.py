@@ -273,6 +273,26 @@ def test_kernel_matches_plain_at_any_length_on_card(shape, dtype):
 
 
 @pytest.mark.gpu
+def test_long_causal_rows_keep_f32_accuracy_on_card():
+    """Rows of up to 16,384 keys against an f64 evaluation: the last 4,096
+    rows within 1e-6.  Each tile's P V is summed in accumulators of its
+    own and added to the running sum in f32; carried through every tile's
+    products in the tensor core's accumulators, the sum drifted with the
+    number of tiles (2e-5 at row 32,768 of Qwen3-0.6B's first layer)."""
+    _card()
+    shape = (1, 2, 1, 16384, 16384, 128, True)
+    q, k, v = (torch.from_numpy(x).cuda() for x in _inputs(shape, seed=5))
+    got = tops.flash_attention(q, k, v, True)
+    qd, kd, vd = (x.double() for x in (q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1)))
+    s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) * 128 ** -0.5
+    mask = torch.ones((16384, 16384), dtype=torch.bool, device="cuda").tril()
+    want = torch.einsum("bhqk,bhkd->bhqd",
+                        torch.softmax(torch.where(mask, s, float("-inf")), dim=-1), vd)
+    err = (got.double() - want)[:, :, -4096:].abs().max().item()
+    assert err <= 1e-6, err
+
+
+@pytest.mark.gpu
 def test_kernel_takes_strided_views_on_card():
     """attention_apply hands the kernel (B, L, H, D) tensors transposed to
     (B, H, L, D) without a copy."""

@@ -52,7 +52,9 @@ def test_port_files_exist():
                  "configs/qwen3_4b.py", "configs/internvl2_2b.py",
                  "configs/whisper_large_v3.py", "models/whisper.py", "data/pipeline.py",
                  "training/optimizer.py", "training/compression.py", "training/train_loop.py",
-                 "launch/train.py"):
+                 "launch/train.py", "launch/mesh.py", "launch/specs.py", "launch/steps.py",
+                 "launch/dryrun.py", "launch/roofline.py", "launch/report.py",
+                 "kernels/work.py", "core/scheduler.py", "tools/pulse_verify.py"):
         assert want in names
     for cu in ("pulse_chase.cu", "flash_attention.cu", "paged_attention.cu", "ssd_scan.cu",
                "pulse_commit.cu"):
