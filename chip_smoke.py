@@ -120,9 +120,10 @@ Phases (any failure exits non-zero before the last line):
      range partitioning, crossings rare) and ``wiredtiger`` again with
      ``return_to_cpu=True`` (Fig. 9's ablation), 65,536 YCSB-Zipfian
      queries each.  Gates: exactly one ``pulse_chase`` launch (its
-     superstep mode) per superstep; the card's results and every
+     superstep mode) per superstep; on each batch's first quarter of its
+     queries (``ROUTE_CPU_CUT``), the card's results and every
      ``RoutingStats`` field equal the same call on a CPU copy (the plain
-     chase); equal to ``sequential_commit_execute`` on the card but for the
+     chase); on every query, equal to ``sequential_commit_execute`` on the card but for the
      ``schedule`` field (the ablation: equal results to the compacted run);
      1,024 sampled queries equal the structure's ``ref_find``; the kernel
      equal to its plain version on one superstep of each batch.  Reported:
@@ -142,15 +143,17 @@ Phases (any failure exits non-zero before the last line):
      ``webservice_rw`` and ``skiplist_rw`` are placed ``interleaved`` with
      room on every shard for the inserts of its home records (an ALLOC
      claims a row on its record's home shard, ``id % 4``),
-     ``wiredtiger_update`` ``sequential``.  Gates: the card's run equals
-     the same calls on a CPU copy (records, every ``RoutingStats`` field,
-     final ``data`` and ``heap``) and the sequential commit at P = 4 on the
-     card (all but ``schedule``); the input arena unchanged and the
+     ``wiredtiger_update`` ``sequential``.  Gates: on each step's first
+     eighth of its ops (``WRITE_MESH_CUT``), the card's run equals the
+     same calls on a CPU copy (records, every ``RoutingStats`` field, final
+     ``data`` and ``heap``) and the sequential commit at P = 4 on the card
+     (all but ``schedule``); on every op: the input arena unchanged and the
      committed arena on the card; every record DONE and every found value
      right; ``pulse_commit`` launched once per mutating superstep and
      ``pulse_chase`` never during a mutating batch; the kernels equal to the
      serial plain version and to the CPU model of their stages on the
-     captured commit phase with the most staged records of each batch; the
+     commit phase with the most staged records of each batch, captured
+     from the card's run; the
      committed arena read back over the mesh on
      the structure's find iterator (one superstep-mode ``pulse_chase``
      launch per superstep) finds every inserted and updated key with its
@@ -296,14 +299,18 @@ Phases (any failure exits non-zero before the last line):
      ``qwen3_0_6b`` (seeded weights, AdamW, batch 8 x 512 tokens, 8 steps,
      lr 1e-3 with the launcher's warmup of 5): every loss finite and the
      last below the first, ``flash_attention`` launched 28 times a step;
-     the same steps on ``attn_backend="chunked"`` from the same weights and
-     data: the first loss within 1e-5 and its grad norm within 1e-4, every
-     later loss within 1e-3, relative (the gaps printed); an exact resume
-     (4 steps through ``TrainLoop``, ``CheckpointManager.save(block=True)``
-     into a temporary directory, a fresh state and ``DataIterator``
-     restored, 4 more): the 8 losses equal the uninterrupted run's bit for
+     the first two of those steps (``PLAIN_TRAIN_STEPS``) on
+     ``attn_backend="chunked"`` from the same weights and data: the first
+     loss within 1e-5 and its grad norm within 1e-4, the later loss within
+     1e-3, relative (the gaps printed); an exact resume at full width and
+     a quarter of the layers (``RESUME_DEPTH_CUT``: 4 steps through
+     ``TrainLoop``, ``CheckpointManager.save(block=True)`` into a
+     temporary directory, a fresh state and ``DataIterator`` restored, 4
+     more): the 8 losses equal that model's uninterrupted run's bit for
      bit (within 1e-6 relative where the card is not deterministic, which
-     is reported); then one step under the profiler.  Reported: step ms
+     is reported); then the full model from ``train.main``'s seeded state
+     through ``TrainLoop``: its first loss equal to ``train.main``'s, and
+     one more step under the profiler.  Reported: step ms
      (the median of the 7 warm steps), tokens/s, model FLOP/s (6 x
      ``param_count()`` x tokens a step) and its share of the f32 peak (67
      TFLOP/s) and of the TF32 peak, peak device memory, the checkpoint's
@@ -338,7 +345,35 @@ Phases (any failure exits non-zero before the last line):
      its products, each input read once and each output written once), and
      measured / the meta counter's count of the port's own eager traffic
      (``step_roofline``); then ``python -m repro_torch.tools.pulse_verify
-     --all --golden tests/golden/pulse_verify``, gated on exit 0.
+     --all --golden tests/golden/pulse_verify``, gated on exit 0;
+ 23. memory nodes as processes (item 6(e)): ``distributed.world.spawn``
+     starts 4 ranks on ``cuda:0`` (spawn start method, one Gloo process
+     group over a loopback TCP store on a free port, joined with a
+     timeout: any rank's exception or the timeout fails the phase), each a
+     memory node of a ``routing.ProcessGroupMesh``: phase 11's
+     ``webservice`` (dense and ring) and ``wiredtiger`` reads and phase
+     12's ``webservice_rw`` and ``wiredtiger_update`` writes, freshly
+     drawn at the same sizes, through ``distributed_execute(...,
+     max_iters=4096, k_local=4, compact=True, schedule="dispatched")``:
+     each rank moves only its own rows and heap row to the card, launches
+     ``pulse_chase`` and ``pulse_commit`` over its own pool and rows (a
+     shard offset), and exchanges records over Gloo (host copies).  Gates:
+     every rank's records, ``RoutingStats`` and, for writes, the committed
+     arena's digest equal ``EmulatedMesh(4, "cuda")``'s in this process
+     bit for bit; each run's first offset launch of ``pulse_chase`` (reads)
+     or ``pulse_commit`` (writes) on every rank equals its plain version on
+     the same inputs; one such launch a superstep on each rank; the write
+     batches' own checks.  Then Granite's MoE layer at full width (d 1024,
+     32 experts of d_ff 512, top-8; seeded weights) over 4 x 512 tokens on
+     the expert-parallel path (``moe_apply(..., mesh=DeviceMesh)``): on
+     (``model`` 2), every rank pair a model-2 mesh (a second dim,
+     ``replica``, that the MoE does not use), and on (``data`` 2,
+     ``model`` 2), against the single-rank ``moe_apply`` on the card within
+     1e-6 of the largest magnitude (the error printed).  Reported beside the
+     card's name and power limit: lookups/s and write ops/s of a timed
+     second call (the slowest rank's) beside the emulated mesh's in the
+     same call, supersteps, ms a superstep and the host-staged fabric's
+     share of it (``routing.FABRIC_STATS``).
 
 Each phase logs its seconds.
 
@@ -412,9 +447,12 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
 TRAIN_ARGS = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
               "--lr", "1e-3", "--log-every", "1"]
 # kernel route vs the plain ("chunked") route over the same steps: the first
-# step's loss and grad norm, then every later loss, relative
+# step's loss and grad norm, then every later loss, relative; the plain
+# route runs the first PLAIN_TRAIN_STEPS steps (the first and a later one)
 TRAIN_LOSS0_TOL, TRAIN_GNORM0_TOL, TRAIN_LOSS_TOL = 1e-5, 1e-4, 1e-3
+PLAIN_TRAIN_STEPS = 2
 RESUME_TOL = 1e-6  # relative, only where the card is not deterministic
+RESUME_DEPTH_CUT = 4  # the exact resume runs a quarter of the layers, at full width
 # phase 22: the launch tooling's steps on the card, each timed over this
 # many warm calls after the first, which is compared with the direct call
 # and the plain route
@@ -1512,6 +1550,7 @@ def phase_write(rng):
 
 ROUTE_RUN = dict(max_iters=4096, k_local=4, compact=True,
                  schedule="dispatched")  # phase 11's execute arguments
+ROUTE_CPU_CUT = 4  # phase 11's CPU copy runs the first quarter of each batch's queries
 # the device-resident (schedule, fabric) pairs phases 11 and 12 run beside the dispatched one
 ROUTE_SCHEDULES = [("fused", "dense"), ("pipelined", "dense")]
 ROUTE_RING = [("pipelined", "ring")]  # phase 11's webservice
@@ -1817,16 +1856,19 @@ def phase_routing(rng):
             if not (t.is_cuda and t.dtype == torch.int32 and t.shape[0] == B):
                 raise AssertionError(f"{name}: bad {f} {t.dtype} {tuple(t.shape)}")
 
-        # the same call on a CPU copy (the plain chase, step_batch per shard)
+        # the first 1/ROUTE_CPU_CUT of the queries on the card and on a CPU
+        # copy (the plain chase, step_batch per shard)
+        n_cut = B // ROUTE_CPU_CUT
+        res_cut = eng.execute(it, p0[:n_cut], s0[:n_cut], **run)
         cpu = arena_from_numpy(*fields, device="cpu")
         t0 = time.perf_counter()
         res_cpu = PulseEngine(cpu, mesh=routing.EmulatedMesh(P, "cpu")).execute(
-            it, b["p0"], b["s0"], **run)
+            it, b["p0"][:n_cut], b["s0"][:n_cut], **run)
         cpu_s = time.perf_counter() - t0
         for f in ("ptr", "scratch", "status", "iters"):
-            if not torch.equal(getattr(res, f).cpu(), getattr(res_cpu, f)):
+            if not torch.equal(getattr(res_cut, f).cpu(), getattr(res_cpu, f)):
                 raise AssertionError(f"{name}: card and CPU copy differ on {f}")
-        diff = _stats_diff(st, res_cpu.stats)
+        diff = _stats_diff(res_cut.stats, res_cpu.stats)
         if diff:
             raise AssertionError(f"{name}: RoutingStats of card and CPU copy differ on {diff}")
 
@@ -1908,12 +1950,14 @@ def phase_routing(rng):
             superstep_check=one, profiled_call=breakdown)
         rows.append(row)
         log(f"[{name}] P={P} ({b['policy']}): {B / med:.4g} lookups/s (median of "
-            f"{[round(x, 4) for x in secs]} s; first call {first_s:.3f} s, CPU copy {cpu_s:.2f} s); "
+            f"{[round(x, 4) for x in secs]} s; first call {first_s:.3f} s, CPU copy of the first "
+            f"1/{ROUTE_CPU_CUT} {cpu_s:.2f} s); "
             f"supersteps {st.supersteps} ({st.local_only_steps} local-only), {launches} launches; "
             f"routed {row['routed_records']} records, {st.total_wire_words} wire words, mean "
             f"crossings {row['mean_crossings']:.3f}; chase kernel {row['kernel_ms_per_superstep']:.5f} "
             f"ms a superstep (profiler; bound {bound_ms:.5f}), {100 * row['kernel_share_of_call']:.1f}% "
-            f"of the call; peak {peak:.1f} MiB; card == CPU copy; sequential executor: {seq_note}")
+            f"of the call; peak {peak:.1f} MiB; card == CPU copy (the first 1/{ROUTE_CPU_CUT}); "
+            f"sequential executor: {seq_note}")
         log(f"[{name}] one superstep ({one['active_records']} active of {one['pool_records']} "
             f"records): kernel {one['ms']:.5f} ms ({one['ms_source']}), plain {one['plain_ms']:.3f} "
             f"ms, bit_equal={one['bit_equal']}")
@@ -1931,7 +1975,7 @@ def phase_routing(rng):
         row.update(dispatched_lookups_per_s=row["lookups_per_s"], device_resident=dr_rows)
         launches_total += dr_launches["pulse_chase"]
         routing.reset_executable_caches()
-        del card, cpu, eng, res, res_cpu
+        del card, cpu, eng, res, res_cpu, res_cut
         torch.cuda.empty_cache()
     log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s (CPU copies included)")
     log(json.dumps({"phase": "routing", "batches": rows}))
@@ -1942,6 +1986,10 @@ def phase_routing(rng):
 
 WRITE_MESH_RUN = dict(max_iters=4096, k_local=4, compact=True,
                       schedule="dispatched")  # phase 12's execute arguments
+# phase 12 holds the card against a CPU copy and the sequential commit on
+# each step's first 1/WRITE_MESH_CUT ops (the checks' depth; the card's own
+# runs, rates and commit phases take every op)
+WRITE_MESH_CUT = 8
 COMMIT_SOURCE = "src/repro_torch/csrc/pulse_commit.cu"
 COMMIT_REPLACES = "src/repro/core/routing.py:407 (_commit_phase: XLA, no Pallas kernel)"
 
@@ -2018,18 +2066,18 @@ def commit_work(pools, data, heap, bounds, perms, out_pools, out_heap, scratch_w
 
 
 def _capture_commits(fn):
-    """Run ``fn`` (a CPU run) with ``pulse_commit`` wrapped: returns fn's
+    """Run ``fn`` (a run over an emulated mesh) with the superstep's commit
+    (``routing._commit``, around ``pulse_commit``) wrapped: returns fn's
     result, clones of the inputs of the commit phase that found the most
     staged records (with its work), and the work (``commit_work``) of
     every commit phase in call order."""
     from repro_torch.core import routing
-    from repro_torch.kernels.pulse_commit import ops as commit_ops
 
-    orig, best, works = commit_ops.pulse_commit, dict(staged=-1), []
+    orig, best, works = routing._commit, dict(staged=-1), []
 
-    def spy(pools, data, heap, bounds, perms, *, scratch_words):
+    def spy(pools, data, heap, bounds, perms, *, scratch_words, **kw):
         before = [t.clone() for t in (pools, data, heap, bounds, perms)]
-        out = orig(pools, data, heap, bounds, perms, scratch_words=scratch_words)
+        out = orig(pools, data, heap, bounds, perms, scratch_words=scratch_words, **kw)
         work = commit_work(*before, pools, heap, scratch_words)
         works.append(work)
         staged = int((before[0][..., routing.F_SCRATCH + scratch_words] != 0).sum())
@@ -2037,11 +2085,11 @@ def _capture_commits(fn):
             best.update(staged=staged, scratch_words=scratch_words, args=before, work=work)
         return out
 
-    commit_ops.pulse_commit = spy
+    routing._commit = spy
     try:
         return fn(), best, works
     finally:
-        commit_ops.pulse_commit = orig
+        routing._commit = orig
 
 
 COMMIT_KERNELS = ("commit_key", "commit_apply", "commit_tail")  # csrc/pulse_commit.cu
@@ -2059,7 +2107,7 @@ def commit_vs_plain(best):
     from repro_torch.kernels.pulse_commit import ref as commit_ref
 
     S = best["scratch_words"]
-    host = best["args"]
+    host = [t.cpu() for t in best["args"]]
     card = [t.cuda() for t in host]
 
     def kern():
@@ -2180,8 +2228,9 @@ def timed_split(fn):
 def phase_write_mesh(rng):
     """Phase 12: the write path over the paper's four memory nodes on the
     card (each superstep's commit phase one ``pulse_commit`` launch), held
-    against a CPU copy, against the sequential commit and against each
-    batch's own checks, then read back over the mesh on ``pulse_chase``."""
+    against each batch's own checks; on each step's first 1/WRITE_MESH_CUT
+    ops, the card against a CPU copy and against the sequential commit;
+    then read back over the mesh on ``pulse_chase``."""
     import numpy as np
     import torch
 
@@ -2203,50 +2252,69 @@ def phase_write_mesh(rng):
         digest = _digest(card)
         eng = PulseEngine(card, mesh=routing.EmulatedMesh(P, "cuda"))
         main = []  # per step: (arena before, result, seconds, peak MiB, launches)
-        for sname, it, p0, s0 in wb["steps"]:
-            before = eng.arena
-            p0c, s0c = p0.cuda(), s0.cuda()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            chase_ops.pulse_chase.launches = 0
-            commit_ops.pulse_commit.launches = 0
-            t0 = time.perf_counter()
-            res = eng.execute(it, p0c, s0c, **run)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = commit_ops.pulse_commit.launches
-            chases = chase_ops.pulse_chase.launches
-            peak = torch.cuda.max_memory_allocated() / 2**20
-            if launches != res.stats.supersteps:
-                raise AssertionError(f"{name}/{sname}: {launches} pulse_commit launches in "
-                                     f"{res.stats.supersteps} supersteps")
-            if chases != 0:
-                raise AssertionError(f"{name}/{sname}: the write path launched the read-only "
-                                     f"pulse_chase {chases} times")
-            commit_launches += launches
-            main.append((before, res, secs, peak, launches, p0c, s0c))
+
+        def main_steps(eng=eng, wb=wb, name=name):
+            # the commit phase with the most staged records is captured for
+            # the kernel-vs-plain check, and every phase's work counted
+            for sname, it, p0, s0 in wb["steps"]:
+                before = eng.arena
+                p0c, s0c = p0.cuda(), s0.cuda()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                chase_ops.pulse_chase.launches = 0
+                commit_ops.pulse_commit.launches = 0
+                t0 = time.perf_counter()
+                res = eng.execute(it, p0c, s0c, **run)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = commit_ops.pulse_commit.launches
+                chases = chase_ops.pulse_chase.launches
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                if launches != res.stats.supersteps:
+                    raise AssertionError(f"{name}/{sname}: {launches} pulse_commit launches in "
+                                         f"{res.stats.supersteps} supersteps")
+                if chases != 0:
+                    raise AssertionError(f"{name}/{sname}: the write path launched the "
+                                         f"read-only pulse_chase {chases} times")
+                main.append((before, res, secs, peak, launches, p0c, s0c))
+
+        _, best, works = _capture_commits(main_steps)
+        commit_launches += sum(m[4] for m in main)
         final = eng.arena
         if _digest(card) != digest:
             raise AssertionError(f"{name}: the input arena changed")
         if not (final.data.is_cuda and final.heap.is_cuda):
             raise AssertionError(f"{name}: the committed arena left the card")
 
-        # the same calls on a CPU copy; the commit phase with the most
-        # staged records is captured for the kernel-vs-plain check
-        cpu = arena_from_numpy(*wb["fields"], device="cpu")
-        cpu_eng = PulseEngine(cpu, mesh=routing.EmulatedMesh(P, "cpu"))
+        # each step's first 1/WRITE_MESH_CUT ops, on the card, on a CPU copy
+        # and through the sequential commit on the card: records, stats and
+        # the final arena equal (the sequential commit's stats but schedule)
+        cut = [(sname, it, p0[:p0.shape[0] // WRITE_MESH_CUT],
+                s0[:p0.shape[0] // WRITE_MESH_CUT]) for sname, it, p0, s0 in wb["steps"]]
+        cut_eng = PulseEngine(arena_from_numpy(*wb["fields"], device="cuda"),
+                              mesh=routing.EmulatedMesh(P, "cuda"))
+        cut_card = [cut_eng.execute(it, p0.cuda(), s0.cuda(), **run) for _, it, p0, s0 in cut]
+        cpu_eng = PulseEngine(arena_from_numpy(*wb["fields"], device="cpu"),
+                              mesh=routing.EmulatedMesh(P, "cpu"))
         t0 = time.perf_counter()
-        host, best, works = _capture_commits(lambda e=cpu_eng, w=wb: [
-            e.execute(it, p0, s0, **run) for _, it, p0, s0 in w["steps"]])
+        host = [cpu_eng.execute(it, p0, s0, **run) for _, it, p0, s0 in cut]
         cpu_s = time.perf_counter() - t0
-        if not (torch.equal(final.data.cpu(), cpu_eng.arena.data)
-                and torch.equal(final.heap.cpu(), cpu_eng.arena.heap)):
+        for (sname, *_), g, c in zip(cut, cut_card, host):
+            for f in ("ptr", "scratch", "status", "iters"):
+                if not (getattr(g, f).is_cuda and torch.equal(getattr(g, f).cpu(),
+                                                              getattr(c, f))):
+                    raise AssertionError(f"{name}/{sname}: card and CPU copy differ on {f}")
+            diff = _stats_diff(g.stats, c.stats)
+            if diff:
+                raise AssertionError(f"{name}/{sname}: RoutingStats of card and CPU copy "
+                                     f"differ on {diff}")
+        if not (torch.equal(cut_eng.arena.data.cpu(), cpu_eng.arena.data)
+                and torch.equal(cut_eng.arena.heap.cpu(), cpu_eng.arena.heap)):
             raise AssertionError(f"{name}: the card's and the CPU copy's final arenas differ")
 
-        # the sequential commit on the card, step after step
         t0 = time.perf_counter()
-        seq_arena = card
-        for (sname, it, p0, s0), (_, g, *_rest) in zip(wb["steps"], main):
+        seq_arena = arena_from_numpy(*wb["fields"], device="cuda")
+        for (sname, it, p0, s0), g in zip(cut, cut_card):
             srec, sst, seq_arena = commit.sequential_commit_execute(
                 it, seq_arena, p0.cuda(), s0.cuda(), max_iters=run["max_iters"],
                 k_local=run["k_local"], compact=run["compact"])
@@ -2261,23 +2329,15 @@ def phase_write_mesh(rng):
                 if not np.array_equal(getattr(g, f).cpu().numpy(), srec[:, cols]):
                     raise AssertionError(f"{name}/{sname}: {f} differs from the sequential "
                                          f"commit")
-        if not (torch.equal(seq_arena.data, final.data) and torch.equal(seq_arena.heap,
-                                                                          final.heap)):
+        if not (torch.equal(seq_arena.data, cut_eng.arena.data)
+                and torch.equal(seq_arena.heap, cut_eng.arena.heap)):
             raise AssertionError(f"{name}: the sequential commit's final arena differs")
-        del seq_arena
+        del seq_arena, cut_eng, cut_card
         seq_s = time.perf_counter() - t0
 
         steps = []
-        for (sname, it, *_), check, (before, g, secs, peak, launches, p0c, s0c), c in zip(
-                wb["steps"], wb["check"], main, host):
-            for f in ("ptr", "scratch", "status", "iters"):
-                if not (getattr(g, f).is_cuda and torch.equal(getattr(g, f).cpu(),
-                                                              getattr(c, f))):
-                    raise AssertionError(f"{name}/{sname}: card and CPU copy differ on {f}")
-            diff = _stats_diff(g.stats, c.stats)
-            if diff:
-                raise AssertionError(f"{name}/{sname}: RoutingStats of card and CPU copy "
-                                     f"differ on {diff}")
+        for (sname, it, *_), check, (before, g, secs, peak, launches, p0c, s0c) in zip(
+                wb["steps"], wb["check"], main):
             bad, extra = check(g.status.cpu().numpy(), g.scratch.cpu().numpy())
             if bad:
                 raise AssertionError(f"{name}/{sname}: {'; '.join(bad)}")
@@ -2299,7 +2359,7 @@ def phase_write_mesh(rng):
             if split["supersteps"] != st.supersteps:
                 raise AssertionError(f"{name}/{sname}: the timed call ran {split['supersteps']} "
                                      f"supersteps, the main path {st.supersteps}")
-            # this step's commit phases, from the CPU copy's run of it
+            # this step's commit phases, from the main run of it
             mine, done = works[:st.supersteps], works[st.supersteps:]
             works[:] = done
             B = g.ptr.shape[0]
@@ -2323,8 +2383,9 @@ def phase_write_mesh(rng):
                 **extra)
             steps.append(row)
             log(f"[{name}] {sname} over P={P}: {B / med:.4g} ops/s (median of "
-                f"{[round(x, 4) for x in calls]} s; first call {secs:.3f} s; for the batch CPU "
-                f"copy {cpu_s:.2f} s, sequential commit {seq_s:.2f} s); supersteps {st.supersteps} "
+                f"{[round(x, 4) for x in calls]} s; first call, its commit phases captured, "
+                f"{secs:.3f} s; for the batch's first 1/{WRITE_MESH_CUT} CPU copy {cpu_s:.2f} s, "
+                f"card and sequential commit {seq_s:.2f} s); supersteps {st.supersteps} "
                 f"({st.local_only_steps} local-only) = pulse_commit launches, 0 pulse_chase; "
                 f"commits {st.commits}, epochs {st.epochs}; routed {row['routed_records']} "
                 f"records, {st.total_wire_words} wire words, mean crossings "
@@ -2335,7 +2396,8 @@ def phase_write_mesh(rng):
                 f"shard's eligible count, {row['longest_chain_mean']:.1f} a superstep, at most "
                 f"{row['longest_chain_max']}; the serial residue: the longest "
                 f"same-slot run {row['longest_run_max']}, free-list pops {row['pops_max']}); "
-                f"peak {peak:.1f} MiB; card == CPU copy == sequential commit (but schedule)")
+                f"peak {peak:.1f} MiB; on the first 1/{WRITE_MESH_CUT} of its ops card == CPU copy "
+                f"== sequential commit (but schedule)")
             rest = split["wall_ms"] - split["chase_ms"] - split["commit_ms"] - split["switch_ms"]
             log(f"[{name}] {sname}: a timed call {split['wall_ms']:.2f} ms wall; on the stream "
                 f"the chase {split['chase_ms']:.3f} ms, the commit {split['commit_ms']:.3f} ms "
@@ -2344,7 +2406,7 @@ def phase_write_mesh(rng):
                 f"the switch {split['switch_ms']:.3f} ms, the rest (placement, counter reads, "
                 f"decode) {rest:.3f} ms")
         if works:
-            raise AssertionError(f"{name}: {len(works)} commit phases of the CPU copy left over")
+            raise AssertionError(f"{name}: {len(works)} commit phases of the main run left over")
 
         # the device-resident schedules, each step against its dispatched run
         t_dr = time.perf_counter()
@@ -2413,7 +2475,7 @@ def phase_write_mesh(rng):
                          readback_launches=launches, readback_lanes=int(rp.shape[0])))
         log(f"[{name}] placement {wb['placement']}; the batch took "
             f"{time.perf_counter() - t_batch:.1f} s")
-        del card, cpu, eng, cpu_eng, final, reng, res, main, host, best
+        del card, eng, cpu_eng, final, reng, res, main, host, best
         torch.cuda.empty_cache()
     secs = time.perf_counter() - t_phase
     log(f"  phase 12 took {secs:.1f} s (CPU copies and sequential commits included)")
@@ -4827,12 +4889,17 @@ class _Trainer:
 
 
 def resume_and_profile(cfg, argv, losses):
-    """Exact resume at full width: four steps from the seeded init through
-    ``TrainLoop`` (the same state and data ``train.main`` builds),
+    """Exact resume at full width and a quarter of the depth
+    (``RESUME_DEPTH_CUT``: the checkpoint's bytes scale with the layers):
+    the cut model's TRAIN_STEPS uninterrupted steps through ``TrainLoop``,
+    then four steps from the same seeded init,
     ``CheckpointManager.save(block=True)`` into a temporary directory, a
-    fresh state (another seed) and data iterator restored, four more steps;
-    all eight losses against the uninterrupted run's ``losses``.  Then one
-    more step under the profiler (``train_step_breakdown``)."""
+    fresh state (another seed) and data iterator restored, four more
+    steps; all eight losses against the uninterrupted run's.  Then the
+    full model from ``train.main``'s seeded state: one step, whose loss
+    must equal ``losses[0]`` (the kernel route's through ``train.main``)
+    bit for bit, and one more under the profiler
+    (``train_step_breakdown``)."""
     import tempfile
 
     import torch
@@ -4840,7 +4907,10 @@ def resume_and_profile(cfg, argv, losses):
 
     from repro_torch.distributed.checkpoint import CheckpointManager, tree_leaves
 
-    trainer = _Trainer(cfg, argv)
+    cut = cfg.replace(n_layers=cfg.n_layers // RESUME_DEPTH_CUT)
+    trainer = _Trainer(cut, argv)
+    _, log_ref = trainer.loop(trainer.data()).run(trainer.state(), 0, TRAIN_STEPS)
+    want = [r["loss"] for r in log_ref]
     half = TRAIN_STEPS // 2
     data = trainer.data()
     state, log_a = trainer.loop(data).run(trainer.state(), 0, half)
@@ -4859,18 +4929,28 @@ def resume_and_profile(cfg, argv, losses):
         del fresh
     data_b = trainer.data()
     data_b.load_state_dict(extra)
-    loop = trainer.loop(data_b)
-    state, log_b = loop.run(state, step, TRAIN_STEPS - half)
+    state, log_b = trainer.loop(data_b).run(state, step, TRAIN_STEPS - half)
+    del state
     got = [r["loss"] for r in log_a + log_b]
-    bit_equal = got == losses
-    worst = max(_rel(a, b) for a, b in zip(got, losses))
-    log(f"  exact resume: {half} steps, save {save_s:.2f} s ({nbytes / 1e9:.2f} GB, fsync-free "
-        f"npz), restore onto the card {restore_s:.2f} s, {TRAIN_STEPS - half} more steps: losses "
+    bit_equal = got == want
+    worst = max(_rel(a, b) for a, b in zip(got, want))
+    log(f"  exact resume at {cut.n_layers} of {cfg.n_layers} layers (full width): {half} steps, "
+        f"save {save_s:.2f} s ({nbytes / 1e9:.2f} GB, fsync-free npz), restore onto the card "
+        f"{restore_s:.2f} s, {TRAIN_STEPS - half} more steps: losses "
         f"{'bit-equal to' if bit_equal else 'differ from'} the uninterrupted run's (largest "
         f"relative difference {worst:.3g})")
     if not bit_equal and worst > RESUME_TOL:
-        raise AssertionError(f"{cfg.arch_id}: the resumed losses {got} differ from {losses}")
-    batch = next(data_b)
+        raise AssertionError(f"{cfg.arch_id}: the resumed losses {got} differ from {want}")
+    torch.cuda.empty_cache()
+
+    full = _Trainer(cfg, argv)
+    data = full.data()
+    loop = full.loop(data)
+    state, first = loop.run(full.state(), 0, 1)
+    if first[0]["loss"] != losses[0] and _rel(first[0]["loss"], losses[0]) > RESUME_TOL:
+        raise AssertionError(f"{cfg.arch_id}: TrainLoop's first loss {first[0]['loss']} is not "
+                             f"train.main's {losses[0]}")
+    batch = next(data)
     torch.cuda.synchronize()
     state_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -4883,6 +4963,8 @@ def resume_and_profile(cfg, argv, losses):
     split.update(state_gb=state_gb, step_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     del state
     return dict(resume_bit_equal=bit_equal, resume_max_rel_diff=worst, resume_losses=got,
+                resume_layers=cut.n_layers, resume_reference_losses=want,
+                first_loss_equals_train_main=first[0]["loss"] == losses[0],
                 ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_bytes=nbytes,
                 profiled_step_wall_ms=wall_ms, profiled_step=split)
 
@@ -4890,8 +4972,8 @@ def resume_and_profile(cfg, argv, losses):
 def phase_train(arch, kernels, backend_fields):
     """``arch`` trained at full width through ``repro_torch.launch.train.main``
     (seeded weights, the config's optimizer, TRAIN_ARGS), each kernel of
-    ``kernels`` ((op, launches a step)) counted around it; then the same
-    steps on the plain route (every field of ``backend_fields`` "chunked",
+    ``kernels`` ((op, launches a step)) counted around it; then the first
+    PLAIN_TRAIN_STEPS steps on the plain route (every field of ``backend_fields`` "chunked",
     with ``remat="full"``: the same values, and room on the card, where
     the plain attention's and the plain scan's saved intermediates would
     not fit beside the state) from the same weights and data, and the
@@ -4950,7 +5032,7 @@ def phase_train(arch, kernels, backend_fields):
 
     torch.cuda.empty_cache()
     plain = _Trainer(cfg.replace(remat="full", **{f: "chunked" for f in backend_fields}), argv)
-    state, log_p = plain.loop(plain.data()).run(plain.state(), 0, TRAIN_STEPS)
+    state, log_p = plain.loop(plain.data()).run(plain.state(), 0, PLAIN_TRAIN_STEPS)
     del state
     loss_gaps = [_rel(a["loss"], b["loss"]) for a, b in zip(log_k, log_p)]
     gnorm_gaps = [_rel(a["grad_norm"], b["grad_norm"]) for a, b in zip(log_k, log_p)]
@@ -5347,6 +5429,340 @@ def phase_launch(smi):
         ssd_launches=sum(s["launches"] for s in steps if s["kernel"] == "ssd_scan"))
 
 
+# ------------------------- memory nodes as processes -------------------------
+
+PG_RANKS = 4  # the paper's MEM_NODES, one process each on the one card
+PG_TIMEOUT = 300.0  # seconds the world may run before it is killed
+PG_RUNS = [  # (batch, fabric): phase 11's read batches and phase 12's write batches
+    ("webservice", "dense"), ("webservice", "ring"), ("wiredtiger", "dense"),
+    ("webservice_rw", "dense"), ("wiredtiger_update", "dense")]
+PG_RUN_ARGS = dict(max_iters=4096, k_local=4, compact=True, schedule="dispatched")
+MOE_EP_ARCH = "granite_moe_1b_a400m"
+MOE_EP_MESHES = [  # (id, DeviceMesh shape, dim names): "replica" is no dp dim
+    ("model2", (2, 2), ("replica", "model")), ("data2_model2", (2, 2), ("data", "model"))]
+MOE_EP_TOL = 1e-6  # of the largest magnitude: only the f32 partial sums' order differs
+
+
+def _pg_iterator(name, n_buckets):
+    """The port's iterator of a phase-23 batch, made again on each rank."""
+    from repro_torch.core.structures import btree, hash_table
+
+    return {"webservice": lambda: hash_table.find_iterator(n_buckets),
+            "wiredtiger": btree.find_iterator,
+            "webservice_rw": lambda: hash_table.rw_iterator(n_buckets),
+            "wiredtiger_update": btree.update_iterator}[name]()
+
+
+def _pg_inputs(rng):
+    """Phase 11's read batches (``webservice`` interleaved, ``wiredtiger``
+    sequential) and phase 12's ``webservice_rw`` and ``wiredtiger_update``
+    over four shards, freshly drawn: {name: (arena fields, ptr0, scr0)} as
+    numpy, and the write batches' checks."""
+    P, reads = routing_batches(rng)
+    out = {b["name"]: ([t.numpy() for t in (b["arena"].data, b["arena"].bounds,
+                                            b["arena"].perms, b["arena"].heap)],
+                       b["p0"].numpy(), b["s0"].numpy()) for b in reads[:2]}
+    checks = {}
+    for wb in (_webservice_rw(rng, P), _wiredtiger_update(rng, P)):
+        (_, _, p0, s0), = wb["steps"]
+        out[wb["name"]] = (wb["fields"], p0.numpy(), s0.numpy())
+        checks[wb["name"]] = wb["check"][0]
+    return out, checks
+
+
+def _pg_first_call_checks(checked):
+    """Wrap ``pulse_chase_superstep`` and the superstep's commit
+    (``routing._commit``, around ``pulse_commit``, whose launch count the
+    wrappers leave alone) so that the first launch of each (per key of
+    ``checked``) is held against its plain version on clones of the same
+    inputs, on the card; returns the undo."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.kernels.pulse_chase import ref as chase_ref
+    from repro_torch.kernels.pulse_commit import ref as commit_ref
+
+    chase, commit = chase_ops.pulse_chase_superstep, routing._commit
+
+    def chase_spy(arena_data, pool, bounds, perms, **kw):
+        out = chase(arena_data, pool, bounds, perms, **kw)
+        if "pulse_chase" not in checked:
+            want = chase_ref.chase_superstep_reference(
+                arena_data, pool, bounds, perms, kw["logic_fn"], kw["k_local"],
+                scratch_words=kw["logic_fn"].it.scratch_words, max_iters=kw["max_iters"],
+                elide=kw.get("elide_access_check", False), shard0=kw.get("shard0", 0),
+                row0=kw.get("row0", 0))
+            checked["pulse_chase"] = dict(
+                bit_equal=bool(torch.equal(out, want)), max_abs_err=max_abs_err(out, want),
+                records=int(pool.shape[0] * pool.shape[1]), shard0=kw.get("shard0", 0),
+                row0=kw.get("row0", 0), rows=int(arena_data.shape[0]))
+        return out
+
+    def commit_spy(pools, data, heap, bounds, perms, **kw):
+        before = None if "pulse_commit" in checked else [t.clone() for t in (pools, data, heap)]
+        out = commit(pools, data, heap, bounds, perms, **kw)
+        if before is not None:
+            want = commit_ref.pulse_commit_staged(
+                *before, bounds, perms, scratch_words=kw["scratch_words"],
+                shard0=kw.get("shard0", 0), row0=kw.get("row0", 0))
+            checked["pulse_commit"] = dict(
+                bit_equal=all(torch.equal(a, b) for a, b in zip(out, want)),
+                max_abs_err=max(max_abs_err(a, b) for a, b in zip(out, want)),
+                records=int(pools.shape[0] * pools.shape[1]), shard0=kw.get("shard0", 0),
+                row0=kw.get("row0", 0), rows=int(data.shape[0]))
+        return out
+
+    chase_ops.pulse_chase_superstep, routing._commit = chase_spy, commit_spy
+
+    def undo():
+        chase_ops.pulse_chase_superstep, routing._commit = chase, commit
+    return undo
+
+
+def _pg_rank(rank, world_size, in_path, out_path):
+    """One memory node of phase 23 on ``cuda:0``: every PG_RUNS batch
+    through ``distributed_execute`` on the ``ProcessGroupMesh`` (its first
+    superstep's ``pulse_chase`` and ``pulse_commit`` launches held against
+    their plain versions), a second call of each timed with the fabric's
+    share; then Granite's MoE layer under both MOE_EP_MESHES.  Writes its
+    results to ``out_path % rank``."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, pulse_paper
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+    from repro_torch.models import moe
+
+    torch.cuda.set_device(0)
+    d = dict(np.load(in_path))
+    mesh = routing.ProcessGroupMesh(device="cuda")
+    out = dict(rank=rank, runs={}, moe={})
+    for name, fabric in PG_RUNS:
+        it = _pg_iterator(name, pulse_paper.WEBSERVICE.n_buckets)
+        ar = arena_from_numpy(*(d[f"{name}/{f}"] for f in ("data", "bounds", "perms", "heap")),
+                              device="cpu")
+        p0, s0 = torch.from_numpy(d[f"{name}/p0"]), torch.from_numpy(d[f"{name}/s0"])
+        run = dict(PG_RUN_ARGS, fabric=fabric)
+        checked = {}
+        undo = _pg_first_call_checks(checked)
+        chase0, commit0 = chase_ops.pulse_chase.launches, commit_ops.pulse_commit.launches
+        try:
+            got = routing.distributed_execute(it, ar, p0, s0, mesh=mesh, **run)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        launches = dict(pulse_chase=chase_ops.pulse_chase.launches - chase0,
+                        pulse_commit=commit_ops.pulse_commit.launches - commit0)
+        row = dict(records=got[0].cpu().numpy(), stats=got[1], launches=launches,
+                   checks=checked)
+        if len(got) == 3:
+            row["digest"] = _digest(got[2])
+        del got
+        torch.distributed.barrier()
+        routing.FABRIC_STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = routing.distributed_execute(it, ar, p0, s0, mesh=mesh, **run)
+        torch.cuda.synchronize()
+        row.update(seconds=time.perf_counter() - t0, fabric_s=routing.FABRIC_STATS.seconds,
+                   collectives=routing.FABRIC_STATS.collectives,
+                   same_again=bool(torch.equal(again[0].cpu(), torch.from_numpy(
+                       row["records"]))))
+        del again
+        out["runs"][f"{name}/{fabric}"] = row
+        torch.distributed.barrier()
+
+    cfg = get_config(MOE_EP_ARCH)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    for mid, shape, names in MOE_EP_MESHES:
+        # a mesh of the Gloo group's ranks; its tensors live on cuda:0 and
+        # its collectives go through the host (distributed.world.on_host)
+        dm = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        mine = _to_device(moe.shard_moe_params(p, dm), "cuda")
+        dp = dm["data"] if "data" in names else None
+        n_dp, i_dp = (dp.size(), dp.get_local_rank()) if dp is not None else (1, 0)
+        rows = x.shape[0] // n_dp
+        xs = x[i_dp * rows:(i_dp + 1) * rows].cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = moe.moe_apply(mine, cfg, xs, mesh=dm)
+        torch.cuda.synchronize()
+        out["moe"][mid] = dict(y=y.cpu(), dp=i_dp, model=dm["model"].get_local_rank(),
+                               ms=(time.perf_counter() - t0) * 1e3)
+        del mine, y
+    torch.save(out, out_path % rank)
+
+
+def _to_device(p, device):
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in p.items()}
+
+
+def phase_memory_nodes(rng, smi):
+    """Phase 23, memory nodes as processes (item 6(e)): P = 4 ranks of one
+    Gloo process group on ``cuda:0`` (spawned, a loopback TCP store), each
+    running ``distributed_execute`` on a ``ProcessGroupMesh`` over its own
+    rows and pool (``pulse_chase`` and ``pulse_commit`` launched over one
+    shard), held bit for bit against ``EmulatedMesh(4, "cuda")`` in this
+    process: records, ``RoutingStats`` and the committed arena's digest;
+    then Granite's MoE layer at full width on the expert-parallel path
+    against the single-rank ``moe_apply``.  The rates are those of a
+    host-staged fabric (Gloo on one card)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, pulse_paper
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.distributed import world
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    inputs, checks = _pg_inputs(rng)
+    rows, launches = [], dict(pulse_chase=0, pulse_commit=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        in_path = Path(tmp) / "inputs.npz"
+        np.savez(in_path, **{f"{name}/{f}": a for name, (fields, p0, s0) in inputs.items()
+                             for f, a in zip(("data", "bounds", "perms", "heap", "p0", "s0"),
+                                             (*fields, p0, s0))})
+        # the emulated mesh on the card, each run's first call and a timed second
+        want = {}
+        for name, fabric in PG_RUNS:
+            fields, p0, s0 = inputs[name]
+            ar = arena_from_numpy(*fields, device="cuda")
+            it = _pg_iterator(name, pulse_paper.WEBSERVICE.n_buckets)
+            run = dict(PG_RUN_ARGS, fabric=fabric)
+            mesh = routing.EmulatedMesh(PG_RANKS, "cuda")
+            got = routing.distributed_execute(it, ar, torch.from_numpy(p0).cuda(),
+                                              torch.from_numpy(s0).cuda(), mesh=mesh, **run)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routing.distributed_execute(it, ar, torch.from_numpy(p0).cuda(),
+                                        torch.from_numpy(s0).cuda(), mesh=mesh, **run)
+            torch.cuda.synchronize()
+            want[f"{name}/{fabric}"] = dict(
+                records=got[0].cpu().numpy(), stats=got[1], seconds=time.perf_counter() - t0,
+                digest=_digest(got[2]) if len(got) == 3 else None)
+            if name in checks:
+                S = it.scratch_words
+                bad, _ = checks[name](got[0][:, routing.F_STATUS].cpu().numpy(),
+                                      got[0][:, routing.F_SCRATCH:routing.F_SCRATCH + S]
+                                      .cpu().numpy())
+                if bad:
+                    raise AssertionError(f"phase 23 {name}: {'; '.join(bad)}")
+            del ar, got
+        torch.cuda.empty_cache()
+        cfg = get_config(MOE_EP_ARCH)
+        p = _to_device(moe.moe_init(torch.Generator().manual_seed(0), cfg), "cuda")
+        x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(1)).cuda()
+        moe_want = {1: moe.moe_apply(p, cfg, x).cpu(),
+                    2: torch.cat([moe.moe_apply(p, cfg, h) for h in x.chunk(2)]).cpu()}
+        del p, x
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        world_s = world.spawn(_pg_rank, PG_RANKS, (str(in_path), str(Path(tmp) / "rank%d.pt")),
+                              timeout=PG_TIMEOUT)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(PG_RANKS)]
+    for key, w in want.items():
+        name, fabric = key.split("/")
+        B = w["records"].shape[0]
+        secs, fabric_s, steps = [], [], w["stats"].supersteps
+        for r in ranks:
+            g = r["runs"][key]
+            if not np.array_equal(g["records"], w["records"]):
+                raise AssertionError(f"phase 23 {key}: rank {r['rank']}'s records differ from "
+                                     f"the emulated mesh's")
+            diff = _stats_diff(g["stats"], w["stats"])
+            if diff:
+                raise AssertionError(f"phase 23 {key}: rank {r['rank']}'s RoutingStats differ "
+                                     f"on {diff}")
+            if g.get("digest") != w["digest"]:
+                raise AssertionError(f"phase 23 {key}: rank {r['rank']}'s committed arena "
+                                     f"differs from the emulated mesh's")
+            if not g["same_again"]:
+                raise AssertionError(f"phase 23 {key}: rank {r['rank']}'s second call differs")
+            for kernel, c in g["checks"].items():
+                if not c["bit_equal"]:
+                    raise AssertionError(f"phase 23 {key}: rank {r['rank']}'s first {kernel} "
+                                         f"launch over its shard disagrees with its plain "
+                                         f"version")
+            want_checks = {"pulse_chase"} if name not in ("webservice_rw", "wiredtiger_update") \
+                else {"pulse_commit"}
+            if set(g["checks"]) != want_checks:
+                raise AssertionError(f"phase 23 {key}: rank {r['rank']} checked "
+                                     f"{sorted(g['checks'])}, expected {sorted(want_checks)}")
+            kernel = next(iter(want_checks))
+            if g["launches"][kernel] != steps:
+                raise AssertionError(f"phase 23 {key}: rank {r['rank']} launched {kernel} "
+                                     f"{g['launches'][kernel]} times in {steps} supersteps")
+            for k in launches:
+                launches[k] += g["launches"][k]
+            secs.append(g["seconds"])
+            fabric_s.append(g["fabric_s"])
+        wall = max(secs)
+        writes = name in ("webservice_rw", "wiredtiger_update")
+        row = dict(run=key, lanes=B, supersteps=steps,
+                   local_only_steps=w["stats"].local_only_steps,
+                   wire_words=w["stats"].total_wire_words, seconds_per_rank=secs,
+                   fabric_s_per_rank=fabric_s, rate=B / wall,
+                   rate_unit="write ops/s" if writes else "lookups/s",
+                   emulated_seconds=w["seconds"], emulated_rate=B / w["seconds"],
+                   ms_per_superstep=wall * 1e3 / steps,
+                   fabric_share=float(np.mean([f / s for f, s in zip(fabric_s, secs)])),
+                   collectives_per_rank=ranks[0]["runs"][key]["collectives"],
+                   first_superstep_checks={r["rank"]: r["runs"][key]["checks"] for r in ranks},
+                   launches={k: sum(r["runs"][key]["launches"][k] for r in ranks)
+                             for k in launches})
+        rows.append(row)
+        log(f"[{key}] P={PG_RANKS} ranks (Gloo, cuda:0; {smi}): {row['rate']:.6g} "
+            f"{row['rate_unit']} (the slowest rank's timed call, {wall:.4f} s) vs "
+            f"{row['emulated_rate']:.6g} on EmulatedMesh({PG_RANKS}, 'cuda') in this call; "
+            f"{steps} supersteps ({row['local_only_steps']} local-only), "
+            f"{row['ms_per_superstep']:.3f} ms a superstep, the fabric (host-staged "
+            f"collectives) {100 * row['fabric_share']:.1f}% of it; every rank == the "
+            f"emulated mesh (records, RoutingStats"
+            + (", the committed arena" if writes else "") + "); the first offset launch == "
+            "its plain version on every rank")
+    moe_rows = {}
+    for mid, shape, names in MOE_EP_MESHES:
+        n_dp = shape[0] if "data" in names else 1
+        ref = moe_want[n_dp]
+        errs = []
+        for r in ranks:
+            m = r["moe"][mid]
+            part = ref.chunk(n_dp)[m["dp"]]
+            errs.append(float((m["y"] - part).abs().max()))
+        scale = float(ref.abs().max())
+        err = max(errs)
+        moe_rows[mid] = dict(mesh=dict(zip(names, shape)), max_abs_err=err, scale=scale,
+                             tol=MOE_EP_TOL * scale, ms_per_rank=[r["moe"][mid]["ms"]
+                                                                  for r in ranks])
+        log(f"[moe {mid}] {MOE_EP_ARCH} layer at full width (d 1024, 32 experts of d_ff 512, "
+            f"top-8) over 4 x 512 tokens, {dict(zip(names, shape))}: max |EP - single rank| "
+            f"{err:.3g} against {MOE_EP_TOL:g} x {scale:.4g} (the largest magnitude); "
+            f"{[round(r['moe'][mid]['ms'], 1) for r in ranks]} ms a rank")
+        if err > MOE_EP_TOL * scale:
+            raise AssertionError(f"phase 23 moe {mid}: the expert-parallel layer is {err:.3g} "
+                                 f"off the single rank's, over {MOE_EP_TOL:g} of {scale:.4g}")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 23 took {secs:.1f} s (the world {world_s:.1f} s of it, its start included; "
+        f"{time.perf_counter() - t0:.1f} s from its spawn)")
+    out = dict(phase="memory_nodes", seconds=secs, world_s=world_s, card=smi, runs=rows,
+               moe=moe_rows, launches=launches)
+    log(json.dumps(out, default=str))
+    return out
+
+
 def phase_paged_decode(params):
     """Paged decode at full width on one prefill's K/V."""
     import numpy as np
@@ -5623,6 +6039,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launch_row = phase(22, "the launch tooling: meta dry run, build_step's steps on the card, "
                            "pulse_verify", phase_launch, smi)
+    torch.cuda.empty_cache()
+    pg_row = phase(23, "memory nodes as processes: distributed_execute on a ProcessGroupMesh of "
+                       "4 Gloo ranks on the card; the MoE's expert-parallel path",
+                   phase_memory_nodes, rng, smi)
+    entry["launches"] += pg_row["launches"]["pulse_chase"]
+    entry["launches_note"] += ("; in phase 23, one offset launch (the rank's own pool and rows) "
+                               "per superstep on each of the 4 ranks of each process-group read "
+                               "run's first call")
+    entry["shard_offset"] = {r["run"]: r["first_superstep_checks"] for r in pg_row["runs"]
+                             if r["launches"]["pulse_chase"]}
+
+    def offset_err(kernel):  # phase 23: each rank's first offset launch against plain
+        return max(c[kernel]["max_abs_err"] for r in pg_row["runs"]
+                   for c in r["first_superstep_checks"].values() if kernel in c)
+
+    entry["max_abs_err"] = max(entry["max_abs_err"], offset_err("pulse_chase"))
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(
@@ -5637,9 +6069,9 @@ def main(argv=None) -> int:
     commit_entry = dict(
         name="pulse_commit", route="cuda", source=COMMIT_SOURCE, replaces=COMMIT_REPLACES,
         launches=commit_launches + sum(r["pulse_commit_launches"] for r in serve_runs)
-        + ft_row["launches"]["pulse_commit"],
-        max_abs_err=max(r["commit_check"]["max_abs_err"]
-                                                  for r in mesh_rows),
+        + ft_row["launches"]["pulse_commit"] + pg_row["launches"]["pulse_commit"],
+        max_abs_err=max([r["commit_check"]["max_abs_err"] for r in mesh_rows]
+                        + [offset_err("pulse_commit")]),
         ms=head_commit["ms"], plain_ms=head_commit["plain_ms"], bound_ms=head_commit["bound_ms"],
         bound_by="bytes", library_ms=None, stages_ms=head_commit["stages_ms"],
         timed_on="the wiredtiger_update commit phase with the most staged records "
@@ -5653,7 +6085,11 @@ def main(argv=None) -> int:
                       "replays run the captured ones); in phase 14, those of each update "
                       "group's device loop on the mesh runs (c, d, e), and in phase 15 on "
                       "run (h) those of the update group's loop and one a superstep of "
-                      "the standby's and the recovery's dispatched replays",
+                      "the standby's and the recovery's dispatched replays; in phase 23, one "
+                      "offset call (the rank's own pool, heap row and rows) per superstep on "
+                      "each of the 4 ranks of each process-group write run's first call",
+        shard_offset={r["run"]: r["first_superstep_checks"] for r in pg_row["runs"]
+                      if r["launches"]["pulse_commit"]},
         batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[
             dict(step=x["step"], supersteps=x["supersteps"], launches=x["commit_launches"],
                  ms_per_superstep=x["commit_ms_per_superstep"],
@@ -5783,7 +6219,8 @@ def main(argv=None) -> int:
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
             fault_tolerance=ft_row, hybrid_serve=hybrid_row, moe_serve=moe_row,
             vlm_serve=vlm_row, whisper_serve=whisper_row, train_qwen=train_qwen,
-            train_mamba=train_mamba, **summary | {"launch_tooling": launch_row},
+            train_mamba=train_mamba, memory_nodes=pg_row,
+            **summary | {"launch_tooling": launch_row},
             phase_seconds=seconds,
             seconds=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase "

@@ -13,7 +13,11 @@ Execution paths:
                                (``routing.distributed_execute``, on the
                                schedule and fabric asked); the backend picks
                                the local chase: one ``pulse_chase`` launch
-                               per chase, or the plain chase.
+                               per chase, or the plain chase.  With
+                               ``mesh=routing.ProcessGroupMesh(...)`` every
+                               rank of a process group is one memory node
+                               and calls ``execute`` with the same arguments
+                               (SPMD), on the dispatched schedule.
   * ``cpu_node``            -- the Cache-based baseline: the traversal runs at
                                the CPU node with an LRU trace of node fetches;
                                chosen by the dispatch model for iterators it
@@ -278,10 +282,12 @@ class PulseEngine:
         depend on the schedule.
         """
         on_mesh = self.mesh is not None and self.arena.num_shards > 1
-        if on_mesh and not isinstance(self.mesh, routing.EmulatedMesh):
+        on_group = isinstance(self.mesh, routing.ProcessGroupMesh)
+        if on_mesh and not (on_group or isinstance(self.mesh, routing.EmulatedMesh)):
             raise NotImplementedError(
-                "a mesh other than routing.EmulatedMesh (torch.distributed as a "
-                "fabric) comes with ROADMAP queue 1, item 6(e)"
+                "the port's fabrics are routing.EmulatedMesh (one card) and, since item "
+                "6(e), routing.ProcessGroupMesh (a torch.distributed process group); "
+                f"got {type(self.mesh).__name__}"
             )
         if it.mutates:
             if backend == "kernel":
@@ -299,7 +305,10 @@ class PulseEngine:
             return self._execute_mut(it, ptr0, scratch0, max_iters=max_iters, k_local=k_local,
                                      compact=compact, fused=fused, schedule=schedule,
                                      fabric=fabric)
-        on_card = _on_card(self.arena.data)
+        # a memory node of a process group chases on its mesh's device, and
+        # always offloads: its rows are there, whatever holds the arena
+        on_card = (torch.device(self.mesh.device).type == "cuda" if on_group and on_mesh
+                   else _on_card(self.arena.data))
         if backend is None:
             backend = "kernel" if on_card else "reference"
         if backend not in BACKENDS:
@@ -308,7 +317,7 @@ class PulseEngine:
         if force_offload is not None:
             offload = force_offload
         else:
-            offload = decision.offload or on_card
+            offload = decision.offload or on_card or (on_group and on_mesh)
         dev = self.arena.data.device
         if not offload:
             self._local_fault_check()
@@ -367,10 +376,17 @@ class PulseEngine:
         """``schedule="auto"``: the dispatch engine's overlap-model pick
         (cached per iterator and ``k_local``), ``"fused"`` where it answers
         ``"local"``; ``fused=False`` is the explicit opt-out of
-        device-resident loops.  Shared by the read and write paths."""
+        device-resident loops.  Shared by the read and write paths.
+
+        On a ``routing.ProcessGroupMesh`` ``"auto"`` resolves to
+        ``"dispatched"``, the one schedule a process group runs (the
+        device-resident loops need their collectives inside a captured CUDA
+        graph: NCCL on more than one card, ROADMAP queue 1, item 1); the
+        reference would run the overlap model's pick, with the same records
+        bit for bit and only the stats' shape apart."""
         if schedule != "auto":
             return schedule
-        if not fused:
+        if not fused or isinstance(self.mesh, routing.ProcessGroupMesh):
             return "dispatched"
         key = (it, k_local)
         sd = self._schedule_cache.get(key)

@@ -195,15 +195,17 @@ def mut_step_batch(
     local_lo: int = 0,
     local_hi: int | None = None,
     perm_ok: torch.Tensor | bool = True,
+    row0: int = 0,
 ):
     """Advance every runnable request of a *mutating* iterator by one step.
 
-    ``arena_data`` is the whole arena, addressed by global row;
+    ``arena_data`` is the whole arena, addressed by global row (or, with
+    ``row0``, the rows from global row ``row0`` on: a memory node's own);
     ``local_lo``/``local_hi`` bound the addresses this executor serves (ints,
     or ``(B,)`` tensors of per-request bounds, as the routing superstep
-    gives when it chases every shard's pool in one call).  Unlike the JAX
-    package's ``mut_step_batch``, which takes a shard's rows and offsets by
-    ``local_lo``, the rows are never a shard's slice.
+    gives when it chases every shard's pool in one call).  The JAX
+    package's ``mut_step_batch`` takes a shard's rows and offsets by
+    ``local_lo``; here the offset is ``row0``, apart from the bounds.
 
     The write-path twin of ``step_batch``, with its rules (core.commit):
 
@@ -231,7 +233,7 @@ def mut_step_batch(
     fault = active & local & ~grant & ~null & ~stalled
     runnable = active & local & ~fault & ~null & ~stalled & ~exhausted
 
-    node = load_node(arena_data, torch.where(runnable, ptr, 0))
+    node = load_node(arena_data, torch.where(runnable, ptr - row0, 0))
     done, nptr, nscr, staged = it.mut_fn(node, ptr, scratch)
     m_op, m_tgt, m_mask, m_expect, m_data = (
         torch.as_tensor(x, dtype=torch.int32, device=ptr.device) for x in staged

@@ -44,19 +44,31 @@ schedule) redirects reads bound for a dead (or spread-balanced) primary to
 the shard holding its replica, which chases them from its replica rows
 (on the card in the same ``pulse_chase`` launch, its replica window).
 
-Ported: items 6(a)-(d) of ROADMAP queue 1.  The JAX package's
-resident-arena cache (``_resident_arena``) has no counterpart: on one card
-the arena already lives on the mesh's device, and a read runner captures
-its tensors.
+Memory nodes as processes (item 6(e)): on a ``ProcessGroupMesh`` each
+process of a ``torch.distributed`` process group is one memory node, the
+counterpart of a ``shard_map`` over a named axis.  ``distributed_execute``
+then runs SPMD on the dispatched schedule: a rank holds only its own rows
+and pool (``_resident_shard``, the JAX package's ``_resident_arena`` for
+one shard), its superstep is the JAX package's per-shard body, the
+exchange one ``all_to_all_single`` (dense) or ``P - 1`` of them (the ring's
+distance classes), the four counters one all-reduce, and the final pools
+one all-gather.
+
+Ported: items 6(a)-(e) of ROADMAP queue 1, 6(e) on the dispatched schedule.
+On an ``EmulatedMesh`` the JAX package's resident-arena cache has no
+counterpart: on one card the arena already lives on the mesh's device, and
+a read runner captures its tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import prng, translation
 from repro_torch.core.arena import (
@@ -78,6 +90,7 @@ from repro_torch.core.iterator import (
     mut_step_batch,
     step_batch,
 )
+from repro_torch.distributed.world import all_gather, all_reduce_sum, on_host
 
 # request record words: [id, home shard, ptr, status, iters, hops,
 # scratch (S), mutation payload (mut_width(W), write path only)]
@@ -108,6 +121,123 @@ class EmulatedMesh:
     def __post_init__(self):
         if self.num_shards < 1:
             raise ValueError(f"a mesh needs at least one shard, got {self.num_shards}")
+
+
+@dataclasses.dataclass
+class FabricStats:
+    """The process-group fabric's collectives (``ProcessGroupMesh``'s
+    exchanges, counter all-reduces and final gathers) and the host seconds
+    they took, each timed from a synchronised device to its result back on
+    the device (the staging through the host included)."""
+
+    collectives: int = 0
+    seconds: float = 0.0
+
+    def reset(self) -> None:
+        self.collectives = 0
+        self.seconds = 0.0
+
+
+FABRIC_STATS = FabricStats()
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessGroupMesh:
+    """P memory nodes as the P processes of a ``torch.distributed`` process
+    group: the counterpart of ``jax.make_mesh((P,), (axis_name,))`` with the
+    superstep a ``shard_map`` body.  Each process is one memory node: its
+    shard is its rank in ``group`` (None: the default group, the world),
+    it holds its own arena rows and pool on ``device``, and every
+    ``distributed_execute`` call runs SPMD, every rank with the same
+    arguments.  The records cross the group's collectives; on a Gloo group
+    CUDA tensors go through host copies (Gloo's transport is the host's)."""
+
+    group: object = None
+    device: str | torch.device = "cuda"
+    axis_name: str = "mem"
+
+    def __post_init__(self):
+        if not dist.is_initialized():
+            raise ValueError("a ProcessGroupMesh needs torch.distributed initialised first "
+                             "(ProcessGroupMesh.from_env, or init_process_group)")
+
+    @classmethod
+    def from_env(cls, backend: str = "gloo", *, device="cuda", axis_name: str = "mem"):
+        """The mesh of this process under ``torchrun`` (or any launcher that
+        sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``):
+        joins the world's process group with ``backend`` unless this
+        process already has."""
+        if not dist.is_initialized():
+            env = os.environ
+            dist.init_process_group(
+                backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]))
+        return cls(None, device, axis_name)
+
+    @property
+    def num_shards(self) -> int:
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    def _timed(self, fn, t: torch.Tensor):
+        """``fn(t)`` under the span ``routing.fabric``, counted in
+        ``FABRIC_STATS`` from a synchronised device on."""
+        with torch.profiler.record_function("routing.fabric"):
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
+            t0 = time.perf_counter()
+            out = fn(t)
+            FABRIC_STATS.collectives += 1
+            FABRIC_STATS.seconds += time.perf_counter() - t0
+        return out
+
+    def exchange(self, send: torch.Tensor, *, fabric: str = "dense") -> torch.Tensor:
+        """Carry this memory node's send buffer ``(1, P, Cp, R)``
+        (destination, slot) across the group: arrivals ``(1, P * Cp, R)``
+        ordered by source shard, the layout of ``_exchange``'s transpose.
+        ``"dense"`` is one ``all_to_all_single``; ``"ring"`` is the JAX
+        package's ``P - 1`` ppermute distance classes, class ``h`` one
+        ``all_to_all_single`` whose only non-empty split goes to ``(r + h)
+        % P`` and comes from ``(r - h) % P`` (this shard's own block stays
+        EMPTY, as the switch leaves it)."""
+        _check_fabric(fabric)
+        _, P, Cp, R = send.shape
+        r, group = self.rank, self.group
+
+        def carry(blocks):
+            blocks = blocks.reshape(P * Cp, R)
+            blocks = (blocks.cpu() if on_host(blocks, group) else blocks).contiguous()
+            if fabric == "dense":
+                out = torch.empty_like(blocks)
+                dist.all_to_all_single(out, blocks, group=group)
+                return out.to(send.device)
+            out = empty_records(P * Cp, R - F_SCRATCH, blocks.device).reshape(P, Cp, R)
+            for h in range(1, P):
+                to, frm = (r + h) % P, (r - h) % P
+                got = torch.empty((Cp, R), dtype=blocks.dtype, device=blocks.device)
+                dist.all_to_all_single(
+                    got, blocks[to * Cp:(to + 1) * Cp],
+                    output_split_sizes=[Cp if j == frm else 0 for j in range(P)],
+                    input_split_sizes=[Cp if j == to else 0 for j in range(P)], group=group)
+                out[frm] = got
+            return out.reshape(P * Cp, R).to(send.device)
+
+        return self._timed(carry, send[0]).reshape(1, P * Cp, R)
+
+    def all_reduce(self, counts: torch.Tensor) -> list:
+        """The superstep's counters summed over the group in one all-reduce
+        of a stacked int64 tensor; read on the host (the superstep's one
+        host read)."""
+        return self._timed(
+            lambda t: all_reduce_sum(t.to(torch.int64), self.group).tolist(), counts)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t``, stacked in rank order ``(P, *t.shape)``, on
+        ``t``'s device."""
+        return self._timed(lambda x: torch.stack(all_gather(x, self.group)), t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,9 +526,16 @@ def _local_superstep(
     elide_access_check: bool = False,
     edges=None,
     rep=None,
+    shard0: int = 0,
+    row0: int = 0,
 ):
     """Run up to ``k_local`` iterations for every shard's locally-owned
     ACTIVE records; returns the new pools.
+
+    ``shard0`` and ``row0`` (a memory node of a ``ProcessGroupMesh``): the
+    pools are those of shards ``shard0 ..`` and ``arena_data`` holds the
+    rows from global row ``row0`` on; ``bounds`` and ``perms`` stay the
+    whole mesh's.
 
     ``backend="kernel"`` is one ``pulse_chase`` launch in its superstep mode
     over all P pools on a CUDA arena (its plain version on a CPU arena).
@@ -433,7 +570,7 @@ def _local_superstep(
         return chase_ops.pulse_chase_superstep(
             arena_data, pools, bounds, perms, logic_fn=chase_ops.iterator_logic(it),
             k_local=k_local, max_iters=max_iters, elide_access_check=elide_access_check,
-            rep=rep)
+            rep=rep, shard0=shard0, row0=row0)
     if backend != "reference":
         raise ValueError(f"unknown local backend {backend!r}")
     S = it.scratch_words
@@ -443,7 +580,8 @@ def _local_superstep(
     granted = torch.ones_like(probe) if elide_access_check else probe
     windows = replica_windows(rep, bounds, perms) if rep is not None else None
     out = pools.clone()
-    for s, pool in enumerate(out):
+    for i, pool in enumerate(out):
+        s = shard0 + i
         lo, hi = int(edges[s]), int(edges[s + 1])
         kw = dict(local_hi=hi)
         if rep is not None:
@@ -453,8 +591,8 @@ def _local_superstep(
         st = (pool[:, F_PTR], pool[:, F_SCRATCH : F_SCRATCH + S], pool[:, F_STATUS],
               pool[:, F_ITERS])
         for _ in range(k_local):
-            st = step_batch(it, arena_data[lo:hi], *st, max_iters=max_iters, local_lo=lo,
-                            perm_ok=granted[s], **kw)
+            st = step_batch(it, arena_data[lo - row0:hi - row0], *st, max_iters=max_iters,
+                            local_lo=lo, perm_ok=granted[s], **kw)
         pool[:, F_PTR], pool[:, F_SCRATCH : F_SCRATCH + S] = st[0], st[1]
         pool[:, F_STATUS], pool[:, F_ITERS] = st[2], st[3]
     return out
@@ -472,9 +610,12 @@ def _local_superstep_mut(
     max_iters: int | torch.Tensor,
     commit: bool = True,
     live: torch.Tensor | None = None,
+    shard0: int = 0,
+    row0: int = 0,
 ):
     """Write-path twin of ``_local_superstep``: every shard's chase with
-    write-stalls, then every shard's commit phase.
+    write-stalls, then every shard's commit phase (``shard0`` and ``row0``
+    as there; ``heap`` then holds the pools' shards' rows).
 
     The chase is ``k_local`` calls of ``iterator.mut_step_batch`` over all
     P pools at once, on the whole arena, each record bounded by its shard's
@@ -501,14 +642,15 @@ def _local_superstep_mut(
     MB = F_SCRATCH + S
     with torch.profiler.record_function("routing.chase"):
         flat = pools.reshape(P * L, R)
-        lo = bounds[:-1, None].expand(P, L).reshape(-1)
-        hi = bounds[1:, None].expand(P, L).reshape(-1)
-        granted = translation.access_table(perms, PERM_READ)[:, None].expand(P, L).reshape(-1)
+        lo = bounds[shard0 : shard0 + P, None].expand(P, L).reshape(-1)
+        hi = bounds[shard0 + 1 : shard0 + P + 1, None].expand(P, L).reshape(-1)
+        granted = translation.access_table(perms, PERM_READ)[shard0 : shard0 + P, None]
+        granted = granted.expand(P, L).reshape(-1)
         st = (flat[:, F_PTR], flat[:, F_SCRATCH:MB], flat[:, F_STATUS], flat[:, F_ITERS],
               flat[:, MB:])
         for _ in range(k_local):
             st = mut_step_batch(it, data, *st, max_iters=max_iters, local_lo=lo, local_hi=hi,
-                                perm_ok=granted)
+                                perm_ok=granted, row0=row0)
         ptr, scr, status, iters, mut = st
         status = torch.where(
             (status == STATUS_ACTIVE) & (iters >= max_iters) & (mut[:, 0] == M_NONE),
@@ -517,7 +659,8 @@ def _local_superstep_mut(
                            flat[:, F_HOPS:F_SCRATCH], scr, mut], 1).reshape(P, L, R)
     if not commit:
         return pools
-    return _commit(pools, data, heap, bounds, perms, scratch_words=S, live=live)
+    return _commit(pools, data, heap, bounds, perms, scratch_words=S, live=live, shard0=shard0,
+                   row0=row0)
 
 
 def _shard_keys(drop_seed: int, shards: torch.Tensor) -> torch.Tensor:
@@ -560,13 +703,16 @@ def _route_decide(
     mut_base: int | None = None,
     drop_mask: torch.Tensor | None = None,
     rep_ctx=None,
+    shard0: int = 0,
 ):
-    """Switch decision and leaver extraction for every shard at once.
+    """Switch decision and leaver extraction for every shard at once
+    (``pools`` those of shards ``shard0 ..`` of ``num_shards``: a memory
+    node of a ``ProcessGroupMesh`` decides for its own pool alone).
 
     Computes each record's next shard, marks switch-level faults (an ACTIVE
     record whose pointer no shard owns), packs the records that fit under
-    the per-link capacity C into a ``(P, P, Cp, R)`` send buffer (source,
-    destination, slot) and strips them from their pools.  A destination
+    the per-link capacity C into a ``(P, num_shards, Cp, R)`` send buffer
+    (source, destination, slot) and strips them from their pools.  A destination
     takes its movers in pool order; the overflow parks in place for the
     next superstep (the JAX package's trash row).  Returns
     ``(kept, send, n_routed)``, ``n_routed`` a device scalar.
@@ -598,7 +744,8 @@ def _route_decide(
         phys_capacity = L // num_shards if link_capacity is None else int(link_capacity)
     Cp = int(phys_capacity)
     C = Cp if link_capacity is None else link_capacity
-    me = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+    src = torch.arange(P, device=dev)[:, None]  # a pool's index in the send buffer
+    me = (shard0 + src).to(torch.int32)
     status = pools[..., F_STATUS]
     valid = status != STATUS_EMPTY
     active = status == STATUS_ACTIVE
@@ -652,21 +799,24 @@ def _route_decide(
 
     # every record has a row of its own: a mover its (source, destination,
     # slot), anything else one past the buffer, dropped after the copy
-    row = (me.long() * num_shards + dest.long()) * Cp + pos.long()
-    spare = P * P * Cp + torch.arange(P * L, device=dev).reshape(P, L)
-    send = empty_records(P * P * Cp + P * L, R - F_SCRATCH, dev)
+    row = (src * num_shards + dest.long()) * Cp + pos.long()
+    n_send = P * num_shards * Cp
+    spare = n_send + torch.arange(P * L, device=dev).reshape(P, L)
+    send = empty_records(n_send + P * L, R - F_SCRATCH, dev)
     send.index_copy_(0, torch.where(fits, row, spare).reshape(-1), pools.reshape(P * L, R))
-    send = send[: P * P * Cp].reshape(P, P, Cp, R)
+    send = send[:n_send].reshape(P, num_shards, Cp, R)
 
     kept = pools
     kept[..., F_STATUS] = torch.where(fits, STATUS_EMPTY, pools[..., F_STATUS]).to(torch.int32)
     return kept, send, fits.sum()
 
 
-def _exchange(send: torch.Tensor, num_shards: int, *, fabric: str = "dense"):
+def _exchange(send: torch.Tensor, num_shards: int, *, fabric: str = "dense", mesh=None):
     """Carry the send buffer ``(P, P, Cp, R)`` (source, destination, slot)
     across the fabric: arrivals ``(P, P * Cp, R)``, each destination's
-    ordered by source shard (the dense all_to_all layout).
+    ordered by source shard (the dense all_to_all layout).  On a
+    ``ProcessGroupMesh`` the buffer is this memory node's ``(1, P, Cp,
+    R)`` and the fabric its process group's (``ProcessGroupMesh.exchange``).
 
     ``fabric="dense"`` is the switch's one all_to_all: on one device a
     transpose of the buffer's source and destination axes.
@@ -677,6 +827,8 @@ def _exchange(send: torch.Tensor, num_shards: int, *, fabric: str = "dense"):
     (no record moves to its own shard), so both fabrics give the same
     arrivals bit for bit."""
     _check_fabric(fabric)
+    if isinstance(mesh, ProcessGroupMesh):
+        return mesh.exchange(send, fabric=fabric)
     P, _, Cp, R = send.shape
     if fabric == "dense":
         return send.transpose(0, 1).reshape(num_shards, P * Cp, R)
@@ -713,28 +865,31 @@ def _route(
     mut_base: int | None = None,
     drop_mask: torch.Tensor | None = None,
     rep_ctx=None,
+    shard0: int = 0,
+    mesh=None,
 ):
     """Switch routing: deliver every record to its next shard in one
-    superstep (``_route_decide``'s capacities, loss and serve map).
-    Returns ``(pools, n_routed, n_dropped_valid)``."""
+    superstep (``_route_decide``'s capacities, loss and serve map; the
+    exchange over ``mesh``'s process group when it is a
+    ``ProcessGroupMesh``).  Returns ``(pools, n_routed, n_dropped_valid)``."""
     L = pools.shape[1]
     kept, send, n_routed = _route_decide(
         pools, bounds, num_shards, return_to_cpu=return_to_cpu,
         link_capacity=link_capacity, phys_capacity=phys_capacity, drain_done=drain_done,
-        mut_base=mut_base, drop_mask=drop_mask, rep_ctx=rep_ctx)
-    arrivals = _exchange(send, num_shards, fabric=fabric)
+        mut_base=mut_base, drop_mask=drop_mask, rep_ctx=rep_ctx, shard0=shard0)
+    arrivals = _exchange(send, num_shards, fabric=fabric, mesh=mesh)
     merged, n_dropped = _merge_pools(kept, arrivals, L)
     return merged, n_routed, n_dropped
 
 
-def _remote_active(pools, bounds, mut_base: int | None = None, rep_ctx=None):
+def _remote_active(pools, bounds, mut_base: int | None = None, rep_ctx=None, shard0: int = 0):
     """ACTIVE records their shard cannot serve (owner elsewhere or none),
     summed over shards.  A write-pending record's destination is its commit
     shard (an ALLOC's is its home), so a staged remote write keeps the
     fabric scheduled even when every pointer is local.  Under replication
     the serve map decides remoteness."""
     P = pools.shape[0]
-    me = torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
+    me = shard0 + torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
     active = pools[..., F_STATUS] == STATUS_ACTIVE
     owner = translation.owner_of(bounds, pools[..., F_PTR].contiguous())
     if mut_base is None:
@@ -749,21 +904,23 @@ def _remote_active(pools, bounds, mut_base: int | None = None, rep_ctx=None):
 
 
 def _switch(pools, bounds, *, return_to_cpu, link_capacity, drain_done, do_route,
-            mut_base, phys_capacity=None, fabric="dense", drop_mask=None, rep_ctx=None):
+            mut_base, phys_capacity=None, fabric="dense", drop_mask=None, rep_ctx=None,
+            shard0=0, mesh=None):
     """The switch half of a superstep and its counters, under the profiler
     span ``routing.switch``: ``(pools, n_active, n_routed, n_drop,
-    n_remote)``, the counters device scalars."""
+    n_remote)``, the counters device scalars (on a ``ProcessGroupMesh``
+    this memory node's own, summed by the caller)."""
     with torch.profiler.record_function("routing.switch"):
         if do_route:
             pools, n_routed, n_drop = _route(
-                pools, bounds, pools.shape[0], return_to_cpu=return_to_cpu,
+                pools, bounds, bounds.shape[0] - 1, return_to_cpu=return_to_cpu,
                 link_capacity=link_capacity, phys_capacity=phys_capacity,
                 drain_done=drain_done, fabric=fabric, mut_base=mut_base,
-                drop_mask=drop_mask, rep_ctx=rep_ctx)
+                drop_mask=drop_mask, rep_ctx=rep_ctx, shard0=shard0, mesh=mesh)
         else:
             n_routed = n_drop = torch.zeros((), dtype=torch.int64, device=pools.device)
         n_active = (pools[..., F_STATUS] == STATUS_ACTIVE).sum()
-        n_remote = _remote_active(pools, bounds, mut_base, rep_ctx)
+        n_remote = _remote_active(pools, bounds, mut_base, rep_ctx, shard0=shard0)
     return pools, n_active, n_routed, n_drop, n_remote
 
 
@@ -786,10 +943,16 @@ def superstep(
     rep=None,
     rep_ctx=None,
     drop_mask: torch.Tensor | None = None,
+    shard0: int = 0,
+    row0: int = 0,
+    mesh=None,
 ):
     """One read superstep over all P shards: the local chase, then the
-    switch (over ``fabric``).  Returns ``(pools, n_active, n_routed, n_drop, n_remote)``, the
-    counters device scalars summed over the shards.
+    switch (over ``fabric``).  Returns ``(pools, n_active, n_routed,
+    n_drop, n_remote)``, the counters device scalars summed over the
+    shards.  On a ``ProcessGroupMesh`` (``mesh``) the superstep of one
+    memory node: its pool (shard ``shard0``), its rows (from global row
+    ``row0``), the exchange over the process group, its own counters.
 
     ``do_route=False`` is the compacted local-only step: every surviving
     traversal already sits at its owning shard, so the fabric is skipped
@@ -803,10 +966,11 @@ def superstep(
     with torch.profiler.record_function("routing.chase"):
         pools = _local_superstep(
             it, pools, arena_data, bounds, perms, k_local=k_local, max_iters=max_iters,
-            backend=local_backend, elide_access_check=elide_access_check, rep=rep)
+            backend=local_backend, elide_access_check=elide_access_check, rep=rep,
+            shard0=shard0, row0=row0)
     return _switch(pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
                    drain_done=drain_done, do_route=do_route, mut_base=None, fabric=fabric,
-                   drop_mask=drop_mask, rep_ctx=rep_ctx)
+                   drop_mask=drop_mask, rep_ctx=rep_ctx, shard0=shard0, mesh=mesh)
 
 
 def superstep_mut(
@@ -825,20 +989,25 @@ def superstep_mut(
     do_route: bool = True,
     fabric: str = "dense",
     drop_mask: torch.Tensor | None = None,
+    shard0: int = 0,
+    row0: int = 0,
+    mesh=None,
 ):
     """One write superstep over all P shards: the chase, every shard's
     commit phase, then the switch, which routes a staged write to the
     shard that owns its commit target (``drop_mask`` parks the records
-    lost on the fabric).  ``data`` and ``heap`` are carried state, updated
-    in place.  Returns ``(pools, data, heap, n_active, n_routed, n_drop,
+    lost on the fabric; ``shard0``, ``row0`` and ``mesh`` as in
+    ``superstep``, ``heap`` then the memory node's own row).  ``data`` and
+    ``heap`` are carried state, updated in place.  Returns ``(pools, data, heap, n_active, n_routed, n_drop,
     n_remote)``; the spans are ``routing.chase``, ``routing.commit`` and
     ``routing.switch``."""
     pools, data, heap = _local_superstep_mut(
-        it, pools, data, heap, bounds, perms, k_local=k_local, max_iters=max_iters)
+        it, pools, data, heap, bounds, perms, k_local=k_local, max_iters=max_iters,
+        shard0=shard0, row0=row0)
     pools, *counts = _switch(
         pools, bounds, return_to_cpu=return_to_cpu, link_capacity=link_capacity,
         drain_done=drain_done, do_route=do_route, mut_base=F_SCRATCH + it.scratch_words,
-        fabric=fabric, drop_mask=drop_mask)
+        fabric=fabric, drop_mask=drop_mask, shard0=shard0, mesh=mesh)
     return pools, data, heap, *counts
 
 
@@ -893,7 +1062,8 @@ def make_superstep(
 CHUNK = 8  # supersteps one captured graph runs between two host reads
 
 
-def _commit(pools, data, heap, bounds, perms, *, scratch_words: int, live=None):
+def _commit(pools, data, heap, bounds, perms, *, scratch_words: int, live=None, shard0=0,
+            row0=0):
     """Every shard's commit phase (``kernels.pulse_commit``), in place on
     ``pools``, ``data`` and ``heap``, under the profiler span
     ``routing.commit``.  ``live`` (a device bool) gates it through its
@@ -904,7 +1074,8 @@ def _commit(pools, data, heap, bounds, perms, *, scratch_words: int, live=None):
     if live is not None:
         pools[..., F_STATUS] = torch.where(live, pools[..., F_STATUS], STATUS_EMPTY)
     with torch.profiler.record_function("routing.commit"):
-        commit_ops.pulse_commit(pools, data, heap, bounds, perms, scratch_words=scratch_words)
+        commit_ops.pulse_commit(pools, data, heap, bounds, perms, scratch_words=scratch_words,
+                                shard0=shard0, row0=row0)
     return pools, data, heap
 
 
@@ -933,8 +1104,10 @@ _FUSED_CACHE: dict = {}
 
 
 def reset_executable_caches() -> None:
-    """Drop every cached runner and its captured graph (test isolation)."""
+    """Drop every cached runner and its captured graph, and a memory node's
+    resident rows (test isolation)."""
     _FUSED_CACHE.clear()
+    _RESIDENT.clear()
     CACHE_STATS.reset()
 
 
@@ -1288,7 +1461,7 @@ def distributed_execute(
     ptr0,
     scratch0,
     *,
-    mesh: EmulatedMesh,
+    mesh: EmulatedMesh | ProcessGroupMesh,
     axis_name: str = "mem",
     max_iters: int = 1 << 30,
     k_local: int = 4,
@@ -1389,10 +1562,28 @@ def distributed_execute(
     card) and one ``routing.chunk`` per chunk, its read of the flags
     included, in place of ``routing.superstep``.
 
+    On a ``ProcessGroupMesh`` the call is one memory node's, SPMD: every
+    rank calls it with the same arguments, as every device runs a
+    ``shard_map`` body (``_process_group_execute``).  Rank ``r`` moves only
+    its rows ``[bounds[r], bounds[r + 1])`` (and its heap row) to the
+    mesh's device, keeps only pool ``r``, and runs the JAX package's
+    per-shard superstep on the dispatched schedule, the records crossing
+    the group's collectives; it returns what ``EmulatedMesh`` returns, on
+    every rank, on the mesh's device.  It keeps ``compact``,
+    ``return_to_cpu``, ``min_link_capacity``, fabric loss
+    (``FaultPlan.drop_prob``), ``elide_access_check``, mutating iterators
+    and both fabrics, and refuses with ``NotImplementedError`` what needs
+    more than one card or is not ported yet: the fused and pipelined
+    schedules, ``replication``, a targeted kill and the straggler.
+
     Returns ``(records, RoutingStats)``, plus the post-commit ``Arena`` on
     the input's device for a mutating iterator: the records a ``(B, R)``
     int32 tensor on the arena's device, ordered by request id.
     """
+    on_group = isinstance(mesh, ProcessGroupMesh)
+    if on_group:
+        _refuse_on_a_process_group(schedule="fused" if schedule is None and fused else schedule,
+                                   replication=replication, fault_injector=fault_injector)
     kill_at = None
     delay_s, delay_shard = 0.0, None
     drop_prob, drop_seed = 0.0, 0
@@ -1431,7 +1622,7 @@ def distributed_execute(
         raise ValueError(
             "elide_access_check=True is only sound for verified read-only traversals "
             "without replication")
-    dev = arena.data.device
+    dev = torch.device(mesh.device) if on_group else arena.data.device
     if local_backend is None:
         local_backend = "kernel" if dev.type == "cuda" and not mutate else "reference"
     if local_backend not in ("kernel", "reference"):
@@ -1449,6 +1640,12 @@ def distributed_execute(
         raise ValueError(f"the mesh is on {mesh.device}, the arena on {dev}")
     if arena.capacity % num_shards:
         raise ValueError("distributed arena must have uniform shard sizes")
+    if on_group:
+        return _process_group_execute(
+            it, arena, ptr0, scratch0, mesh=mesh, max_iters=max_iters, k_local=k_local,
+            max_supersteps=max_supersteps, return_to_cpu=return_to_cpu, compact=compact,
+            min_link_capacity=min_link_capacity, fabric=fabric, local_backend=local_backend,
+            drop_prob=drop_prob, drop_seed=drop_seed, elide_access_check=elide_access_check)
 
     S = it.scratch_words
     MW = mut_width(arena.node_words) if mutate else 0
@@ -1579,6 +1776,142 @@ def distributed_execute(
         epochs, commits = heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
         stats.commits, stats.epochs = commits - commits0, epochs - epochs0
     return records, stats, Arena(data=data, bounds=arena.bounds, perms=arena.perms, heap=heap)
+
+
+def _refuse_on_a_process_group(*, schedule, replication, fault_injector) -> None:
+    """What ``distributed_execute`` does not run on a ``ProcessGroupMesh``,
+    each naming its entry of ROADMAP queue 1; never run as something
+    else."""
+    if schedule in ("fused", "pipelined"):
+        raise NotImplementedError(
+            f"schedule={schedule!r} on a ProcessGroupMesh needs its collectives inside the "
+            "captured CUDA graph, that is NCCL on more than one card: ROADMAP queue 1, "
+            "item 1 (the fused and pipelined schedules on NCCL); use schedule='dispatched'")
+    if replication is not None:
+        raise NotImplementedError(
+            "replication on a ProcessGroupMesh is not ported: ROADMAP queue 1, item 2 "
+            "(replication, kills and the straggler on a process group)")
+    plan = getattr(fault_injector, "plan", None)
+    if plan is not None and (plan.kill_shard is not None or plan.delay_shard is not None):
+        raise NotImplementedError(
+            "a targeted kill or a straggler on a ProcessGroupMesh is not ported: ROADMAP "
+            "queue 1, item 2 (replication, kills and the straggler on a process group); "
+            "fabric loss (FaultPlan.drop_prob) runs")
+
+
+# a memory node's resident rows: (id(arena), mesh) -> (rows, heap row,
+# bounds, perms, row0) on the mesh's device, the JAX package's
+# ``_resident_arena`` for one shard
+_RESIDENT: dict = {}
+
+
+def _resident_shard(arena: Arena, mesh: ProcessGroupMesh):
+    """This rank's rows ``[bounds[r], bounds[r + 1])`` of ``arena.data``,
+    its heap row and the switch's tables, on the mesh's device, moved once
+    per (arena, mesh)."""
+    key = (id(arena), mesh)
+    ent = _RESIDENT.get(key)
+    if ent is None:
+        r, dev = mesh.rank, torch.device(mesh.device)
+        edges = arena.bounds.tolist()
+        if len(set(np.diff(edges).tolist())) != 1:
+            raise ValueError("distributed arena must have uniform shard sizes")
+        lo, hi = int(edges[r]), int(edges[r + 1])
+        ent = (arena.data[lo:hi].to(dev).contiguous(), arena.heap[r:r + 1].to(dev).contiguous(),
+               arena.bounds.to(dev), arena.perms.to(dev), lo)
+        _RESIDENT[key] = ent
+        # evict when the arena dies, so a recycled id() cannot alias stale rows
+        weakref.finalize(arena, _RESIDENT.pop, key, None)
+    return ent
+
+
+def _process_group_execute(it: PulseIterator, arena: Arena, ptr0, scratch0, *,
+                           mesh: ProcessGroupMesh, max_iters: int, k_local: int,
+                           max_supersteps: int, return_to_cpu: bool, compact: bool,
+                           min_link_capacity: int, fabric: str, local_backend: str,
+                           drop_prob: float, drop_seed: int, elide_access_check: bool):
+    """``distributed_execute`` on a ``ProcessGroupMesh``: this rank's memory
+    node on the dispatched schedule.  Each superstep is the JAX package's
+    per-shard body (``make_superstep``): the local chase over its own pool
+    and rows (on the card one ``pulse_chase`` launch of its one shard), for
+    a mutating iterator the commit on its rows and heap row (one
+    ``pulse_commit`` call), ``_route_decide`` for ``my_shard = r``, the
+    exchange and the merge, then the four counters in one all-reduce and
+    the superstep's one host read.  At the end one all-gather of the final
+    pools (for writes of every shard's rows and heap row too), so every
+    rank decodes the same results."""
+    P, r = mesh.num_shards, mesh.rank
+    dev = torch.device(mesh.device)
+    mutate = it.mutates
+    rows, heap_row, bounds, perms, row0 = _resident_shard(arena, mesh)
+    S = it.scratch_words
+    MW = mut_width(arena.node_words) if mutate else 0
+    R = record_width(S, MW)
+    ptr0 = torch.as_tensor(ptr0, dtype=torch.int32).to(dev)
+    scratch0 = torch.as_tensor(scratch0, dtype=torch.int32).to(dev).reshape(-1, S)
+    with torch.profiler.record_function("routing.place"):
+        pools, B = place_requests(ptr0, scratch0, P, MW)
+        pools = pools[r:r + 1].contiguous()
+    L = pools.shape[1]
+    base_capacity = L // P
+    compact = compact and not return_to_cpu
+    if mutate:
+        data, heap = rows.clone(), heap_row.clone()  # this call's private copies
+        epochs0, commits0 = arena.heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
+    drop_keys = (_shard_keys(drop_seed, torch.tensor([r], device=dev)) if drop_prob > 0.0
+                 else None)
+    routed_per_step, active_per_step = [], []
+    wire_words_per_step, capacity_per_step = [], []
+    local_only_steps = steps = 0
+    n_active, n_remote = B, B  # before the first superstep all sit at home
+    for _ in range(max_supersteps):
+        capacity, do_route = _ladder(n_active, n_remote, num_shards=P,
+                                     base_capacity=base_capacity,
+                                     min_link_capacity=min_link_capacity, compact=compact)
+        route_kw = dict(k_local=k_local, max_iters=max_iters, return_to_cpu=return_to_cpu,
+                        link_capacity=capacity if compact else None, drain_done=compact,
+                        do_route=do_route, fabric=fabric, shard0=r, row0=row0, mesh=mesh,
+                        drop_mask=(_loss_mask(drop_keys, L, drop_prob, steps)
+                                   if drop_keys is not None and do_route else None))
+        with torch.profiler.record_function("routing.superstep"):
+            if mutate:
+                pools, data, heap, *counts = superstep_mut(
+                    it, pools, data, heap, bounds, perms, **route_kw)
+            else:
+                pools, *counts = superstep(
+                    it, pools, rows, bounds, perms, local_backend=local_backend,
+                    elide_access_check=elide_access_check, **route_kw)
+            with torch.profiler.record_function("routing.counters"):
+                n_active, n_routed, n_drop, n_remote = mesh.all_reduce(torch.stack(counts))
+        steps += 1
+        routed_per_step.append(n_routed)
+        active_per_step.append(n_active)
+        capacity_per_step.append(capacity if do_route else 0)
+        wire_words_per_step.append(P * (P - 1) * capacity * R if do_route else 0)
+        local_only_steps += int(not do_route)
+        if n_drop != 0:  # not assert: must survive python -O
+            raise RuntimeError(f"request records lost in routing (pool overflow): {n_drop}")
+        if n_active == 0:
+            break
+    else:
+        raise RuntimeError(
+            f"distributed_execute: {n_active} records still ACTIVE after "
+            f"max_supersteps={max_supersteps}; raise the cap or lower max_iters "
+            f"(records would be returned with partial state otherwise)")
+    with torch.profiler.record_function("routing.decode"):
+        records, stats = _decode_results(
+            mesh.all_gather(pools[0]), B, S, mut_words=MW, supersteps=steps,
+            routed_per_step=routed_per_step, active_per_step=active_per_step,
+            wire_words_per_step=wire_words_per_step, capacity_per_step=capacity_per_step,
+            local_only_steps=local_only_steps, schedule="dispatched", fabric=fabric,
+            num_shards=P)
+        if not mutate:
+            return records, stats
+        data = mesh.all_gather(data).reshape(arena.capacity, arena.node_words)
+        heap = mesh.all_gather(heap[0])
+        epochs, commits = heap[:, [H_EPOCH, H_COMMITS]].sum(0).tolist()
+        stats.commits, stats.epochs = commits - commits0, epochs - epochs0
+    return records, stats, Arena(data=data, bounds=bounds, perms=perms, heap=heap)
 
 
 def _decode_results(

@@ -41,6 +41,11 @@
 //     lane leaves its loop only once nothing can change it: it is no longer
 //     active, or its pointer is another shard's and its budget is not
 //     spent.  The semantics of ref.chase_superstep_reference.
+//     A launch may take one shard of the mesh (a memory node that holds
+//     only its own rows, core/routing.py's ProcessGroupMesh): lane i then
+//     belongs to shard shard0 + i / L, and `arena` starts at global row
+//     row0, so a pointer p reads row p - row0; bounds and perms stay the
+//     whole mesh's (shard0 = row0 = 0: the whole arena, every shard).
 //     With replica rows (rep_rows, replicated reads), shard s also serves a
 //     second window: the range of primary_map[s], whose rows it holds at
 //     rep_rows[bounds[s] + (ptr - bounds[primary])], while the policy
@@ -121,6 +126,8 @@ struct ChaseArgs {  // outside the unnamed namespace: the C entry points take it
   int max_iters;           // superstep: a lane's iteration budget when `budget` is null
   int elide;               // superstep: 1 when every shard's grant is known true
   int rep_spread;          // replicated reads: 1 under the "spread" policy
+  int shard0;              // superstep: the shard of the launch's first pool
+  int row0;                // superstep: the global row of arena's first row
 };
 
 namespace {
@@ -544,7 +551,7 @@ __device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
   for (int j = 0; j < a.R; ++j) out[j] = rec[j];
   int st = rec[kRecStatus];
   if (st != kActive) return;
-  const int shard = lane / a.L;
+  const int shard = a.shard0 + lane / a.L;
   const int lo = s_bounds[shard];
   const bool granted = a.elide != 0 || (s_perms[shard] & a.need) == a.need;
   int hi = s_bounds[shard + 1], rep_lo = 0, rep_hi = 0, flags = 0;
@@ -571,7 +578,7 @@ __device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
       } else {
         const int* row =
             in_rep ? a.rep_rows + static_cast<size_t>(clampi(p - rep_lo + lo, 0, a.cap - 1)) * a.W
-                   : a.arena + static_cast<size_t>(clampi(p, 0, a.cap - 1)) * a.W;
+                   : a.arena + static_cast<size_t>(clampi(p - a.row0, 0, a.cap - 1)) * a.W;
         int np;
         const bool done = body.step(row, vec, p, np);
         if (!done) p = np;

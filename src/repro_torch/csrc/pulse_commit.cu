@@ -70,6 +70,16 @@
 // in C++, hence ``mask >> min(k, 31)``.  Tensor cores have no place here:
 // there is no arithmetic to speak of, only dependent accesses.
 //
+// One shard of a launch: a memory node that holds only its own rows
+// (core/routing.py's ProcessGroupMesh) launches over its one pool, its heap
+// row and its rows.  `shard0` is the global index of the launch's first
+// pool (its heap rows follow the pools) and `row0` the global row of
+// data's first row; bounds and perms stay the whole mesh's.  A slot in the
+// order key is a row's index in `data` (`cap` counts those rows, so the key
+// orders as the global one does), while targets, free-list links and the
+// slots ALLOCs write back stay global addresses.  shard0 = row0 = 0 is the
+// whole arena and every shard.
+//
 // The record layout, opcodes and heap registers come from the port's Python
 // modules as -D defines (kernels/pulse_commit/kernel.py).
 
@@ -149,10 +159,10 @@ __device__ int warp_lower_bound(const long long* a, int n, long long x) {
 // Step 1: every record's order key.
 __global__ void __launch_bounds__(kThreads) commit_key(
     const int* __restrict__ pools, const int* __restrict__ bounds, long long* __restrict__ key,
-    int P, int L, int R, int S, int cap) {
+    int P, int L, int R, int S, int cap, int shard0, int row0) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<long long>(P) * L) return;
-  const int s = static_cast<int>(i / L);
+  const int s = shard0 + static_cast<int>(i / L);
   const int* rec = pools + i * R;
   const int MB = PC_F_SCRATCH + S;
   const int op = rec[MB];
@@ -161,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) commit_key(
   bool eligible = op != PC_M_NONE && rec[PC_F_STATUS] != PC_STATUS_EMPTY;
   if (eligible) eligible = alloc ? rec[PC_F_HOME] == s : (tgt >= bounds[s] && tgt < bounds[s + 1]);
   const long long klass = alloc ? 2 : (op == PC_M_FREE ? 1 : 0);
-  const long long slot = alloc ? 0 : tgt;
+  const long long slot = alloc ? 0 : static_cast<long long>(tgt) - row0;
   key[i] = eligible ? (klass * cap + slot) * L + rec[PC_F_ID] : 3LL * cap * L;
 }
 
@@ -169,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) commit_key(
 __global__ void __launch_bounds__(kThreads) commit_apply(
     int* __restrict__ pools, int* __restrict__ data, const long long* __restrict__ skey,
     const long long* __restrict__ order, const int* __restrict__ perms, int L, int R, int S,
-    int W, int cap) {
+    int W, int cap, int shard0) {
   const int s = blockIdx.y;
   const int tile = blockIdx.x * kTile;
   const int end = min(tile + kTile, L);
@@ -180,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) commit_apply(
   const int MB = PC_F_SCRATCH + S;
   const long long cl = static_cast<long long>(cap) * L;  // the first FREE key
   const long long top = 3 * cl;
-  const bool writable = (perms[s] & PC_PERM_WRITE) == PC_PERM_WRITE;
+  const bool writable = (perms[shard0 + s] & PC_PERM_WRITE) == PC_PERM_WRITE;
   if (sk[tile] >= (writable ? cl : top)) return;  // nothing of this step in the tile
 
   if (!writable) {
@@ -227,15 +237,15 @@ __global__ void __launch_bounds__(kThreads) commit_tail(
     int* __restrict__ pools, int* __restrict__ data, int* __restrict__ heap,
     const long long* __restrict__ skey, const long long* __restrict__ order,
     const int* __restrict__ bounds, const int* __restrict__ perms, int L, int R, int S, int W,
-    int cap) {
-  const int s = blockIdx.x;
+    int cap, int shard0, int row0) {
+  const int s = blockIdx.x;  // the pool's index in the launch; shard0 + s its shard
   const long long base = static_cast<long long>(s) * L;
   const long long* sk = skey + base;
   const long long* ord = order + base;
   int* pool = pools + base * R;
   const int MB = PC_F_SCRATCH + S;
   const long long cl = static_cast<long long>(cap) * L;
-  if ((perms[s] & PC_PERM_WRITE) != PC_PERM_WRITE || sk[0] >= 3 * cl) return;
+  if ((perms[shard0 + s] & PC_PERM_WRITE) != PC_PERM_WRITE || sk[0] >= 3 * cl) return;
 
   __shared__ int edge[3];  // the first FREE, the first ALLOC, the eligible count
   __shared__ int ring[kRing][kRingWords];
@@ -249,17 +259,19 @@ __global__ void __launch_bounds__(kThreads) commit_tail(
   }
   __syncthreads();
   const int b1 = edge[0], b2 = edge[1], n = edge[2];
-  const int lo = bounds[s], hi = bounds[s + 1], rows = hi - lo;
+  const int lo = bounds[shard0 + s], hi = bounds[shard0 + s + 1], rows = hi - lo;
+  const int base_row = lo - row0;  // the shard's first row in data
   int* h = heap + s * PC_HEAP_WORDS;
   const int free0 = h[PC_H_FREE];
   const int bump = h[PC_H_BUMP];
   const int lane = threadIdx.x % kGroup;
 
-  // FREE, in parallel: a FREE's slot is its key's, (cap + slot) * L + id
+  // FREE, in parallel: a FREE's slot is its key's, (cap + slot) * L + id, a
+  // row of data; the link it writes is the previous FREE's global address
   for (int i = b1 + threadIdx.x / kGroup; i < b2; i += kGroups) {
     const int slot = static_cast<int>(sk[i] / L - cap);
     if (i + 1 == b2 || sk[i + 1] / L - cap != slot) {  // the last FREE of its slot writes
-      const int link = i == b1 ? free0 : static_cast<int>(sk[i - 1] / L - cap);
+      const int link = i == b1 ? free0 : static_cast<int>(sk[i - 1] / L - cap) + row0;
       int* row = data + static_cast<long long>(slot) * W;
       for (int w = lane; w < W; w += kGroup) row[w] = w == 0 ? link : 0;
     }
@@ -271,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) commit_tail(
   if (warp == 0) {
     const long long* ordA = ord + b2;
     const int n_alloc = n - b2;
-    int head = b2 > b1 ? static_cast<int>(sk[b2 - 1] / L - cap) : free0;
+    int head = b2 > b1 ? static_cast<int>(sk[b2 - 1] / L - cap) + row0 : free0;
     int k = 0;
     if (head != PC_NULL && n_alloc > 0) {
       auto fetch = [&](int j, long long r) {  // record j's header and staged words into the ring
@@ -293,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) commit_tail(
         const int* e = ring[k % kRing];
         int* rec = pool + ring_rec[k % kRing] * R;
         const int mask = e[2];
-        int* row = data + static_cast<long long>(lo + clampi(head - lo, 0, rows - 1)) * W;
+        int* row = data + static_cast<long long>(base_row + clampi(head - lo, 0, rows - 1)) * W;
         const int link = row[0];
         __syncwarp();  // the link is read before the row is overwritten
         for (int w = wlane; w < W; w += kWarp) row[w] = mask_bit(mask, w) ? e[4 + w] : 0;
@@ -325,7 +337,7 @@ __global__ void __launch_bounds__(kThreads) commit_tail(
       const int slot = bump + k;
       // a slot below lo clamps to lo: only the last ALLOC onto that row writes
       if (slot >= lo || k == n_claim - 1) {
-        int* row = data + static_cast<long long>(lo + clampi(slot - lo, 0, rows - 1)) * W;
+        int* row = data + static_cast<long long>(base_row + clampi(slot - lo, 0, rows - 1)) * W;
         const int mask = rec[MB + 2];
         for (int w = lane; w < W; w += kGroup) row[w] = mask_bit(mask, w) ? rec[MB + 4 + w] : 0;
       }
@@ -352,39 +364,43 @@ cudaError_t check_shape(int P, int L, int W, int S) {
 }  // namespace
 
 extern "C" int pulse_commit_key_launch(const void* pools, const void* bounds, void* key, int P,
-                                       int L, int R, int S, int cap, void* stream) {
+                                       int L, int R, int S, int cap, int shard0, int row0,
+                                       void* stream) {
   if (P <= 0 || L <= 0) return 0;
   if (S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(P) * L;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   commit_key<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pools), static_cast<const int*>(bounds),
-      static_cast<long long*>(key), P, L, R, S, cap);
+      static_cast<long long*>(key), P, L, R, S, cap, shard0, row0);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pulse_commit_apply_launch(void* pools, void* data, const void* skey,
                                          const void* order, const void* perms, int P, int L,
-                                         int R, int S, int W, int cap, void* stream) {
+                                         int R, int S, int W, int cap, int shard0,
+                                         void* stream) {
   if (P <= 0 || L <= 0) return 0;
   if (const cudaError_t e = check_shape(P, L, W, S)) return static_cast<int>(e);
   const dim3 grid((L + kTile - 1) / kTile, P);
   commit_apply<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(pools), static_cast<int*>(data), static_cast<const long long*>(skey),
-      static_cast<const long long*>(order), static_cast<const int*>(perms), L, R, S, W, cap);
+      static_cast<const long long*>(order), static_cast<const int*>(perms), L, R, S, W, cap,
+      shard0);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pulse_commit_tail_launch(void* pools, void* data, void* heap, const void* skey,
                                         const void* order, const void* bounds, const void* perms,
                                         int P, int L, int R, int S, int W, int cap,
-                                        void* stream) {
+                                        int shard0, int row0, void* stream) {
   if (P <= 0 || L <= 0) return 0;
   if (const cudaError_t e = check_shape(P, L, W, S)) return static_cast<int>(e);
   commit_tail<<<P, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(pools), static_cast<int*>(data), static_cast<int*>(heap),
       static_cast<const long long*>(skey), static_cast<const long long*>(order),
-      static_cast<const int*>(bounds), static_cast<const int*>(perms), L, R, S, W, cap);
+      static_cast<const int*>(bounds), static_cast<const int*>(perms), L, R, S, W, cap, shard0,
+      row0);
   return static_cast<int>(cudaGetLastError());
 }
 

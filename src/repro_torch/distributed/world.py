@@ -1,0 +1,97 @@
+"""Memory nodes as processes on one machine: start a ``torch.distributed``
+world, run one function on every rank, and end it.
+
+``spawn(fn, world_size, args, timeout=...)`` starts ``world_size``
+processes by the ``spawn`` start method; each joins one process group over
+a loopback TCP store on a free port (``init_process_group`` with
+``tcp://127.0.0.1:<port>``), runs ``fn(rank, world_size, *args)`` and
+leaves the group.  The caller waits at most ``timeout`` seconds: a rank
+that raises ends the world (the others are terminated, wherever they
+wait) and ``spawn`` raises ``RuntimeError`` with its traceback; a world
+still running at the timeout is killed and ``spawn`` raises
+``TimeoutError``.  Nothing is caught and passed over.
+
+``all_gather`` and ``all_reduce_sum`` are the collectives of the port's
+expert-parallel MoE (``models/moe.py``), through host copies where the
+group is Gloo and the tensor on the card (``on_host``).
+
+``fn`` must be importable by the new processes: a function at the top
+level of a module, or of the script that calls ``spawn`` (which must then
+guard its own work with ``if __name__ == "__main__"``).  Gloo runs on the
+CPU and, through host copies, on CUDA tensors; NCCL refuses two ranks on
+one card, so the ranks of a world on one card use Gloo.
+"""
+
+from __future__ import annotations
+
+import datetime
+import socket
+import time
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def free_port() -> int:
+    """A TCP port on the loopback interface that was free a moment ago."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, fn, world_size: int, port: int, backend: str, timeout: float,
+               args: tuple) -> None:
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        fn(rank, world_size, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world_size: int, args: tuple = (), *, timeout: float, backend: str = "gloo"):
+    """Run ``fn(rank, world_size, *args)`` on ``world_size`` ranks of one
+    process group and wait for them, at most ``timeout`` seconds (see the
+    module's docstring).  Returns the seconds the world took."""
+    t0 = time.monotonic()
+    ctx = mp.start_processes(_rank_main, args=(fn, world_size, free_port(), backend, timeout,
+                                               tuple(args)),
+                             nprocs=world_size, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=0.2):
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"a world of {world_size} ranks was still running after "
+                                   f"{timeout:.0f} s; every rank was killed")
+    except mp.ProcessRaisedException as e:
+        raise RuntimeError(f"a rank of the world of {world_size} raised:\n{e}") from None
+    except mp.ProcessExitedException as e:
+        raise RuntimeError(f"a rank of the world of {world_size} exited: {e}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return time.monotonic() - t0
+
+
+def on_host(t: torch.Tensor, group=None) -> bool:
+    """Whether a collective on ``t`` over ``group`` goes through a host
+    copy: a CUDA tensor on a Gloo group (Gloo's transport is the host's)."""
+    return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def all_gather(t: torch.Tensor, group=None) -> list:
+    """Every rank's ``t`` in rank order, on ``t``'s device."""
+    x = (t.cpu() if on_host(t, group) else t).contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return [part.to(t.device) for part in parts]
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``t``, a new tensor on ``t``'s device."""
+    x = t.cpu().clone() if on_host(t, group) else t.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x.to(t.device)

@@ -156,7 +156,8 @@ class ChaseArgs(ctypes.Structure):
         "pool_out", "rep_rows", "primary_map", "dead_mask", "budget")] + [
         (n, ctypes.c_int) for n in (
             "cap", "W", "T", "B", "S", "num_steps", "quantum", "mode", "n_bounds", "n_perms",
-            "check_cap", "need", "R", "L", "max_iters", "elide", "rep_spread")]
+            "check_cap", "need", "R", "L", "max_iters", "elide", "rep_spread", "shard0",
+            "row0")]
 
 
 MODE_FIXED, MODE_RUN, MODE_SUPERSTEP = 0, 1, 2  # ChaseArgs.mode
@@ -261,7 +262,8 @@ launch.last_grid = 0  # blocks of the last launch (the card's resident blocks, o
 
 
 def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: str = "isa",
-                     scratch_words: int, max_iters, elide: bool, rep=None):
+                     scratch_words: int, max_iters, elide: bool, rep=None, shard0: int = 0,
+                     row0: int = 0):
     """Launch one routing superstep (mode 2) on PyTorch's current stream:
     ``k_local`` steps of every record of ``pool`` ((P, L, R) int32, shard
     ``s``'s records at ``pool[s]``) over the rows of its shard, ``bounds``
@@ -273,6 +275,10 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
     ``max_iters`` is an int, passed by value, or a one-element int32
     tensor on the card, which the kernel reads (a captured launch then
     takes whatever budget the tensor holds at replay).
+    ``shard0`` and ``row0`` take one shard of the launch: ``pool`` holds
+    shards ``shard0 ..`` of the ``perms.shape[0]`` that ``bounds`` and
+    ``perms`` describe, and ``arena``'s first row is global row ``row0``;
+    the replica window takes no offset.
     Returns the new pool; reads nothing on the host and does not
     synchronise.  An empty pool raises: every call launches."""
     dev = arena.device
@@ -289,10 +295,15 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
     T = _check_body(body, code, W, S, cap)
     if R < routing.F_SCRATCH + S:
         raise ValueError(f"pulse_chase: records of {R} words cannot hold {S} scratch words")
-    if not 0 < P < MAX_FAULT_TABLE or bounds.shape[0] != P + 1 or perms.shape[0] != P:
-        raise ValueError(f"pulse_chase: {P} shards need {P + 1} bounds and {P} permission "
-                         f"words (1-{MAX_FAULT_TABLE - 1} shards), got {bounds.shape[0]} and "
-                         f"{perms.shape[0]}")
+    n_shards = perms.shape[0]
+    if (not 0 < n_shards < MAX_FAULT_TABLE or bounds.shape[0] != n_shards + 1
+            or not 0 <= shard0 <= n_shards - P or row0 < 0):
+        raise ValueError(f"pulse_chase: pools of shards {shard0}..{shard0 + P - 1} need a mesh "
+                         f"of at least {shard0 + P} shards (1-{MAX_FAULT_TABLE - 1}), its "
+                         f"bounds one more word, and a row offset >= 0; got {bounds.shape[0]} "
+                         f"bounds, {n_shards} permission words, row {row0}")
+    if rep is not None and (shard0 or row0):
+        raise ValueError("pulse_chase: the replica window takes no shard offset")
     if not 0 < P * L or P * L * R >= 2**31 or not 0 <= k_local < 2**31:
         raise ValueError(f"pulse_chase: pool {tuple(pool.shape)} or k_local {k_local} out of "
                          "range")
@@ -303,9 +314,9 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
         raise ValueError(f"pulse_chase: a budget tensor must be one int32 word on {dev}, got "
                          f"{max_iters.dtype} {tuple(max_iters.shape)} on {max_iters.device}")
     a = ChaseArgs(cap=cap, W=W, T=T, B=P * L, S=S, num_steps=int(k_local), mode=MODE_SUPERSTEP,
-                  quantum=1, n_bounds=P + 1, n_perms=P, need=PERM_READ, R=R, L=L,
+                  quantum=1, n_bounds=n_shards + 1, n_perms=n_shards, need=PERM_READ, R=R, L=L,
                   max_iters=0 if on_card else int(min(max_iters, 2**31 - 1)),
-                  elide=int(bool(elide)))
+                  elide=int(bool(elide)), shard0=int(shard0), row0=int(row0))
     if on_card:
         a.budget = max_iters.data_ptr()
     a.arena, a.code = arena.data_ptr(), code.data_ptr() if body == "isa" else None
@@ -315,14 +326,15 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
         rep_rows, primary, dead, policy = rep
         for name, t, nd in (("rep_rows", rep_rows, 2), ("primary_map", primary, 1)):
             _check(name, t, dev, nd)
-        if rep_rows.shape != arena.shape or primary.shape[0] != P:
+        if rep_rows.shape != arena.shape or primary.shape[0] != n_shards:
             raise ValueError(f"pulse_chase: replica rows {tuple(rep_rows.shape)} and primary "
                              f"map {tuple(primary.shape)} for an arena {tuple(arena.shape)} "
                              f"of {P} shards")
-        if (dead.device != dev or dead.dtype != torch.bool or tuple(dead.shape) != (P,)
+        if (dead.device != dev or dead.dtype != torch.bool or tuple(dead.shape) != (n_shards,)
                 or not dead.is_contiguous()):
-            raise ValueError(f"pulse_chase: dead_mask must be a contiguous ({P},) bool tensor "
-                             f"on {dev}, got {dead.dtype} {tuple(dead.shape)} on {dead.device}")
+            raise ValueError(f"pulse_chase: dead_mask must be a contiguous ({n_shards},) bool "
+                             f"tensor on {dev}, got {dead.dtype} {tuple(dead.shape)} on "
+                             f"{dead.device}")
         a.rep_rows, a.primary_map, a.dead_mask = (rep_rows.data_ptr(), primary.data_ptr(),
                                                   dead.data_ptr())
         a.rep_spread = int(policy == "spread")

@@ -218,6 +218,8 @@ def pulse_chase_superstep(
     max_iters: int | torch.Tensor,
     elide_access_check: bool = False,
     rep=None,
+    shard0: int = 0,
+    row0: int = 0,
 ):
     """The local chase of one routing superstep, every shard at once.
 
@@ -229,8 +231,12 @@ def pulse_chase_superstep(
     primary_map, dead_mask, policy)`` (replicated reads) adds each shard's
     replica window.  ``max_iters`` is an int, or a 0-d int32 tensor on the
     pool's device that the kernel (and the plain version) read, so that a
-    captured launch serves any budget.  Returns the new pool; the input is
-    not modified.
+    captured launch serves any budget.  ``shard0`` and ``row0`` take one
+    shard of the mesh (a memory node that holds only its own rows):
+    ``pool`` is then shards ``shard0 ..`` of the ``perms.shape[0]`` that
+    ``bounds`` and ``perms`` describe, and ``arena_data``'s first row is
+    global row ``row0``.  Returns the new pool; the input is not
+    modified.
 
     On CUDA tensors this is one launch of the kernel (the interpreter for
     an ISA iterator's logic, or the native body of a structure's iterator;
@@ -240,13 +246,14 @@ def pulse_chase_superstep(
     if not _on_cuda(arena_data):
         return chase_superstep_reference(
             arena_data, pool, bounds, perms, logic_fn, k_local, scratch_words=S,
-            max_iters=max_iters, elide=elide_access_check, rep=rep)
+            max_iters=max_iters, elide=elide_access_check, rep=rep, shard0=shard0, row0=row0)
     body, code = _kernel_body(logic_fn, arena_data.device)
     if pool.shape[0] * pool.shape[1] == 0:
         return pool.clone()
     out = _kernel.launch_superstep(
         arena_data, pool.contiguous(), bounds, perms, code, k_local, body=body,
-        scratch_words=S, max_iters=max_iters, elide=elide_access_check, rep=rep)
+        scratch_words=S, max_iters=max_iters, elide=elide_access_check, rep=rep, shard0=shard0,
+        row0=row0)
     pulse_chase.launches += 1
     return out
 

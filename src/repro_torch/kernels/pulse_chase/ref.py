@@ -81,13 +81,17 @@ def chase_run_reference(arena, ptr, scratch, status, logic_fn, max_steps: int,
 
 def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int, *,
                               scratch_words: int, max_iters, elide: bool = False,
-                              rep=None):
+                              rep=None, shard0: int = 0, row0: int = 0):
     """The local chase of one routing superstep over every shard at once.
 
     ``pool`` is ``(P, L, R)`` request records (``core.routing``'s format);
     shard ``s`` serves the rows ``[bounds[s], bounds[s + 1])`` of ``arena``
     (global rows) and reads them when ``perms[s]`` grants PERM_READ
-    (always, with ``elide``).  ``k_local`` times, for every record as
+    (always, with ``elide``).  With ``shard0``, the pools are those of
+    shards ``shard0 .. shard0 + P - 1`` of the ``perms.shape[0]`` that
+    ``bounds`` and ``perms`` describe, and ``arena``'s first row is global
+    row ``row0`` (a memory node's own rows: ``row0 = bounds[shard0]``);
+    the defaults are the whole arena and every shard.  ``k_local`` times, for every record as
     ``iterator.step_batch`` treats it: an ACTIVE record whose pointer lies
     in its shard's range steps (a fault instead when the shard does not
     grant the read); then a record still ACTIVE goes MAXED at
@@ -104,8 +108,10 @@ def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int
     own range is empty."""
     P, L, R = pool.shape
     S = scratch_words
+    if rep is not None and (shard0 or row0):
+        raise ValueError("the replica window reads the whole arena's layout: no shard offset")
     flat = pool.reshape(P * L, R)
-    shard = torch.arange(P * L, device=pool.device) // L
+    shard = shard0 + torch.arange(P * L, device=pool.device) // L
     lo, hi = bounds[shard], bounds[shard + 1]
     probe = (perms & PERM_READ) == PERM_READ
     granted = torch.ones_like(shard, dtype=torch.bool) if elide else probe[shard]
@@ -125,7 +131,7 @@ def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int
         grant = torch.where(in_rep, rep_ok, granted) if rep is not None else granted
         fault = active & local & ~grant & ~null
         runnable = active & local & ~fault & ~null
-        nodes = arena[torch.where(runnable & ~in_rep, ptr.clamp(0, cap - 1), 0).long()]
+        nodes = arena[torch.where(runnable & ~in_rep, (ptr - row0).clamp(0, cap - 1), 0).long()]
         if rep is not None:
             at = (ptr - rep_lo + lo).clamp(0, cap - 1)
             nodes = torch.where(in_rep[:, None],

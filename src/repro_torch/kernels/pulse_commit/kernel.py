@@ -49,12 +49,13 @@ def _library() -> ctypes.CDLL:
     lib = SOURCE.load()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        # pools, bounds, key; P, L, R, S, cap; stream
-        "pulse_commit_key_launch": [ptr] * 3 + [i32] * 5 + [ptr],
-        # pools, data, sorted keys, order, perms; P, L, R, S, W, cap; stream
-        "pulse_commit_apply_launch": [ptr] * 5 + [i32] * 6 + [ptr],
-        # pools, data, heap, sorted keys, order, bounds, perms; P, L, R, S, W, cap; stream
-        "pulse_commit_tail_launch": [ptr] * 7 + [i32] * 6 + [ptr],
+        # pools, bounds, key; P, L, R, S, cap, shard0, row0; stream
+        "pulse_commit_key_launch": [ptr] * 3 + [i32] * 7 + [ptr],
+        # pools, data, sorted keys, order, perms; P, L, R, S, W, cap, shard0; stream
+        "pulse_commit_apply_launch": [ptr] * 5 + [i32] * 7 + [ptr],
+        # pools, data, heap, sorted keys, order, bounds, perms; P, L, R, S, W, cap, shard0,
+        # row0; stream
+        "pulse_commit_tail_launch": [ptr] * 7 + [i32] * 8 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -77,10 +78,15 @@ def _check(name, t, shape, dtype, like):
         raise ValueError(f"pulse_commit: {name} must be contiguous")
 
 
-def launch(pools, data, heap, bounds, perms, *, scratch_words: int):
+def launch(pools, data, heap, bounds, perms, *, scratch_words: int, shard0: int = 0,
+           row0: int = 0):
     """Every shard's commit phase on PyTorch's current stream, in place on
     ``pools``, ``data`` and ``heap``: ``commit_key``, ``torch.sort``,
-    ``commit_apply``, ``commit_tail``.  Does not synchronise."""
+    ``commit_apply``, ``commit_tail``.  Does not synchronise.
+
+    ``pools`` and ``heap`` hold shards ``shard0 .. shard0 + P - 1`` of the
+    ``perms.shape[0]`` that ``bounds`` and ``perms`` describe, and
+    ``data``'s first row is global row ``row0``."""
     if pools.device.type != "cuda":
         raise ValueError(f"pulse_commit kernel needs CUDA tensors, got {pools.device}")
     P, L, R = pools.shape
@@ -93,23 +99,29 @@ def launch(pools, data, heap, bounds, perms, *, scratch_words: int):
                          f"and a mutation payload of node width {W}")
     _check("pools", pools, (P, L, R), torch.int32, pools)
     _check("data", data, (cap, W), torch.int32, pools)
+    n_shards = perms.shape[0]
+    if not 0 <= shard0 <= n_shards - P or row0 < 0:
+        raise ValueError(f"pulse_commit: pools of shards {shard0}..{shard0 + P - 1} and row "
+                         f"{row0} for a mesh of {n_shards} shards")
     _check("heap", heap, (P, _arena.HEAP_WORDS), torch.int32, pools)
-    _check("bounds", bounds, (P + 1,), torch.int32, pools)
-    _check("perms", perms, (P,), torch.int32, pools)
+    _check("bounds", bounds, (n_shards + 1,), torch.int32, pools)
+    _check("perms", perms, (n_shards,), torch.int32, pools)
     _ref.key_top(cap, L)  # raises when the order key would overflow int64
     lib = _library()
     with torch.cuda.device(pools.device):
         stream = torch.cuda.current_stream(pools.device).cuda_stream
         key = torch.empty((P, L), dtype=torch.int64, device=pools.device)
         _raise(lib, "commit_key", lib.pulse_commit_key_launch(
-            pools.data_ptr(), bounds.data_ptr(), key.data_ptr(), P, L, R, S, cap, stream))
+            pools.data_ptr(), bounds.data_ptr(), key.data_ptr(), P, L, R, S, cap, shard0, row0,
+            stream))
         sk, order = torch.sort(key, dim=1, stable=True)
         _raise(lib, "commit_apply", lib.pulse_commit_apply_launch(
             pools.data_ptr(), data.data_ptr(), sk.data_ptr(), order.data_ptr(),
-            perms.data_ptr(), P, L, R, S, W, cap, stream))
+            perms.data_ptr(), P, L, R, S, W, cap, shard0, stream))
         _raise(lib, "commit_tail", lib.pulse_commit_tail_launch(
             pools.data_ptr(), data.data_ptr(), heap.data_ptr(), sk.data_ptr(),
-            order.data_ptr(), bounds.data_ptr(), perms.data_ptr(), P, L, R, S, W, cap, stream))
+            order.data_ptr(), bounds.data_ptr(), perms.data_ptr(), P, L, R, S, W, cap, shard0,
+            row0, stream))
 
 
 def _raise(lib, name: str, err: int) -> None:

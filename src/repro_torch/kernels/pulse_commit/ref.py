@@ -139,9 +139,13 @@ def key_top(capacity: int, L: int) -> int:
     return top
 
 
-def commit_key(pools, bounds, *, scratch_words: int, capacity: int):
+def commit_key(pools, bounds, *, scratch_words: int, capacity: int, shard0: int = 0,
+               row0: int = 0):
     """Each record's int64 order key, ``(P, L)``: the ``commit_key``
-    kernel's plain version.
+    kernel's plain version.  The pools are shards ``shard0 ..`` of
+    ``bounds``; ``capacity`` counts the rows held from global row ``row0``
+    (a memory node's own: ``row0 = bounds[shard0]``), and a slot is a
+    row's index among them.
 
     A record is eligible at shard ``s`` when it stages a mutation, is not
     EMPTY, and either its target lies in ``s``'s rows (STORE, CAS, FREE) or
@@ -155,13 +159,14 @@ def commit_key(pools, bounds, *, scratch_words: int, capacity: int):
     MB = F_SCRATCH + scratch_words
     m_op = pools[..., MB]
     tgt = pools[..., MB + 1]
-    me = torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
+    me = shard0 + torch.arange(P, dtype=torch.int32, device=pools.device)[:, None]
     pend = (m_op != M_NONE) & (pools[..., F_STATUS] != STATUS_EMPTY)
     is_alloc = m_op == M_ALLOC
-    local = (tgt >= bounds[:-1, None]) & (tgt < bounds[1:, None])
+    edges = bounds[shard0 : shard0 + P + 1]
+    local = (tgt >= edges[:-1, None]) & (tgt < edges[1:, None])
     eligible = pend & torch.where(is_alloc, pools[..., F_HOME] == me, local)
     klass = torch.where(is_alloc, 2, torch.where(m_op == M_FREE, 1, 0)).long()
-    slot = torch.where(is_alloc, 0, tgt).long()
+    slot = torch.where(is_alloc, 0, tgt - row0).long()
     key = (klass * capacity + slot) * L + pools[..., F_ID].long()
     return torch.where(eligible, key, top)
 
@@ -173,11 +178,18 @@ def _mask_bits(mask, W: int):
     return ((mask[:, None].long() >> shift) & 1) == 1
 
 
-def pulse_commit_staged(pools, data, heap, bounds, perms, *, scratch_words: int):
+def pulse_commit_staged(pools, data, heap, bounds, perms, *, scratch_words: int,
+                        shard0: int = 0, row0: int = 0):
     """Every shard's commit phase by the kernel's stages, in torch ops, in
     place on ``pools`` (P, L, R), ``data`` (cap, W) and ``heap`` (P,
     HEAP_WORDS), all int32 and contiguous.  Bit-equal to the serial
     ``commit_shard`` on every shard.  Returns them.
+
+    With ``shard0`` the pools and heap rows are those of shards ``shard0
+    .. shard0 + P - 1`` of the ``perms.shape[0]`` that ``bounds`` and
+    ``perms`` describe, and ``data``'s first row is global row ``row0`` (a
+    memory node's own rows: ``row0 = bounds[shard0]``); targets, free-list
+    links and claimed slots stay global addresses.
 
       1. the order key of every record (``commit_key``);
       2. one stable sort of each shard's keys: STOREs/CASes by slot, then
@@ -199,11 +211,11 @@ def pulse_commit_staged(pools, data, heap, bounds, perms, *, scratch_words: int)
     MB = F_SCRATCH + S
     top = key_top(cap, L)
     cl = cap * L  # the first FREE key
-    sk, idx = torch.sort(commit_key(pools, bounds, scratch_words=S, capacity=cap), dim=1,
-                         stable=True)
+    sk, idx = torch.sort(commit_key(pools, bounds, scratch_words=S, capacity=cap,
+                                    shard0=shard0, row0=row0), dim=1, stable=True)
     flat = pools.view(P * L, R)
     rec = idx + torch.arange(P, device=idx.device)[:, None] * L  # (P, L) rows of ``flat``
-    writable = (perms & PERM_WRITE) == PERM_WRITE
+    writable = (perms[shard0 : shard0 + P] & PERM_WRITE) == PERM_WRITE
     eligible = sk < top
     denied = rec[eligible & ~writable[:, None]]
     flat[denied, F_STATUS] = STATUS_FAULT
@@ -238,18 +250,18 @@ def pulse_commit_staged(pools, data, heap, bounds, perms, *, scratch_words: int)
         b1, b2, n = n1[s], n2[s], n3[s]
         if not ok[s] or n == 0:
             continue
-        lo, hi = int(edges[s]), int(edges[s + 1])
+        lo, hi = int(edges[shard0 + s]), int(edges[shard0 + s + 1])
         free_head = int(heap[s, H_FREE])
         if b2 > b1:
-            tgt = slot[s, b1:b2] - cap
-            link = torch.cat([tgt.new_tensor([free_head]), tgt[:-1]])
+            tgt = slot[s, b1:b2] - cap  # local rows
+            link = torch.cat([tgt.new_tensor([free_head]), tgt[:-1] + row0])
             last = torch.ones_like(tgt, dtype=torch.bool)
             last[:-1] = tgt[1:] != tgt[:-1]
             rows = torch.zeros(int(last.sum()), W, dtype=data.dtype, device=data.device)
             rows[:, 0] = link[last].to(data.dtype)
             data[tgt[last]] = rows
             flat[rec[s, b1:b2], MB] = M_NONE
-            free_head = int(tgt[-1])
+            free_head = int(tgt[-1]) + row0
         allocs = rec[s, b2:n]
         hdr = flat[allocs]
         bits = _mask_bits(hdr[:, MB + 2], W)
@@ -257,7 +269,7 @@ def pulse_commit_staged(pools, data, heap, bounds, perms, *, scratch_words: int)
         scratch_col = F_SCRATCH + hdr[:, MB + 1].clamp(0, S - 1)
         k = 0
         while k < len(allocs) and free_head != NULL:  # the serial residue
-            row = lo + min(max(free_head - lo, 0), hi - lo - 1)
+            row = lo + min(max(free_head - lo, 0), hi - lo - 1) - row0
             nxt = int(data[row, 0])
             data[row] = fresh[k]
             flat[allocs[k], scratch_col[k]] = free_head
@@ -271,7 +283,7 @@ def pulse_commit_staged(pools, data, heap, bounds, perms, *, scratch_words: int)
         # a slot below ``lo`` clamps to ``lo``: only the last ALLOC writing
         # that row (the first at ``lo``, or the last claimed) writes it
         write = claim & ((slots >= lo) | (rest == n_claim - 1))
-        rows = lo + (slots - lo).clamp(0, hi - lo - 1)
+        rows = lo + (slots - lo).clamp(0, hi - lo - 1) - row0
         data[rows[write]] = fresh[k:][write]
         flat[allocs[k:][claim], scratch_col[k:][claim]] = slots[claim].to(flat.dtype)
         flat[allocs[k:][~claim], F_STATUS] = STATUS_FAULT

@@ -9,13 +9,19 @@ back in the same record format.  Capacity overflow drops copies (standard
 MoE), mirroring the paper's bounded per-link capacity; the residual
 connection stands in for the retry.
 
-The port runs the single-shard path (``moe_apply``).  ``_moe_local`` keeps
-the shard's ``my_rank`` and ``ep`` arguments, so the sum of its partial
-outputs over ``ep`` ranks equals one rank's; the JAX package's
-expert-parallel ``shard_map`` over a mesh's ``model`` axis needs more than
-one card and is parked with 6(e) (ROADMAP queue 1).  The router, the
-ranks and the combine are plain torch ops, and the grouped SwiGLU is
-batched matmuls: the JAX package computes them outside any Pallas kernel.
+``moe_apply`` runs two paths.  With no mesh, a ``launch.mesh.MeshSpec`` (the
+dry run's description) or a mesh whose ``model`` dim has one rank, every
+expert is on one shard.  Under a ``torch.distributed`` ``DeviceMesh`` whose
+dims carry the JAX mesh's names (``"pod"``, ``"data"``, ``"model"``) and
+whose ``model`` dim has more ranks, it is the JAX package's expert-parallel
+``shard_map`` body, one rank a device: the experts range-partitioned over
+``model``, this dp rank's tokens, the FSDP weight gather over the dp dims
+(tiled, as ``jax.lax.all_gather(..., tiled=True)``), ``_moe_local`` for this
+``model`` rank, and the partial outputs summed in f32 by one all-reduce over
+``model``.  ``shard_moe_params`` cuts the whole params as the JAX
+package's ``pspec`` cuts them.  The router, the ranks and the combine are
+plain torch ops, and the grouped SwiGLU is batched matmuls: the JAX package
+computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import world
 from repro_torch.models.common import dense_apply, dense_init, swiglu_apply, swiglu_init
 
 
@@ -130,10 +137,114 @@ def _moe_local(p, cfg, x_flat, my_rank: int, ep: int, compute_dtype):
     return yb.new_zeros((T, D)).index_add_(0, copies_t, y_copies)
 
 
-def moe_apply(p, cfg, x, *, compute_dtype=None):
+def _device_mesh(mesh):
+    """``mesh`` when it is a ``torch.distributed`` ``DeviceMesh`` whose
+    ``model`` dim has more than one rank (the expert-parallel path), else
+    None."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh if mesh["model"].size() > 1 else None
+
+
+def _dp_mesh(mesh):
+    """The 1-D mesh of ``mesh``'s dp dims (``pod`` then ``data``, flattened
+    rank-major as JAX orders a multi-axis gather), or None."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    if not dp:
+        return None
+    return mesh[dp[0]] if len(dp) == 1 else mesh[dp]._flatten()
+
+
+def _moe_specs(p):
+    """Each leaf's cut, the JAX package's ``pspec``: ``{path: (model axis,
+    dp axis)}``, None where the leaf is whole along that mesh dim."""
+    specs = {("router", "w"): (None, 0), ("wi",): (0, 1), ("wg",): (0, 1), ("wo",): (0, 2)}
+    if "shared" in p:
+        specs.update({("shared", "wi", "w"): (1, 0), ("shared", "wg", "w"): (1, 0),
+                      ("shared", "wo", "w"): (0, 1)})
+    return specs
+
+
+def _leaf(p, path):
+    for k in path:
+        p = p[k]
+    return p
+
+
+def _with_leaves(leaves):
+    """The nested params of ``leaves`` ({path: tensor})."""
+    out = {}
+    for path, t in leaves.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+def shard_moe_params(p, mesh):
+    """This rank's shard of one MoE layer's whole params ``p`` under
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` dim), as the JAX package's
+    ``pspec`` cuts them: the experts' ``wi``/``wg``/``wo`` by range over
+    ``model`` and ``D`` over the dp dims, the router's ``D`` over the dp
+    dims, the shared expert's ``F`` over ``model`` and ``D`` over the dp
+    dims.  Raises when a cut dim does not divide."""
+    model, dp = mesh["model"], _dp_mesh(mesh)
+    cuts = [(model.size(), model.get_local_rank())]
+    cuts.append((dp.size(), dp.get_local_rank()) if dp is not None else (1, 0))
+    leaves = {}
+    for path, axes in _moe_specs(p).items():
+        t = _leaf(p, path)
+        for axis, (n, i) in zip(axes, cuts):
+            if axis is None:
+                continue
+            if t.shape[axis] % n:
+                raise ValueError(f"moe param {'/'.join(path)} {tuple(t.shape)}: dim {axis} "
+                                 f"does not divide over {n} ranks")
+            t = t.narrow(axis, i * (t.shape[axis] // n), t.shape[axis] // n)
+        leaves[path] = t.contiguous()
+    return _with_leaves(leaves)
+
+
+def _moe_expert_parallel(p, cfg, x, mesh, compute_dtype):
+    """The JAX package's expert-parallel body on this rank: ``p`` its shard
+    (``shard_moe_params``), ``x`` (B_loc, L, D) its dp rank's tokens."""
+    model, dp = mesh["model"], _dp_mesh(mesh)
+    ep, my = model.size(), model.get_local_rank()
+    group = dp.get_group() if dp is not None else None
+
+    def gather(w, axis):
+        """The FSDP unshard over the dp dims, tiled along ``axis``."""
+        return torch.cat(world.all_gather(w, group), dim=axis) if dp is not None else w
+
+    # f32 at the boundary, the router's weights too, as the JAX package
+    # passes them into its shard_map
+    xf = x.float().reshape(-1, x.shape[-1])
+    full = {path: gather(_leaf(p, path), axes[1])
+            for path, axes in _moe_specs(p).items()}
+    full[("router", "w")] = full[("router", "w")].float()
+    full = _with_leaves(full)
+    y = _moe_local(full, cfg, xf, my, ep, compute_dtype)
+    if "shared" in p:
+        # the shared expert's F-slice partial joins the same sum
+        y = y + swiglu_apply(full["shared"], xf, compute_dtype)
+    y = world.all_reduce_sum(y.float(), model.get_group())
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def moe_apply(p, cfg, x, *, mesh=None, compute_dtype=None):
     """x (B, L, D) -> (B, L, D): every expert on one shard, plus the shared
-    expert when the config has one."""
+    expert when the config has one; with no mesh, a ``MeshSpec`` or a mesh
+    of one ``model`` rank.  Under a ``DeviceMesh`` with more than one
+    ``model`` rank, the expert-parallel path: ``p`` is this rank's shard
+    (``shard_moe_params``) and ``x`` this dp rank's tokens, and the result
+    is this dp rank's."""
     compute_dtype = compute_dtype or cfg.compute_dtype
+    dmesh = _device_mesh(mesh)
+    if dmesh is not None:
+        return _moe_expert_parallel(p, cfg, x, dmesh, compute_dtype)
     B, L, D = x.shape
     xf = x.reshape(B * L, D)
     y = _moe_local(p, cfg, xf, 0, 1, compute_dtype)

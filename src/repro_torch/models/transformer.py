@@ -113,12 +113,14 @@ def _dense_block(lp, cfg, x, positions, mesh=None):
     a, kv = attention.attention_apply(lp["attn"], cfg, h, positions=positions, causal=True,
                                       mesh=mesh)
     x = x + a
-    return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x)), kv
+    return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x), mesh), kv
 
 
-def _mlp(lp, cfg, h):
+def _mlp(lp, cfg, h, mesh=None):
+    """The MLP, or the MoE, whose expert-parallel path ``mesh`` feeds
+    (``moe.moe_apply``)."""
     if "moe" in lp:
-        return moe.moe_apply(lp["moe"], cfg, h)
+        return moe.moe_apply(lp["moe"], cfg, h, mesh=mesh)
     return swiglu_apply(lp["mlp"], h, cfg.compute_dtype)
 
 
@@ -239,10 +241,10 @@ def decode_cache_init(cfg, batch: int, max_len: int, dtype=None, *, device="cuda
     return cache
 
 
-def _dense_decode(lp, cfg, x, cache_k, cache_v, pos):
+def _dense_decode(lp, cfg, x, cache_k, cache_v, pos, mesh=None):
     hn = rmsnorm_apply(lp["attn_norm"], x)
     x = x + attention.decode_attention_apply(lp["attn"], cfg, hn, cache_k, cache_v, pos)
-    return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x))
+    return x + _mlp(lp, cfg, rmsnorm_apply(lp["mlp_norm"], x), mesh)
 
 
 def decode_step(params, cfg, cache, tokens, pos, *, mesh=None):
@@ -265,9 +267,9 @@ def decode_step(params, cfg, cache, tokens, pos, *, mesh=None):
             g = _shared_after(cfg, i)
             if g is not None:
                 x = _dense_decode(params["shared_attn"], cfg, x, cache["k"][g],
-                                  cache["v"][g], pos)
+                                  cache["v"][g], pos, mesh)
         else:
-            x = _dense_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos)
+            x = _dense_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos, mesh)
     h = rmsnorm_apply(params["final_norm"], x)
     return lm_logits(params, cfg, h)[:, 0], cache
 

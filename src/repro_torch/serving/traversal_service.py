@@ -284,6 +284,11 @@ class PulseService:
                              "is backend='reference' (or None: the kernel on the card)")
         if backend not in (None, *BACKENDS):
             raise ValueError(f"unknown backend {backend!r}; choose None or one of {BACKENDS}")
+        if isinstance(engine.mesh, routing.ProcessGroupMesh):
+            raise NotImplementedError(
+                "PulseService on a ProcessGroupMesh is not ported: ROADMAP queue 1, item 3 "
+                "(PulseService on a process group); serve over an EmulatedMesh, or call "
+                "PulseEngine.execute on every rank")
         if quantum < 1:
             raise ValueError("quantum must be >= 1")
         if pipeline not in ("sync", "async"):
