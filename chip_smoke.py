@@ -158,7 +158,8 @@ Phases (any failure exits non-zero before the last line):
      the structure's find iterator (one superstep-mode ``pulse_chase``
      launch per superstep) finds every inserted and updated key with its
      value, no deleted key, and 1,024 untouched keys with their old values.
-     Reported: ops/s over the median of three calls, supersteps and
+     Reported: ops/s over the median of three calls (one for the skip
+     list, ``WRITE_MESH_TIMED``), supersteps and
      local-only steps, commits and epochs, routed records, wire words, mean
      crossings, a call split by CUDA events on the stream into chase,
      commit (each kernel and the sort) and switch, the commit's ms per
@@ -175,15 +176,17 @@ Phases (any failure exits non-zero before the last line):
      on the dispatched schedule, ``failover`` with each of the four
      primaries dead and ``spread`` and ``primary`` healthy, each with the
      healthy run's payload and one ``pulse_chase`` launch a superstep (the
-     replica windows inside it); on ``wiredtiger`` with shard 1 dead, card
-     == CPU copy (every stat) == the replicated sequential executor
-     (records with hops); the replica-window superstep against its plain
+     replica windows inside it); on ``wiredtiger`` with shard 1 dead, on
+     the first eighth of its queries (``FAULTS_CPU_CUT``), card == CPU
+     copy (every stat) == the replicated sequential executor (records
+     with hops); the replica-window superstep against its plain
      version for the native body of each batch and the ISA ``hash_find``
      program, timed beside the same launch without the windows; fabric loss
      (``FaultPlan(drop_prob=0.4, drop_seed=7)``) on ``webservice`` over the
      five schedule x fabric pairs of ``tests/helpers/ft_checks.py``
      (records equal to the loss-free run, a replay identical, the
-     superstep growth reported; on dispatched/dense card == CPU copy in every stat) and on
+     superstep growth reported; on dispatched/dense card == CPU copy in
+     every stat, on the first eighth of the queries) and on
      ``webservice_rw`` fused/dense (every record DONE, every find right, a
      replay identical to the arena); a kill of shard 2 before superstep 3
      of ``webservice_rw`` on each schedule (``ShardFailure``, the arena's
@@ -303,7 +306,7 @@ Phases (any failure exits non-zero before the last line):
      ``attn_backend="chunked"`` from the same weights and data: the first
      loss within 1e-5 and its grad norm within 1e-4, the later loss within
      1e-3, relative (the gaps printed); an exact resume at full width and
-     a quarter of the layers (``RESUME_DEPTH_CUT``: 4 steps through
+     an eighth of the layers (``RESUME_DEPTH_CUT``: 4 steps through
      ``TrainLoop``, ``CheckpointManager.save(block=True)`` into a
      temporary directory, a fresh state and ``DataIterator`` restored, 4
      more): the 8 losses equal that model's uninterrupted run's bit for
@@ -336,7 +339,9 @@ Phases (any failure exits non-zero before the last line):
      its plain version (``chunked_attention``, ``ssd_chunked_batched``)
      within the f32 tolerance; the prefill and train steps agree with the
      plain route (``attn_backend`` / ``ssm_backend`` "chunked") on the same
-     arguments: logits within LOGIT_TOL, the train step's loss and grad norm
+     arguments: logits within LOGIT_TOL (the 32k prefills on a step of
+     their own at ``LAUNCH_PLAIN_LEN`` = 8,192 tokens, kernel and plain
+     route on its arguments), the train step's loss and grad norm
      within TRAIN_LOSS0_TOL and TRAIN_GNORM0_TOL; the launches of the first
      call and of three warm ones exact; a shape that does not fit is cut
      (batch, then length) and the cut logged.  Reported: the median ms of
@@ -346,7 +351,8 @@ Phases (any failure exits non-zero before the last line):
      measured / the meta counter's count of the port's own eager traffic
      (``step_roofline``); then ``python -m repro_torch.tools.pulse_verify
      --all --golden tests/golden/pulse_verify``, gated on exit 0;
- 23. memory nodes as processes (item 6(e)): ``distributed.world.spawn``
+ 23. memory nodes as processes (item 6(e), and items 2-3 of ROADMAP queue
+     1): ``distributed.world.spawn``
      starts 4 ranks on ``cuda:0`` (spawn start method, one Gloo process
      group over a loopback TCP store on a free port, joined with a
      timeout: any rank's exception or the timeout fails the phase), each a
@@ -373,7 +379,31 @@ Phases (any failure exits non-zero before the last line):
      card's name and power limit: lookups/s and write ops/s of a timed
      second call (the slowest rank's) beside the emulated mesh's in the
      same call, supersteps, ms a superstep and the host-staged fabric's
-     share of it (``routing.FABRIC_STATS``).
+     share of it (``routing.FABRIC_STATS``).  In the same world (items 2
+     and 3 of ROADMAP queue 1): (a) phase 13's replicated reads, R = 2 by
+     ``make_replica_plan(4)``, ``failover`` with each primary dead in turn
+     and ``spread`` healthy, on the first eighth of each read batch
+     (``PG_REP_CUT``): every rank == ``EmulatedMesh(4, "cuda")`` in records
+     and ``RoutingStats``, one windowed offset launch of ``pulse_chase`` a
+     superstep on each rank (its own rows and its holder slice of the
+     replica rows), each rank's first of each batch == its plain version;
+     the windowed offset launch timed alone beside the whole-arena one
+     (``window_offset_vs_plain``); (b) ``webservice_rw`` with shard 2
+     killed before superstep 3: every rank raises ``ShardFailure(2, 3)``
+     and keeps its arena; (c) phase 14's run (c) on the first 4,096 of its
+     requests (``PG_SERVE_REQUESTS``), ``PulseService`` on rank 0 and
+     ``serving.memory_node.follow`` on ranks 1-3, dispatched: every
+     request (status, iters, result, rounds) and count == the same service
+     over ``EmulatedMesh(4, "cuda")`` in this process, every rank's final
+     arena the same; (h) (c) durable with failover replication and shard 2
+     killed at the read quantum nearest the middle: == the emulated run,
+     one recovery, the standby == the primary, data == (c)'s (no
+     acknowledged commit lost); (i) phase 15's watchdog run on the group,
+     on the first 2,048 of its reads (``PG_WATCHDOG_READS``), arriving from
+     round 2 (``PG_WATCHDOG_IDLE_ROUNDS``, for the time): shard 1 (rank 1 alone) delayed 4x a timeout of 10x the slowest
+     healthy probe, suspected and no other shard, reads == ``ref_find``.  The
+     service's requests/s, p50/p99/p999 and the fabric's and the leader's
+     shares are printed beside the emulated run's, and each part's seconds.
 
 Each phase logs its seconds.
 
@@ -452,11 +482,14 @@ TRAIN_ARGS = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
 TRAIN_LOSS0_TOL, TRAIN_GNORM0_TOL, TRAIN_LOSS_TOL = 1e-5, 1e-4, 1e-3
 PLAIN_TRAIN_STEPS = 2
 RESUME_TOL = 1e-6  # relative, only where the card is not deterministic
-RESUME_DEPTH_CUT = 4  # the exact resume runs a quarter of the layers, at full width
+RESUME_DEPTH_CUT = 8  # the exact resume runs an eighth of the layers, at full width
 # phase 22: the launch tooling's steps on the card, each timed over this
 # many warm calls after the first, which is compared with the direct call
 # and the plain route
 LAUNCH_ARCH, LAUNCH_SSM_ARCH, LAUNCH_REPS, LAUNCH_SEED = "qwen3_0_6b", "mamba2_780m", 3, 0
+# the 32k prefills' plain-route gate runs on a step of its own at this
+# length (its own arguments, kernel and plain route both), for the time
+LAUNCH_PLAIN_LEN = 8_192
 
 
 def log(msg: str) -> None:
@@ -1990,6 +2023,9 @@ WRITE_MESH_RUN = dict(max_iters=4096, k_local=4, compact=True,
 # each step's first 1/WRITE_MESH_CUT ops (the checks' depth; the card's own
 # runs, rates and commit phases take every op)
 WRITE_MESH_CUT = 8
+# the timed calls a step's rate takes the median of; the skip list's
+# ~270-superstep calls take ~5 s each, so one (the time's cut)
+WRITE_MESH_TIMED = dict(skiplist_rw=1)
 COMMIT_SOURCE = "src/repro_torch/csrc/pulse_commit.cu"
 COMMIT_REPLACES = "src/repro/core/routing.py:407 (_commit_phase: XLA, no Pallas kernel)"
 
@@ -2341,9 +2377,10 @@ def phase_write_mesh(rng):
             bad, extra = check(g.status.cpu().numpy(), g.scratch.cpu().numpy())
             if bad:
                 raise AssertionError(f"{name}/{sname}: {'; '.join(bad)}")
-            # the rate over the median of three calls from the same arena
+            # the rate over the median of three calls from the same arena (one
+            # for the skip list, WRITE_MESH_TIMED)
             calls = []
-            for _ in range(3):
+            for _ in range(WRITE_MESH_TIMED.get(name, 3)):
                 e = PulseEngine(before, mesh=routing.EmulatedMesh(P, "cuda"))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2486,6 +2523,7 @@ def phase_write_mesh(rng):
 # ---------------------- faults and replication on the mesh ---------------------
 
 LOSS_PLAN = dict(drop_prob=0.4, drop_seed=7)  # tests/helpers/ft_checks.py:138
+FAULTS_CPU_CUT = 8  # phase 13's CPU copies (and sequential executor) run the first eighth
 # every (schedule, fabric) of tests/helpers/ft_checks.py:23-29
 FT_SCHEDULES = [("dispatched", "dense"), ("fused", "dense"), ("fused", "ring"),
                 ("pipelined", "dense"), ("pipelined", "ring")]
@@ -2654,34 +2692,37 @@ def phase_faults(rng, smi):
                         f"{r['supersteps']} supersteps" for r in row["replicated"][P:])
             + f"; payload == healthy in every case; {smi}")
 
-        # one case on a CPU copy and on the sequential executor, bit for bit
+        # one case on a CPU copy and on the sequential executor, bit for bit,
+        # on the first 1/FAULTS_CPU_CUT of the queries
         if name == "wiredtiger":
             plan = routing.make_replica_plan(P, policy="failover")
             dead = np.zeros(P, bool)
             dead[1] = True
             ctx = routing.ReplicaContext(plan, rows_by_policy["failover"],
                                          torch.from_numpy(dead).cuda())
-            rec, st = routing.distributed_execute(it, card, p0, s0,
+            n_cut = p0.shape[0] // FAULTS_CPU_CUT
+            rec, st = routing.distributed_execute(it, card, p0[:n_cut], s0[:n_cut],
                                                   mesh=routing.EmulatedMesh(P, "cuda"),
                                                   replication=ctx, **run)
             cpu = arena_from_numpy(*fields, device="cpu")
             crec, cst = routing.distributed_execute(
-                it, cpu, b["p0"], b["s0"], mesh=routing.EmulatedMesh(P, "cpu"),
+                it, cpu, b["p0"][:n_cut], b["s0"][:n_cut], mesh=routing.EmulatedMesh(P, "cpu"),
                 replication=routing.ReplicaContext(plan, rows_by_policy["failover"].cpu(),
                                                    dead), **run)
             if not torch.equal(rec.cpu(), crec) or _stats_diff(st, cst):
                 raise AssertionError(f"{name}: replicated card and CPU copy differ "
                                      f"({_stats_diff(st, cst)})")
             srec, sst = commit.sequential_commit_execute(
-                it, card, p0, s0, max_iters=run["max_iters"], k_local=run["k_local"],
-                compact=run["compact"], replication=ctx)
+                it, card, p0[:n_cut], s0[:n_cut], max_iters=run["max_iters"],
+                k_local=run["k_local"], compact=run["compact"], replication=ctx)
             if not np.array_equal(rec.cpu().numpy(), srec) or _stats_diff(st, sst) != ["schedule"]:
                 raise AssertionError(f"{name}: replicated run differs from the sequential "
                                      f"executor ({_stats_diff(st, sst)})")
-            row["cpu_copy_and_sequential"] = "failover, shard 1 dead: bit-equal, hops included"
-            log(f"[{name}] failover with shard 1 dead: card == CPU copy (every stat) == the "
-                f"replicated sequential executor (records with hops, {sst.supersteps} "
-                "supersteps)")
+            row["cpu_copy_and_sequential"] = (f"failover, shard 1 dead, the first {n_cut} "
+                                              "queries: bit-equal, hops included")
+            log(f"[{name}] failover with shard 1 dead, the first 1/{FAULTS_CPU_CUT} of the "
+                f"queries ({n_cut:,}): card == CPU copy (every stat) == the replicated "
+                f"sequential executor (records with hops, {sst.supersteps} supersteps)")
 
         # the replica windows against their plain version, at this size
         plan = routing.make_replica_plan(P, policy="failover")
@@ -2745,21 +2786,26 @@ def phase_faults(rng, smi):
                                 launches=launches, first_call_s=secs,
                                 mean_crossings=float(st.crossings.mean()))
                 if (schedule, fabric) == ("dispatched", "dense"):
-                    cpu = arena_from_numpy(*fields, device="cpu")
-                    cres = PulseEngine(cpu, mesh=routing.EmulatedMesh(P, "cpu"),
+                    # the card against a CPU copy on the first 1/FAULTS_CPU_CUT queries
+                    n_cut = p0.shape[0] // FAULTS_CPU_CUT
+                    cut = [PulseEngine(a, mesh=routing.EmulatedMesh(P, a.data.device.type),
                                        fault_injector=FaultInjector(FaultPlan(**LOSS_PLAN))
-                                       ).execute(it, b["p0"], b["s0"], **kw)
-                    diff = _stats_diff(st, cres.stats)
-                    if diff or not all(torch.equal(getattr(res, f).cpu(), getattr(cres, f))
+                                       ).execute(it, q[:n_cut], t[:n_cut], **kw)
+                           for a, q, t in ((card, p0, s0),
+                                           (arena_from_numpy(*fields, device="cpu"), b["p0"],
+                                            b["s0"]))]
+                    diff = _stats_diff(cut[0].stats, cut[1].stats)
+                    if diff or not all(torch.equal(getattr(cut[0], f).cpu(), getattr(cut[1], f))
                                        for f in payload):
                         raise AssertionError(f"{name} loss: card and CPU copy differ ({diff})")
-                    loss_row["card_equals_cpu"] = True
+                    loss_row["card_equals_cpu"] = f"the first {n_cut} queries"
                 row["loss"].append(loss_row)
                 log(f"[{name}] loss {LOSS_PLAN} on {schedule}/{fabric}: {st.supersteps} "
                     f"supersteps (loss-free {healthy.stats.supersteps}, x{loss_row['growth']:.3f}),"
                     f" records == loss-free, replay identical, first call {secs:.3f} s, "
                     f"{launches} pulse_chase launches"
-                    + ("; card == CPU copy in every stat" if "card_equals_cpu" in loss_row else ""))
+                    + (f"; card == CPU copy in every stat on the first 1/{FAULTS_CPU_CUT} "
+                       "of the queries" if "card_equals_cpu" in loss_row else ""))
         rows.append(row)
         routing.reset_executable_caches()
         del card, eng, healthy
@@ -2958,10 +3004,10 @@ class _EngineTally:
 
 
 def serve_run(tag, arena, specs, tuples, *, P: int, deadline_ms=None, reshard_at=None,
-              fault_plan=None, on_service=None, extra=None, **svc_kw):
-    """One phase-14 (or 15) run: a ``PulseService`` over ``arena`` (on a
-    mesh of P when P > 1) serving ``tuples``, its engine killing or
-    delaying a shard by ``fault_plan``.  ``on_service(svc)`` runs after the
+              fault_plan=None, on_service=None, extra=None, mesh=None, **svc_kw):
+    """One phase-14 (or 15, or 23) run: a ``PulseService`` over ``arena``
+    (on ``mesh``, by default an emulated mesh of P when P > 1) serving
+    ``tuples``, its engine killing or delaying a shard by ``fault_plan``.  ``on_service(svc)`` runs after the
     service is built, before the launch counts are set to 0 (just before
     the run; they are read just after).  Returns (requests, metrics,
     engine, row); ``extra``, a dict, receives the service and the call
@@ -2979,7 +3025,9 @@ def serve_run(tag, arena, specs, tuples, *, P: int, deadline_ms=None, reshard_at
     from repro_torch.core.faults import FaultInjector
 
     dev = arena.data.device.type
-    eng = PulseEngine(arena, mesh=routing.EmulatedMesh(P, dev) if P > 1 else None,
+    if mesh is None and P > 1:
+        mesh = routing.EmulatedMesh(P, dev)
+    eng = PulseEngine(arena, mesh=mesh,
                       fault_injector=FaultInjector(fault_plan) if fault_plan else None)
     tally = _EngineTally(eng)
     svc = PulseService(eng, specs, slots_per_structure=SERVE_SLOTS, quantum=SERVE_QUANTUM,
@@ -4889,7 +4937,7 @@ class _Trainer:
 
 
 def resume_and_profile(cfg, argv, losses):
-    """Exact resume at full width and a quarter of the depth
+    """Exact resume at full width and an eighth of the depth
     (``RESUME_DEPTH_CUT``: the checkpoint's bytes scale with the layers):
     the cut model's TRAIN_STEPS uninterrupted steps through ``TrainLoop``,
     then four steps from the same seeded init,
@@ -5246,13 +5294,13 @@ def launch_step(arch, kind, batch, length, kernel=None, plain=None):
     cfg = get_config(arch)
     asked = (batch, length)
 
-    def direct(c, args):
+    def direct(c, args, seq_len=None):
         model = build_model(c)
         if kind == "train":
             return make_train_step(model, TrainConfig(opt=OptimizerConfig(name=c.optimizer)))(
                 *args)
         if kind == "prefill":
-            return model.prefill(args[0], args[1], shape.seq_len)[0]
+            return model.prefill(args[0], args[1], seq_len or shape.seq_len)[0]
         return model.decode_step(*args)
 
     def counted(step, args):
@@ -5317,6 +5365,20 @@ def launch_step(arch, kind, batch, length, kernel=None, plain=None):
                 ok = gaps["loss"] <= TRAIN_LOSS0_TOL and gaps["grad_norm"] <= TRAIN_GNORM0_TOL
                 what = (f"loss {gaps['loss']:.3g} (tolerance {TRAIN_LOSS0_TOL}), grad norm "
                         f"{gaps['grad_norm']:.3g} ({TRAIN_GNORM0_TOL}) relative")
+            elif plain and length > LAUNCH_PLAIN_LEN:
+                # the plain route on a step of its own at LAUNCH_PLAIN_LEN tokens
+                got = None
+                cut = ShapeSpec(f"{kind}_card", LAUNCH_PLAIN_LEN, batch, kind)
+                cstep, cargs, _ = build_step(cfg, cut, make_test_mesh(), device="cuda",
+                                             seed=LAUNCH_SEED)
+                kern = cstep(*cargs)
+                ref = direct(cfg.replace(**plain), cargs, LAUNCH_PLAIN_LEN)
+                err = _max_abs_diff(kern, ref)
+                kern = ref = cstep = cargs = None
+                check.update(plain_logit_max_abs_err=err, plain_route_length=LAUNCH_PLAIN_LEN)
+                ok, what = err <= LOGIT_TOL, (f"logits {err:.3g} (tolerance {LOGIT_TOL}) "
+                                              f"absolute, a step of {batch} x "
+                                              f"{LAUNCH_PLAIN_LEN} on its own arguments")
             elif plain:
                 ref = direct(cfg.replace(**plain), args)
                 err = _max_abs_diff(got, ref)
@@ -5432,15 +5494,28 @@ def phase_launch(smi):
 # ------------------------- memory nodes as processes -------------------------
 
 PG_RANKS = 4  # the paper's MEM_NODES, one process each on the one card
-PG_TIMEOUT = 300.0  # seconds the world may run before it is killed
+PG_TIMEOUT = 600.0  # seconds the world may run before it is killed
 PG_RUNS = [  # (batch, fabric): phase 11's read batches and phase 12's write batches
     ("webservice", "dense"), ("webservice", "ring"), ("wiredtiger", "dense"),
     ("webservice_rw", "dense"), ("wiredtiger_update", "dense")]
 PG_RUN_ARGS = dict(max_iters=4096, k_local=4, compact=True, schedule="dispatched")
+# (a): phase 13's replicated reads, R = 2 by make_replica_plan(4), on each
+# read batch's first eighth of its queries (the time's cut)
+PG_REP_CUT = 8
+PG_REP_CASES = [("failover", (d,)) for d in range(PG_RANKS)] + [("spread", ())]
+PG_KILL = dict(kill_shard=2, kill_superstep=3)  # (b), on webservice_rw
+PG_SERVE_REQUESTS = 4_096  # (c) and (h): the first of phase 14's 32,768 requests
+PG_WATCHDOG_READS = 2_048  # (i): the first of phase 15's 4,096 reads
+# (i): its reads arrive from this round on, so that the watchdog's two-miss
+# window (two rounds of probes) passes before them; a read behind the
+# straggler sleeps in every superstep shard 1 serves (on an H100 host whose
+# healthy probe takes 30-40 ms, 1.6 s each: minutes for the run)
+PG_WATCHDOG_IDLE_ROUNDS = 2
 MOE_EP_ARCH = "granite_moe_1b_a400m"
 MOE_EP_MESHES = [  # (id, DeviceMesh shape, dim names): "replica" is no dp dim
     ("model2", (2, 2), ("replica", "model")), ("data2_model2", (2, 2), ("data", "model"))]
 MOE_EP_TOL = 1e-6  # of the largest magnitude: only the f32 partial sums' order differs
+SERVE_KINDS = ("webservice", "wiredtiger", "wiredtiger_update")
 
 
 def _pg_iterator(name, n_buckets):
@@ -5470,12 +5545,29 @@ def _pg_inputs(rng):
     return out, checks
 
 
+def _pg_replica_rows(data, bounds):
+    """``make_replica_plan(P)``'s replica rows in the arena's layout, as
+    numpy: holder r's rows hold its primary's (every policy's plan has the
+    same holders)."""
+    import numpy as np
+
+    from repro_torch.core import routing
+
+    plan = routing.make_replica_plan(len(bounds) - 1)
+    rows = np.zeros_like(data)
+    for holder, p in enumerate(plan.primary_map):
+        if p >= 0:
+            rows[bounds[holder]:bounds[holder + 1]] = data[bounds[p]:bounds[p + 1]]
+    return rows
+
+
 def _pg_first_call_checks(checked):
     """Wrap ``pulse_chase_superstep`` and the superstep's commit
     (``routing._commit``, around ``pulse_commit``, whose launch count the
-    wrappers leave alone) so that the first launch of each (per key of
-    ``checked``) is held against its plain version on clones of the same
-    inputs, on the card; returns the undo."""
+    wrappers leave alone) so that the first launch of each kind (per key
+    of ``checked``: ``pulse_chase``, ``pulse_chase_window`` for a launch
+    with replica windows, ``pulse_commit``) is held against its plain
+    version on clones of the same inputs, on the card; returns the undo."""
     import torch
 
     from repro_torch.core import routing
@@ -5487,16 +5579,21 @@ def _pg_first_call_checks(checked):
 
     def chase_spy(arena_data, pool, bounds, perms, **kw):
         out = chase(arena_data, pool, bounds, perms, **kw)
-        if "pulse_chase" not in checked:
+        rep = kw.get("rep")
+        key = "pulse_chase" if rep is None else "pulse_chase_window"
+        if key not in checked:
             want = chase_ref.chase_superstep_reference(
                 arena_data, pool, bounds, perms, kw["logic_fn"], kw["k_local"],
                 scratch_words=kw["logic_fn"].it.scratch_words, max_iters=kw["max_iters"],
-                elide=kw.get("elide_access_check", False), shard0=kw.get("shard0", 0),
-                row0=kw.get("row0", 0))
-            checked["pulse_chase"] = dict(
+                elide=kw.get("elide_access_check", False), rep=rep,
+                shard0=kw.get("shard0", 0), row0=kw.get("row0", 0))
+            checked[key] = dict(
                 bit_equal=bool(torch.equal(out, want)), max_abs_err=max_abs_err(out, want),
                 records=int(pool.shape[0] * pool.shape[1]), shard0=kw.get("shard0", 0),
                 row0=kw.get("row0", 0), rows=int(arena_data.shape[0]))
+            if rep is not None:
+                checked[key].update(policy=rep[3], dead=rep[2].nonzero().flatten().tolist(),
+                                    replica_rows=int(rep[0].shape[0]))
         return out
 
     def commit_spy(pools, data, heap, bounds, perms, **kw):
@@ -5520,13 +5617,282 @@ def _pg_first_call_checks(checked):
     return undo
 
 
+def _pg_rep_runs(d, mesh):
+    """(a) on one rank: each read batch's first 1/PG_REP_CUT of its
+    queries under every PG_REP_CASES plan, each run's records, stats and
+    launches; the batch's first windowed launch against its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+
+    out = {}
+    for name in ("webservice", "wiredtiger"):
+        it = _pg_iterator(name, pulse_paper.WEBSERVICE.n_buckets)
+        fields = [d[f"{name}/{f}"] for f in ("data", "bounds", "perms", "heap")]
+        ar = arena_from_numpy(*fields, device="cpu")
+        B = d[f"{name}/p0"].shape[0] // PG_REP_CUT
+        p0, s0 = torch.from_numpy(d[f"{name}/p0"][:B]), torch.from_numpy(d[f"{name}/s0"][:B])
+        rows = _pg_replica_rows(fields[0], fields[1])
+        checked = {}
+        for policy, dead in PG_REP_CASES:
+            mask = np.zeros(PG_RANKS, bool)
+            mask[list(dead)] = True
+            ctx = routing.ReplicaContext(routing.make_replica_plan(PG_RANKS, policy=policy),
+                                         rows, mask)
+            undo = _pg_first_call_checks(checked)
+            chase_ops.pulse_chase.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rec, st = routing.distributed_execute(it, ar, p0, s0, mesh=mesh,
+                                                      replication=ctx, **PG_RUN_ARGS)
+            finally:
+                undo()
+            torch.cuda.synchronize()
+            out[f"{name}/{policy}{list(dead)}"] = dict(
+                records=rec.cpu().numpy(), stats=st, seconds=time.perf_counter() - t0,
+                launches=chase_ops.pulse_chase.launches)
+        out[f"{name}/window_check"] = checked.get("pulse_chase_window")
+    return out
+
+
+def window_offset_vs_plain(arena, it, p0, s0, P, rep, *, shard: int, advance: int = 2):
+    """One superstep's local chase of ``shard``'s pool alone, after
+    ``advance`` routed supersteps, over its own rows and its holder slice
+    of the replica rows (``shard0``, ``row0``: a memory node's windowed
+    launch), on the kernel and on its plain version, held against the
+    whole-arena windowed launch's part for that shard; the kernel timed
+    beside the whole-arena launch.  The bound counts the shard's records
+    active at its start read and written once and each distinct row its
+    steps read once."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels.pulse_chase import ops, ref
+
+    pools, _ = routing.place_requests(p0, s0, P)
+    step = routing.make_superstep(it, P, k_local=ROUTE_RUN["k_local"],
+                                  max_iters=ROUTE_RUN["max_iters"], drain_done=True)
+    for _ in range(advance):
+        pools = step(pools, arena.data, arena.bounds, arena.perms)[0]
+    logic = ops.iterator_logic(it)
+    lo, hi = arena.bounds[shard:shard + 2].tolist()
+    rows, mine = arena.data[lo:hi].contiguous(), pools[shard:shard + 1].contiguous()
+    rep_mine = (rep[0][lo:hi].contiguous(), *rep[1:])
+    kw = dict(logic_fn=logic, k_local=ROUTE_RUN["k_local"], max_iters=ROUTE_RUN["max_iters"])
+    off = dict(shard0=shard, row0=lo)
+
+    def kern():
+        return ops.pulse_chase_superstep(rows, mine, arena.bounds, arena.perms, rep=rep_mine,
+                                         **kw, **off)
+
+    def whole():
+        return ops.pulse_chase_superstep(arena.data, pools, arena.bounds, arena.perms, rep=rep,
+                                         **kw)
+
+    def plain(k=ROUTE_RUN["k_local"], pool=mine):
+        return ref.chase_superstep_reference(rows, pool, arena.bounds, arena.perms, logic, k,
+                                             scratch_words=it.scratch_words,
+                                             max_iters=ROUTE_RUN["max_iters"], rep=rep_mine,
+                                             **off)
+
+    got, want, all_ = kern(), plain(), whole()
+    torch.cuda.synchronize()
+    F_PTR, F_ITERS = routing.F_PTR, routing.F_ITERS
+    cur, seen = mine, []
+    for _ in range(ROUTE_RUN["k_local"]):
+        nxt = plain(1, cur)
+        moved = nxt[..., F_ITERS] > cur[..., F_ITERS]
+        seen.append(cur[..., F_PTR][moved])
+        cur = nxt
+    rows_read = int(torch.unique(torch.cat(seen)).numel())
+    active = int((mine[..., routing.F_STATUS] == 0).sum().item())
+    R = pools.shape[2]
+    bound = (active * R * 4 * 2 + rows_read * arena.node_words * 4) / HBM_BYTES_PER_S * 1e3
+    k_ms = profiled_ms([kern], 10, "chase_kernel")
+    w_ms = profiled_ms([whole], 10, "chase_kernel")
+    return dict(bit_equal=torch.equal(got, want) and torch.equal(got[0], all_[shard]),
+                max_abs_err=max_abs_err(got, want), shard=shard, rows=hi - lo,
+                active_records=active, pool_records=int(mine.shape[1]), rows_read=rows_read,
+                ms=k_ms if k_ms is not None else time_cuda(kern, 10),
+                ms_source="profiler" if k_ms is not None else "events",
+                whole_ms=w_ms if w_ms is not None else time_cuda(whole, 10),
+                plain_ms=time_cuda(plain, 3), bound_ms=bound, bound_by="bytes")
+
+
+def _pg_kill_run(d, mesh):
+    """(b) on one rank: webservice_rw with shard 2 killed before superstep
+    3: what it raised, and whether the caller's arena is unchanged."""
+    import torch
+
+    from repro_torch.configs import pulse_paper
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.faults import FaultInjector, FaultPlan, ShardFailure
+
+    name = "webservice_rw"
+    ar = arena_from_numpy(*(d[f"{name}/{f}"] for f in ("data", "bounds", "perms", "heap")),
+                          device="cpu")
+    digest = _digest(ar)
+    raised = None
+    try:
+        routing.distributed_execute(
+            _pg_iterator(name, pulse_paper.WEBSERVICE.n_buckets), ar,
+            torch.from_numpy(d[f"{name}/p0"]), torch.from_numpy(d[f"{name}/s0"]), mesh=mesh,
+            fault_injector=FaultInjector(FaultPlan(**PG_KILL)), **PG_RUN_ARGS)
+    except ShardFailure as e:
+        raised = (e.shard, e.superstep)
+    return dict(raised=raised, unchanged=_digest(ar) == digest)
+
+
+def _serve_tuples(a):
+    return [(int(i), SERVE_KINDS[int(k)], int(q), TENANTS[int(t)], int(r), int(v))
+            for i, k, q, t, r, v in a]
+
+
+def _pg_serve_runs(rank, d, mesh, tmp):
+    """(c), (h) and (i) on one rank: rank 0 serves phase 14's heap on the
+    process group (``PulseService`` over ``PulseEngine(arena, mesh=...)``,
+    dispatched), the other ranks follow it (``memory_node.follow``) until
+    its ``close``.  Rank 0 returns each run's requests, counts and row;
+    every rank its final arena's digest."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.faults import FaultInjector, FaultPlan
+    from repro_torch.distributed.arena_ft import (
+        ArenaStore,
+        FaultToleranceConfig,
+        ReplicationConfig,
+    )
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.serving import memory_node
+
+    fields = [d[f"serve/{f}"] for f in ("data", "bounds", "perms", "heap")]
+    heads, root = d["serve/heads"], int(d["serve/root"])
+    tuples, reads = _serve_tuples(d["serve/requests"]), _serve_tuples(d["serve/reads"])
+    specs = serving_specs(heads, root, "cuda")
+    read_specs = {k: v for k, v in specs.items() if not v.writes}
+    out = {}
+
+    def arena():
+        return arena_from_numpy(*fields, device="cuda" if rank == 0 else "cpu")
+
+    def follow(tag, sp):
+        t0 = time.perf_counter()
+        out[tag] = dict(digest=_digest(memory_node.follow(mesh, arena(), sp)),
+                        seconds=time.perf_counter() - t0)
+
+    def served(tag, row, reqs, m, eng, extra=None):
+        leader = eng.mesh.leader
+        row.update(fabric_s=routing.FABRIC_STATS.seconds,
+                   fabric_collectives=routing.FABRIC_STATS.collectives,
+                   fabric_share=routing.FABRIC_STATS.seconds / row["wall_s"],
+                   leader=dict(vars(leader.stats)),
+                   leader_share=leader.stats.seconds / row["wall_s"])
+        out[tag] = dict(row=row, reqs=reqs, counts=_serving_counts(m),
+                        digest=_digest(eng.arena), data=eng.arena.data.cpu(), **(extra or {}))
+
+    # (c): phase 14's run (c), its first PG_SERVE_REQUESTS requests
+    if rank:
+        follow("c", specs)
+    else:
+        routing.FABRIC_STATS.reset()
+        reqs, m, eng, row = serve_run("c: process group of 4, sync", arena(), specs, tuples,
+                                      P=PG_RANKS, mesh=mesh, schedule="dispatched")
+        served("c", row, reqs, m, eng)
+
+    # (h): failover replication, shard 2 killed at the middle read quantum
+    if rank:
+        follow("h", specs)
+    else:
+        store = ArenaStore(Path(tmp) / "h")
+        hooks = _store_hooks(store)
+        standby = {}
+
+        def time_standby(svc):
+            standby["apply"] = _Timed(svc._replicas.apply_quantum)
+            svc._replicas.apply_quantum = standby["apply"]
+
+        extra = {}
+        routing.FABRIC_STATS.reset()
+        reqs, m, eng, row = serve_run(
+            "h: process group of 4, failover replication, kill shard 2", arena(), specs, tuples,
+            P=PG_RANKS, mesh=mesh, schedule="dispatched", on_service=time_standby, extra=extra,
+            fault_plan=FaultPlan(kill_shard=2, kill_call=int(d["serve/kill_call"]),
+                                 kill_superstep=2),
+            fault_tolerance=FaultToleranceConfig(
+                store=store, snapshot_every=FT_SNAPSHOT_EVERY, dead_rounds=6,
+                replication=ReplicationConfig(policy="failover")))
+        store.close()
+        reps = extra["svc"]._replicas
+        reps.verify(eng.arena)
+        standby_same = all(torch.equal(getattr(reps.shadow, f).cpu(),
+                                       getattr(eng.arena, f).cpu()) for f in ("data", "heap"))
+        served("h", row, reqs, m, eng, dict(
+            standby_same=standby_same, standby=_ms(standby["apply"].seconds),
+            recoveries=[vars(i) for i in hooks["recoveries"]]))
+
+    # (i): the watchdog on a reads-only cut, shard 1 delayed
+    if rank:
+        follow("i", read_specs)
+    else:
+        healthy, extra, probes = [], {}, [0]
+
+        def arm_watchdog(svc):
+            for shard in range(PG_RANKS):
+                for rep in range(HEALTHY_PROBE_REPS + 1):
+                    dt = svc._probe_shard(shard, warm=True)
+                    if rep:
+                        healthy.append(dt)
+            timeout = max(0.02, 10 * max(healthy))
+            svc.ft.watchdog_timeout_s = timeout
+            svc.engine.fault_injector = FaultInjector(FaultPlan(delay_shard=1,
+                                                                delay_s=4 * timeout))
+            probe = svc._probe_shard
+
+            def counted(shard, *, warm=False):
+                n0 = chase_ops.pulse_chase.launches
+                try:
+                    return probe(shard, warm=warm)
+                finally:
+                    probes[0] += chase_ops.pulse_chase.launches - n0
+
+            svc._probe_shard = counted
+
+        store = ArenaStore(Path(tmp) / "i")
+        routing.FABRIC_STATS.reset()
+        reqs, m, eng, row = serve_run(
+            "i: process group of 4, reads only, watchdog, shard 1 delayed", arena(), read_specs,
+            reads, P=PG_RANKS, mesh=mesh, schedule="dispatched", on_service=arm_watchdog,
+            extra=extra, fault_tolerance=FaultToleranceConfig(
+                store=store, snapshot_every=FT_SNAPSHOT_EVERY, dead_rounds=1000,
+                replication=ReplicationConfig(policy="failover"), watchdog_timeout_s=1.0))
+        store.close()
+        svc = extra["svc"]
+        served("i", row, reqs, m, eng, dict(
+            healthy_probe=_ms(healthy), watchdog_timeout_s=svc.ft.watchdog_timeout_s,
+            delay_s=eng.fault_injector.plan.delay_s, probe_launches=probes[0],
+            suspected=sorted(svc._detector.dead_shards())))
+    return out
+
+
 def _pg_rank(rank, world_size, in_path, out_path):
     """One memory node of phase 23 on ``cuda:0``: every PG_RUNS batch
     through ``distributed_execute`` on the ``ProcessGroupMesh`` (its first
     superstep's ``pulse_chase`` and ``pulse_commit`` launches held against
     their plain versions), a second call of each timed with the fabric's
-    share; then Granite's MoE layer under both MOE_EP_MESHES.  Writes its
-    results to ``out_path % rank``."""
+    share; (a) the replicated reads, (b) the kill, (c), (h) and (i) the
+    service (``_pg_serve_runs``); then Granite's MoE layer under both
+    MOE_EP_MESHES.  Writes its results to ``out_path % rank``."""
+    import tempfile
+
     import numpy as np
     import torch
     from torch.distributed.device_mesh import init_device_mesh
@@ -5541,7 +5907,8 @@ def _pg_rank(rank, world_size, in_path, out_path):
     torch.cuda.set_device(0)
     d = dict(np.load(in_path))
     mesh = routing.ProcessGroupMesh(device="cuda")
-    out = dict(rank=rank, runs={}, moe={})
+    out = dict(rank=rank, runs={}, moe={}, seconds={})
+    t_part = time.perf_counter()
     for name, fabric in PG_RUNS:
         it = _pg_iterator(name, pulse_paper.WEBSERVICE.n_buckets)
         ar = arena_from_numpy(*(d[f"{name}/{f}"] for f in ("data", "bounds", "perms", "heap")),
@@ -5576,7 +5943,22 @@ def _pg_rank(rank, world_size, in_path, out_path):
         del again
         out["runs"][f"{name}/{fabric}"] = row
         torch.distributed.barrier()
+    out["seconds"]["reads and writes"] = time.perf_counter() - t_part
 
+    t_part = time.perf_counter()
+    out["rep"] = _pg_rep_runs(d, mesh)
+    out["seconds"]["a: replicated reads"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    out["kill"] = _pg_kill_run(d, mesh)
+    out["seconds"]["b: kill"] = time.perf_counter() - t_part
+    torch.distributed.barrier()
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_ft_") as tmp:
+        out["serve"] = _pg_serve_runs(rank, d, mesh, tmp)
+    out["seconds"]["c, h, i: the service"] = time.perf_counter() - t_part
+    torch.distributed.barrier()
+
+    t_part = time.perf_counter()
     cfg = get_config(MOE_EP_ARCH)
     p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
     x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(1))
@@ -5596,6 +5978,7 @@ def _pg_rank(rank, world_size, in_path, out_path):
         out["moe"][mid] = dict(y=y.cpu(), dp=i_dp, model=dm["model"].get_local_rank(),
                                ms=(time.perf_counter() - t0) * 1e3)
         del mine, y
+    out["seconds"]["moe"] = time.perf_counter() - t_part
     torch.save(out, out_path % rank)
 
 
@@ -5604,16 +5987,42 @@ def _to_device(p, device):
             for k, v in p.items()}
 
 
-def phase_memory_nodes(rng, smi):
-    """Phase 23, memory nodes as processes (item 6(e)): P = 4 ranks of one
-    Gloo process group on ``cuda:0`` (spawned, a loopback TCP store), each
-    running ``distributed_execute`` on a ``ProcessGroupMesh`` over its own
-    rows and pool (``pulse_chase`` and ``pulse_commit`` launched over one
-    shard), held bit for bit against ``EmulatedMesh(4, "cuda")`` in this
-    process: records, ``RoutingStats`` and the committed arena's digest;
-    then Granite's MoE layer at full width on the expert-parallel path
-    against the single-rank ``moe_apply``.  The rates are those of a
-    host-staged fabric (Gloo on one card)."""
+def _pg_serving_inputs(ctx):
+    """(c)/(h)/(i)'s inputs from phase 14's: the mesh arena's fields, the
+    heads and root, the first PG_SERVE_REQUESTS requests and the first
+    PG_WATCHDOG_READS of phase 15's reads-only cut, as numpy arrays for the
+    ranks; and the tuples."""
+    import numpy as np
+
+    tuples = ctx["tuples"][:PG_SERVE_REQUESTS]
+    reads = [t for t in ctx["tuples"] if t[1] != "wiredtiger_update"][:PG_WATCHDOG_READS]
+    reads = [(j, s_, q, t, PG_WATCHDOG_IDLE_ROUNDS + j // WATCHDOG_PER_ROUND, v)
+             for j, (_, s_, q, t, _, v) in enumerate(reads)]
+
+    def arr(ts):
+        return np.array([(i, SERVE_KINDS.index(s_), q, TENANTS.index(t), r, v)
+                         for i, s_, q, t, r, v in ts], np.int64)
+
+    arrays = {f"serve/{f}": a for f, a in zip(("data", "bounds", "perms", "heap"),
+                                             ctx["mesh_fields"])}
+    arrays.update({"serve/heads": np.asarray(ctx["mheads"]), "serve/root": np.asarray(
+        int(ctx["mroot"])), "serve/requests": arr(tuples), "serve/reads": arr(reads)})
+    return arrays, tuples
+
+
+def phase_memory_nodes(rng, smi, serving_ctx):
+    """Phase 23, memory nodes as processes (items 6(e), 2 and 3 of queue
+    1): P = 4 ranks of one Gloo process group on ``cuda:0`` (spawned, a
+    loopback TCP store), each running ``distributed_execute`` on a
+    ``ProcessGroupMesh`` over its own rows and pool (``pulse_chase`` and
+    ``pulse_commit`` launched over one shard), held bit for bit against
+    ``EmulatedMesh(4, "cuda")`` in this process: records, ``RoutingStats``
+    and the committed arena's digest; (a) replicated reads (the replica
+    window over each rank's holder slice), (b) a kill, (c) phase 14's
+    service with rank 0 serving and the others following, (h) its durable
+    failover and (i) its watchdog; then Granite's MoE layer at full width
+    on the expert-parallel path against the single-rank ``moe_apply``.
+    The rates are those of a host-staged fabric (Gloo on one card)."""
     import tempfile
 
     import numpy as np
@@ -5622,18 +6031,24 @@ def phase_memory_nodes(rng, smi):
     from repro_torch.configs import get_config, pulse_paper
     from repro_torch.core import routing
     from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.core.faults import FaultInjector, FaultPlan, ShardFailure
     from repro_torch.distributed import world
+    from repro_torch.distributed.arena_ft import (
+        ArenaStore,
+        FaultToleranceConfig,
+        ReplicationConfig,
+    )
     from repro_torch.models import moe
 
     t_phase = time.perf_counter()
     inputs, checks = _pg_inputs(rng)
+    serve_arrays, serve_tuples = _pg_serving_inputs(serving_ctx)
     rows, launches = [], dict(pulse_chase=0, pulse_commit=0)
+    seconds = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
         in_path = Path(tmp) / "inputs.npz"
-        np.savez(in_path, **{f"{name}/{f}": a for name, (fields, p0, s0) in inputs.items()
-                             for f, a in zip(("data", "bounds", "perms", "heap", "p0", "s0"),
-                                             (*fields, p0, s0))})
         # the emulated mesh on the card, each run's first call and a timed second
+        t_part = time.perf_counter()
         want = {}
         for name, fabric in PG_RUNS:
             fields, p0, s0 = inputs[name]
@@ -5659,7 +6074,97 @@ def phase_memory_nodes(rng, smi):
                 if bad:
                     raise AssertionError(f"phase 23 {name}: {'; '.join(bad)}")
             del ar, got
-        torch.cuda.empty_cache()
+        # (a) on the emulated mesh: the same cut, plans and dead sets
+        want_rep = {}
+        for name in ("webservice", "wiredtiger"):
+            fields, p0, s0 = inputs[name]
+            ar = arena_from_numpy(*fields, device="cuda")
+            it = _pg_iterator(name, pulse_paper.WEBSERVICE.n_buckets)
+            B = p0.shape[0] // PG_REP_CUT
+            rep_rows = torch.from_numpy(_pg_replica_rows(fields[0], fields[1])).cuda()
+            healthy = routing.distributed_execute(
+                it, ar, torch.from_numpy(p0[:B]).cuda(), torch.from_numpy(s0[:B]).cuda(),
+                mesh=routing.EmulatedMesh(PG_RANKS, "cuda"), **PG_RUN_ARGS)[0]
+            for policy, dead in PG_REP_CASES:
+                mask = torch.zeros(PG_RANKS, dtype=torch.bool, device="cuda")
+                mask[list(dead)] = True
+                ctx = routing.ReplicaContext(routing.make_replica_plan(PG_RANKS, policy=policy),
+                                             rep_rows, mask)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rec, st = routing.distributed_execute(
+                    it, ar, torch.from_numpy(p0[:B]).cuda(), torch.from_numpy(s0[:B]).cuda(),
+                    mesh=routing.EmulatedMesh(PG_RANKS, "cuda"), replication=ctx, **PG_RUN_ARGS)
+                torch.cuda.synchronize()
+                cols = [routing.F_PTR, routing.F_STATUS, routing.F_ITERS]
+                if not (torch.equal(rec[:, cols], healthy[:, cols]) and torch.equal(
+                        rec[:, routing.F_SCRATCH:], healthy[:, routing.F_SCRATCH:])):
+                    raise AssertionError(f"phase 23 (a) {name} {policy} {dead}: the replicated "
+                                         "run's payload differs from the healthy run's")
+                want_rep[f"{name}/{policy}{list(dead)}"] = dict(
+                    records=rec.cpu().numpy(), stats=st, seconds=time.perf_counter() - t0)
+            if name == "webservice":
+                # the windowed offset launch alone, timed: holder 3's pool over its own
+                # rows and holder slice with shard 1 dead (failover), beside the
+                # whole-arena windowed launch of the same pools
+                mask = torch.zeros(PG_RANKS, dtype=torch.bool, device="cuda")
+                mask[1] = True
+                plan = routing.make_replica_plan(PG_RANKS, policy="failover")
+                window = window_offset_vs_plain(
+                    ar, it, torch.from_numpy(p0).cuda(), torch.from_numpy(s0).cuda(), PG_RANKS,
+                    (rep_rows, torch.tensor(plan.primary_map, dtype=torch.int32, device="cuda"),
+                     mask, "failover"), shard=3)
+                if not window["bit_equal"]:
+                    raise AssertionError(f"phase 23: the windowed offset launch disagrees: "
+                                         f"{window}")
+                log(f"  the windowed offset launch (webservice, hash_find; holder 3's pool of "
+                    f"{window['pool_records']:,} records, {window['active_records']:,} active, "
+                    f"over its {window['rows']:,} rows and holder slice, shard 1 dead): "
+                    f"{window['ms']:.5f} ms ({window['ms_source']}), plain "
+                    f"{window['plain_ms']:.3f} ms, bound {window['bound_ms']:.5f} ms; the "
+                    f"whole-arena windowed launch of the same pools {window['whole_ms']:.5f} ms;"
+                    f" == plain and the whole launch's part; {smi}")
+            del ar, rep_rows, healthy
+        # (b) on the emulated mesh
+        fields, p0, s0 = inputs["webservice_rw"]
+        ar = arena_from_numpy(*fields, device="cuda")
+        try:
+            routing.distributed_execute(
+                _pg_iterator("webservice_rw", pulse_paper.WEBSERVICE.n_buckets), ar,
+                torch.from_numpy(p0).cuda(), torch.from_numpy(s0).cuda(),
+                mesh=routing.EmulatedMesh(PG_RANKS, "cuda"),
+                fault_injector=FaultInjector(FaultPlan(**PG_KILL)), **PG_RUN_ARGS)
+            want_kill = None
+        except ShardFailure as e:
+            want_kill = (e.shard, e.superstep)
+        del ar
+        # (c) and (h) on the emulated mesh, dispatched: (c)'s call log picks
+        # (h)'s kill, the read quantum nearest the middle
+        specs = serving_specs(serving_ctx["mheads"], serving_ctx["mroot"], "cuda")
+        mfields = serving_ctx["mesh_fields"]
+        c_extra = {}
+        rc, mc, ec, c_row = serve_run("c: EmulatedMesh(4), sync, dispatched",
+                                      arena_from_numpy(*mfields, device="cuda"), specs,
+                                      serve_tuples, P=PG_RANKS, schedule="dispatched",
+                                      extra=c_extra)
+        _check_against_oracle("phase 23 (c) emulated", rc, serving_ctx["heap"])
+        kill_call = _pick_call(c_extra["kinds"], "r")
+        serve_arrays["serve/kill_call"] = np.asarray(kill_call)
+        store = ArenaStore(Path(tmp) / "h_emulated")
+        rh, mh, eh, h_row = serve_run(
+            "h: EmulatedMesh(4), failover, kill shard 2", arena_from_numpy(*mfields, device="cuda"),
+            specs, serve_tuples, P=PG_RANKS, schedule="dispatched",
+            fault_plan=FaultPlan(kill_shard=2, kill_call=kill_call, kill_superstep=2),
+            fault_tolerance=FaultToleranceConfig(
+                store=store, snapshot_every=FT_SNAPSHOT_EVERY, dead_rounds=6,
+                replication=ReplicationConfig(policy="failover")))
+        store.close()
+        if mh.recoveries != 1 or mh.failover_quanta < 1:
+            raise AssertionError(f"phase 23 (h) emulated: {mh.recoveries} recoveries, "
+                                 f"{mh.failover_quanta} failover quanta")
+        want_serve = dict(c=(rc, mc, c_row, _digest(ec.arena)), h=(rh, mh, h_row, _digest(eh.arena)))
+        del ec, eh
+        seconds["emulated runs"] = time.perf_counter() - t_part
         cfg = get_config(MOE_EP_ARCH)
         p = _to_device(moe.moe_init(torch.Generator().manual_seed(0), cfg), "cuda")
         x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(1)).cuda()
@@ -5667,6 +6172,9 @@ def phase_memory_nodes(rng, smi):
                     2: torch.cat([moe.moe_apply(p, cfg, h) for h in x.chunk(2)]).cpu()}
         del p, x
         torch.cuda.empty_cache()
+        np.savez(in_path, **{f"{name}/{f}": a for name, (fields, p0, s0) in inputs.items()
+                             for f, a in zip(("data", "bounds", "perms", "heap", "p0", "s0"),
+                                             (*fields, p0, s0))}, **serve_arrays)
 
         t0 = time.perf_counter()
         world_s = world.spawn(_pg_rank, PG_RANKS, (str(in_path), str(Path(tmp) / "rank%d.pt")),
@@ -5733,6 +6241,121 @@ def phase_memory_nodes(rng, smi):
             f"emulated mesh (records, RoutingStats"
             + (", the committed arena" if writes else "") + "); the first offset launch == "
             "its plain version on every rank")
+
+    # (a) replicated reads: every rank == the emulated mesh; one windowed
+    # offset launch a superstep on every rank, the first of each batch == plain
+    rep_rows, window_launches, window_checks = [], 0, {}
+    for key, w in want_rep.items():
+        steps = w["stats"].supersteps
+        secs = []
+        for r in ranks:
+            g = r["rep"][key]
+            if not np.array_equal(g["records"], w["records"]):
+                raise AssertionError(f"phase 23 (a) {key}: rank {r['rank']}'s records differ "
+                                     "from the emulated mesh's")
+            diff = _stats_diff(g["stats"], w["stats"])
+            if diff:
+                raise AssertionError(f"phase 23 (a) {key}: rank {r['rank']}'s RoutingStats "
+                                     f"differ on {diff}")
+            if g["launches"] != steps:
+                raise AssertionError(f"phase 23 (a) {key}: rank {r['rank']} launched "
+                                     f"pulse_chase {g['launches']} times in {steps} supersteps")
+            window_launches += g["launches"]
+            secs.append(g["seconds"])
+        B = w["records"].shape[0]
+        rep_rows.append(dict(run=key, lanes=B, supersteps=steps, rate=B / max(secs),
+                             emulated_rate=B / w["seconds"], seconds_per_rank=secs))
+    for name in ("webservice", "wiredtiger"):
+        for r in ranks:
+            c = r["rep"][f"{name}/window_check"]
+            if c is None or not c["bit_equal"]:
+                raise AssertionError(f"phase 23 (a) {name}: rank {r['rank']}'s first windowed "
+                                     f"offset launch of pulse_chase disagrees with its plain "
+                                     f"version ({c})")
+            window_checks.setdefault(name, {})[r["rank"]] = c
+    log(f"  (a) replicated reads, R = 2 (make_replica_plan(4)), on each read batch's first "
+        f"1/{PG_REP_CUT} ({rep_rows[0]['lanes']:,} queries): "
+        + "; ".join(f"{x['run']} {x['rate']:.6g} lookups/s ({x['supersteps']} supersteps; "
+                    f"emulated {x['emulated_rate']:.6g})" for x in rep_rows)
+        + f"; every rank == EmulatedMesh(4, 'cuda') in records and RoutingStats; "
+          f"{window_launches} windowed offset launches of pulse_chase (one a superstep on "
+          f"each rank), each rank's first of each batch == its plain version; {smi}")
+
+    # (b) the kill
+    for r in ranks:
+        k = r["kill"]
+        if k["raised"] != tuple(want_kill or ()) or want_kill != (2, 3) or not k["unchanged"]:
+            raise AssertionError(f"phase 23 (b): rank {r['rank']} raised {k['raised']} "
+                                 f"(emulated {want_kill}), arena unchanged {k['unchanged']}")
+    log(f"  (b) webservice_rw with shard 2 killed before superstep 3: every rank raised "
+        f"ShardFailure(2, 3), as the emulated mesh did; every rank's arena unchanged")
+
+    # (c), (h), (i): the service on rank 0, the others following
+    serve_rows = {}
+    for tag in ("c", "h"):
+        rw, mw, w_row, w_digest = want_serve[tag]
+        got = ranks[0]["serve"][tag]
+        _same_requests(f"phase 23 ({tag}) process group vs EmulatedMesh(4)", got["reqs"], rw)
+        if got["counts"] != _serving_counts(mw):
+            raise AssertionError(f"phase 23 ({tag}): the counts differ from the emulated "
+                                 f"service's: {got['counts']} vs {_serving_counts(mw)}")
+        digests = [r["serve"][tag]["digest"] for r in ranks]
+        if set(digests) != {w_digest}:
+            raise AssertionError(f"phase 23 ({tag}): the ranks' final arenas differ from each "
+                                 f"other or from the emulated service's")
+        row = got["row"]
+        row.update(emulated_requests_per_s=w_row["requests_per_s"], emulated_p99_ms=w_row["p99_ms"],
+                   emulated_p50_ms=w_row["p50_ms"], emulated_p999_ms=w_row["p999_ms"],
+                   emulated_wall_s=w_row["wall_s"])
+        serve_rows[tag] = row
+    h = ranks[0]["serve"]["h"]
+    if not h["standby_same"] or len(h["recoveries"]) != 1:
+        raise AssertionError(f"phase 23 (h): standby == primary {h['standby_same']}, "
+                             f"{len(h['recoveries'])} recoveries")
+    if not torch.equal(h["data"], ranks[0]["serve"]["c"]["data"]):
+        raise AssertionError("phase 23 (h): the final data differs from (c)'s: an acknowledged "
+                             "commit was lost")
+    serve_rows["h"].update(standby=h["standby"], recoveries=h["recoveries"])
+    i = ranks[0]["serve"]["i"]
+    im = i["counts"]
+    if (i["suspected"] != [1] or im["watchdog_suspects"] != 1 or im["failover_quanta"] < 1
+            or im["retries"] or im["recoveries"]):
+        raise AssertionError(f"phase 23 (i): suspected {i['suspected']}, {im['watchdog_suspects']}"
+                             f" suspects, {im['failover_quanta']} failover quanta, "
+                             f"{im['retries']} retries, {im['recoveries']} recoveries")
+    _check_against_oracle("phase 23 (i)", i["reqs"], serving_ctx["heap"], updates=False)
+    if len({r["serve"]["i"]["digest"] for r in ranks}) != 1:
+        raise AssertionError("phase 23 (i): the ranks' arenas differ")
+    serve_rows["i"] = dict(i["row"], healthy_probe=i["healthy_probe"],
+                           watchdog_timeout_s=i["watchdog_timeout_s"], delay_s=i["delay_s"],
+                           probe_launches=i["probe_launches"], suspected=i["suspected"])
+    for tag, r in serve_rows.items():
+        log(f"  ({tag}) [{r['run']}] {r['requests']:,} requests: {r['requests_per_s']:,.0f} "
+            f"requests/s, p50 {r['p50_ms']:.3f} / p99 {r['p99_ms']:.3f} / p999 "
+            f"{r['p999_ms']:.3f} ms, {r['rounds']} rounds, {r['engine_calls']} engine calls, "
+            f"{r['supersteps']} supersteps; the fabric (host-staged collectives) "
+            f"{100 * r['fabric_share']:.1f}% of the run, the leader's headers and installs "
+            f"{100 * r['leader_share']:.1f}% ({r['leader']})"
+            + (f"; EmulatedMesh(4, 'cuda') dispatched in this call: "
+               f"{r['emulated_requests_per_s']:,.0f} requests/s, p50 {r['emulated_p50_ms']:.3f}"
+               f" / p99 {r['emulated_p99_ms']:.3f} / p999 {r['emulated_p999_ms']:.3f} ms"
+               if "emulated_requests_per_s" in r else "") + f"; {smi}")
+    log(f"  (c) == EmulatedMesh(4) request by request (status, iters, result, rounds) and in "
+        f"every count, every rank's final arena == the emulated one's ({len(serve_tuples):,} "
+        f"of phase 14's {len(serving_ctx['tuples']):,} requests)")
+    log(f"  (h) kill of shard 2 at call {int(serve_arrays['serve/kill_call'])} (a read quantum): "
+        f"== EmulatedMesh(4) request by request and in every count (1 recovery, "
+        f"{serve_rows['h']['failover_quanta']} failover quanta, "
+        f"{serve_rows['h']['replica_quanta']} write quanta shipped, the standby "
+        f"{h['standby']['mean_ms']:.1f} ms a quantum), data == (c)'s, the standby == the "
+        f"primary, every rank's arena the same")
+    log(f"  (i) healthy probe mean {i['healthy_probe']['mean_ms']:.3f} / max "
+        f"{i['healthy_probe']['max_ms']:.3f} ms; timeout {1e3 * i['watchdog_timeout_s']:.1f} ms,"
+        f" shard 1 delayed {1e3 * i['delay_s']:.1f} ms a superstep on rank 1 alone: suspected "
+        f"{i['suspected']} ({im['watchdog_probes']} probes, {i['probe_launches']} pulse_chase "
+        f"launches), {im['failover_quanta']} failover quanta, 0 retries, 0 recoveries, reads "
+        f"== ref_find")
+
     moe_rows = {}
     for mid, shape, names in MOE_EP_MESHES:
         n_dp = shape[0] if "data" in names else 1
@@ -5754,11 +6377,16 @@ def phase_memory_nodes(rng, smi):
         if err > MOE_EP_TOL * scale:
             raise AssertionError(f"phase 23 moe {mid}: the expert-parallel layer is {err:.3g} "
                                  f"off the single rank's, over {MOE_EP_TOL:g} of {scale:.4g}")
+    seconds.update({f"world: {k}": v for k, v in ranks[0]["seconds"].items()})
     secs = time.perf_counter() - t_phase
     log(f"  phase 23 took {secs:.1f} s (the world {world_s:.1f} s of it, its start included; "
-        f"{time.perf_counter() - t0:.1f} s from its spawn)")
+        f"{time.perf_counter() - t0:.1f} s from its spawn); by part "
+        + ", ".join(f"{k}: {v:.1f} s" for k, v in seconds.items()))
     out = dict(phase="memory_nodes", seconds=secs, world_s=world_s, card=smi, runs=rows,
-               moe=moe_rows, launches=launches)
+               moe=moe_rows, launches=launches, replicated=rep_rows,
+               window_launches=window_launches, window_checks=window_checks,
+               window_offset=window, kill=dict(raised=want_kill), serving=serve_rows,
+               part_seconds=seconds)
     log(json.dumps(out, default=str))
     return out
 
@@ -6009,7 +6637,6 @@ def main(argv=None) -> int:
     entry["budget_operand"] = serving_row["budget_check"]
     ft_row = phase(15, "fault tolerance and durability, PulseService(..., fault_tolerance=...)",
                    phase_fault_tolerance, serving_ctx, smi)
-    del serving_ctx
     entry["launches"] += ft_row["launches"]["pulse_chase"]
     entry["launches_note"] += ("; in phase 15, one per read engine call of the one-node runs "
                                "(f, g), and on the mesh the read group's first call's "
@@ -6041,20 +6668,35 @@ def main(argv=None) -> int:
                            "pulse_verify", phase_launch, smi)
     torch.cuda.empty_cache()
     pg_row = phase(23, "memory nodes as processes: distributed_execute on a ProcessGroupMesh of "
-                       "4 Gloo ranks on the card; the MoE's expert-parallel path",
-                   phase_memory_nodes, rng, smi)
-    entry["launches"] += pg_row["launches"]["pulse_chase"]
+                       "4 Gloo ranks on the card, replicated reads, a kill, PulseService served "
+                       "from rank 0; the MoE's expert-parallel path",
+                   phase_memory_nodes, rng, smi, serving_ctx)
+    del serving_ctx
+    entry["launches"] += pg_row["launches"]["pulse_chase"] + pg_row["window_launches"]
     entry["launches_note"] += ("; in phase 23, one offset launch (the rank's own pool and rows) "
                                "per superstep on each of the 4 ranks of each process-group read "
-                               "run's first call")
+                               "run's first call, and one windowed offset launch (its holder "
+                               "slice of the replica rows too) per superstep on each rank of "
+                               "each of (a)'s ten replicated reads")
     entry["shard_offset"] = {r["run"]: r["first_superstep_checks"] for r in pg_row["runs"]
                              if r["launches"]["pulse_chase"]}
+    entry["shard_offset_window"] = dict(
+        first_launch_checks=pg_row["window_checks"], launches=pg_row["window_launches"],
+        **{k: pg_row["window_offset"][k] for k in (
+            "ms", "ms_source", "whole_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "active_records", "pool_records", "rows_read", "rows", "shard")},
+        timed_on="webservice (hash_find), one superstep of holder 3's pool over its own rows "
+                 "and holder slice, shard 1 dead (failover); whole_ms: the whole-arena "
+                 "windowed launch of the same pools")
 
     def offset_err(kernel):  # phase 23: each rank's first offset launch against plain
         return max(c[kernel]["max_abs_err"] for r in pg_row["runs"]
                    for c in r["first_superstep_checks"].values() if kernel in c)
 
-    entry["max_abs_err"] = max(entry["max_abs_err"], offset_err("pulse_chase"))
+    entry["max_abs_err"] = max(entry["max_abs_err"], offset_err("pulse_chase"),
+                               pg_row["window_offset"]["max_abs_err"],
+                               *(c["max_abs_err"] for per in pg_row["window_checks"].values()
+                                 for c in per.values()))
     checks13 = faults_row["window_checks"]
     entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in checks13])
     entry["replica_window"] = dict(

@@ -17,7 +17,11 @@ Execution paths:
                                ``mesh=routing.ProcessGroupMesh(...)`` every
                                rank of a process group is one memory node
                                and calls ``execute`` with the same arguments
-                               (SPMD), on the dispatched schedule.
+                               (SPMD), on the dispatched schedule, with
+                               ``replication`` and the fault injector (loss,
+                               kill, straggler) passed through; a served
+                               group's rank 0 calls it alone and the others
+                               follow (``serving.memory_node``).
   * ``cpu_node``            -- the Cache-based baseline: the traversal runs at
                                the CPU node with an LRU trace of node fetches;
                                chosen by the dispatch model for iterators it

@@ -54,6 +54,10 @@ exchange one ``all_to_all_single`` (dense) or ``P - 1`` of them (the ring's
 distance classes), the four counters one all-reduce, and the final pools
 one all-gather.
 
+Replication, a targeted kill and the straggler run on a process group as
+on the emulated mesh (``_process_group_execute``); a served group's rank 0
+announces every call to the other ranks (``ProcessGroupMesh.leader``).
+
 Ported: items 6(a)-(e) of ROADMAP queue 1, 6(e) on the dispatched schedule.
 On an ``EmulatedMesh`` the JAX package's resident-arena cache has no
 counterpart: on one card the arena already lives on the mesh's device, and
@@ -150,11 +154,19 @@ class ProcessGroupMesh:
     it holds its own arena rows and pool on ``device``, and every
     ``distributed_execute`` call runs SPMD, every rank with the same
     arguments.  The records cross the group's collectives; on a Gloo group
-    CUDA tensors go through host copies (Gloo's transport is the host's)."""
+    CUDA tensors go through host copies (Gloo's transport is the host's).
+
+    ``leader`` is set on rank 0 of a served group (``PulseService`` makes
+    it, ``serving.memory_node.lead``): every ``distributed_execute`` on the
+    mesh first sends its arguments to the other ranks, which run
+    ``serving.memory_node.follow`` instead of calling it themselves."""
 
     group: object = None
     device: str | torch.device = "cuda"
     axis_name: str = "mem"
+    # a served process group's rank 0 (``serving.memory_node.Leader``):
+    # announces every call to the ranks that follow it
+    leader: object = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if not dist.is_initialized():
@@ -316,20 +328,23 @@ class ReplicaContext:
     dead_mask: object  # (P,) bool
 
 
-def _rep_operands(replication: ReplicaContext, data: torch.Tensor, P: int):
+def _rep_operands(replication: ReplicaContext, data: torch.Tensor, P: int, rows=None):
     """``(rep, rep_ctx)`` of a call over the arena rows ``data`` of ``P``
     shards, on their device: ``rep = (rep_rows, primary_map, dead_mask,
     policy)`` for the local chase and ``rep_ctx = (replica_map, dead_mask,
-    policy)`` for the switch."""
+    policy)`` for the switch.  ``rows`` (a memory node of a
+    ``ProcessGroupMesh``: its holder slice, ``data`` its own rows) are the
+    replica rows already on the device."""
     dev, plan = data.device, replication.plan
-    rows = torch.as_tensor(replication.rep_rows, dtype=torch.int32).to(dev).contiguous()
+    if rows is None:
+        rows = torch.as_tensor(replication.rep_rows, dtype=torch.int32).to(dev).contiguous()
     dead = torch.as_tensor(replication.dead_mask, dtype=torch.bool).to(dev).contiguous()
     if plan.num_shards != P or tuple(dead.shape) != (P,):
         raise ValueError(f"a replica plan of {plan.num_shards} shards and a dead mask of "
                          f"shape {tuple(dead.shape)} for an arena of {P} shards")
     if rows.shape != data.shape:
-        raise ValueError(f"replica rows {tuple(rows.shape)} do not have the arena's layout "
-                         f"{tuple(data.shape)}")
+        raise ValueError(f"replica rows {tuple(rows.shape)} do not have the layout of the "
+                         f"rows they mirror {tuple(data.shape)}")
     i32 = dict(dtype=torch.int32, device=dev)
     primary = torch.tensor(plan.primary_map, **i32)
     replica = torch.tensor(plan.replica_map, **i32)
@@ -587,7 +602,7 @@ def _local_superstep(
         if rep is not None:
             own_hi, rep_lo, rep_hi, rep_on, rep_ok = (w[s] for w in windows)
             kw = dict(local_hi=own_hi, rep_data=rep[0], rep_lo=rep_lo, rep_hi=rep_hi,
-                      rep_base=lo, rep_on=rep_on, rep_perm_ok=rep_ok)
+                      rep_base=lo - row0, rep_on=rep_on, rep_perm_ok=rep_ok)
         st = (pool[:, F_PTR], pool[:, F_SCRATCH : F_SCRATCH + S], pool[:, F_STATUS],
               pool[:, F_ITERS])
         for _ in range(k_local):
@@ -1570,11 +1585,17 @@ def distributed_execute(
     per-shard superstep on the dispatched schedule, the records crossing
     the group's collectives; it returns what ``EmulatedMesh`` returns, on
     every rank, on the mesh's device.  It keeps ``compact``,
-    ``return_to_cpu``, ``min_link_capacity``, fabric loss
-    (``FaultPlan.drop_prob``), ``elide_access_check``, mutating iterators
-    and both fabrics, and refuses with ``NotImplementedError`` what needs
-    more than one card or is not ported yet: the fused and pipelined
-    schedules, ``replication``, a targeted kill and the straggler.
+    ``return_to_cpu``, ``min_link_capacity``, ``elide_access_check``,
+    mutating iterators, both fabrics, ``replication`` (a rank moves only
+    its holder slice of ``rep_rows`` to the device, and takes either the
+    arena's layout or that slice alone) and every fault of the
+    injector: the loss mask, a targeted kill (every rank raises the same
+    ``ShardFailure``) and the straggler (only rank ``delay_shard`` sleeps,
+    in the supersteps in which the emulated mesh's would).  It refuses with
+    ``NotImplementedError`` what needs more than one card: the fused and
+    pipelined schedules (ROADMAP queue 1, item 1).  On a mesh with a
+    ``leader`` (rank 0 of a served group) the call's arguments first go to
+    the ranks that follow it (``serving.memory_node``).
 
     Returns ``(records, RoutingStats)``, plus the post-commit ``Arena`` on
     the input's device for a mutating iterator: the records a ``(B, R)``
@@ -1582,8 +1603,7 @@ def distributed_execute(
     """
     on_group = isinstance(mesh, ProcessGroupMesh)
     if on_group:
-        _refuse_on_a_process_group(schedule="fused" if schedule is None and fused else schedule,
-                                   replication=replication, fault_injector=fault_injector)
+        _refuse_on_a_process_group(schedule="fused" if schedule is None and fused else schedule)
     kill_at = None
     delay_s, delay_shard = 0.0, None
     drop_prob, drop_seed = 0.0, 0
@@ -1641,11 +1661,21 @@ def distributed_execute(
     if arena.capacity % num_shards:
         raise ValueError("distributed arena must have uniform shard sizes")
     if on_group:
-        return _process_group_execute(
-            it, arena, ptr0, scratch0, mesh=mesh, max_iters=max_iters, k_local=k_local,
-            max_supersteps=max_supersteps, return_to_cpu=return_to_cpu, compact=compact,
-            min_link_capacity=min_link_capacity, fabric=fabric, local_backend=local_backend,
-            drop_prob=drop_prob, drop_seed=drop_seed, elide_access_check=elide_access_check)
+        call = dict(max_iters=max_iters, k_local=k_local, max_supersteps=max_supersteps,
+                    return_to_cpu=return_to_cpu, compact=compact,
+                    min_link_capacity=min_link_capacity, fabric=fabric,
+                    local_backend=local_backend, elide_access_check=elide_access_check)
+        if mesh.leader is not None:
+            # rank 0 of a served group: the followers join this call
+            mesh.leader.announce(it, arena, ptr0, scratch0, call, replication=replication,
+                                 fault_injector=fault_injector, kill_at=kill_at)
+        out = _process_group_execute(
+            it, arena, ptr0, scratch0, mesh=mesh, **call, drop_prob=drop_prob,
+            drop_seed=drop_seed, replication=replication, kill_at=kill_at,
+            fault_injector=fault_injector, delay_s=delay_s, delay_shard=delay_shard)
+        if mesh.leader is not None and mutate:
+            mesh.leader.keep(out[2])
+        return out
 
     S = it.scratch_words
     MW = mut_width(arena.node_words) if mutate else 0
@@ -1705,12 +1735,7 @@ def distributed_execute(
     if drop_prob > 0.0:
         drop_keys = _shard_keys(drop_seed, torch.arange(num_shards, device=dev))
     if delay_s > 0.0:
-        dlo, dhi = arena.bounds[delay_shard : delay_shard + 2].tolist()
-        # a replicated straggler, alive, still serves its reads; dead, its
-        # replica serves them and it costs no one anything
-        delay_serves = not (replication is not None
-                            and replication.plan.replica_map[delay_shard] >= 0
-                            and bool(torch.as_tensor(replication.dead_mask)[delay_shard]))
+        dlo, dhi, delay_serves = _straggler_range(arena, delay_shard, replication)
     routed_per_step, active_per_step = [], []
     wire_words_per_step, capacity_per_step = [], []
     local_only_steps = 0
@@ -1727,7 +1752,7 @@ def distributed_execute(
             ptrs = pools[..., F_PTR]
             if bool(((pools[..., F_STATUS] == STATUS_ACTIVE) & (ptrs >= dlo)
                      & (ptrs < dhi)).any()):
-                time.sleep(delay_s)
+                _straggle(delay_s, steps)
         capacity, do_route = _ladder(n_active, n_remote, num_shards=num_shards,
                                      base_capacity=base_capacity,
                                      min_link_capacity=min_link_capacity, compact=compact)
@@ -1778,25 +1803,31 @@ def distributed_execute(
     return records, stats, Arena(data=data, bounds=arena.bounds, perms=arena.perms, heap=heap)
 
 
-def _refuse_on_a_process_group(*, schedule, replication, fault_injector) -> None:
+def _straggle(delay_s: float, superstep: int) -> None:
+    """The straggler's sleep before (0-based) superstep ``superstep`` of a
+    call, on the shard that serves work in it (a test records it instead)."""
+    time.sleep(delay_s)
+
+
+def _straggler_range(arena: Arena, delay_shard: int, replication):
+    """``(lo, hi, serves)``: the straggler's range, and whether it serves
+    work at all in this call.  A replicated straggler, alive, still serves
+    its reads; dead, its replica serves them and it costs no one
+    anything."""
+    lo, hi = arena.bounds[delay_shard:delay_shard + 2].tolist()
+    serves = not (replication is not None and replication.plan.replica_map[delay_shard] >= 0
+                  and bool(torch.as_tensor(replication.dead_mask)[delay_shard]))
+    return lo, hi, serves
+
+
+def _refuse_on_a_process_group(*, schedule) -> None:
     """What ``distributed_execute`` does not run on a ``ProcessGroupMesh``,
-    each naming its entry of ROADMAP queue 1; never run as something
-    else."""
+    naming its entry of ROADMAP queue 1; never run as something else."""
     if schedule in ("fused", "pipelined"):
         raise NotImplementedError(
             f"schedule={schedule!r} on a ProcessGroupMesh needs its collectives inside the "
             "captured CUDA graph, that is NCCL on more than one card: ROADMAP queue 1, "
             "item 1 (the fused and pipelined schedules on NCCL); use schedule='dispatched'")
-    if replication is not None:
-        raise NotImplementedError(
-            "replication on a ProcessGroupMesh is not ported: ROADMAP queue 1, item 2 "
-            "(replication, kills and the straggler on a process group)")
-    plan = getattr(fault_injector, "plan", None)
-    if plan is not None and (plan.kill_shard is not None or plan.delay_shard is not None):
-        raise NotImplementedError(
-            "a targeted kill or a straggler on a ProcessGroupMesh is not ported: ROADMAP "
-            "queue 1, item 2 (replication, kills and the straggler on a process group); "
-            "fabric loss (FaultPlan.drop_prob) runs")
 
 
 # a memory node's resident rows: (id(arena), mesh) -> (rows, heap row,
@@ -1825,32 +1856,84 @@ def _resident_shard(arena: Arena, mesh: ProcessGroupMesh):
     return ent
 
 
+# a memory node's holder slice of replica rows: (id(rep_rows), mesh) ->
+# rows on the mesh's device
+_RESIDENT_REPLICA: dict = {}
+
+
+def _resident_replica(rep_rows, arena: Arena, mesh: ProcessGroupMesh) -> torch.Tensor:
+    """This rank's holder slice of ``rep_rows`` on the mesh's device: rows
+    ``[bounds[r], bounds[r + 1])`` of replica rows in the arena's layout,
+    or ``rep_rows`` itself when it has only this rank's rows (what a
+    follower holds), moved once per (rows, mesh)."""
+    key = (id(rep_rows), mesh)
+    rows = _RESIDENT_REPLICA.get(key)
+    if rows is None:
+        r = mesh.rank
+        lo, hi = arena.bounds[r:r + 2].tolist()
+        t = torch.as_tensor(rep_rows, dtype=torch.int32)
+        if t.ndim == 2 and t.shape[0] == arena.capacity:
+            t = t[lo:hi]
+        elif t.ndim != 2 or t.shape[0] != hi - lo:
+            raise ValueError(f"replica rows {tuple(t.shape)} are neither the arena's layout "
+                             f"{tuple(arena.data.shape)} nor rank {r}'s {hi - lo} rows")
+        rows = t.to(torch.device(mesh.device)).contiguous()
+        _RESIDENT_REPLICA[key] = rows
+        weakref.finalize(rep_rows, _RESIDENT_REPLICA.pop, key, None)
+    return rows
+
+
 def _process_group_execute(it: PulseIterator, arena: Arena, ptr0, scratch0, *,
                            mesh: ProcessGroupMesh, max_iters: int, k_local: int,
                            max_supersteps: int, return_to_cpu: bool, compact: bool,
                            min_link_capacity: int, fabric: str, local_backend: str,
-                           drop_prob: float, drop_seed: int, elide_access_check: bool):
+                           drop_prob: float, drop_seed: int, elide_access_check: bool,
+                           replication: ReplicaContext | None, kill_at: int | None,
+                           fault_injector, delay_s: float, delay_shard: int | None):
     """``distributed_execute`` on a ``ProcessGroupMesh``: this rank's memory
     node on the dispatched schedule.  Each superstep is the JAX package's
     per-shard body (``make_superstep``): the local chase over its own pool
-    and rows (on the card one ``pulse_chase`` launch of its one shard), for
+    and rows (on the card one ``pulse_chase`` launch of its one shard, the
+    replica window over its holder slice when ``replication`` is on), for
     a mutating iterator the commit on its rows and heap row (one
-    ``pulse_commit`` call), ``_route_decide`` for ``my_shard = r``, the
-    exchange and the merge, then the four counters in one all-reduce and
-    the superstep's one host read.  At the end one all-gather of the final
-    pools (for writes of every shard's rows and heap row too), so every
-    rank decodes the same results."""
+    ``pulse_commit`` call), ``_route_decide`` for ``my_shard = r`` under
+    the serve map, the exchange and the merge, then the four counters in
+    one all-reduce and the superstep's one host read.  At the end one
+    all-gather of the final pools (for writes of every shard's rows and
+    heap row too), so every rank decodes the same results.
+
+    The kill fires on every rank before the same (1-based) superstep, the
+    supersteps counted from the all-reduced counters, so every rank raises
+    the same ``ShardFailure``.  The straggler: only rank ``delay_shard``
+    sleeps, before each superstep in which an ACTIVE record of any pool
+    points into its range (the placed pools before the first, which every
+    rank places whole; after that a fifth word of the counters'
+    all-reduce, counted on each pool after the exchange); the others wait
+    for it at the superstep's first collective."""
     P, r = mesh.num_shards, mesh.rank
     dev = torch.device(mesh.device)
     mutate = it.mutates
     rows, heap_row, bounds, perms, row0 = _resident_shard(arena, mesh)
+    rep = rep_ctx = None
+    if replication is not None:
+        rep, rep_ctx = _rep_operands(replication, rows, P,
+                                     rows=_resident_replica(replication.rep_rows, arena, mesh))
     S = it.scratch_words
     MW = mut_width(arena.node_words) if mutate else 0
     R = record_width(S, MW)
     ptr0 = torch.as_tensor(ptr0, dtype=torch.int32).to(dev)
     scratch0 = torch.as_tensor(scratch0, dtype=torch.int32).to(dev).reshape(-1, S)
+    straggle = False
+    if delay_s > 0.0:
+        dlo, dhi, straggle = _straggler_range(arena, delay_shard, replication)
+
+    def serving(p):  # ACTIVE records pointing into the straggler's range
+        ptrs = p[..., F_PTR]
+        return ((p[..., F_STATUS] == STATUS_ACTIVE) & (ptrs >= dlo) & (ptrs < dhi)).sum()
+
     with torch.profiler.record_function("routing.place"):
         pools, B = place_requests(ptr0, scratch0, P, MW)
+        n_serving = int(serving(pools)) if straggle else 0
         pools = pools[r:r + 1].contiguous()
     L = pools.shape[1]
     base_capacity = L // P
@@ -1865,6 +1948,11 @@ def _process_group_execute(it: PulseIterator, arena: Arena, ptr0, scratch0, *,
     local_only_steps = steps = 0
     n_active, n_remote = B, B  # before the first superstep all sit at home
     for _ in range(max_supersteps):
+        # an injected shard death fires before the targeted (1-based) superstep
+        if kill_at is not None and steps + 1 >= kill_at:
+            fault_injector.fire(steps + 1)
+        if straggle and n_serving and r == delay_shard:
+            _straggle(delay_s, steps)
         capacity, do_route = _ladder(n_active, n_remote, num_shards=P,
                                      base_capacity=base_capacity,
                                      min_link_capacity=min_link_capacity, compact=compact)
@@ -1880,9 +1968,14 @@ def _process_group_execute(it: PulseIterator, arena: Arena, ptr0, scratch0, *,
             else:
                 pools, *counts = superstep(
                     it, pools, rows, bounds, perms, local_backend=local_backend,
-                    elide_access_check=elide_access_check, **route_kw)
+                    elide_access_check=elide_access_check, rep=rep, rep_ctx=rep_ctx,
+                    **route_kw)
+            if straggle:
+                counts.append(serving(pools))
             with torch.profiler.record_function("routing.counters"):
-                n_active, n_routed, n_drop, n_remote = mesh.all_reduce(torch.stack(counts))
+                totals = mesh.all_reduce(torch.stack(counts))
+            n_active, n_routed, n_drop, n_remote = totals[:4]
+            n_serving = totals[4] if straggle else 0
         steps += 1
         routed_per_step.append(n_routed)
         active_per_step.append(n_active)

@@ -48,7 +48,9 @@
 //     whole mesh's (shard0 = row0 = 0: the whole arena, every shard).
 //     With replica rows (rep_rows, replicated reads), shard s also serves a
 //     second window: the range of primary_map[s], whose rows it holds at
-//     rep_rows[bounds[s] + (ptr - bounds[primary])], while the policy
+//     global row bounds[s] + (ptr - bounds[primary]) of rep_rows, which
+//     starts at row0 as `arena` does (one shard's holder slice, or the
+//     whole arena's layout), while the policy
 //     spreads reads or that primary is marked dead (never while s itself is
 //     dead), under the primary's grant; a dead shard's own range is empty.
 //     The window sits in the row's address and in the test of locality, so
@@ -577,7 +579,7 @@ __device__ __forceinline__ void superstep_lane(Body& body, const ChaseArgs& a,
         st = kFault;
       } else {
         const int* row =
-            in_rep ? a.rep_rows + static_cast<size_t>(clampi(p - rep_lo + lo, 0, a.cap - 1)) * a.W
+            in_rep ? a.rep_rows + static_cast<size_t>(clampi(p - rep_lo + lo - a.row0, 0, a.cap - 1)) * a.W
                    : a.arena + static_cast<size_t>(clampi(p - a.row0, 0, a.cap - 1)) * a.W;
         int np;
         const bool done = body.step(row, vec, p, np);

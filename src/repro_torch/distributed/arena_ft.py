@@ -32,6 +32,11 @@ written by the other.
 The files are the JAX package's (``repro.distributed.arena_ft``): a
 snapshot or a log written by either package recovers in the other when
 the same iterator names are registered.
+
+On a ``routing.ProcessGroupMesh`` the replays of ``recover`` and of the
+standby run through ``distributed_execute`` on the group, and the
+snapshots and the log are written by rank 0 only: the served group's
+``PulseService`` holds the store there, and the other ranks hold none.
 """
 
 from __future__ import annotations
@@ -82,14 +87,19 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def _replay(it, arena: Arena, ptr0, scratch0, *, mesh: routing.EmulatedMesh | None,
+Mesh = routing.EmulatedMesh | routing.ProcessGroupMesh
+
+
+def _replay(it, arena: Arena, ptr0, scratch0, *, mesh: Mesh | None,
             max_iters: int, k_local: int, compact: bool):
     """Apply one write quantum to ``arena``: ``(RoutingStats, new Arena)``.
 
     With a ``mesh``, through ``routing.distributed_execute`` on the
     dispatched schedule, as the engine runs a write on a mesh (no capture,
     each commit phase one ``pulse_commit`` launch on the card); without
-    one, through the sequential commit, the engine's write on one node."""
+    one, through the sequential commit, the engine's write on one node.
+    On a ``ProcessGroupMesh`` every rank joins the replay (a served group's
+    rank 0 announces it to the ranks that follow it)."""
     if mesh is None:
         from repro_torch.core.commit import sequential_commit_execute
 
@@ -277,8 +287,7 @@ class ArenaStore:
 
     # ---------------------------- recovery --------------------------------
 
-    def recover(self, *, device="cuda",
-                mesh: routing.EmulatedMesh | None = None) -> tuple[Arena, RecoveryInfo]:
+    def recover(self, *, device="cuda", mesh: Mesh | None = None) -> tuple[Arena, RecoveryInfo]:
         """The latest snapshot, on ``device``, plus the replay of every
         newer logged quantum: over ``mesh`` through
         ``routing.distributed_execute`` when given (the snapshot must have
@@ -362,8 +371,7 @@ class ReplicaSet:
     The shadow is the standby's own copy (tensors are mutable), and
     ``rep_rows`` is built on its device once per shipped quantum."""
 
-    def __init__(self, plan: routing.ReplicaPlan, arena: Arena, *,
-                 mesh: routing.EmulatedMesh | None = None):
+    def __init__(self, plan: routing.ReplicaPlan, arena: Arena, *, mesh: Mesh | None = None):
         self.plan = plan
         self.mesh = mesh
         self.shadow = _clone(arena)
@@ -414,7 +422,7 @@ class ReplicaSet:
         return out
 
     def reset(self, arena: Arena, plan: routing.ReplicaPlan | None = None, *,
-              mesh: routing.EmulatedMesh | None = None) -> None:
+              mesh: Mesh | None = None) -> None:
         """Re-anchor the standby (after a recovery or a reshard: a new
         ``mesh`` with the new width)."""
         if plan is not None:

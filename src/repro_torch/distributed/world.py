@@ -13,7 +13,11 @@ still running at the timeout is killed and ``spawn`` raises
 
 ``all_gather`` and ``all_reduce_sum`` are the collectives of the port's
 expert-parallel MoE (``models/moe.py``), through host copies where the
-group is Gloo and the tensor on the card (``on_host``).
+group is Gloo and the tensor on the card (``on_host``).  ``broadcast_object``,
+``broadcast`` and ``scatter`` carry rank 0's objects and tensors to the
+other ranks of a Gloo group through the host: the call headers, arenas and
+replica rows a served group's rank 0 sends the ranks that follow it
+(``serving/memory_node.py``).
 
 ``fn`` must be importable by the new processes: a function at the top
 level of a module, or of the script that calls ``spawn`` (which must then
@@ -95,3 +99,41 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     x = t.cpu().clone() if on_host(t, group) else t.clone()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x.to(t.device)
+
+
+def _root(group=None) -> int:
+    """The global rank of ``group``'s rank 0, the root of its broadcasts."""
+    return 0 if group is None else dist.get_global_rank(group, 0)
+
+
+def broadcast_object(obj=None, group=None):
+    """Rank 0's ``obj`` (any picklable object; the others pass None) on
+    every rank of ``group``."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_root(group), group=group)
+    return box[0]
+
+
+def broadcast(t: torch.Tensor | None, shape=None, dtype=None, group=None) -> torch.Tensor:
+    """Rank 0's tensor ``t`` on every rank of a Gloo ``group``, on the host:
+    rank 0 passes ``t``, the others its ``shape`` and ``dtype``."""
+    x = t.cpu().contiguous() if t is not None else torch.empty(shape, dtype=dtype)
+    dist.broadcast(x, src=_root(group), group=group)
+    return x
+
+
+def scatter(t: torch.Tensor | None, shape=None, dtype=None, group=None) -> torch.Tensor:
+    """Rank ``r``'s ``r``-th of ``world_size`` equal row blocks of rank 0's
+    ``t``, on the host, over a Gloo ``group``: rank 0 passes ``t``, the
+    others the ``shape`` and ``dtype`` of their block.  No rank receives
+    another's rows."""
+    parts = None
+    if t is not None:
+        n = dist.get_world_size(group)
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not split into {n} equal blocks")
+        parts = [b.cpu().contiguous() for b in t.chunk(n)]
+        shape, dtype = parts[0].shape, parts[0].dtype
+    x = torch.empty(shape, dtype=dtype)
+    dist.scatter(x, parts, src=_root(group), group=group)
+    return x

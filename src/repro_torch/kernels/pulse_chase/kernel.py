@@ -277,8 +277,8 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
     takes whatever budget the tensor holds at replay).
     ``shard0`` and ``row0`` take one shard of the launch: ``pool`` holds
     shards ``shard0 ..`` of the ``perms.shape[0]`` that ``bounds`` and
-    ``perms`` describe, and ``arena``'s first row is global row ``row0``;
-    the replica window takes no offset.
+    ``perms`` describe, and ``arena``'s first row is global row ``row0``,
+    as is ``rep_rows``'s (a memory node's holder slice).
     Returns the new pool; reads nothing on the host and does not
     synchronise.  An empty pool raises: every call launches."""
     dev = arena.device
@@ -302,8 +302,6 @@ def launch_superstep(arena, pool, bounds, perms, code, k_local: int, *, body: st
                          f"of at least {shard0 + P} shards (1-{MAX_FAULT_TABLE - 1}), its "
                          f"bounds one more word, and a row offset >= 0; got {bounds.shape[0]} "
                          f"bounds, {n_shards} permission words, row {row0}")
-    if rep is not None and (shard0 or row0):
-        raise ValueError("pulse_chase: the replica window takes no shard offset")
     if not 0 < P * L or P * L * R >= 2**31 or not 0 <= k_local < 2**31:
         raise ValueError(f"pulse_chase: pool {tuple(pool.shape)} or k_local {k_local} out of "
                          "range")

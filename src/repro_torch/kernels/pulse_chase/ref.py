@@ -103,13 +103,12 @@ def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int
     ``rep = (rep_rows, primary_map, dead_mask, policy)`` (replicated
     reads): shard ``s`` also serves the range of ``p = primary_map[s]``
     while ``policy`` is ``"spread"`` or ``p`` is marked dead (never while
-    ``s`` is), reading row ``bounds[s] + (ptr - bounds[p])`` of
+    ``s`` is), reading global row ``bounds[s] + (ptr - bounds[p])`` of
     ``rep_rows`` under ``p``'s read grant (never elided); a dead shard's
-    own range is empty."""
+    own range is empty.  ``rep_rows`` has ``arena``'s rows: from global row
+    ``row0`` on (a memory node's holder slice with a shard offset)."""
     P, L, R = pool.shape
     S = scratch_words
-    if rep is not None and (shard0 or row0):
-        raise ValueError("the replica window reads the whole arena's layout: no shard offset")
     flat = pool.reshape(P * L, R)
     shard = shard0 + torch.arange(P * L, device=pool.device) // L
     lo, hi = bounds[shard], bounds[shard + 1]
@@ -133,7 +132,7 @@ def chase_superstep_reference(arena, pool, bounds, perms, logic_fn, k_local: int
         runnable = active & local & ~fault & ~null
         nodes = arena[torch.where(runnable & ~in_rep, (ptr - row0).clamp(0, cap - 1), 0).long()]
         if rep is not None:
-            at = (ptr - rep_lo + lo).clamp(0, cap - 1)
+            at = (ptr - rep_lo + lo - row0).clamp(0, rep_rows.shape[0] - 1)
             nodes = torch.where(in_rep[:, None],
                                 rep_rows[torch.where(runnable & in_rep, at, 0).long()], nodes)
         done, nptr, nscr = logic_fn(nodes, ptr, scratch)

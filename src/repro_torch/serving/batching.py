@@ -301,6 +301,13 @@ class DeviceRunner:
         with self._cv:
             return self._unfinished
 
+    def wait_idle(self) -> None:
+        """Block until every submitted quantum has run (or been skipped
+        behind an error), raising nothing: a pending error stays for the
+        next ``submit`` or ``drain``."""
+        with self._cv:
+            self._cv.wait_for(lambda: self._unfinished == 0)
+
     def drain(self) -> None:
         """Barrier: block until every submitted quantum has run and applied."""
         with self._cv:

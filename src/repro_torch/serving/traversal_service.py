@@ -32,6 +32,13 @@ schedule: admission sits above the dispatch decision, like the paper's CPU
 node.  ``pipeline="async"`` issues every engine call from a
 ``DeviceRunner`` thread while this thread admits the next round.
 
+On a ``routing.ProcessGroupMesh`` (memory nodes as processes) the service
+runs on rank 0, which is also memory node 0, and the other ranks run
+``serving.memory_node.follow``: every engine call, probe and replay the
+service makes is announced to them first, and ``close`` ends them.  It
+serves reads, writes, replication, the watchdog and durable recovery as on
+an ``EmulatedMesh``, on the dispatched schedule; a live reshard raises.
+
 **Fault tolerance** (``fault_tolerance=distributed.arena_ft.
 FaultToleranceConfig``): a write quantum is acknowledged only once its
 inputs are in an fsynced commit log, and the arena is snapshotted every
@@ -80,6 +87,7 @@ from repro_torch.serving.admission import (
     TraversalRequest,
     apply_write_barriers,
 )
+from repro_torch.serving import memory_node
 from repro_torch.serving.batching import DeviceRunner, QuantumWork
 
 __all__ = ["PulseService", "StructureSpec", "ServiceMetrics", "STATUS_SHED", "STATUS_RETRY"]
@@ -284,15 +292,14 @@ class PulseService:
                              "is backend='reference' (or None: the kernel on the card)")
         if backend not in (None, *BACKENDS):
             raise ValueError(f"unknown backend {backend!r}; choose None or one of {BACKENDS}")
-        if isinstance(engine.mesh, routing.ProcessGroupMesh):
-            raise NotImplementedError(
-                "PulseService on a ProcessGroupMesh is not ported: ROADMAP queue 1, item 3 "
-                "(PulseService on a process group); serve over an EmulatedMesh, or call "
-                "PulseEngine.execute on every rank")
         if quantum < 1:
             raise ValueError("quantum must be >= 1")
         if pipeline not in ("sync", "async"):
             raise ValueError(f"pipeline must be 'sync' or 'async', got {pipeline!r}")
+        if isinstance(engine.mesh, routing.ProcessGroupMesh):
+            # rank 0 serves; every engine call it makes is announced to the
+            # ranks that follow it (serving.memory_node.follow)
+            engine.mesh = memory_node.lead(engine.mesh, engine.arena, structures)
         self.engine = engine
         self.backend = backend
         self.compact = compact
@@ -689,10 +696,16 @@ class PulseService:
         """Fail over: mark the shard dead, recover the arena from the
         latest snapshot and the log onto the engine's device, check it
         against the resident arena, and park the failed group for a
-        backed-off retry.  Runs on the main thread; in async mode the
-        runner is idle (it fails fast, and its error surfaced here), so
-        swapping the arena races nothing."""
+        backed-off retry.  Runs on the main thread once the runner is idle
+        (it fails fast, and its error surfaced here; quanta queued behind
+        a failure raised at a submit are waited for), so swapping the arena
+        races nothing and, on a process group, every collective is issued
+        from one thread at a time."""
         m = self.metrics
+        if self._runner is not None:
+            # a failure raised at a submit may leave quanta queued behind it:
+            # the recovery's replays must not run beside them
+            self._runner.wait_idle()
         self._detector.suspect(e.shard, rnd)
         self._detector.sweep()
         t0 = time.perf_counter()
@@ -821,7 +834,16 @@ class PulseService:
         every in-flight quantum drains through the write barrier's
         machinery, then the arena cuts over (``remap_shards``, an owner
         epoch, an ``EmulatedMesh`` of the new width) and admission resumes.
-        The result equals a cold rebuild at the new count bit for bit."""
+        The result equals a cold rebuild at the new count bit for bit.
+
+        On a ``ProcessGroupMesh`` it raises ``NotImplementedError``: the
+        cutover would need a world of 2P ranks serving on a subgroup of P
+        until it (ROADMAP queue 1, item 6)."""
+        if isinstance(self.engine.mesh, routing.ProcessGroupMesh):
+            raise NotImplementedError(
+                "a live reshard on a ProcessGroupMesh needs a world of 2P ranks that serves "
+                "on a subgroup of P until the cutover: ROADMAP queue 1, item 6 (the live "
+                "reshard on a process group)")
         self._reshard.request(int(new_num_shards), current=self.engine.arena.num_shards,
                               rnd=self.metrics.rounds)
 
@@ -979,10 +1001,17 @@ class PulseService:
         m.rounds += 1
 
     def close(self) -> None:
-        """Stop the background runner (idempotent; restarted on demand)."""
-        if self._runner is not None:
-            self._runner.close()
-            self._runner = None
+        """Stop the background runner (idempotent; restarted on demand).  On
+        a process group, also end the ranks that follow this one, each
+        returning its copy of the engine's arena: the service is done."""
+        try:
+            if self._runner is not None:
+                self._runner.close()
+                self._runner = None
+        finally:
+            leader = getattr(self.engine.mesh, "leader", None)
+            if leader is not None:
+                leader.stop(self.engine.arena)
 
     def run(self, requests: list[TraversalRequest] | None = None, *,
             max_rounds: int = 100_000) -> ServiceMetrics:

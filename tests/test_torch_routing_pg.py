@@ -24,8 +24,11 @@ drop_seed=7)``), the kernel's plain version as the local chase, a write
 batch of finds, inserts and deletes, and a B+tree update batch.  Every rank
 must return the same results; the engine on the process group resolves
 ``"auto"`` to ``"dispatched"`` (a departure from the reference, whose
-records it keeps); each refusal names its entry of ROADMAP queue 1; a rank
-that raises ends its world within the timeout.
+records it keeps); each refusal (the device-resident schedules, the
+service's live reshard) names its entry of ROADMAP queue 1; a rank that
+raises ends its world within the timeout.  Replication, kills, the
+straggler and the service are ``tests/test_torch_routing_pg_faults.py``'s
+and ``tests/test_torch_service_pg.py``'s.
 
 On the CPU the plain versions of both kernels take a shard offset: one
 shard's pool over its own rows equals that shard's slice of the all-shards
@@ -93,8 +96,7 @@ CASES = [
 WRITES = ("hash_mixed_rw", "btree_update")
 ENGINE_CASES = ("hash", "hash_mixed_rw")  # PulseEngine.execute on the group, "auto"
 REFUSALS = {  # refusal -> the item of ROADMAP queue 1 it names
-    "fused": 1, "pipelined": 1, "fused_flag": 1, "engine_fused": 1, "replication": 2,
-    "kill": 2, "straggler": 2, "service": 3}
+    "fused": 1, "pipelined": 1, "fused_flag": 1, "engine_fused": 1, "reshard": 6}
 
 
 # --------------------------------- inputs ------------------------------------
@@ -200,7 +202,6 @@ def _refusals(d, mesh):
 
     it, ar, p0, s0, max_iters = _port_case(d, "hash")
     run = dict(mesh=mesh, max_iters=max_iters)
-    plan = trouting.make_replica_plan(mesh.num_shards)
     calls = {
         "fused": lambda: trouting.distributed_execute(it, ar, p0, s0, schedule="fused", **run),
         "pipelined": lambda: trouting.distributed_execute(it, ar, p0, s0, schedule="pipelined",
@@ -208,19 +209,12 @@ def _refusals(d, mesh):
         "fused_flag": lambda: trouting.distributed_execute(it, ar, p0, s0, fused=True, **run),
         "engine_fused": lambda: tengine.PulseEngine(ar, mesh=mesh).execute(
             it, p0, s0, max_iters=max_iters, schedule="fused"),
-        "replication": lambda: trouting.distributed_execute(
-            it, ar, p0, s0, replication=trouting.ReplicaContext(
-                plan, np.zeros_like(d["hash/data"]), np.zeros(mesh.num_shards, bool)), **run),
-        "kill": lambda: trouting.distributed_execute(
-            it, ar, p0, s0, fault_injector=tfaults.FaultInjector(tfaults.FaultPlan(
-                kill_shard=1, kill_call=0, kill_superstep=2)), **run),
-        "straggler": lambda: trouting.distributed_execute(
-            it, ar, p0, s0, fault_injector=tfaults.FaultInjector(tfaults.FaultPlan(
-                delay_shard=1, delay_s=0.01)), **run),
-        "service": lambda: PulseService(
-            tengine.PulseEngine(ar, mesh=mesh),
-            {"hash": StructureSpec(iterator=it)}),
     }
+    if mesh.rank == 0:  # the service serves on rank 0; it is never closed here, so
+        # the other rank, which does not follow it, is never told to stop
+        calls["reshard"] = lambda: PulseService(
+            tengine.PulseEngine(ar, mesh=mesh),
+            {"hash": StructureSpec(iterator=it)}).request_reshard(2 * mesh.num_shards)
     out = {}
     for name, call in calls.items():
         try:
@@ -416,9 +410,11 @@ def test_engine_on_the_process_group(kind, P, runs):
 @needs_jax
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_refusals_name_their_entry(name, runs):
-    """The fused and pipelined schedules, replication, a kill, a straggler
-    and ``PulseService`` on a process group raise ``NotImplementedError``
-    naming their entry of ROADMAP queue 1; none runs something else."""
+    """The fused and pipelined schedules, and the service's live reshard,
+    on a process group raise ``NotImplementedError`` naming their entry of
+    ROADMAP queue 1; none runs something else (replication, kills, the
+    straggler and the service run: ``test_torch_routing_pg_faults.py``,
+    ``test_torch_service_pg.py``)."""
     msg = json.loads(str(runs["ranks"][2][0]["refusals"]))[name]
     assert f"ROADMAP queue 1, item {REFUSALS[name]}" in msg, msg
 
@@ -512,16 +508,6 @@ def test_chase_superstep_plain_version_takes_one_shard(k_local):
             mine, pools[s:s + 1], ar.bounds, ar.perms, logic, k_local,
             scratch_words=it.scratch_words, max_iters=1024, shard0=s, row0=edges[s])
         assert torch.equal(plain, got)
-
-
-def test_chase_superstep_offset_refuses_the_replica_window():
-    ar, it, pools = _mid_run_pools(advance=0)
-    rep = (ar.data, torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.bool),
-           "failover")
-    with pytest.raises(ValueError, match="offset"):
-        chase_ref.chase_superstep_reference(
-            ar.data[8:], pools[1:2], ar.bounds, ar.perms, chase_ops.iterator_logic(it), 1,
-            scratch_words=it.scratch_words, max_iters=64, rep=rep, shard0=1, row0=8)
 
 
 def _commit_pools(P, W, seed):
