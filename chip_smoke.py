@@ -147,7 +147,9 @@ Phases (any failure exits non-zero before the last line):
      eighth of its ops (``WRITE_MESH_CUT``), the card's run equals the
      same calls on a CPU copy (records, every ``RoutingStats`` field, final
      ``data`` and ``heap``) and the sequential commit at P = 4 on the card
-     (all but ``schedule``); on every op: the input arena unchanged and the
+     (all but ``schedule``), but for the skip list, cut for the time
+     (``WRITE_MESH_UNCHECKED``: ~270 supersteps at any cut); on every op:
+     the input arena unchanged and the
      committed arena on the card; every record DONE and every found value
      right; ``pulse_commit`` launched once per mutating superstep and
      ``pulse_chase`` never during a mutating batch; the kernels equal to the
@@ -404,6 +406,24 @@ Phases (any failure exits non-zero before the last line):
      healthy probe, suspected and no other shard, reads == ``ref_find``.  The
      service's requests/s, p50/p99/p999 and the fabric's and the leader's
      shares are printed beside the emulated run's, and each part's seconds.
+     Then (j), the live reshard (ROADMAP queue 1, item 6), in a world of 8
+     ranks of its own (``PG_RESHARD_WORLD``): (c)'s requests, 512 arriving
+     a round (``PG_RESHARD_PER_ROUND``, so that some still queue when a
+     third have retired), served on ranks 0-3
+     (``distributed.world.first_ranks(4)``), ranks 4-7 following
+     outside the serving group, ``request_reshard(8)`` once a third have
+     retired; at the cutover every rank takes the group of all 8 and rank
+     0 installs the remapped arena on it.  Gates: every request and count
+     == the same service over ``EmulatedMesh(4, "cuda")`` -> 8, dispatched,
+     in this process; one reshard; one arena digest on every rank; ranks
+     0-3 joined calls at 4 shards, then at 8, ranks 4-7 only at 8, each
+     one's first offset ``pulse_chase`` launch (and ``pulse_commit`` call)
+     == its plain version; one
+     ``pulse_chase`` launch a read superstep and one ``pulse_commit`` call
+     a write superstep on every rank.  Reported beside the card's name and
+     power limit: requests/s and p50/p99/p999 beside the emulated run's,
+     the cutover's ms and the bytes it installed on each rank, the drain
+     rounds, the fabric's and the leader's shares.
 
 Each phase logs its seconds.
 
@@ -2026,6 +2046,10 @@ WRITE_MESH_CUT = 8
 # the timed calls a step's rate takes the median of; the skip list's
 # ~270-superstep calls take ~5 s each, so one (the time's cut)
 WRITE_MESH_TIMED = dict(skiplist_rw=1)
+# the batches held against no CPU copy and no sequential commit (the time's
+# cut for phase 23 (j)): the skip list's ~270 supersteps cost the same at
+# any WRITE_MESH_CUT (its sequential commit alone ~35 s on a slow host)
+WRITE_MESH_UNCHECKED = ("skiplist_rw",)
 COMMIT_SOURCE = "src/repro_torch/csrc/pulse_commit.cu"
 COMMIT_REPLACES = "src/repro/core/routing.py:407 (_commit_phase: XLA, no Pallas kernel)"
 
@@ -2322,54 +2346,60 @@ def phase_write_mesh(rng):
         if not (final.data.is_cuda and final.heap.is_cuda):
             raise AssertionError(f"{name}: the committed arena left the card")
 
-        # each step's first 1/WRITE_MESH_CUT ops, on the card, on a CPU copy
-        # and through the sequential commit on the card: records, stats and
-        # the final arena equal (the sequential commit's stats but schedule)
-        cut = [(sname, it, p0[:p0.shape[0] // WRITE_MESH_CUT],
-                s0[:p0.shape[0] // WRITE_MESH_CUT]) for sname, it, p0, s0 in wb["steps"]]
-        cut_eng = PulseEngine(arena_from_numpy(*wb["fields"], device="cuda"),
-                              mesh=routing.EmulatedMesh(P, "cuda"))
-        cut_card = [cut_eng.execute(it, p0.cuda(), s0.cuda(), **run) for _, it, p0, s0 in cut]
-        cpu_eng = PulseEngine(arena_from_numpy(*wb["fields"], device="cpu"),
-                              mesh=routing.EmulatedMesh(P, "cpu"))
-        t0 = time.perf_counter()
-        host = [cpu_eng.execute(it, p0, s0, **run) for _, it, p0, s0 in cut]
-        cpu_s = time.perf_counter() - t0
-        for (sname, *_), g, c in zip(cut, cut_card, host):
-            for f in ("ptr", "scratch", "status", "iters"):
-                if not (getattr(g, f).is_cuda and torch.equal(getattr(g, f).cpu(),
-                                                              getattr(c, f))):
-                    raise AssertionError(f"{name}/{sname}: card and CPU copy differ on {f}")
-            diff = _stats_diff(g.stats, c.stats)
-            if diff:
-                raise AssertionError(f"{name}/{sname}: RoutingStats of card and CPU copy "
-                                     f"differ on {diff}")
-        if not (torch.equal(cut_eng.arena.data.cpu(), cpu_eng.arena.data)
-                and torch.equal(cut_eng.arena.heap.cpu(), cpu_eng.arena.heap)):
-            raise AssertionError(f"{name}: the card's and the CPU copy's final arenas differ")
+        cpu_s = seq_s = None
+        if name in WRITE_MESH_UNCHECKED:
+            log(f"[{name}] cut for time: no CPU copy and no sequential commit of its first "
+                f"1/{WRITE_MESH_CUT} (~270 supersteps at any cut); its own checks, the commit "
+                f"kernel against its plain version and the read-back stay")
+        else:
+            # each step's first 1/WRITE_MESH_CUT ops, on the card, on a CPU copy
+            # and through the sequential commit on the card: records, stats and
+            # the final arena equal (the sequential commit's stats but schedule)
+            cut = [(sname, it, p0[:p0.shape[0] // WRITE_MESH_CUT],
+                    s0[:p0.shape[0] // WRITE_MESH_CUT]) for sname, it, p0, s0 in wb["steps"]]
+            cut_eng = PulseEngine(arena_from_numpy(*wb["fields"], device="cuda"),
+                                  mesh=routing.EmulatedMesh(P, "cuda"))
+            cut_card = [cut_eng.execute(it, p0.cuda(), s0.cuda(), **run) for _, it, p0, s0 in cut]
+            cpu_eng = PulseEngine(arena_from_numpy(*wb["fields"], device="cpu"),
+                                  mesh=routing.EmulatedMesh(P, "cpu"))
+            t0 = time.perf_counter()
+            host = [cpu_eng.execute(it, p0, s0, **run) for _, it, p0, s0 in cut]
+            cpu_s = time.perf_counter() - t0
+            for (sname, *_), g, c in zip(cut, cut_card, host):
+                for f in ("ptr", "scratch", "status", "iters"):
+                    if not (getattr(g, f).is_cuda and torch.equal(getattr(g, f).cpu(),
+                                                                  getattr(c, f))):
+                        raise AssertionError(f"{name}/{sname}: card and CPU copy differ on {f}")
+                diff = _stats_diff(g.stats, c.stats)
+                if diff:
+                    raise AssertionError(f"{name}/{sname}: RoutingStats of card and CPU copy "
+                                         f"differ on {diff}")
+            if not (torch.equal(cut_eng.arena.data.cpu(), cpu_eng.arena.data)
+                    and torch.equal(cut_eng.arena.heap.cpu(), cpu_eng.arena.heap)):
+                raise AssertionError(f"{name}: the card's and the CPU copy's final arenas differ")
 
-        t0 = time.perf_counter()
-        seq_arena = arena_from_numpy(*wb["fields"], device="cuda")
-        for (sname, it, p0, s0), g in zip(cut, cut_card):
-            srec, sst, seq_arena = commit.sequential_commit_execute(
-                it, seq_arena, p0.cuda(), s0.cuda(), max_iters=run["max_iters"],
-                k_local=run["k_local"], compact=run["compact"])
-            diff = _stats_diff(g.stats, sst)
-            if diff != ["schedule"]:
-                raise AssertionError(f"{name}/{sname}: against the sequential commit the "
-                                     f"stats differ on {diff}")
-            S = it.scratch_words
-            for f, cols in (("ptr", routing.F_PTR), ("status", routing.F_STATUS),
-                            ("iters", routing.F_ITERS),
-                            ("scratch", slice(routing.F_SCRATCH, routing.F_SCRATCH + S))):
-                if not np.array_equal(getattr(g, f).cpu().numpy(), srec[:, cols]):
-                    raise AssertionError(f"{name}/{sname}: {f} differs from the sequential "
-                                         f"commit")
-        if not (torch.equal(seq_arena.data, cut_eng.arena.data)
-                and torch.equal(seq_arena.heap, cut_eng.arena.heap)):
-            raise AssertionError(f"{name}: the sequential commit's final arena differs")
-        del seq_arena, cut_eng, cut_card
-        seq_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            seq_arena = arena_from_numpy(*wb["fields"], device="cuda")
+            for (sname, it, p0, s0), g in zip(cut, cut_card):
+                srec, sst, seq_arena = commit.sequential_commit_execute(
+                    it, seq_arena, p0.cuda(), s0.cuda(), max_iters=run["max_iters"],
+                    k_local=run["k_local"], compact=run["compact"])
+                diff = _stats_diff(g.stats, sst)
+                if diff != ["schedule"]:
+                    raise AssertionError(f"{name}/{sname}: against the sequential commit the "
+                                         f"stats differ on {diff}")
+                S = it.scratch_words
+                for f, cols in (("ptr", routing.F_PTR), ("status", routing.F_STATUS),
+                                ("iters", routing.F_ITERS),
+                                ("scratch", slice(routing.F_SCRATCH, routing.F_SCRATCH + S))):
+                    if not np.array_equal(getattr(g, f).cpu().numpy(), srec[:, cols]):
+                        raise AssertionError(f"{name}/{sname}: {f} differs from the sequential "
+                                             f"commit")
+            if not (torch.equal(seq_arena.data, cut_eng.arena.data)
+                    and torch.equal(seq_arena.heap, cut_eng.arena.heap)):
+                raise AssertionError(f"{name}: the sequential commit's final arena differs")
+            del seq_arena, cut_eng, cut_card
+            seq_s = time.perf_counter() - t0
 
         steps = []
         for (sname, it, *_), check, (before, g, secs, peak, launches, p0c, s0c) in zip(
@@ -2421,8 +2451,10 @@ def phase_write_mesh(rng):
             steps.append(row)
             log(f"[{name}] {sname} over P={P}: {B / med:.4g} ops/s (median of "
                 f"{[round(x, 4) for x in calls]} s; first call, its commit phases captured, "
-                f"{secs:.3f} s; for the batch's first 1/{WRITE_MESH_CUT} CPU copy {cpu_s:.2f} s, "
-                f"card and sequential commit {seq_s:.2f} s); supersteps {st.supersteps} "
+                f"{secs:.3f} s"
+                + (f"; for the batch's first 1/{WRITE_MESH_CUT} CPU copy {cpu_s:.2f} s, card "
+                   f"and sequential commit {seq_s:.2f} s" if cpu_s is not None else "")
+                + f"); supersteps {st.supersteps} "
                 f"({st.local_only_steps} local-only) = pulse_commit launches, 0 pulse_chase; "
                 f"commits {st.commits}, epochs {st.epochs}; routed {row['routed_records']} "
                 f"records, {st.total_wire_words} wire words, mean crossings "
@@ -2433,8 +2465,9 @@ def phase_write_mesh(rng):
                 f"shard's eligible count, {row['longest_chain_mean']:.1f} a superstep, at most "
                 f"{row['longest_chain_max']}; the serial residue: the longest "
                 f"same-slot run {row['longest_run_max']}, free-list pops {row['pops_max']}); "
-                f"peak {peak:.1f} MiB; on the first 1/{WRITE_MESH_CUT} of its ops card == CPU copy "
-                f"== sequential commit (but schedule)")
+                f"peak {peak:.1f} MiB"
+                + (f"; on the first 1/{WRITE_MESH_CUT} of its ops card == CPU copy == "
+                   f"sequential commit (but schedule)" if cpu_s is not None else ""))
             rest = split["wall_ms"] - split["chase_ms"] - split["commit_ms"] - split["switch_ms"]
             log(f"[{name}] {sname}: a timed call {split['wall_ms']:.2f} ms wall; on the stream "
                 f"the chase {split['chase_ms']:.3f} ms, the commit {split['commit_ms']:.3f} ms "
@@ -2512,7 +2545,7 @@ def phase_write_mesh(rng):
                          readback_launches=launches, readback_lanes=int(rp.shape[0])))
         log(f"[{name}] placement {wb['placement']}; the batch took "
             f"{time.perf_counter() - t_batch:.1f} s")
-        del card, eng, cpu_eng, final, reng, res, main, host, best
+        del card, eng, final, reng, res, main, best
         torch.cuda.empty_cache()
     secs = time.perf_counter() - t_phase
     log(f"  phase 12 took {secs:.1f} s (CPU copies and sequential commits included)")
@@ -5511,6 +5544,14 @@ PG_WATCHDOG_READS = 2_048  # (i): the first of phase 15's 4,096 reads
 # straggler sleeps in every superstep shard 1 serves (on an H100 host whose
 # healthy probe takes 30-40 ms, 1.6 s each: minutes for the run)
 PG_WATCHDOG_IDLE_ROUNDS = 2
+# (j): a world of its own, twice PG_RANKS: rank 0 serves on ranks 0-3 (the
+# world's first PG_RANKS, distributed.world.first_ranks) and cuts over to
+# all of them once a third of (c)'s requests have retired
+PG_RESHARD_WORLD = 2 * PG_RANKS
+# (j)'s requests arrive this many a round: at phase 14's 1,536 a round all
+# 4,096 are admitted before a third retire, the drain serves every one of
+# them and nothing is left for the grown group
+PG_RESHARD_PER_ROUND = 512
 MOE_EP_ARCH = "granite_moe_1b_a400m"
 MOE_EP_MESHES = [  # (id, DeviceMesh shape, dim names): "replica" is no dp dim
     ("model2", (2, 2), ("replica", "model")), ("data2_model2", (2, 2), ("data", "model"))]
@@ -5883,6 +5924,102 @@ def _pg_serve_runs(rank, d, mesh, tmp):
     return out
 
 
+def _joined_calls():
+    """Wrap ``routing.distributed_execute`` to log every call this rank
+    joins: (the arena's shards, whether it writes, its supersteps); returns
+    the log and the undo."""
+    from repro_torch.core import routing
+
+    execute, log_ = routing.distributed_execute, []
+
+    def logged(it, arena, *args, **kw):
+        out = execute(it, arena, *args, **kw)
+        log_.append((int(arena.num_shards), bool(it.mutates), int(out[1].supersteps)))
+        return out
+
+    routing.distributed_execute = logged
+
+    def undo():
+        routing.distributed_execute = execute
+    return log_, undo
+
+
+def _pg_reshard_rank(rank, world_size, in_path, out_path):
+    """(j) on one rank of a world of PG_RESHARD_WORLD on ``cuda:0``: rank 0
+    serves (c)'s requests (PG_RESHARD_PER_ROUND arriving a round) on ranks
+    0-3 (``ProcessGroupMesh(world.first_ranks(PG_RANKS))``, dispatched) and
+    asks for the reshard to all of them once a third have retired (the
+    cutover timed, and the bytes it installed); every other rank follows
+    from the start, ranks 4-7 outside the serving group until the cutover,
+    where their first offset launches are held against their plain
+    versions.  Every rank logs the calls it joined and its launches; writes
+    to ``out_path % rank``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.core.arena import arena_from_numpy
+    from repro_torch.distributed import world
+    from repro_torch.kernels.pulse_chase import ops as chase_ops
+    from repro_torch.kernels.pulse_commit import ops as commit_ops
+    from repro_torch.serving import memory_node
+
+    torch.cuda.set_device(0)
+    d = dict(np.load(in_path))
+    fields = [d[f"serve/{f}"] for f in ("data", "bounds", "perms", "heap")]
+    tuples = _serve_tuples(d["serve/reshard"])
+    specs = serving_specs(d["serve/heads"], int(d["serve/root"]), "cuda")
+    mesh = routing.ProcessGroupMesh(world.first_ranks(PG_RANKS), device="cuda")
+    calls, undo = _joined_calls()
+    checked = {}
+    undo_checks = _pg_first_call_checks(checked) if rank >= PG_RANKS else (lambda: None)
+    out = dict(rank=rank)
+    t0 = time.perf_counter()
+    try:
+        if rank == 0:
+            cut = {}
+
+            def time_cutover(svc):
+                leader, cutover = svc.engine.mesh.leader, svc._cutover
+
+                def timed(rnd):
+                    b0, t_cut = leader.stats.arena_bytes, time.perf_counter()
+                    cutover(rnd)
+                    cut.update(ms=(time.perf_counter() - t_cut) * 1e3,
+                               bytes=leader.stats.arena_bytes - b0, round=rnd,
+                               leader_ms=leader.stats.cutover_s * 1e3)
+                svc._cutover = timed
+
+            routing.FABRIC_STATS.reset()
+            reqs, m, eng, row = serve_run(
+                f"j: process group of {PG_RANKS} -> {PG_RESHARD_WORLD} in a world of "
+                f"{PG_RESHARD_WORLD}, sync", arena_from_numpy(*fields, device="cuda"), specs,
+                tuples, P=PG_RANKS, mesh=mesh, schedule="dispatched",
+                reshard_at=len(tuples) // 3, on_service=time_cutover)
+            leader = eng.mesh.leader
+            row.update(fabric_s=routing.FABRIC_STATS.seconds,
+                       fabric_collectives=routing.FABRIC_STATS.collectives,
+                       fabric_share=routing.FABRIC_STATS.seconds / row["wall_s"],
+                       leader=dict(vars(leader.stats)),
+                       leader_share=leader.stats.seconds / row["wall_s"],
+                       drain_rounds=m.reshard_drain_rounds, cutover=cut)
+            out.update(row=row, reqs=reqs, counts=_serving_counts(m), digest=_digest(eng.arena),
+                       launches=dict(pulse_chase=row["pulse_chase_launches"],
+                                     pulse_commit=row["pulse_commit_launches"]))
+        else:
+            chase_ops.pulse_chase.launches = commit_ops.pulse_commit.launches = 0
+            got = memory_node.follow(mesh, arena_from_numpy(*fields, device="cpu"), specs)
+            torch.cuda.synchronize()
+            out.update(digest=None if got is None else _digest(got),
+                       launches=dict(pulse_chase=chase_ops.pulse_chase.launches,
+                                     pulse_commit=commit_ops.pulse_commit.launches))
+    finally:
+        undo_checks()
+        undo()
+    out.update(calls=calls, checks=checked, seconds=time.perf_counter() - t0)
+    torch.save(out, out_path % rank)
+
+
 def _pg_rank(rank, world_size, in_path, out_path):
     """One memory node of phase 23 on ``cuda:0``: every PG_RUNS batch
     through ``distributed_execute`` on the ``ProcessGroupMesh`` (its first
@@ -5988,10 +6125,11 @@ def _to_device(p, device):
 
 
 def _pg_serving_inputs(ctx):
-    """(c)/(h)/(i)'s inputs from phase 14's: the mesh arena's fields, the
-    heads and root, the first PG_SERVE_REQUESTS requests and the first
-    PG_WATCHDOG_READS of phase 15's reads-only cut, as numpy arrays for the
-    ranks; and the tuples."""
+    """(c)/(h)/(i)/(j)'s inputs from phase 14's: the mesh arena's fields,
+    the heads and root, the first PG_SERVE_REQUESTS requests, the first
+    PG_WATCHDOG_READS of phase 15's reads-only cut and (j)'s requests (the
+    same as (c)'s, PG_RESHARD_PER_ROUND arriving a round), as numpy arrays
+    for the ranks; and (c)'s and (j)'s tuples."""
     import numpy as np
 
     tuples = ctx["tuples"][:PG_SERVE_REQUESTS]
@@ -6003,11 +6141,88 @@ def _pg_serving_inputs(ctx):
         return np.array([(i, SERVE_KINDS.index(s_), q, TENANTS.index(t), r, v)
                          for i, s_, q, t, r, v in ts], np.int64)
 
+    reshard = [(i, s_, q, t, j // PG_RESHARD_PER_ROUND, v)
+               for j, (i, s_, q, t, _, v) in enumerate(tuples)]
     arrays = {f"serve/{f}": a for f, a in zip(("data", "bounds", "perms", "heap"),
                                              ctx["mesh_fields"])}
     arrays.update({"serve/heads": np.asarray(ctx["mheads"]), "serve/root": np.asarray(
-        int(ctx["mroot"])), "serve/requests": arr(tuples), "serve/reads": arr(reads)})
-    return arrays, tuples
+        int(ctx["mroot"])), "serve/requests": arr(tuples), "serve/reads": arr(reads),
+        "serve/reshard": arr(reshard)})
+    return arrays, tuples, reshard
+
+
+def _pg_reshard_gates(ranks, want, smi):
+    """(j)'s gates on the world of 8's outputs against the emulated run
+    ``want`` = (requests, metrics, row, digest): every request and count
+    equal, one reshard, one arena digest on every rank; ranks 0-3 joined
+    calls at 4 shards, then at 8, ranks 4-7 only at 8 (at least one read),
+    each of them with its first offset ``pulse_chase`` launch (and
+    ``pulse_commit`` call, if it ran one) == plain;
+    every rank one ``pulse_chase`` launch a superstep of the reads it
+    joined and one ``pulse_commit`` call a superstep of the writes.  Logs
+    the rates, the cutover and the shares; returns the row."""
+    rw, mw, w_row, w_digest = want
+    lead = ranks[0]
+    _same_requests("phase 23 (j) process group vs EmulatedMesh(4) -> 8", lead["reqs"], rw)
+    if lead["counts"] != _serving_counts(mw) or lead["counts"]["reshards"] != 1:
+        raise AssertionError(f"phase 23 (j): the counts differ from the emulated service's: "
+                             f"{lead['counts']} vs {_serving_counts(mw)}")
+    if {r["digest"] for r in ranks} != {w_digest}:
+        raise AssertionError("phase 23 (j): the ranks' final arenas differ from each other or "
+                             "from the emulated service's")
+    launches = dict(pulse_chase=0, pulse_commit=0)
+    for r in ranks:
+        widths = [w for w, _, _ in r["calls"]]
+        if r["rank"] < PG_RANKS:
+            ok = (widths == sorted(widths) and PG_RANKS in widths
+                  and PG_RESHARD_WORLD in widths and widths == [w for w, _, _ in lead["calls"]])
+        else:
+            ok = (widths and set(widths) == {PG_RESHARD_WORLD}
+                  and any(not wr for _, wr, _ in r["calls"]))
+            bad = [k for k, c in r["checks"].items() if not c["bit_equal"]]
+            if "pulse_chase" not in r["checks"] or bad:
+                raise AssertionError(f"phase 23 (j): rank {r['rank']}'s first offset launches "
+                                     f"after the cutover ({sorted(r['checks'])}) disagree with "
+                                     f"their plain versions: {bad}")
+        if not ok:
+            raise AssertionError(f"phase 23 (j): rank {r['rank']} joined calls of widths "
+                                 f"{widths}")
+        for kernel, writes in (("pulse_chase", False), ("pulse_commit", True)):
+            steps = sum(n for _, wr, n in r["calls"] if wr == writes)
+            if r["launches"][kernel] != steps:
+                raise AssertionError(f"phase 23 (j): rank {r['rank']} launched {kernel} "
+                                     f"{r['launches'][kernel]} times in {steps} supersteps")
+            launches[kernel] += r["launches"][kernel]
+    row = dict(lead["row"], launches=launches,
+               first_launch_checks={f"{r['rank']}/{k}": c for r in ranks
+                                    if r["rank"] >= PG_RANKS for k, c in r["checks"].items()},
+               seconds_per_rank=[r["seconds"] for r in ranks],
+               calls_per_rank=[len(r["calls"]) for r in ranks],
+               emulated_requests_per_s=w_row["requests_per_s"], emulated_p50_ms=w_row["p50_ms"],
+               emulated_p99_ms=w_row["p99_ms"], emulated_p999_ms=w_row["p999_ms"],
+               emulated_wall_s=w_row["wall_s"])
+    cut = row["cutover"]
+    log(f"  (j) [{row['run']}] {row['requests']:,} requests: {row['requests_per_s']:,.0f} "
+        f"requests/s, p50 {row['p50_ms']:.3f} / p99 {row['p99_ms']:.3f} / p999 "
+        f"{row['p999_ms']:.3f} ms, {row['rounds']} rounds, {row['engine_calls']} engine calls, "
+        f"{row['supersteps']} supersteps; the reshard asked for after "
+        f"{row['reshard_after_retired']:,} retired, {row['drain_rounds']} drain rounds, the "
+        f"cutover at round {cut['round']} {cut['ms']:.1f} ms (the leader's switch and install "
+        f"{cut['leader_ms']:.1f} ms, {cut['bytes']:,} bytes installed on each rank of the new "
+        f"group); the fabric (host-staged collectives) {100 * row['fabric_share']:.1f}% of the "
+        f"run, the leader's headers and installs {100 * row['leader_share']:.1f}% "
+        f"({row['leader']}); EmulatedMesh({PG_RANKS}, 'cuda') -> {PG_RESHARD_WORLD} dispatched "
+        f"in this call: {row['emulated_requests_per_s']:,.0f} requests/s, p50 "
+        f"{row['emulated_p50_ms']:.3f} / p99 {row['emulated_p99_ms']:.3f} / p999 "
+        f"{row['emulated_p999_ms']:.3f} ms; {smi}")
+    log(f"  (j) == EmulatedMesh({PG_RANKS}) -> {PG_RESHARD_WORLD} request by request and in every "
+        f"count (one reshard), every rank's final arena the same; ranks 0-3 joined calls at 4 "
+        f"then at 8 shards, ranks 4-7 only at 8, each one's first offset launches after the "
+        f"cutover == plain ({sorted(ranks[-1]['checks'])}); one pulse_chase launch a read "
+        f"superstep ({launches['pulse_chase']})"
+        f" and one pulse_commit call a write superstep ({launches['pulse_commit']}) on every "
+        f"rank; calls joined a rank {row['calls_per_rank']}")
+    return row
 
 
 def phase_memory_nodes(rng, smi, serving_ctx):
@@ -6021,8 +6236,10 @@ def phase_memory_nodes(rng, smi, serving_ctx):
     window over each rank's holder slice), (b) a kill, (c) phase 14's
     service with rank 0 serving and the others following, (h) its durable
     failover and (i) its watchdog; then Granite's MoE layer at full width
-    on the expert-parallel path against the single-rank ``moe_apply``.
-    The rates are those of a host-staged fabric (Gloo on one card)."""
+    on the expert-parallel path against the single-rank ``moe_apply``; then
+    (j), the live reshard from ranks 0-3 to all of a world of 8 of its own
+    (``_pg_reshard_rank``, ``_pg_reshard_gates``).  The rates are those of
+    a host-staged fabric (Gloo on one card)."""
     import tempfile
 
     import numpy as np
@@ -6042,7 +6259,7 @@ def phase_memory_nodes(rng, smi, serving_ctx):
 
     t_phase = time.perf_counter()
     inputs, checks = _pg_inputs(rng)
-    serve_arrays, serve_tuples = _pg_serving_inputs(serving_ctx)
+    serve_arrays, serve_tuples, reshard_tuples = _pg_serving_inputs(serving_ctx)
     rows, launches = [], dict(pulse_chase=0, pulse_commit=0)
     seconds = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
@@ -6162,8 +6379,18 @@ def phase_memory_nodes(rng, smi, serving_ctx):
         if mh.recoveries != 1 or mh.failover_quanta < 1:
             raise AssertionError(f"phase 23 (h) emulated: {mh.recoveries} recoveries, "
                                  f"{mh.failover_quanta} failover quanta")
-        want_serve = dict(c=(rc, mc, c_row, _digest(ec.arena)), h=(rh, mh, h_row, _digest(eh.arena)))
-        del ec, eh
+        # (j) on the emulated mesh: 4 -> 8 once a third retired, dispatched
+        rj, mj, ej, j_row = serve_run(
+            f"j: EmulatedMesh({PG_RANKS}) -> {PG_RESHARD_WORLD}, sync, dispatched",
+            arena_from_numpy(*mfields, device="cuda"), specs, reshard_tuples, P=PG_RANKS,
+            schedule="dispatched", reshard_at=len(reshard_tuples) // 3)
+        if mj.reshards != 1 or ej.arena.num_shards != PG_RESHARD_WORLD:
+            raise AssertionError(f"phase 23 (j) emulated: {mj.reshards} reshards, "
+                                 f"{ej.arena.num_shards} shards")
+        _check_against_oracle("phase 23 (j) emulated", rj, serving_ctx["heap"])
+        want_serve = dict(c=(rc, mc, c_row, _digest(ec.arena)), h=(rh, mh, h_row, _digest(eh.arena)),
+                          j=(rj, mj, j_row, _digest(ej.arena)))
+        del ec, eh, ej
         seconds["emulated runs"] = time.perf_counter() - t_part
         cfg = get_config(MOE_EP_ARCH)
         p = _to_device(moe.moe_init(torch.Generator().manual_seed(0), cfg), "cuda")
@@ -6181,6 +6408,13 @@ def phase_memory_nodes(rng, smi, serving_ctx):
                               timeout=PG_TIMEOUT)
         ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
                  for r in range(PG_RANKS)]
+        # (j): a world of its own, rank 0 serving on ranks 0-3 until the cutover
+        reshard_world_s = world.spawn(_pg_reshard_rank, PG_RESHARD_WORLD,
+                                      (str(in_path), str(Path(tmp) / "reshard%d.pt")),
+                                      timeout=PG_TIMEOUT)
+        seconds["j: the world of 8"] = reshard_world_s
+        reshard_ranks = [torch.load(Path(tmp) / f"reshard{r}.pt", weights_only=False)
+                         for r in range(PG_RESHARD_WORLD)]
     for key, w in want.items():
         name, fabric = key.split("/")
         B = w["records"].shape[0]
@@ -6356,6 +6590,8 @@ def phase_memory_nodes(rng, smi, serving_ctx):
         f"launches), {im['failover_quanta']} failover quanta, 0 retries, 0 recoveries, reads "
         f"== ref_find")
 
+    reshard_row = _pg_reshard_gates(reshard_ranks, want_serve["j"], smi)
+
     moe_rows = {}
     for mid, shape, names in MOE_EP_MESHES:
         n_dp = shape[0] if "data" in names else 1
@@ -6386,7 +6622,7 @@ def phase_memory_nodes(rng, smi, serving_ctx):
                moe=moe_rows, launches=launches, replicated=rep_rows,
                window_launches=window_launches, window_checks=window_checks,
                window_offset=window, kill=dict(raised=want_kill), serving=serve_rows,
-               part_seconds=seconds)
+               reshard=reshard_row, part_seconds=seconds)
     log(json.dumps(out, default=str))
     return out
 
@@ -6672,12 +6908,15 @@ def main(argv=None) -> int:
                        "from rank 0; the MoE's expert-parallel path",
                    phase_memory_nodes, rng, smi, serving_ctx)
     del serving_ctx
-    entry["launches"] += pg_row["launches"]["pulse_chase"] + pg_row["window_launches"]
+    entry["launches"] += (pg_row["launches"]["pulse_chase"] + pg_row["window_launches"]
+                          + pg_row["reshard"]["launches"]["pulse_chase"])
     entry["launches_note"] += ("; in phase 23, one offset launch (the rank's own pool and rows) "
                                "per superstep on each of the 4 ranks of each process-group read "
-                               "run's first call, and one windowed offset launch (its holder "
+                               "run's first call, one windowed offset launch (its holder "
                                "slice of the replica rows too) per superstep on each rank of "
-                               "each of (a)'s ten replicated reads")
+                               "each of (a)'s ten replicated reads, and in (j) one offset "
+                               "launch per read superstep on each serving rank, before the "
+                               "cutover on ranks 0-3 and after it on all 8")
     entry["shard_offset"] = {r["run"]: r["first_superstep_checks"] for r in pg_row["runs"]
                              if r["launches"]["pulse_chase"]}
     entry["shard_offset_window"] = dict(
@@ -6695,6 +6934,9 @@ def main(argv=None) -> int:
 
     entry["max_abs_err"] = max(entry["max_abs_err"], offset_err("pulse_chase"),
                                pg_row["window_offset"]["max_abs_err"],
+                               *(c["max_abs_err"] for k, c in
+                                 pg_row["reshard"]["first_launch_checks"].items()
+                                 if k.endswith("/pulse_chase")),
                                *(c["max_abs_err"] for per in pg_row["window_checks"].values()
                                  for c in per.values()))
     checks13 = faults_row["window_checks"]
@@ -6711,9 +6953,13 @@ def main(argv=None) -> int:
     commit_entry = dict(
         name="pulse_commit", route="cuda", source=COMMIT_SOURCE, replaces=COMMIT_REPLACES,
         launches=commit_launches + sum(r["pulse_commit_launches"] for r in serve_runs)
-        + ft_row["launches"]["pulse_commit"] + pg_row["launches"]["pulse_commit"],
+        + ft_row["launches"]["pulse_commit"] + pg_row["launches"]["pulse_commit"]
+        + pg_row["reshard"]["launches"]["pulse_commit"],
         max_abs_err=max([r["commit_check"]["max_abs_err"] for r in mesh_rows]
-                        + [offset_err("pulse_commit")]),
+                        + [offset_err("pulse_commit")]
+                        + [c["max_abs_err"] for k, c in
+                           pg_row["reshard"]["first_launch_checks"].items()
+                           if k.endswith("/pulse_commit")]),
         ms=head_commit["ms"], plain_ms=head_commit["plain_ms"], bound_ms=head_commit["bound_ms"],
         bound_by="bytes", library_ms=None, stages_ms=head_commit["stages_ms"],
         timed_on="the wiredtiger_update commit phase with the most staged records "
@@ -6729,7 +6975,8 @@ def main(argv=None) -> int:
                       "run (h) those of the update group's loop and one a superstep of "
                       "the standby's and the recovery's dispatched replays; in phase 23, one "
                       "offset call (the rank's own pool, heap row and rows) per superstep on "
-                      "each of the 4 ranks of each process-group write run's first call",
+                      "each of the 4 ranks of each process-group write run's first call, and "
+                      "in (j) one per write superstep on each serving rank",
         shard_offset={r["run"]: r["first_superstep_checks"] for r in pg_row["runs"]
                       if r["launches"]["pulse_commit"]},
         batches={r["batch"]: dict(commit_check=r["commit_check"], steps=[

@@ -56,7 +56,10 @@ one all-gather.
 
 Replication, a targeted kill and the straggler run on a process group as
 on the emulated mesh (``_process_group_execute``); a served group's rank 0
-announces every call to the other ranks (``ProcessGroupMesh.leader``).
+announces every call to the other ranks of the world
+(``ProcessGroupMesh.leader``), and a live reshard moves the service from
+the world's first P ranks to its first 2P (or back; ``drop_resident``
+releases the old mesh's rows).
 
 Ported: items 6(a)-(e) of ROADMAP queue 1, 6(e) on the dispatched schedule.
 On an ``EmulatedMesh`` the JAX package's resident-arena cache has no
@@ -159,7 +162,11 @@ class ProcessGroupMesh:
     ``leader`` is set on rank 0 of a served group (``PulseService`` makes
     it, ``serving.memory_node.lead``): every ``distributed_execute`` on the
     mesh first sends its arguments to the other ranks, which run
-    ``serving.memory_node.follow`` instead of calling it themselves."""
+    ``serving.memory_node.follow`` instead of calling it themselves.
+
+    ``group`` may leave ranks of the world out (``distributed.world.
+    first_ranks``): on a rank outside it ``rank`` and ``num_shards`` are -1,
+    and the rank joins none of the mesh's calls."""
 
     group: object = None
     device: str | torch.device = "cuda"
@@ -1881,6 +1888,16 @@ def _resident_replica(rep_rows, arena: Arena, mesh: ProcessGroupMesh) -> torch.T
         _RESIDENT_REPLICA[key] = rows
         weakref.finalize(rep_rows, _RESIDENT_REPLICA.pop, key, None)
     return rows
+
+
+def drop_resident(mesh: ProcessGroupMesh) -> None:
+    """Release this rank's resident rows and replica slices moved for
+    ``mesh`` (a served group's old mesh at a live reshard: a rank that
+    leaves the group holds none after it, and one that stays moves its new
+    rows on its next call)."""
+    for cache in (_RESIDENT, _RESIDENT_REPLICA):
+        for key in [k for k in cache if k[1] == mesh]:
+            del cache[key]
 
 
 def _process_group_execute(it: PulseIterator, arena: Arena, ptr0, scratch0, *,

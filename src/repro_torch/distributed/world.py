@@ -19,6 +19,12 @@ other ranks of a Gloo group through the host: the call headers, arenas and
 replica rows a served group's rank 0 sends the ranks that follow it
 (``serving/memory_node.py``).
 
+``first_ranks(n)`` is the process group of the world's ranks ``0 .. n - 1``,
+the group a served traversal mesh of ``n`` memory nodes runs its
+collectives on; the world (the default group) carries the served group's
+call headers, so a world of ``2P`` ranks can serve on the first ``P`` and
+cut over to all ``2P`` (or back) at a live reshard.
+
 ``fn`` must be importable by the new processes: a function at the top
 level of a module, or of the script that calls ``spawn`` (which must then
 guard its own work with ``if __name__ == "__main__"``).  Gloo runs on the
@@ -52,6 +58,7 @@ def _rank_main(rank: int, fn, world_size: int, port: int, backend: str, timeout:
     try:
         fn(rank, world_size, *args)
     finally:
+        _FIRST.clear()
         dist.destroy_process_group()
 
 
@@ -99,6 +106,24 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     x = t.cpu().clone() if on_host(t, group) else t.clone()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x.to(t.device)
+
+
+# n -> the process group of the world's ranks 0 .. n - 1, made once a world
+_FIRST: dict = {}
+
+
+def first_ranks(n: int):
+    """The process group of the world's ranks ``0 .. n - 1``: None (the
+    default group) when ``n`` is the world's size, else a ``dist.new_group``
+    made on first use and kept for the world's life.  ``new_group`` is a
+    collective of the whole world, so every rank calls this with the same
+    ``n`` in the same order, member or not; a rank outside the group gets
+    ``GroupMember.NON_GROUP_MEMBER``, on which ``dist.get_rank`` is -1."""
+    if n == dist.get_world_size():
+        return None
+    if n not in _FIRST:
+        _FIRST[n] = dist.new_group(list(range(n)))
+    return _FIRST[n]
 
 
 def _root(group=None) -> int:

@@ -11,35 +11,54 @@ join every engine call it makes:
 
   * ``lead(mesh, arena, structures)`` (``PulseService`` calls it on rank 0)
     returns the mesh with a ``Leader``: every ``distributed_execute`` on it
-    first broadcasts one call header over the group (the engine's reads and
-    writes, the watchdog's probes, the standby's and the recovery's
-    replays, the warm-ups alike);
-  * ``follow(mesh, arena, structures)`` (ranks 1 ..) joins each call with
-    the header's arguments until the service's ``close`` says stop.
+    first broadcasts one call header (the engine's reads and writes, the
+    watchdog's probes, the standby's and the recovery's replays, the
+    warm-ups alike);
+  * ``follow(mesh, arena, structures)`` (every other rank of the world)
+    joins each call with the header's arguments until the service's
+    ``close`` says stop.
 
-A header says what the call is (an engine call, an arena to install, or
-stop) and carries the iterator by its ``StructureSpec`` name (``PROBE``
-for the watchdog's probe: iterators hold closures and are never pickled;
-each rank builds the same table from the same specs), ``ptr0`` and
-``scratch0`` as numpy, the call's keywords, the replica plan, dead mask
-and version of the replica rows for a replicated read, and the fault
+Two groups carry the traffic.  The headers go to every rank of the world
+(the default group), so a rank outside the serving group (the mesh's
+group, the world's first P ranks: ``distributed.world.first_ranks``) hears
+each call, the cutover of a live reshard and the stop, and skips what is
+not its own.  The serving group carries the rest: arena installs, replica
+rows and every collective of the call.  Every rank issues the world's
+broadcasts in one order and every member the group's, so no two ranks wait
+on different collectives.
+
+A header says what the call is (an engine call, an arena to install, the
+cutover, or stop) and carries the iterator by its ``StructureSpec`` name
+(``PROBE`` for the watchdog's probe: iterators hold closures and are never
+pickled; each rank builds the same table from the same specs), ``ptr0``
+and ``scratch0`` as numpy, the call's keywords, the replica plan, dead
+mask and version of the replica rows for a replicated read, and the fault
 injector's ``kill_at`` for this call with the plan's loss and straggler,
 so that a follower needs no injector of its own.
 
 Arenas are named by handles.  Rank 0's first arena is handle 0 on every
-rank; an arena rank 0 uses that its followers do not hold (a recovered
-snapshot, the standby's shadow) is broadcast whole first; a write call's
-result, which the call's final all-gather already gives every rank, takes
-the handle its header names.  An arena rank 0 lets go of is dropped on
-the followers with the next header.  A replica holder receives its slice
-of the replica rows only when their version changes, and no rank receives
-another's rows (``distributed.world.scatter``).
+member; an arena rank 0 uses that its followers do not hold (a recovered
+snapshot, the standby's shadow, a remapped arena) is broadcast whole
+first; a write call's result, which the call's final all-gather already
+gives every member, takes the handle its header names.  An arena rank 0
+lets go of is dropped on the followers with the next header.  A replica
+holder receives its slice of the replica rows only when their version
+changes, and no rank receives another's rows (``distributed.world.
+scatter``).
+
+The live reshard (``Leader.cutover``): rank 0 announces the new width
+``Q``, every rank of the world makes or takes the group of its first ``Q``
+ranks at that header, drops the arenas and replica rows it holds and the
+rows it moved to its device (``routing.drop_resident``), and rank 0 then
+installs the remapped arena on the new group.  A rank the group gains
+serves from the next call; a rank a shrink leaves out holds nothing and
+waits for the stop.
 
 Every rank raises the same ``ShardFailure`` in a killed call; a follower
 catches it and waits for the next header, with the arena it had.  Any
 other error ends the follower, and with it the world.  Rank 0 issues every
 collective from one thread at a time: the service drains its device
-runner before a recovery, a probe or a stop.
+runner before a recovery, a probe, a cutover or a stop.
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import routing
 from repro_torch.core.arena import Arena
@@ -74,13 +94,17 @@ def _host(x) -> np.ndarray:
 
 @dataclasses.dataclass
 class LeaderStats:
-    """Rank 0's control traffic: headers and the arenas and replica rows
-    they carried, and the host seconds its broadcasts took."""
+    """Rank 0's control traffic: headers and the arenas (and their bytes,
+    each sent to every other rank of the serving group) and replica rows
+    they carried, the host seconds of the live reshards' cutovers (the
+    remapped arena's install included) and of all of it."""
 
     headers: int = 0
     calls: int = 0
     arenas: int = 0
+    arena_bytes: int = 0
     replica_versions: int = 0
+    cutover_s: float = 0.0
     seconds: float = 0.0
 
 
@@ -89,8 +113,10 @@ class Leader:
 
     ``announce`` sends one engine call's header (``distributed_execute``
     calls it with the call's resolved arguments), ``keep`` names a write
-    call's result, ``stop`` ends the followers.  Not thread-safe: one
-    thread at a time, in one order (the service's contract)."""
+    call's result, ``cutover`` moves the service to another width, ``stop``
+    ends the followers.  Headers go to the world, installs and replica
+    rows to ``group``, the serving group.  Not thread-safe: one thread at a
+    time, in one order (the service's contract)."""
 
     def __init__(self, mesh: routing.ProcessGroupMesh, arena: Arena, structures):
         self.group = mesh.group
@@ -123,7 +149,7 @@ class Leader:
     def _send(self, header: dict) -> None:
         header["evict"], self._evicted = self._evicted, []
         t0 = time.perf_counter()
-        world.broadcast_object(header, self.group)
+        world.broadcast_object(header)  # the world: every rank hears every header
         self.stats.headers += 1
         self.stats.seconds += time.perf_counter() - t0
 
@@ -141,6 +167,7 @@ class Leader:
         for t in fields:
             world.broadcast(t, group=self.group)
         self.stats.arenas += 1
+        self.stats.arena_bytes += sum(t.numel() * t.element_size() for t in fields)
         self.stats.seconds += time.perf_counter() - t0
         return h
 
@@ -193,8 +220,35 @@ class Leader:
         self._register(arena, self._pending_out)
         self._pending_out = None
 
+    def cutover(self, mesh: routing.ProcessGroupMesh, arena: Arena, shards: int):
+        """The live reshard's switch to ``shards`` memory nodes, the world's
+        first ``shards`` ranks (``PulseService._cutover``, once the planner
+        has drained every quantum): announce it, take the new group on every
+        rank at this header, drop what every rank holds for the old mesh,
+        and install the remapped ``arena`` on the new group.  Returns the
+        new mesh, led by this leader.  Raises ``RuntimeError``, announcing
+        nothing, when the world has fewer ranks than ``shards``."""
+        self._check_live()
+        size = dist.get_world_size()
+        if size < shards:
+            raise RuntimeError(f"reshard to {shards} shards needs {shards} ranks, the world "
+                               f"has {size}")
+        t0 = time.perf_counter()
+        self._send(dict(kind="reshard", shards=shards))
+        self.group = world.first_ranks(shards)
+        routing.drop_resident(mesh)
+        # the followers drop every arena at the header: any arena used from
+        # here on is installed on the new group first
+        self._handles.clear()
+        self._rep_rows = None
+        new = dataclasses.replace(mesh, group=self.group)
+        self._handle(arena)
+        self.stats.cutover_s += time.perf_counter() - t0
+        return new
+
     def stop(self, arena: Arena) -> None:
-        """End the followers; each returns its copy of ``arena`` (idempotent)."""
+        """End every other rank of the world; each member of the serving
+        group returns its copy of ``arena`` (idempotent)."""
         if self.stopped:
             return
         self._send(dict(kind="stop", arena=self._handle(arena)))
@@ -225,22 +279,35 @@ def _one_call_injector(faults):
         delay_s=faults["delay_s"]))
 
 
-def follow(mesh: routing.ProcessGroupMesh, arena: Arena, structures) -> Arena:
-    """A memory node of a served group (ranks 1 ..): join every call rank 0
-    announces, with the arena it names, until it says stop; returns this
-    rank's copy of the arena the stop names (the service engine's)."""
+def follow(mesh: routing.ProcessGroupMesh, arena: Arena | None, structures) -> Arena | None:
+    """A memory node of a served group (every rank of the world but 0):
+    join every call rank 0 announces, with the arena it names, until it
+    says stop.  ``mesh`` is the service's first mesh as this rank sees it
+    (its group may leave this rank out: then ``arena`` may be None, and the
+    rank joins no call until a cutover brings it in).  Returns this rank's
+    copy of the arena the stop names (the service engine's), or None on a
+    rank outside the serving group at the stop: one the service never
+    used, or one a shrink left out."""
     if mesh.rank == 0:
         raise ValueError("rank 0 of a served process group runs the PulseService")
     its = iterator_table(structures)
-    arenas = {0: arena}
-    r = mesh.rank
+    arenas = {0: arena} if mesh.rank > 0 else {}
     rep_rows, rep_version = None, 0
     while True:
-        h = world.broadcast_object(None, mesh.group)
+        h = world.broadcast_object(None)
         for k in h["evict"]:
             arenas.pop(k, None)
         if h["kind"] == "stop":
-            return arenas[h["arena"]]
+            return arenas[h["arena"]] if mesh.rank > 0 else None
+        if h["kind"] == "reshard":
+            routing.drop_resident(mesh)
+            mesh = dataclasses.replace(mesh, group=world.first_ranks(h["shards"]))
+            arenas.clear()
+            rep_rows, rep_version = None, 0
+            continue
+        r = mesh.rank
+        if r < 0:
+            continue  # outside the serving group: the install and the call are its members'
         if h["kind"] == "arena":
             data, bounds, perms, heap = (world.broadcast(None, shape, dtype, group=mesh.group)
                                          for shape, dtype in h["fields"])

@@ -21,8 +21,8 @@ tenants.  It plays PULSE's CPU node:
     per-group barrier (``admission.apply_write_barriers``); the engine
     swaps its arena after every write quantum, so the next reads see it;
   * **live resharding**: ``request_reshard`` drains in-flight quanta, then
-    cuts the arena over (``arena.remap_shards``, owner-epoch forwarding, an
-    ``EmulatedMesh`` of the new width);
+    cuts the arena over (``arena.remap_shards``, owner-epoch forwarding, a
+    mesh of the new width);
   * **accounting**: latency percentiles, throughput, deadlines, and the
     engine's supersteps, wire words and commits (``ServiceMetrics``).
 
@@ -33,11 +33,14 @@ node.  ``pipeline="async"`` issues every engine call from a
 ``DeviceRunner`` thread while this thread admits the next round.
 
 On a ``routing.ProcessGroupMesh`` (memory nodes as processes) the service
-runs on rank 0, which is also memory node 0, and the other ranks run
-``serving.memory_node.follow``: every engine call, probe and replay the
-service makes is announced to them first, and ``close`` ends them.  It
-serves reads, writes, replication, the watchdog and durable recovery as on
-an ``EmulatedMesh``, on the dispatched schedule; a live reshard raises.
+runs on rank 0, which is also memory node 0, and every other rank of the
+world runs ``serving.memory_node.follow``: every engine call, probe and
+replay the service makes is announced to them first, and ``close`` ends
+them.  It serves reads, writes, replication, the watchdog and durable
+recovery as on an ``EmulatedMesh``, on the dispatched schedule.  The mesh
+may be the world's first P ranks of a world of 2P (``distributed.world.
+first_ranks``): a live reshard to 2P then cuts over to the whole world, and
+one from 2P to P back to the first P ranks.
 
 **Fault tolerance** (``fault_tolerance=distributed.arena_ft.
 FaultToleranceConfig``): a write quantum is acknowledged only once its
@@ -833,18 +836,20 @@ class PulseService:
         """Begin an online 2x change of the shard count: admission pauses,
         every in-flight quantum drains through the write barrier's
         machinery, then the arena cuts over (``remap_shards``, an owner
-        epoch, an ``EmulatedMesh`` of the new width) and admission resumes.
-        The result equals a cold rebuild at the new count bit for bit.
+        epoch, a mesh of the new width) and admission resumes.  The result
+        equals a cold rebuild at the new count bit for bit.
 
-        On a ``ProcessGroupMesh`` it raises ``NotImplementedError``: the
-        cutover would need a world of 2P ranks serving on a subgroup of P
-        until it (ROADMAP queue 1, item 6)."""
-        if isinstance(self.engine.mesh, routing.ProcessGroupMesh):
-            raise NotImplementedError(
-                "a live reshard on a ProcessGroupMesh needs a world of 2P ranks that serves "
-                "on a subgroup of P until the cutover: ROADMAP queue 1, item 6 (the live "
-                "reshard on a process group)")
-        self._reshard.request(int(new_num_shards), current=self.engine.arena.num_shards,
+        On a ``ProcessGroupMesh`` the new mesh is the world's first
+        ``new_num_shards`` ranks (``memory_node.Leader.cutover``); a world
+        with fewer raises ``RuntimeError`` at the cutover, as the reference
+        does with too few devices."""
+        new_num_shards = int(new_num_shards)
+        if (isinstance(self.engine.mesh, routing.ProcessGroupMesh) and new_num_shards > 0
+                and self.engine.arena.capacity % new_num_shards):
+            # the replica rows are scattered in equal blocks, one a rank
+            raise ValueError(f"{self.engine.arena.capacity} rows do not split into "
+                             f"{new_num_shards} equal shards")
+        self._reshard.request(new_num_shards, current=self.engine.arena.num_shards,
                               rnd=self.metrics.rounds)
 
     def _in_flight(self) -> int:
@@ -855,10 +860,14 @@ class PulseService:
         old_p = self.engine.arena.num_shards
         target = self._reshard.target
         new_arena = remap_shards(self.engine.arena, target)
+        mesh = self.engine.mesh
         new_mesh = None
-        if self.engine.mesh is not None:
-            new_mesh = routing.EmulatedMesh(target, self.engine.mesh.device,
-                                            axis_name=self.engine.axis_name)
+        if isinstance(mesh, routing.ProcessGroupMesh):
+            # every rank of the world switches groups at this header; the
+            # async runner drained last round, so no call is in flight
+            new_mesh = mesh.leader.cutover(mesh, new_arena, target)
+        elif mesh is not None:
+            new_mesh = routing.EmulatedMesh(target, mesh.device, axis_name=self.engine.axis_name)
         ep = self._owner_map.advance(new_arena.bounds.tolist())
         old_epoch = ep.epoch - 1
 
@@ -1002,8 +1011,9 @@ class PulseService:
 
     def close(self) -> None:
         """Stop the background runner (idempotent; restarted on demand).  On
-        a process group, also end the ranks that follow this one, each
-        returning its copy of the engine's arena: the service is done."""
+        a process group, also end every other rank of the world, each member
+        of the serving group returning its copy of the engine's arena and
+        each rank outside it None: the service is done."""
         try:
             if self._runner is not None:
                 self._runner.close()

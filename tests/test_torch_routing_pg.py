@@ -24,11 +24,11 @@ drop_seed=7)``), the kernel's plain version as the local chase, a write
 batch of finds, inserts and deletes, and a B+tree update batch.  Every rank
 must return the same results; the engine on the process group resolves
 ``"auto"`` to ``"dispatched"`` (a departure from the reference, whose
-records it keeps); each refusal (the device-resident schedules, the
-service's live reshard) names its entry of ROADMAP queue 1; a rank that
-raises ends its world within the timeout.  Replication, kills, the
-straggler and the service are ``tests/test_torch_routing_pg_faults.py``'s
-and ``tests/test_torch_service_pg.py``'s.
+records it keeps); each refusal (the device-resident schedules) names its
+entry of ROADMAP queue 1; a rank that raises ends its world within the
+timeout.  Replication, kills, the straggler, the service and its live
+reshard are ``tests/test_torch_routing_pg_faults.py``'s,
+``tests/test_torch_service_pg.py``'s and ``tests/test_torch_reshard_pg.py``'s.
 
 On the CPU the plain versions of both kernels take a shard offset: one
 shard's pool over its own rows equals that shard's slice of the all-shards
@@ -96,7 +96,7 @@ CASES = [
 WRITES = ("hash_mixed_rw", "btree_update")
 ENGINE_CASES = ("hash", "hash_mixed_rw")  # PulseEngine.execute on the group, "auto"
 REFUSALS = {  # refusal -> the item of ROADMAP queue 1 it names
-    "fused": 1, "pipelined": 1, "fused_flag": 1, "engine_fused": 1, "reshard": 6}
+    "fused": 1, "pipelined": 1, "fused_flag": 1, "engine_fused": 1}
 
 
 # --------------------------------- inputs ------------------------------------
@@ -198,8 +198,6 @@ def run_cases(d, mesh):
 
 def _refusals(d, mesh):
     """Every refusal on the process group: name -> its message."""
-    from repro_torch.serving.traversal_service import PulseService, StructureSpec
-
     it, ar, p0, s0, max_iters = _port_case(d, "hash")
     run = dict(mesh=mesh, max_iters=max_iters)
     calls = {
@@ -210,11 +208,6 @@ def _refusals(d, mesh):
         "engine_fused": lambda: tengine.PulseEngine(ar, mesh=mesh).execute(
             it, p0, s0, max_iters=max_iters, schedule="fused"),
     }
-    if mesh.rank == 0:  # the service serves on rank 0; it is never closed here, so
-        # the other rank, which does not follow it, is never told to stop
-        calls["reshard"] = lambda: PulseService(
-            tengine.PulseEngine(ar, mesh=mesh),
-            {"hash": StructureSpec(iterator=it)}).request_reshard(2 * mesh.num_shards)
     out = {}
     for name, call in calls.items():
         try:
@@ -410,11 +403,11 @@ def test_engine_on_the_process_group(kind, P, runs):
 @needs_jax
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_refusals_name_their_entry(name, runs):
-    """The fused and pipelined schedules, and the service's live reshard,
-    on a process group raise ``NotImplementedError`` naming their entry of
-    ROADMAP queue 1; none runs something else (replication, kills, the
-    straggler and the service run: ``test_torch_routing_pg_faults.py``,
-    ``test_torch_service_pg.py``)."""
+    """The fused and pipelined schedules on a process group raise
+    ``NotImplementedError`` naming their entry of ROADMAP queue 1; none
+    runs something else (replication, kills, the straggler, the service
+    and its live reshard run: ``test_torch_routing_pg_faults.py``,
+    ``test_torch_service_pg.py``, ``test_torch_reshard_pg.py``)."""
     msg = json.loads(str(runs["ranks"][2][0]["refusals"]))[name]
     assert f"ROADMAP queue 1, item {REFUSALS[name]}" in msg, msg
 

@@ -25,9 +25,11 @@ serving and ranks 1-3 following until the service's ``close``:
     superstep against a timeout of 0.2 s (a healthy probe takes 12-110 ms
     here; the wall clock decides, so its properties are held, not its
     counts): shard 1 is suspected and served around, with no retry;
-  * the refusals: a live reshard names ROADMAP queue 1, item 6; a service
-    on rank 1 and ``follow`` on rank 0 raise; after ``close`` rank 0's
-    engine calls raise, the followers having returned.
+  * the refusals: a service on rank 1 and ``follow`` on rank 0 raise;
+    after ``close`` rank 0's engine calls raise, the followers having
+    returned.
+
+The live reshard on a process group is ``tests/test_torch_reshard_pg.py``'s.
 """
 
 import importlib.util
@@ -226,10 +228,6 @@ def refusal_run(T, mesh, rank: int):
         return out
     eng = PulseEngine(arena, mesh=mesh)
     svc = T.tsvc.PulseService(eng, specs("torch"), slots_per_structure=4, quantum=4)
-    try:
-        svc.request_reshard(8)
-    except NotImplementedError as e:
-        out["reshard"] = str(e)
     svc.close()
     it = specs("torch")["list"].iterator
     try:
@@ -408,12 +406,6 @@ def test_close_stops_the_followers(runs):
     engine on the stopped group refuses further calls."""
     msg = runs["ranks"][0]["refusals"]["after_close"]
     assert "stopped" in msg and "PulseService.close" in msg
-
-
-@needs_jax
-def test_reshard_on_the_group_names_item_6(runs):
-    msg = runs["ranks"][0]["refusals"]["reshard"]
-    assert "ROADMAP queue 1, item 6" in msg, msg
 
 
 @needs_jax
