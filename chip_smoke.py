@@ -31,7 +31,9 @@ Phases (any failure exits non-zero before the last line):
      lookups/s, the kernel's device ms inside ``execute`` (the profiler's
      kernel timestamps) and the device's busy share are reported, then one
      fixed-depth launch of the whole batch to full depth, timed beside its
-     bytes bound (each distinct row the run visits read once);
+     bytes bound (each distinct row the run visits read once) and, on the
+     workload whose arena lies beyond L2 (the kernels line's), beside its
+     plain version (an interpreter call ~1-1.5 s: the time's cut);
   4. ``flash_attention`` against its plain version (``mha_reference``) on
      the shapes of ``tests/test_kernels.py``, at head dims 112 (kimi's G =
      8, zamba2's G = 1) and 16 (the reduced configs), at zamba2_7b's and
@@ -324,10 +326,12 @@ Phases (any failure exits non-zero before the last line):
      recompute's ``flash_attention.backward``/``ssd_scan.backward``),
      optimizer, and the GEMMs;
  21. the same for ``mamba2_780m`` (``ssm_backend="chunked"`` the plain
-     route), ``ssd_scan`` launched 48 times a step.
+     route), ``ssd_scan`` launched 48 times a step, without the exact
+     resume (phase 20's holds the checkpoint round trip: the time's cut).
  22. the launch tooling (``repro_torch.launch``): (a) the meta dry run
-     (``dryrun.main``) of ``qwen3_0_6b``'s four cells on both H100 meshes,
-     (data 32, model 8) and (pod 2, data 32, model 8), and its ``report``
+     (``dryrun.main``) of ``qwen3_0_6b``'s four cells on the single-pod
+     H100 mesh (data 32, model 8; the multi-pod mesh's records are the CPU
+     test's: the time's cut), their collectives recorded, and its ``report``
      table, printed (counts and datasheet peaks, not measurements); (b)
      ``steps.build_step(cfg, shape, make_test_mesh(), device="cuda")`` for
      the full-width ``qwen3_0_6b`` at the production lengths with the batch
@@ -424,6 +428,37 @@ Phases (any failure exits non-zero before the last line):
      power limit: requests/s and p50/p99/p999 beside the emulated run's,
      the cutover's ms and the bytes it installed on each rank, the drain
      rounds, the fabric's and the leader's shares.
+ 24. training across processes (ROADMAP queue 1, items 4-5): (a) a world
+     of 2 Gloo ranks on ``cuda:0`` started as ``torchrun`` starts one
+     (``distributed.world.spawn(..., launcher_env=True)``), each running
+     ``launch.train.main`` on qwen3_0_6b at published widths (f32), global
+     batch 8 x 512 (4 rows a rank), 4 steps, no checkpoint.  Gates: each
+     rank's first loss within TRAIN_LOSS0_TOL of the plain route's
+     (``attn_backend`` "chunked", remat full) first step from the same
+     seeded weights on that rank's rows; the ranks' first losses differ;
+     ``flash_attention`` 28 x 4 launches on each rank; no collective of
+     ``torch.distributed`` called inside the loop (``_CollectiveSpy``).
+     Reported: each rank's warm step ms, tokens/s and peak memory, the
+     world's tokens/s over the slowest rank's step.  (b) The dry run's
+     collective records of ``qwen3_0_6b|train_4k`` and
+     ``mamba2_780m|prefill_32k`` on (data 32, model 8), on meta: nothing
+     made off meta, and the train cell has all-gathers and reduce-scatters
+     over ``data`` and a collective term above 0; reported: the counts by
+     kind and axis, the ring wire bytes, ``collective_s``, ``dominant``
+     and each cell's seconds to count and to record.  (c) Which of
+     DTensor's collectives (all-gather, reduce-scatter, all-reduce,
+     all-to-all) Gloo takes on CUDA tensors of the card: each in a world
+     of 2 ranks of its own, one world after another, so that one which
+     crashes its processes ends only its world, up to the first that Gloo
+     does not take (``GLOO_PROBES``; the rest are not probed); where Gloo
+     takes all four, a world of 4 ranks as a (data 2, model 2)
+     ``DeviceMesh`` runs qwen3_0_6b's train step at full width and 2
+     layers, 4 x 512, sharded as DTensors, gated: every rank's records
+     equal the fake world's at the same mesh, the loss and every updated
+     parameter within 1e-5 of the largest magnitude of the unsharded
+     step's, ``flash_attention`` 2 launches a rank.  Where Gloo does not,
+     what it did is reported and no step runs (the CPU test holds the real
+     mesh against the fake one).
 
 Each phase logs its seconds.
 
@@ -1082,8 +1117,6 @@ def phase_main(rng, workloads):
             k_ms = profiled_ms(full, 10, "chase_kernel")
             ms_source = "events" if k_ms is None else "profiler"
             k_ms = k_events if k_ms is None else k_ms
-            p_ms = time_cuda(lambda: ref.chase_reference(arena.data, ptr0, scr0c, st0,
-                                                         torch.zeros_like(ptr0), logic, depth), 1)
             n_code = len(logic.program) if logic.program is not None else 0
             rows_seen = visited_rows(arena, logic, ptr0, scr0c, depth)
             nbytes = work_bytes(rows_seen, B_MAIN, arena.node_words, it.scratch_words, n_code)
@@ -1091,6 +1124,10 @@ def phase_main(rng, workloads):
                                       n_code)
             arena_bytes = arena.capacity * arena.node_words * 4
             in_l2 = arena_bytes < l2_size
+            # the plain version timed where the arena lies beyond L2 (the
+            # kernels line's workload) alone: the time's cut
+            p_ms = None if in_l2 else time_cuda(lambda: ref.chase_reference(
+                arena.data, ptr0, scr0c, st0, torch.zeros_like(ptr0), logic, depth), 1)
             done = res.status == STATUS_DONE
             body = "isa" if logic.program is not None else logic.native.name
             row = dict(
@@ -1130,9 +1167,10 @@ def phase_main(rng, workloads):
                 f"device busy {100 * busy:.1f}% iters mean={row['iters_mean']:.2f} "
                 f"max={row['iters_max']} peak={peak_mb:.1f} MiB; dispatch model: "
                 f"{decision.reason}")
+            plain = "not timed" if p_ms is None else f"{p_ms:.4f} ms"
             log(f"[{wl['name']}] {route}: one fixed-depth launch, {depth} steps, {lane_steps} "
                 f"lane-steps over {rows_seen} distinct rows: kernel {k_ms:.5f} ms ({ms_source}; "
-                f"CUDA events {k_events:.5f}), plain {p_ms:.4f} ms, bytes bound {row['bound_ms']:.5f} "
+                f"CUDA events {k_events:.5f}), plain {plain}, bytes bound {row['bound_ms']:.5f} "
                 f"ms ({row['bound_note']}; {row['bound_ms_lane_steps']:.5f} ms counting every "
                 f"lane-step's row)")
             rows.append(row)
@@ -4969,22 +5007,17 @@ class _Trainer:
         return TrainLoop(self.model, self.tcfg, data)
 
 
-def resume_and_profile(cfg, argv, losses):
+def exact_resume(cfg, argv):
     """Exact resume at full width and an eighth of the depth
     (``RESUME_DEPTH_CUT``: the checkpoint's bytes scale with the layers):
     the cut model's TRAIN_STEPS uninterrupted steps through ``TrainLoop``,
     then four steps from the same seeded init,
     ``CheckpointManager.save(block=True)`` into a temporary directory, a
     fresh state (another seed) and data iterator restored, four more
-    steps; all eight losses against the uninterrupted run's.  Then the
-    full model from ``train.main``'s seeded state: one step, whose loss
-    must equal ``losses[0]`` (the kernel route's through ``train.main``)
-    bit for bit, and one more under the profiler
-    (``train_step_breakdown``)."""
+    steps; all eight losses against the uninterrupted run's."""
     import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.distributed.checkpoint import CheckpointManager, tree_leaves
 
@@ -5023,6 +5056,18 @@ def resume_and_profile(cfg, argv, losses):
     if not bit_equal and worst > RESUME_TOL:
         raise AssertionError(f"{cfg.arch_id}: the resumed losses {got} differ from {want}")
     torch.cuda.empty_cache()
+    return dict(resume_bit_equal=bit_equal, resume_max_rel_diff=worst, resume_losses=got,
+                resume_layers=cut.n_layers, resume_reference_losses=want,
+                ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_bytes=nbytes)
+
+
+def profile_step(cfg, argv, losses):
+    """The full model from ``train.main``'s seeded state: one step, whose
+    loss must equal ``losses[0]`` (the kernel route's through
+    ``train.main``) bit for bit, and one more under the profiler
+    (``train_step_breakdown``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     full = _Trainer(cfg, argv)
     data = full.data()
@@ -5043,23 +5088,20 @@ def resume_and_profile(cfg, argv, losses):
     split = train_step_breakdown(prof)
     split.update(state_gb=state_gb, step_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     del state
-    return dict(resume_bit_equal=bit_equal, resume_max_rel_diff=worst, resume_losses=got,
-                resume_layers=cut.n_layers, resume_reference_losses=want,
-                first_loss_equals_train_main=first[0]["loss"] == losses[0],
-                ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_bytes=nbytes,
+    return dict(first_loss_equals_train_main=first[0]["loss"] == losses[0],
                 profiled_step_wall_ms=wall_ms, profiled_step=split)
 
 
-def phase_train(arch, kernels, backend_fields):
+def phase_train(arch, kernels, backend_fields, resume=True):
     """``arch`` trained at full width through ``repro_torch.launch.train.main``
     (seeded weights, the config's optimizer, TRAIN_ARGS), each kernel of
     ``kernels`` ((op, launches a step)) counted around it; then the first
     PLAIN_TRAIN_STEPS steps on the plain route (every field of ``backend_fields`` "chunked",
     with ``remat="full"``: the same values, and room on the card, where
     the plain attention's and the plain scan's saved intermediates would
-    not fit beside the state) from the same weights and data, and the
-    exact resume and a profiled
-    step (``resume_and_profile``).  Gates: every loss finite, the last below
+    not fit beside the state) from the same weights and data, the exact
+    resume where ``resume`` (``exact_resume``) and a profiled step
+    (``profile_step``).  Gates: every loss finite, the last below
     the first; each kernel's launches a step; the routes within
     TRAIN_LOSS0_TOL (first loss), TRAIN_GNORM0_TOL (first grad norm) and
     TRAIN_LOSS_TOL (later losses), relative; the resume."""
@@ -5128,7 +5170,9 @@ def phase_train(arch, kernels, backend_fields):
                grad_norm_gaps=gnorm_gaps,
                plain_step_ms_median_warm=float(np.median([r["dt"] for r in log_p[1:]])) * 1e3)
     torch.cuda.empty_cache()
-    row.update(resume_and_profile(cfg, argv, losses))
+    if resume:
+        row.update(exact_resume(cfg, argv))
+    row.update(profile_step(cfg, argv, losses))
     split = row["profiled_step"]
     fmt = lambda v: "not measured" if v is None else f"{v:.1f} ms"  # noqa: E731
     log(f"  profiled warm step: wall {row['profiled_step_wall_ms']:.1f} ms, kernels "
@@ -5467,7 +5511,7 @@ def launch_step(arch, kind, batch, length, kernel=None, plain=None):
 
 def phase_launch(smi):
     """Phase 22, the launch tooling: (a) the meta dry run of qwen3_0_6b's
-    four cells on both H100 meshes and its report table; (b)
+    four cells on the single-pod H100 mesh and its report table; (b)
     ``build_step`` on the card for the full-width qwen3_0_6b at the
     production lengths, the batch cut to one card (prefill 1 x 32,768,
     decode 4 over a 32,768-token cache, train 1 x 4,096) and (c)
@@ -5485,13 +5529,13 @@ def phase_launch(smi):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "dryrun.json"
-        if dryrun.main(["--arch", LAUNCH_ARCH, "--out", str(out)]) != 0:
+        if dryrun.main(["--arch", LAUNCH_ARCH, "--mesh", "single", "--out", str(out)]) != 0:
             raise AssertionError("the meta dry run failed")
         table = report.render(str(out))
         dry = json.loads(out.read_text())
     print(table, flush=True)
     dry_s = time.perf_counter() - t0
-    log(f"  (a) meta dry run of {LAUNCH_ARCH}'s 4 cells on 32x8 and 2x32x8: {dry_s:.1f} s "
+    log(f"  (a) meta dry run of {LAUNCH_ARCH}'s 4 cells on 32x8: {dry_s:.1f} s "
         "(counts and datasheet peaks, not measurements)")
 
     flash = (flash_ops.flash_attention, get_config(LAUNCH_ARCH).n_layers)
@@ -6745,6 +6789,346 @@ def native_bodies(checks, rows, write_rows, skip_body):
     return out
 
 
+# ------------------------ training across processes -------------------------
+
+# phase 24 (a): launch.train.main on a world of MH_WORLD Gloo ranks on the
+# card, started as torchrun starts them (the launcher's variables set), each
+# rank MH_BATCH / MH_WORLD rows of every global batch
+MH_WORLD, MH_STEPS, MH_BATCH, MH_SEQ = 2, 4, 8, 512
+MH_ARGS = ["--arch", "qwen3_0_6b", "--steps", str(MH_STEPS), "--batch", str(MH_BATCH),
+           "--seq", str(MH_SEQ), "--lr", "1e-3", "--log-every", "1"]
+MH_TIMEOUT = 300.0
+# (b): the dry run's cells whose collectives phase 24 records at full width
+DRY_CELLS = (("qwen3_0_6b", "train_4k"), ("mamba2_780m", "prefill_32k"))
+# (c): a train step sharded as DTensors on a real (data 2, model 2) mesh of
+# SHARDED_WORLD Gloo ranks on the card, at full width and SHARDED_DEPTH
+# layers, against the unsharded step (loss and parameters within
+# SHARDED_TOL of the largest magnitude)
+SHARDED_WORLD, SHARDED_DEPTH, SHARDED_BATCH, SHARDED_SEQ = 4, 2, 4, 512
+SHARDED_TOL = 1e-5
+# torch.distributed's collectives, each counted by _CollectiveSpy
+DIST_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+                    "reduce_scatter_tensor", "all_to_all", "all_to_all_single", "broadcast",
+                    "barrier", "all_gather_object", "broadcast_object_list", "gather",
+                    "scatter", "reduce", "send", "recv", "isend", "irecv")
+
+
+class _CollectiveSpy:
+    """While active, counts the calls of every collective of
+    ``torch.distributed`` (``DIST_COLLECTIVES``, on the package and on its
+    ``distributed_c10d`` module) in ``n``."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.distributed import distributed_c10d
+
+        self.n, self._saved = 0, []
+        for mod in (dist, distributed_c10d):
+            for name in DIST_COLLECTIVES:
+                fn = getattr(mod, name, None)
+                if fn is None:
+                    continue
+
+                def counted(*a, _fn=fn, **kw):
+                    self.n += 1
+                    return _fn(*a, **kw)
+
+                self._saved.append((mod, name, fn))
+                setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _mh_rank(rank, world_size, out_dir):
+    """One rank of phase 24 (a): ``launch.train.main`` (which joins the
+    group from the launcher's variables), the collectives inside its loop
+    counted; then the plain route's first step (``attn_backend``
+    "chunked", remat full) from the same seeded weights on this rank's rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training import train_loop
+
+    spied, run = [], train_loop.TrainLoop.run
+
+    def counted_run(self, *a, **kw):
+        with _CollectiveSpy() as spy:
+            out = run(self, *a, **kw)
+        spied.append(spy.n)
+        return out
+
+    train_loop.TrainLoop.run = counted_run
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    log_k = train.main(MH_ARGS)
+    wall_s = time.perf_counter() - t0
+    launches = flash_ops.flash_attention.launches
+    train_loop.TrainLoop.run = run
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    args = train.parser().parse_args(MH_ARGS)
+    cfg = get_config("qwen3_0_6b").replace(remat="full", attn_backend="chunked")
+    model = build_model(cfg)
+    tcfg = train.train_config(cfg, args)
+    data = train.data_iterator(cfg, args, "cuda", num_hosts=world_size, host_id=rank)
+    state = train_loop.init_state(model, tcfg, torch.Generator(device="cuda").manual_seed(
+        args.seed))
+    _, log_p = train_loop.TrainLoop(model, tcfg, data).run(state, 0, 1)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, losses=[r["loss"] for r in log_k], step_ms=[r["dt"] * 1e3 for r in log_k],
+        plain_loss0=log_p[0]["loss"], flash_launches=launches, loop_collectives=spied,
+        peak_gb=peak_gb, wall_s=wall_s)))
+
+
+GLOO_PROBES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+               "all_to_all_single")  # DTensor's collectives in a train step
+
+
+def _gloo_probe_rank(rank, world_size, name, out_dir):
+    """One rank of phase 24 (c)'s probe of collective ``name``: DTensor's
+    redistribute that issues it, once, on CUDA tensors over a 1-D mesh of
+    the world's Gloo ranks on the card; writes "ok" or what it raised."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    torch.cuda.set_device(0)
+    dm = init_device_mesh("cuda", (world_size,), mesh_dim_names=("x",))
+    x = torch.arange(64.0, device="cuda").reshape(8, 8)
+    try:
+        if name == "all_gather_into_tensor":
+            distribute_tensor(x, dm, [Shard(0)], src_data_rank=None).full_tensor()
+        elif name == "all_to_all_single":
+            distribute_tensor(x, dm, [Shard(0)], src_data_rank=None).redistribute(
+                dm, [Shard(1)]).to_local()
+        else:
+            want = Shard(0) if name == "reduce_scatter_tensor" else Replicate()
+            DTensor.from_local(x, dm, [Partial()]).redistribute(dm, [want]).to_local()
+        torch.cuda.synchronize()
+        result = "ok"
+    except Exception as e:  # noqa: BLE001 -- the finding: what Gloo raises
+        result = f"{type(e).__name__}: {str(e)[:300]}"
+    Path(out_dir, f"{name}.rank{rank}").write_text(result)
+
+
+def _gloo_cuda_findings(tmp):
+    """GLOO_PROBES in turn, each in a world of 2 Gloo ranks of its own (a
+    collective that crashes its processes ends only its world), up to the
+    first that Gloo does not take -> {name: "ok", what it raised, or how
+    its world ended}; the probes after that one are left out."""
+    from repro_torch.distributed import world
+
+    found = {}
+    for name in GLOO_PROBES:
+        out = Path(tmp, name)
+        out.mkdir()
+        try:
+            world.spawn(_gloo_probe_rank, 2, (name, str(out)), timeout=MH_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            found[name] = f"the world ended: {str(e)[:300]}"
+            break
+        results = {Path(out, f"{name}.rank{r}").read_text() for r in range(2)}
+        found[name] = "ok" if results == {"ok"} else " / ".join(sorted(results - {"ok"}))
+        if found[name] != "ok":
+            break
+    return found
+
+
+def _sharded_setup():
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = get_config("qwen3_0_6b").replace(n_layers=SHARDED_DEPTH)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=SHARDED_SEQ,
+                                global_batch=SHARDED_BATCH)
+    return cfg, shape, make_test_mesh((2, 2))
+
+
+def _sharded_rank(rank, world_size, out_dir):
+    """One rank of phase 24 (c): the train step sharded as DTensors on the
+    real mesh (its collectives recorded), and on rank 0 the unsharded step
+    beside it."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.checkpoint import tree_leaves
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_step, distribute_step_args
+
+    torch.cuda.set_device(0)
+    cfg, shape, mesh = _sharded_setup()
+    dm = init_device_mesh("cuda", mesh.axis_sizes, mesh_dim_names=mesh.axis_names)
+    step, args, in_sh = build_step(cfg, shape, mesh, device="cuda", device_mesh=dm)
+    args = distribute_step_args(args, in_sh, dm)
+    torch.cuda.synchronize()
+    flash_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with dryrun.CollectiveRecorder(dm) as rec, implicit_replication():
+        state, metrics = step(*args)
+    torch.cuda.synchronize()
+    out = dict(rank=rank, step_s=time.perf_counter() - t0, records=rec.records,
+               flash_launches=flash_ops.flash_attention.launches)
+    loss = float(metrics["loss"].full_tensor())
+    params = [p.full_tensor() for p in tree_leaves(state["params"])]
+    out["loss"] = loss
+    if rank == 0:  # the unsharded step on the same seeded arguments
+        step, args, _ = build_step(cfg, shape, mesh, device="cuda")
+        want_state, want = step(*args)
+        w_loss = float(want["loss"])
+        out["loss_rel_err"] = abs(loss - w_loss) / max(1.0, abs(w_loss))
+        out["param_rel_err"] = max(
+            float((g.float() - w.float()).abs().max()) / max(1.0, float(w.abs().max()))
+            for g, w in zip(params, tree_leaves(want_state["params"])))
+        out["unsharded_loss"] = w_loss
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_multihost(smi):
+    """Phase 24: training across processes (ROADMAP queue 1, items 4-5):
+    (a) ``launch.train.main`` on MH_WORLD Gloo ranks of the card; (b) the
+    dry run's collective records of DRY_CELLS at full width on the meta
+    device; (c) a train step sharded as DTensors on a real Gloo mesh of the
+    card, where Gloo takes DTensor's collectives on CUDA tensors."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import world
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_production_mesh
+
+    row = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        world_s = world.spawn(_mh_rank, MH_WORLD, (tmp,), timeout=MH_TIMEOUT,
+                              launcher_env=True)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(MH_WORLD)]
+    per_rank = MH_BATCH // MH_WORLD * MH_SEQ
+    for r in ranks:
+        gap = _rel(r["losses"][0], r["plain_loss0"])
+        r.update(loss0_gap=gap, step_ms_median_warm=float(np.median(r["step_ms"][1:])))
+        r["tokens_per_s"] = per_rank / (r["step_ms_median_warm"] / 1e3)
+        if gap > TRAIN_LOSS0_TOL or not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"rank {r['rank']}: first loss {r['losses'][0]} against the "
+                                 f"plain route's {r['plain_loss0']} on its rows ({gap:.2e})")
+        want = get_config("qwen3_0_6b").n_layers * MH_STEPS
+        if r["flash_launches"] != want:
+            raise AssertionError(f"rank {r['rank']}: flash_attention launched "
+                                 f"{r['flash_launches']} times, not {want}")
+        if any(r["loop_collectives"]):
+            raise AssertionError(f"rank {r['rank']}: collectives in the loop: "
+                                 f"{r['loop_collectives']}")
+    if ranks[0]["losses"][0] == ranks[1]["losses"][0]:
+        raise AssertionError("the ranks' first losses are equal: their rows are not their own")
+    slowest = max(r["step_ms_median_warm"] for r in ranks)
+    row["multihost"] = dict(
+        world=MH_WORLD, batch=MH_BATCH, seq=MH_SEQ, steps=MH_STEPS, ranks=ranks,
+        world_tokens_per_s=MH_BATCH * MH_SEQ / (slowest / 1e3), world_s=world_s,
+        flash_launches=sum(r["flash_launches"] for r in ranks))
+    log(f"  (a) {MH_WORLD} Gloo ranks on the card, launch.train.main qwen3_0_6b f32 "
+        f"{MH_BATCH} x {MH_SEQ} a step ({MH_BATCH // MH_WORLD} rows a rank), {MH_STEPS} steps: "
+        + "; ".join(f"rank {r['rank']} losses {[round(x, 4) for x in r['losses']]}, first "
+                    f"vs plain {r['loss0_gap']:.2e}, warm step {r['step_ms_median_warm']:.1f} "
+                    f"ms, {r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} GB, "
+                    f"flash launches {r['flash_launches']}, loop collectives "
+                    f"{r['loop_collectives']}" for r in ranks)
+        + f"; the world {row['multihost']['world_tokens_per_s']:.0f} tokens/s (the slowest "
+          f"rank's step), {world_s:.1f} s with its start; {smi}")
+
+    mesh = make_production_mesh()
+    cells = []
+    for arch, shape_name in DRY_CELLS:
+        cfg, shape = dryrun._dryrun_cfg(arch), SHAPES[shape_name]
+        t1 = time.perf_counter()
+        counter, _out, args, in_sh = dryrun.count_step(cfg, shape, mesh)
+        t2 = time.perf_counter()
+        rec = dryrun.record_collectives(cfg, shape, mesh)
+        t3 = time.perf_counter()
+        if counter.real_outputs or rec.real_outputs:
+            raise AssertionError(f"{arch}|{shape_name}: {counter.real_outputs} + "
+                                 f"{rec.real_outputs} tensors made off meta")
+        rep = rl.analyze(
+            arch=arch, shape_name=shape_name, mesh_name=mesh.name, chips=mesh.size,
+            cost={"flops": counter.flops / mesh.size,
+                  "bytes accessed": counter.total_bytes / mesh.size},
+            collectives=rec.records, bytes_per_device=dryrun.arg_bytes_per_device(args, in_sh),
+            model_flops=rl.model_flops_for(cfg, shape))
+        by = collections.Counter(f"{k}/{a}" for k, _, _, a in rec.records)
+        cells.append(dict(cell=f"{arch}|{shape_name}|{mesh.name}", counts=dict(by),
+                          wire_bytes=rep.collective_bytes, collective_s=rep.collective_s,
+                          compute_s=rep.compute_s, memory_s=rep.memory_s,
+                          dominant=rep.dominant, count_s=t2 - t1, record_s=t3 - t2))
+        if shape.kind == "train" and not (by["all-gather/data"] and by["reduce-scatter/data"]
+                                          and rep.collective_s > 0):
+            raise AssertionError(f"{arch}|{shape_name}: no FSDP gathers and reduce-scatters "
+                                 f"over data: {dict(by)}")
+        log(f"  (b) {cells[-1]['cell']}: collectives {dict(by)}, wire {rep.collective_bytes:.3e} "
+            f"B a GPU, collective {rep.collective_s * 1e3:.3f} ms (compute "
+            f"{rep.compute_s * 1e3:.3f}, memory {rep.memory_s * 1e3:.3f}), dominant "
+            f"{rep.dominant}; counted in {t2 - t1:.1f} s, recorded in {t3 - t2:.1f} s")
+    row["dry_run_records"] = cells
+
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        gloo = _gloo_cuda_findings(tmp)
+    sharded = dict(world=SHARDED_WORLD, depth=SHARDED_DEPTH, batch=SHARDED_BATCH,
+                   seq=SHARDED_SEQ, gloo_on_cuda=gloo, probe_s=time.perf_counter() - t1)
+    log(f"  (c) Gloo on CUDA tensors, DTensor's collectives each in a world of 2 ranks of its "
+        f"own, up to the first it does not take: {gloo} ({sharded['probe_s']:.1f} s)")
+    if any(gloo.get(n) != "ok" for n in GLOO_PROBES):
+        log("  (c) Gloo does not take every collective of DTensor's on the card: no real "
+            "sharded step here (the CPU test holds the real mesh against the fake one)")
+    else:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+            sharded["world_s"] = world.spawn(_sharded_rank, SHARDED_WORLD, (tmp,),
+                                             timeout=MH_TIMEOUT)
+            sranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                      for r in range(SHARDED_WORLD)]
+        cfg, shape, smesh = _sharded_setup()
+        fake = [list(r) for r in dryrun.record_collectives(cfg, shape, smesh).records]
+        zero = sranks[0]
+        if any(r["records"] != fake for r in sranks):
+            raise AssertionError("the real mesh's records differ from the fake world's")
+        if zero["loss_rel_err"] > SHARDED_TOL or zero["param_rel_err"] > SHARDED_TOL:
+            raise AssertionError(f"the sharded step is off the unsharded one: loss "
+                                 f"{zero['loss_rel_err']:.2e}, params {zero['param_rel_err']:.2e}")
+        if any(r["flash_launches"] != SHARDED_DEPTH for r in sranks):
+            raise AssertionError(f"flash_attention launches a rank: "
+                                 f"{[r['flash_launches'] for r in sranks]}")
+        sharded.update(records=len(fake), loss=zero["loss"], loss_rel_err=zero["loss_rel_err"],
+                       param_rel_err=zero["param_rel_err"],
+                       step_s=max(r["step_s"] for r in sranks),
+                       flash_launches=sum(r["flash_launches"] for r in sranks))
+        log(f"  (c) a train step sharded on a real (data 2, model 2) Gloo mesh of the card, "
+            f"qwen3_0_6b at full width and {SHARDED_DEPTH} layers, {SHARDED_BATCH} x "
+            f"{SHARDED_SEQ}: {len(fake)} collectives, equal to the fake world's; loss "
+            f"{zero['loss']:.6f} ({zero['loss_rel_err']:.2e} off the unsharded step's), "
+            f"params {zero['param_rel_err']:.2e}; the step {sharded['step_s']:.1f} s; {smi}")
+    row["sharded_step"] = sharded
+    row["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "multihost", **row}))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6898,7 +7282,7 @@ def main(argv=None) -> int:
                        ("attn_backend",))
     train_mamba = phase(21, "training, mamba2_780m at full width", phase_train, "mamba2_780m",
                         [(ssd_ops.ssd_scan, get_config("mamba2_780m").n_layers)],
-                        ("ssm_backend",))
+                        ("ssm_backend",), False)  # no exact resume: phase 20's holds it
     torch.cuda.empty_cache()
     launch_row = phase(22, "the launch tooling: meta dry run, build_step's steps on the card, "
                            "pulse_verify", phase_launch, smi)
@@ -6908,6 +7292,10 @@ def main(argv=None) -> int:
                        "from rank 0; the MoE's expert-parallel path",
                    phase_memory_nodes, rng, smi, serving_ctx)
     del serving_ctx
+    torch.cuda.empty_cache()
+    mh_row = phase(24, "training across processes: launch.train on 2 Gloo ranks of the card, "
+                       "the dry run's collective records, a step sharded as DTensors",
+                   phase_multihost, smi)
     entry["launches"] += (pg_row["launches"]["pulse_chase"] + pg_row["window_launches"]
                           + pg_row["reshard"]["launches"]["pulse_chase"])
     entry["launches_note"] += ("; in phase 23, one offset launch (the rank's own pool and rows) "
@@ -7008,7 +7396,8 @@ def main(argv=None) -> int:
         launches=serve_row["flash_launches"] + hybrid_row["flash_launches"]
         + moe_row["flash_launches"] + vlm_row["flash_launches"]
         + whisper_row["flash_launches"] + train_qwen["launches"]["flash_attention"]
-        + launch_row["flash_launches"],
+        + launch_row["flash_launches"] + mh_row["multihost"]["flash_launches"]
+        + mh_row["sharded_step"].get("flash_launches", 0),
         launches_note="one per layer of each prefill call of phase 6 (28 x 2), one per group "
                       "of phase 16's (13 x 2), one per layer of phase 17's (24 x 2) and of "
                       "phase 18's (24 x 2 served, 24 in the patch prefill), one per encoder "
@@ -7016,7 +7405,10 @@ def main(argv=None) -> int:
                       "one per layer of each training step of phase 20's train.main (28 x 8; "
                       "the backward recomputes the plain version and launches none); one per "
                       "layer of each call of phase 22's build_step prefill and train steps "
-                      "(28 x 4 each: the compared call and three warm ones)",
+                      "(28 x 4 each: the compared call and three warm ones); one per layer of "
+                      "each training step on each rank of phase 24 (a) (28 x 4 x 2), and, "
+                      "where Gloo takes DTensor's collectives on the card, one per layer of "
+                      "(c)'s sharded step on each rank (2 x 4, on the rank's heads and rows)",
         max_abs_err=max(f32_err(flash_checks, flash_row), *moe_row["flash_layer_max_abs_err"],
                         *launch_errs("flash_attention"),
                         *(flash_row[k]["max_abs_err"] for k in (
@@ -7108,7 +7500,7 @@ def main(argv=None) -> int:
             write_mesh=mesh_rows, faults=faults_row, serving=serving_row,
             fault_tolerance=ft_row, hybrid_serve=hybrid_row, moe_serve=moe_row,
             vlm_serve=vlm_row, whisper_serve=whisper_row, train_qwen=train_qwen,
-            train_mamba=train_mamba, memory_nodes=pg_row,
+            train_mamba=train_mamba, memory_nodes=pg_row, training_across_processes=mh_row,
             **summary | {"launch_tooling": launch_row},
             phase_seconds=seconds,
             seconds=time.perf_counter() - t_start), indent=1))

@@ -69,7 +69,6 @@ a read runner captures its tensors.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 import weakref
 
@@ -97,7 +96,13 @@ from repro_torch.core.iterator import (
     mut_step_batch,
     step_batch,
 )
-from repro_torch.distributed.world import all_gather, all_reduce_sum, on_host
+from repro_torch.distributed.world import (
+    LAUNCHER_ENV,
+    all_gather,
+    all_reduce_sum,
+    join_from_env,
+    on_host,
+)
 
 # request record words: [id, home shard, ptr, status, iters, hops,
 # scratch (S), mutation payload (mut_width(W), write path only)]
@@ -186,11 +191,8 @@ class ProcessGroupMesh:
         sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``):
         joins the world's process group with ``backend`` unless this
         process already has."""
-        if not dist.is_initialized():
-            env = os.environ
-            dist.init_process_group(
-                backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]))
+        if not join_from_env(backend):
+            raise ValueError(f"no process group, and none of {LAUNCHER_ENV} is set")
         return cls(None, device, axis_name)
 
     @property

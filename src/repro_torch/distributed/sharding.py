@@ -10,11 +10,15 @@ The rules are the JAX package's Megatron TP + FSDP hybrid, written as data:
 A spec is a tuple with one entry per tensor dim: an axis name, a tuple of
 names, or None (the JAX ``PartitionSpec`` as data).  A mesh is anything
 with ``.axis_names`` and ``.shape`` (name -> size), as
-``launch.mesh.MeshSpec``.  The port's layer stacks are lists of per-layer
-dicts (``layers``, Whisper's ``enc``/``dec``): a per-layer leaf's spec is
-the reference's spec of the stacked leaf without its leading entry.  One
-process constrains nothing, so ``shard_hint`` returns its input; it
-resolves its axes as the reference does (``hint_axes``).
+``launch.mesh.MeshSpec``; the hints also take a ``torch.distributed``
+``DeviceMesh``.  The port's layer stacks are lists of per-layer dicts
+(``layers``, Whisper's ``enc``/``dec``): a per-layer leaf's spec is the
+reference's spec of the stacked leaf without its leading entry.
+``placements`` turns a spec into DTensor placements; ``shard_hint``
+redistributes a DTensor as the reference's hint constrains it
+(``hint_axes``) and returns a plain tensor unchanged.  The helpers below
+it place, for a step run as DTensors, the ops DTensor has no rule or a
+costly one for; each is the identity, or the plain op, on plain tensors.
 
 The arena side: an arena is range partitioned, shard ``s`` owning the
 global rows ``[bounds[s], bounds[s + 1])``.  A live reshard
@@ -31,6 +35,8 @@ import re
 
 import numpy as np
 
+from repro_torch.kernels.shards import is_dtensor
+
 STACK_KEYS = ("layers", "enc", "dec")  # top-level keys of the per-layer lists
 
 
@@ -46,35 +52,201 @@ def _axis_size(mesh, ax) -> int:
     return size
 
 
+def _axes_of(mesh):
+    """(axis names, name -> size) of a ``MeshSpec`` or a ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return tuple(names), dict(zip(names, mesh.shape))
+    return tuple(mesh.axis_names), dict(mesh.shape)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of ``mesh``'s axis ``name`` (1 where it has none, or no mesh)."""
+    return 1 if mesh is None else _axes_of(mesh)[1].get(name, 1)
+
+
 def hint_axes(shape, mesh, *axes):
     """The spec ``shard_hint`` would constrain a tensor of ``shape`` to, or
     None where the reference's hint is the identity (no mesh, or a rank
     that is not ``len(axes)``).  ``"dp"`` resolves to the (pod, data) axes
     present; an axis missing from the mesh or not dividing its dim is
-    dropped."""
+    dropped.  ``mesh`` is a ``MeshSpec`` or a ``DeviceMesh``."""
     if mesh is None or len(shape) != len(axes):
         return None
+    names, sizes = _axes_of(mesh)
     resolved = []
     for dim, ax in zip(shape, axes):
         if ax == "dp":
-            ax = fsdp_axes(mesh) or None
+            ax = tuple(a for a in ("pod", "data") if a in names) or None
         if ax is None:
             resolved.append(None)
             continue
-        names = ax if isinstance(ax, tuple) else (ax,)
-        if not all(a in mesh.axis_names for a in names):
+        want = ax if isinstance(ax, tuple) else (ax,)
+        if not all(a in names for a in want):
             resolved.append(None)
             continue
-        size = _axis_size(mesh, ax)
+        size = 1
+        for a in want:
+            size *= sizes[a]
         resolved.append(_entry(ax) if (dim % size == 0 and dim >= size) else None)
     return tuple(resolved)
 
 
+def placements(spec, device_mesh) -> list:
+    """A spec (a ``param_specs`` or ``batch_specs`` entry) as DTensor
+    placements on ``device_mesh``: a mesh dim named in a tensor dim's entry
+    is ``Shard(dim)``, every other mesh dim ``Replicate()``.  Several mesh
+    dims on one tensor dim shard it in the spec's order, which must be the
+    mesh's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        want = ax if isinstance(ax, tuple) else (ax,)
+        idx = [names.index(a) for a in want]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {ax!r} shards dim {dim} out of the mesh's "
+                             f"order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
 def shard_hint(x, mesh, *axes):
-    """The reference's ``with_sharding_constraint`` hint: ``x`` unchanged,
-    since one process has nothing to constrain.  The spec the reference
-    would ask for is ``hint_axes(x.shape, mesh, *axes)``."""
-    return x
+    """The reference's ``with_sharding_constraint``: a DTensor ``x`` is
+    redistributed to the placements of ``hint_axes(x.shape, mesh, *axes)``
+    (its partial sums reduced, its shards moved or gathered as they ask),
+    and so is its gradient in the backward, as JAX constrains the
+    cotangent; a plain tensor is returned unchanged, since one process has
+    nothing to constrain."""
+    if not is_dtensor(x):
+        return x
+    spec = hint_axes(x.shape, mesh, *axes)
+    if spec is None:
+        return x
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+def settle(x):
+    """A DTensor's partial sums reduced (its ``Partial`` mesh dims made
+    ``Replicate``); any other tensor unchanged.  Where DTensor's own rule
+    keeps a partial sum it cannot carry on (a gather's mask through a
+    select), this is the all-reduce the reference's partitioner inserts."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
+
+
+def fsdp_gather(w):
+    """The FSDP unshard of a parameter before its use: a DTensor's pod and
+    data mesh dims made ``Replicate`` (an all-gather over them, whose
+    backward reduce-scatters the gradient back to the parameter's shards),
+    its other dims kept; a plain tensor unchanged."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if name in ("pod", "data") else p
+            for name, p in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    return w if list(w.placements) == want else w.redistribute(w.device_mesh, want)
+
+
+def batch_unsharded(x) -> bool:
+    """Whether ``x`` is a DTensor of rank 3 or more whose batch (dim 0) is
+    whole on a dp dim (the batch does not divide over it).  A product of
+    it with a matrix flattens the batch and its rows, and DTensor's rule
+    may shard those rows on that dim where no whole batch row lies on a
+    rank, which the product's output then cannot be unflattened from."""
+    if not (is_dtensor(x) and x.dim() > 2):
+        return False
+    from torch.distributed.tensor import Shard
+
+    return any(name in ("pod", "data") and p != Shard(0)
+               for name, p in zip(x.device_mesh.mesh_dim_names, x.placements))
+
+
+def take_rows(w, idx):
+    """``w[idx]``: rows of a table (an embedding lookup).  On a DTensor
+    table, the lookup of the FSDP-gathered table by ``F.embedding``, whose
+    sharding rule looks a vocab-sharded table up on each shard; the masked
+    rows are summed at once (one all-reduce, as the reference's partitioner
+    does), so the backward gets its gradient whole."""
+    if not is_dtensor(w):
+        return w[idx]
+    import torch.nn.functional as F
+
+    rows = settle(F.embedding(idx, fsdp_gather(w)))
+    if rows.requires_grad:  # a partial-sum gradient is reduced before the lookup's backward
+        rows.register_hook(settle)
+    return rows
+
+
+def put_rows(caches, pos, vals) -> None:
+    """``cache[b, pos[b]] = val[b]`` for every row b of each (cache, val)
+    pair, in place: a decode step's new K and V written into their (B, S,
+    ...) caches.  On DTensor caches whose placements shard only their batch
+    and sequence dims (the decode cache's), each rank writes the rows and
+    positions its shard holds, ``val`` and ``pos`` placed by the batch as
+    the cache is; no position moves between ranks."""
+    import torch
+
+    if not is_dtensor(caches[0]):
+        rows = torch.arange(caches[0].shape[0], device=caches[0].device)
+        pos = pos.long()
+        for cache, val in zip(caches, vals):
+            cache[rows, pos] = val.to(cache.dtype)
+        return
+    for cache, val in zip(caches, vals):
+        _put_rows_on_shards(cache, pos, val)
+
+
+def _put_rows_on_shards(cache, pos, val) -> None:
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    if any(p.is_partial() or (p.is_shard() and p.dim > 1) for p in cache.placements):
+        raise ValueError(f"put_rows: a cache placed {cache.placements} shards more than its "
+                         f"batch and sequence dims")
+    by_batch = [Shard(0) if p == Shard(0) else Replicate() for p in cache.placements]
+    val = val.to(cache.dtype).redistribute(mesh, by_batch).to_local()
+    pos = pos.redistribute(mesh, by_batch).to_local().long()
+    local = cache.to_local()
+    start = 0  # this rank's first position: its block index over the dims sharding S
+    for m, pl in enumerate(cache.placements):
+        if pl == Shard(1):
+            start = start * mesh.size(m) + mesh.get_coordinate()[m]
+    p = pos - start * local.shape[1]
+    inside = (p >= 0) & (p < local.shape[1])
+    p = p.clamp(0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    mask = inside.reshape((-1,) + (1,) * (val.dim() - 1))
+    local[rows, p] = torch.where(mask, val, local[rows, p])
+
+
+def zeros_placed_as(like, shape, dtype):
+    """Zeros of ``shape`` placed as the DTensor ``like`` is (its mesh and
+    placements; every dim they shard divides): a buffer the step fills from
+    ``like``, say a prefill's cache from its K/V, made where its shards
+    will be written."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    local = list(shape)
+    for m, p in enumerate(like.placements):
+        if p.is_shard():
+            n = like.device_mesh.size(m)
+            if local[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not divide over {n} ranks")
+            local[p.dim] //= n
+    zeros = torch.zeros(local, dtype=dtype, device=like.to_local().device)
+    return DTensor.from_local(zeros, like.device_mesh, like.placements, run_check=False)
 
 
 def param_rules(mesh):

@@ -1,6 +1,10 @@
 """Memory nodes as processes on one machine: start a ``torch.distributed``
 world, run one function on every rank, and end it.
 
+``join_from_env`` joins the world's group from a launcher's variables
+(``torchrun``'s), the way ``launch/train.py`` and ``routing.
+ProcessGroupMesh.from_env`` join one.
+
 ``spawn(fn, world_size, args, timeout=...)`` starts ``world_size``
 processes by the ``spawn`` start method; each joins one process group over
 a loopback TCP store on a free port (``init_process_group`` with
@@ -13,7 +17,9 @@ still running at the timeout is killed and ``spawn`` raises
 
 ``all_gather`` and ``all_reduce_sum`` are the collectives of the port's
 expert-parallel MoE (``models/moe.py``), through host copies where the
-group is Gloo and the tensor on the card (``on_host``).  ``broadcast_object``,
+group is Gloo and the tensor on the card (``on_host``; a meta tensor stays
+on meta), and differentiable where their input requires grad (a training
+step's: the gather's backward is a reduce-scatter, which Gloo lacks).  ``broadcast_object``,
 ``broadcast`` and ``scatter`` carry rank 0's objects and tensors to the
 other ranks of a Gloo group through the host: the call headers, arenas and
 replica rows a served group's rank 0 sends the ranks that follow it
@@ -35,6 +41,7 @@ one card, so the ranks of a world on one card use Gloo.
 from __future__ import annotations
 
 import datetime
+import os
 import socket
 import time
 
@@ -50,25 +57,58 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def join_from_env(backend: str = "gloo") -> bool:
+    """Join the world's process group as a launcher (``torchrun``) sets it
+    out: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``.  A
+    process that already has a group (``spawn``'s ranks) keeps it.  Returns
+    whether this process is in a group: False, and nothing joined, where
+    none of the variables is set; a partial set raises."""
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    have = [k for k in LAUNCHER_ENV if k in env]
+    if not have:
+        return False
+    if len(have) < len(LAUNCHER_ENV):
+        raise ValueError(f"the launcher's variables are partly set: {have} of {LAUNCHER_ENV}")
+    dist.init_process_group(backend, init_method=f"tcp://{env['MASTER_ADDR']}:"
+                            f"{env['MASTER_PORT']}", rank=int(env["RANK"]),
+                            world_size=int(env["WORLD_SIZE"]))
+    return True
+
+
 def _rank_main(rank: int, fn, world_size: int, port: int, backend: str, timeout: float,
-               args: tuple) -> None:
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout))
+               args: tuple, launcher_env: bool = False) -> None:
+    if launcher_env:  # as torchrun starts a rank: the variables set, no group joined
+        os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world_size),
+                          LOCAL_WORLD_SIZE=str(world_size), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world_size,
+                                timeout=datetime.timedelta(seconds=timeout))
     try:
         fn(rank, world_size, *args)
     finally:
         _FIRST.clear()
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
-def spawn(fn, world_size: int, args: tuple = (), *, timeout: float, backend: str = "gloo"):
+def spawn(fn, world_size: int, args: tuple = (), *, timeout: float, backend: str = "gloo",
+          launcher_env: bool = False):
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` ranks of one
     process group and wait for them, at most ``timeout`` seconds (see the
-    module's docstring).  Returns the seconds the world took."""
+    module's docstring).  With ``launcher_env`` each rank starts as
+    ``torchrun`` starts one: the launcher's variables (``LAUNCHER_ENV``,
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``) set and no group joined, for ``fn`` to join
+    (``join_from_env``).  Returns the seconds the world took."""
     t0 = time.monotonic()
     ctx = mp.start_processes(_rank_main, args=(fn, world_size, free_port(), backend, timeout,
-                                               tuple(args)),
+                                               tuple(args), launcher_env),
                              nprocs=world_size, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=0.2):
@@ -93,19 +133,70 @@ def on_host(t: torch.Tensor, group=None) -> bool:
     return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
 
 
-def all_gather(t: torch.Tensor, group=None) -> list:
-    """Every rank's ``t`` in rank order, on ``t``'s device."""
+def _all_gather(t: torch.Tensor, group=None) -> list:
     x = (t.cpu() if on_host(t, group) else t).contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return [part.to(t.device) for part in parts]
 
 
-def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of every rank's ``t``, a new tensor on ``t``'s device."""
+def _all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     x = t.cpu().clone() if on_host(t, group) else t.clone()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x.to(t.device)
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` for autograd: the backward reduce-scatters the parts'
+    gradients, each rank keeping the sum of its own part's (JAX's
+    transpose of ``all_gather``, ``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return tuple(_all_gather(t, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = torch.empty_like(grads[0])
+        # reduce_scatter_single where this torch has it (reduce_scatter_tensor's new name)
+        reduce_scatter = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+        reduce_scatter(out, torch.cat([g.contiguous() for g in grads]), group=ctx.group)
+        return out, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce_sum`` for autograd: the sum is replicated, so each
+    rank's part takes the sum's gradient as it is (JAX's transpose of a
+    ``psum`` whose result every rank holds)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def all_gather(t: torch.Tensor, group=None) -> list:
+    """Every rank's ``t`` in rank order, on ``t``'s device; differentiable
+    where ``t`` requires grad (the backward a reduce-scatter)."""
+    if _needs_grad(t):
+        return list(_AllGather.apply(t, group))
+    return _all_gather(t, group)
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``t``, a new tensor on ``t``'s device;
+    differentiable where ``t`` requires grad."""
+    if _needs_grad(t):
+        return _AllReduceSum.apply(t, group)
+    return _all_reduce_sum(t, group)
 
 
 # n -> the process group of the world's ranks 0 .. n - 1, made once a world

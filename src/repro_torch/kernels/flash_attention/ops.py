@@ -3,7 +3,8 @@
 ``flash_attention.launches`` counts kernel launches.  Meta tensors (the
 launch tooling's dry run) take a third route: an output of the right shape,
 the function's own work (``work.flash_work``, the causal pairs only)
-reported to the active counters, and nothing computed.
+reported to the active counters, and nothing computed.  DTensors run each
+rank's local shards through these routes (``_on_shards``).
 
 Where an input requires grad, the call goes through ``FlashAttention``, a
 ``torch.autograd.Function``: its forward is the same kernel (or plain
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import work
+from repro_torch.kernels.shards import is_dtensor, local_of, placed_as
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention.ref import mha_reference
 
@@ -64,6 +66,38 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _on_shards(q, k, v, causal):
+    """``flash_attention`` of DTensors on each rank's local shards, the
+    output placed as ``q``.  Each mesh dim places q, k and v alike on the
+    batch or the heads (or on neither), or shards q's rows with k and v
+    whole on it: a rank's query rows then see every key, and causal rows
+    the keys up to their own (the end-aligned mask over the keys cut after
+    the rank's last row), and k's and v's gradients are partial sums over
+    its ranks.  Any other placement raises."""
+    from torch.distributed.tensor import Shard
+
+    mesh, qp, kp = q.device_mesh, tuple(q.placements), tuple(k.placements)
+    bad = tuple(v.placements) != kp or k.device_mesh != mesh or v.device_mesh != mesh
+    rows = None  # the mesh dim sharding q's rows, k and v whole on it
+    for m, (a, b) in enumerate(zip(qp, kp)):
+        n = mesh.size(m)
+        if a == b and (a.is_replicate() or a == Shard(0)
+                       or (a == Shard(1) and q.shape[1] % n == 0 and k.shape[1] % n == 0)):
+            continue
+        if a == Shard(2) and b.is_replicate() and rows is None and q.shape[2] % n == 0:
+            rows = m
+        else:
+            bad = True
+    if bad:
+        raise ValueError(f"flash_attention: DTensors placed q {qp}, k {kp}, v "
+                         f"{tuple(v.placements)} do not run on local shards")
+    ql, kl, vl = (local_of(t, q) for t in (q, k, v))
+    if rows is not None and causal:
+        end = k.shape[2] - q.shape[2] + (mesh.get_coordinate()[rows] + 1) * ql.shape[2]
+        kl, vl = kl[:, :, :end], vl[:, :, :end]
+    return placed_as(flash_attention(ql, kl, vl, causal), q, qp)
+
+
 def flash_attention(q, k, v, causal=True, block_q=None, block_k=None):
     """q: (B, H, Lq, D); k, v: (B, Hk, Lk, D) -> (B, H, Lq, D) in q's dtype.
 
@@ -80,6 +114,8 @@ def flash_attention(q, k, v, causal=True, block_q=None, block_k=None):
     for length, block in ((Lq, block_q), (Lk, block_k)):
         if block is not None and length % min(block, length):
             raise ValueError("sequence lengths must divide block sizes")
+    if is_dtensor(q):
+        return _on_shards(q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal)
     return _forward(q, k, v, causal)

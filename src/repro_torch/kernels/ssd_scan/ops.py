@@ -5,6 +5,9 @@ other.  ``ssd_scan.launches`` counts the calls that launched the kernels
 prefill path).  Meta tensors (the launch tooling's dry run) take a third
 route: outputs of the right shapes, the function's own work
 (``work.ssd_work``) reported to the active counters, nothing computed.
+DTensors run each rank's local shards through these routes
+(``_on_shards``), as the caller placed them: a meta shard reports a
+shard's work.
 
 Where an input requires grad, the call goes through ``SSDScan``, a
 ``torch.autograd.Function``: its forward is the same kernel (or plain
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import work
+from repro_torch.kernels.shards import is_dtensor, local_of, placed_as
 from repro_torch.kernels.ssd_scan import kernel as _kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched
 
@@ -78,6 +82,33 @@ class SSDScan(torch.autograd.Function):
         return tuple(next(got) if t.requires_grad else None for t in inputs) + (None,)
 
 
+def _on_shards(x, dt, A, B, C, chunk):
+    """``ssd_scan`` of DTensors on each rank's local shards.  Each mesh dim
+    shards x's batch (dim 0) or its heads (dim 2), or neither; dt is placed
+    as x, A by x's heads, B and C by x's batch (an input whole on a dim
+    that shards x takes a partial sum of its gradient there).  y is placed
+    as x, the state (Bt, H, N, dh) by x's batch and heads.  Any other
+    placement raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+    # x's (and dt's) placement on a mesh dim -> A's, B's and C's, the state's
+    rules = ((R, R, R, R), (Shard(0), R, Shard(0), Shard(0)), (Shard(2), Shard(0), R, Shard(1)))
+    per_dim = [next((r[1:] for r in rules if r[0] == p), None) for p in x.placements]
+    if None in per_dim:
+        raise ValueError(f"ssd_scan: x placed {tuple(x.placements)} does not run on local "
+                         f"shards")
+    a_want, bc_want = [d[0] for d in per_dim], [d[1] for d in per_dim]
+    for name, t, want in (("dt", dt, list(x.placements)), ("A", A, a_want), ("B", B, bc_want),
+                          ("C", C, bc_want)):
+        if not is_dtensor(t) or t.device_mesh != x.device_mesh or list(t.placements) != want:
+            got = tuple(t.placements) if is_dtensor(t) else "a plain tensor"
+            raise ValueError(f"ssd_scan: {name} placed {got}, not {tuple(want)}, beside x "
+                             f"placed {tuple(x.placements)}")
+    y, S = ssd_scan(*(local_of(t, x) for t in (x, dt, A, B, C)), chunk=chunk)
+    return placed_as(y, x, x.placements), placed_as(S, x, [d[2] for d in per_dim])
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk=128):
     """x (Bt, L, H, dh), dt (Bt, L, H), A (H,), B/C (Bt, L, N) -> y
     (Bt, L, H, dh) in x's dtype, final state (Bt, H, N, dh) in f32.
@@ -87,6 +118,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
     L = x.shape[1]
     if L % chunk:
         raise ValueError(f"L={L} must divide chunk={chunk}")
+    if is_dtensor(x):
+        return _on_shards(x, dt, A, B, C, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
         return SSDScan.apply(x, dt, A, B, C, chunk)
     return _forward(x, dt, A, B, C, chunk)

@@ -1,7 +1,9 @@
 """Production meshes, shaped for H100 nodes.
 
 A mesh here is a description: axis names and sizes (``MeshSpec``), what the
-sharding rules and the dry run read.  Nothing creates a process group.
+sharding rules and the dry run read.  ``fake_world`` makes one real for a
+dry run: a ``DeviceMesh`` over a fake process group, this process its rank
+0, on which DTensor issues every collective and none does any work.
 Single pod: (data 32, model 8) = 256 GPUs, the model axis inside one
 NVLink domain of eight.  Multi-pod: (pod 2, data 32, model 8) = 512 GPUs;
 DP/FSDP spans (pod, data), across nodes.  The reference's TPU meshes,
@@ -10,8 +12,11 @@ DP/FSDP spans (pod, data), across nodes.  The reference's TPU meshes,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,3 +47,26 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
 def make_test_mesh(shape=(1, 1), axes=("data", "model")) -> MeshSpec:
     """Any mesh by shape and names; by default one device."""
     return MeshSpec(tuple(shape), tuple(axes))
+
+
+@contextlib.contextmanager
+def fake_world(mesh: MeshSpec, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``mesh``'s names and sizes over a fake process
+    group of ``mesh.size`` ranks, this process rank 0: the reference's
+    placeholder devices.  Collectives on it return tensors of the right
+    shape and move nothing.  ``device_type`` is the cards' the mesh stands
+    for (DTensor picks its collectives by it: on ``"cpu"`` an all-to-all
+    is an all-gather and a chunk).  Refuses to start in a process that has
+    a process group, and leaves none behind."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process already has a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield DeviceMesh(device_type, torch.arange(mesh.size).reshape(mesh.axis_sizes),
+                         mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()

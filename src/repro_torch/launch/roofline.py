@@ -8,8 +8,9 @@ The FLOPs and bytes come from the meta counter (``launch.dryrun``), the
 reference's from XLA's ``cost_analysis`` of the compiled program.  The
 collective term is the ring model of the reference's HLO parser, as a
 function of ``(kind, bytes, group size[, axis])`` records: the port compiles
-no program to parse, and a one-card dry run has no collectives (0, with a
-note; a collective count on a real mesh waits with ROADMAP 6(e)).
+no program to parse, so the dry run records the collectives DTensor issues
+when the step runs sharded on a fake world of the mesh's ranks
+(``dryrun.CollectiveRecorder``), each with the mesh axes its group spans.
 
 Every constant below is an NVIDIA H100 SXM datasheet figure, not a
 measurement.
@@ -60,10 +61,16 @@ def collective_wire_bytes(records) -> dict:
     return out
 
 
+def link_bw(axis: str | None) -> float:
+    """The link a group over ``axis`` crosses: the slowest of its axes
+    (names joined by ``+``); a group without an axis across nodes."""
+    return min(LINK_BW[a] for a in axis.split("+")) if axis else LINK_BW["data"]
+
+
 def collective_seconds(records) -> float:
-    """The ring wire bytes of each record over its axis's link (a record
-    without an axis on the slowest, across nodes)."""
-    return sum(ring_wire_bytes(kind, nbytes, n) / LINK_BW.get(axis[0] if axis else "data")
+    """The ring wire bytes of each record over its axis's link
+    (``link_bw``)."""
+    return sum(ring_wire_bytes(kind, nbytes, n) / link_bw(axis[0] if axis else None)
                for kind, nbytes, n, *axis in records)
 
 

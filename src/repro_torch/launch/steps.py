@@ -8,13 +8,26 @@ in_shardings)``:
 The step functions are the port's ``make_train_step``, ``Model.prefill``
 and ``Model.decode_step``, unchanged.  ``example_args`` are meta tensors
 (the dry run's; the reference's ``ShapeDtypeStruct`` stand-ins) unless a
-device is given: then real ones, drawn from ``seed``.
+device is given: then real ones, drawn from ``seed``.  ``device_mesh`` (a
+``torch.distributed`` ``DeviceMesh`` with ``mesh``'s names and sizes) goes
+to the model in place of ``mesh``: its sharding hints then redistribute
+DTensors, and the MoE runs its expert-parallel body.
+``distribute_step_args`` places the arguments on that mesh as
+``in_shardings`` say, for the step run as DTensors.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import ArchConfig, ShapeSpec
-from repro_torch.distributed.sharding import map_with_path, param_specs, shardings
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    map_with_path,
+    param_specs,
+    placements,
+    shardings,
+)
 from repro_torch.launch import specs as S
 from repro_torch.models.model_zoo import build_model
 from repro_torch.training.train_loop import TrainConfig, make_train_step
@@ -51,8 +64,9 @@ def _opt_shardings(opt_state, pspecs, mesh):
     return shardings(out, mesh)
 
 
-def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *, device="meta", seed: int = 0):
-    model = build_model(cfg, mesh=mesh)
+def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *, device="meta", seed: int = 0,
+               device_mesh=None):
+    model = build_model(cfg, mesh=mesh if device_mesh is None else device_mesh)
 
     if shape.kind == "train":
         state, ocfg = S.train_state_struct(cfg, model, device=device, seed=seed)
@@ -95,3 +109,19 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *, device="meta", seed: 
         return serve_step, (params, cache, tok, pos), in_sh
 
     raise ValueError(shape.kind)
+
+
+def distribute_step_args(args, in_shardings, device_mesh):
+    """``build_step``'s ``args`` as DTensors on ``device_mesh``, each placed
+    as its ``in_shardings`` entry says (``sharding.placements``): the params,
+    the optimizer state, the batch, the cache and the decode inputs.  Every
+    rank passes its whole tensors; each keeps its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    leaves, spec = tree_flatten(args)
+    shards, sh_spec = tree_flatten(in_shardings, is_leaf=lambda x: isinstance(x, NamedSharding))
+    if spec != sh_spec:
+        raise ValueError("the shardings' tree is not the arguments'")
+    return tree_unflatten([distribute_tensor(t, device_mesh, placements(sh.spec, device_mesh),
+                                             src_data_rank=None)
+                           for t, sh in zip(leaves, shards)], spec)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import shard_hint
+from repro_torch.distributed.sharding import axis_size, is_dtensor, put_rows, shard_hint
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import apply_rope, dense_apply, dense_init, rmsnorm_apply
 from repro_torch.models.common import rmsnorm_init
@@ -38,9 +38,28 @@ def attention_init(gen, cfg, device=None):
     return p
 
 
+def split_heads(y, n, hd, *, rows_on_model: bool):
+    """(B, L, n * hd) -> (B, L, n, hd).  A DTensor whose ``model`` dim cuts
+    the last dim into pieces that are not whole heads (``n`` does not
+    divide over it) first takes the placement the reference's attention
+    hint gives where the heads do not divide: the rows on ``model`` (the
+    queries), or ``model`` replicated (the keys and values)."""
+    if is_dtensor(y) and n % axis_size(y.device_mesh, "model"):
+        y = shard_hint(y, y.device_mesh, "dp", "model" if rows_on_model else None, None)
+    return y.reshape(*y.shape[:2], n, hd)
+
+
+def whole_heads(q):
+    """A decode step's query (B, 1, H, hd) with every head on every rank of
+    ``model``, where it is a DTensor (any other tensor unchanged): the
+    decode cache shards its sequence on ``model`` (flash-decode), so each
+    rank scores its slice of the sequence for every head."""
+    return shard_hint(q, q.device_mesh, "dp", None, None, None) if is_dtensor(q) else q
+
+
 def _project_q(p, cfg, x, positions, *, rope=True):
-    B, L, _ = x.shape
-    q = dense_apply(p["wq"], x, cfg.compute_dtype).reshape(B, L, cfg.n_heads, cfg.hd)
+    q = split_heads(dense_apply(p["wq"], x, cfg.compute_dtype), cfg.n_heads, cfg.hd,
+                     rows_on_model=True)
     if "q_norm" in p:
         q = rmsnorm_apply(p["q_norm"], q)
     if rope:
@@ -49,10 +68,9 @@ def _project_q(p, cfg, x, positions, *, rope=True):
 
 
 def _project_kv(p, cfg, x, positions, *, rope=True):
-    B, L, _ = x.shape
     Hk, hd = cfg.n_kv_heads, cfg.hd
-    k = dense_apply(p["wk"], x, cfg.compute_dtype).reshape(B, L, Hk, hd)
-    v = dense_apply(p["wv"], x, cfg.compute_dtype).reshape(B, L, Hk, hd)
+    k = split_heads(dense_apply(p["wk"], x, cfg.compute_dtype), Hk, hd, rows_on_model=False)
+    v = split_heads(dense_apply(p["wv"], x, cfg.compute_dtype), Hk, hd, rows_on_model=False)
     if "k_norm" in p:
         k = rmsnorm_apply(p["k_norm"], k)
     if rope:
@@ -106,7 +124,7 @@ def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=N
     CUDA kernel's own tiling), as the JAX package's default ``"xla"`` route
     does; its ``"pallas"`` route raises where 128 does not divide them.
     ``mesh`` takes the reference's sharding hints (``shard_hint``: the
-    identity in one process).
+    identity on plain tensors).
     """
     B, L, _ = x.shape
     if positions is None:
@@ -119,7 +137,7 @@ def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=N
     # heads on the TP axis and the batch on DP through the quadratic part;
     # where the heads do not divide over TP (Whisper's 20 over 16), the
     # query rows instead, K/V replicated
-    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    tp = axis_size(mesh, "model")
     if cfg.n_heads % max(tp, 1) == 0:
         q = shard_hint(q, mesh, "dp", None, "model", None)
         k = shard_hint(k, mesh, "dp", None, "model", None)
@@ -136,7 +154,10 @@ def attention_apply(p, cfg, x, *, positions=None, causal=True, rope=True, kv_x=N
         o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     else:
         raise ValueError(f"unknown attn_backend {cfg.attn_backend!r}; known: {BACKENDS}")
-    return dense_apply(p["wo"], o.reshape(B, L, -1), cfg.compute_dtype), (k, v)
+    o = o.reshape(B, L, -1)
+    if cfg.n_heads % max(tp, 1):  # keep the rows on model, the hint above, in the backward too
+        o = shard_hint(o, mesh, "dp", "model", None)
+    return dense_apply(p["wo"], o, cfg.compute_dtype), (k, v)
 
 
 def decode_attention_apply(p, cfg, x, cache_k, cache_v, pos, *, rope=True):
@@ -152,11 +173,9 @@ def decode_attention_apply(p, cfg, x, cache_k, cache_v, pos, *, rope=True):
     S = cache_k.shape[1]
     pos = pos if pos.dim() == 1 else pos[:, 0]
     positions = pos[:, None]
-    q = _project_q(p, cfg, x, positions, rope=rope)  # (B, 1, H, hd)
+    q = whole_heads(_project_q(p, cfg, x, positions, rope=rope))  # (B, 1, H, hd)
     k_new, v_new = _project_kv(p, cfg, x, positions, rope=rope)  # (B, 1, Hk, hd)
-    rows = torch.arange(B, device=x.device)
-    cache_k[rows, pos.long()] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[rows, pos.long()] = v_new[:, 0].to(cache_v.dtype)
+    put_rows((cache_k, cache_v), pos, (k_new[:, 0], v_new[:, 0]))
 
     G = H // Hk
     qg = q.reshape(B, Hk, G, hd)

@@ -23,7 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import shard_hint
+from repro_torch.distributed.sharding import (
+    batch_unsharded,
+    fsdp_gather,
+    is_dtensor,
+    settle,
+    shard_hint,
+)
 
 
 def uniform_scale_init(gen: torch.Generator, shape, scale, dtype, device=None):
@@ -42,7 +48,12 @@ def dense_init(gen, in_dim, out_dim, dtype, *, bias=False, scale=1.0, device=Non
 
 
 def dense_apply(p, x, compute_dtype):
-    y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    w = p["w"]
+    if is_dtensor(w):  # a step sharded as DTensors
+        w = fsdp_gather(w).to(compute_dtype)
+        if batch_unsharded(x):  # a batched product: no row of the output spans two batch rows
+            w = w.expand(x.shape[:-2] + w.shape)
+    y = x.to(compute_dtype) @ w.to(compute_dtype)
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
@@ -131,11 +142,23 @@ def gelu_mlp_apply(p, x, compute_dtype):
     return dense_apply(p["wo"], h, compute_dtype)
 
 
+def _logsumexp(x):
+    """``logsumexp`` over the last dim.  A DTensor's is written as a max
+    and a sum, whose sharding rules reduce a vocab-sharded dim on its
+    shards and all-reduce the partial results (DTensor's ``logsumexp``
+    gathers the whole dim first); the max is a constant to autograd, so
+    the gradient is the softmax either way."""
+    if not is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    m = settle(x.detach().amax(dim=-1, keepdim=True))
+    return (m + torch.log(settle(torch.exp(x - m).sum(dim=-1, keepdim=True))))[..., 0]
+
+
 def _nll(logits, labels, z_loss):
     """Per-token negative log-likelihood of f32 ``logits`` (..., V), with
     the z-loss ``z_loss * logsumexp^2`` added where ``z_loss`` is set."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    gold = settle(torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse ** 2
@@ -152,7 +175,8 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0, mask=None):
 
 
 def _xent_chunk(hq, w, lq, mq, z_loss, mesh):
-    logits = shard_hint((hq.to(w.dtype) @ w).float(), mesh, "dp", None, "model")  # (B, chunk, V)
+    logits = shard_hint(dense_apply({"w": w}, hq, w.dtype).float(), mesh,
+                        "dp", None, "model")  # (B, chunk, V)
     return (_nll(logits, lq, z_loss) * mq).sum()
 
 

@@ -19,8 +19,9 @@ whose ``model`` dim has more ranks, it is the JAX package's expert-parallel
 (tiled, as ``jax.lax.all_gather(..., tiled=True)``), ``_moe_local`` for this
 ``model`` rank, and the partial outputs summed in f32 by one all-reduce over
 ``model``.  ``shard_moe_params`` cuts the whole params as the JAX
-package's ``pspec`` cuts them.  The router, the ranks and the combine are
-plain torch ops, and the grouped SwiGLU is batched matmuls: the JAX package
+package's ``pspec`` cuts them.  Given DTensors (a step sharded as
+DTensors), the same body runs on each rank's shards.  The router, the
+ranks and the combine are plain torch ops, and the grouped SwiGLU is batched matmuls: the JAX package
 computes them outside any Pallas kernel.
 """
 
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import world
+from repro_torch.distributed.sharding import is_dtensor, shard_hint
 from repro_torch.models.common import dense_apply, dense_init, swiglu_apply, swiglu_init
 
 
@@ -234,6 +236,36 @@ def _moe_expert_parallel(p, cfg, x, mesh, compute_dtype):
     return y.reshape(x.shape).to(x.dtype)
 
 
+def _moe_on_shards(p, cfg, x, mesh, compute_dtype):
+    """The expert-parallel body on DTensors (a step sharded as DTensors):
+    each leaf of ``p`` placed as ``shard_moe_params`` cuts it, ``x`` with
+    its batch on the dp dims and whole on ``model``; the body runs on this
+    rank's shards, and its result is placed as ``x``.  Each ``model``
+    rank's partial output takes only its own experts' terms of the
+    gradients of ``x`` and of the leaves whole on ``model`` (the router):
+    those are partial sums over ``model``, as JAX sums a replicated
+    input's cotangent at its ``shard_map``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = mesh.mesh_dim_names
+
+    def local(t):
+        return t.to_local(grad_placements=[
+            Partial() if n == "model" and pl.is_replicate() else pl
+            for n, pl in zip(names, t.placements)])
+
+    leaves = {}
+    for path, (model_axis, dp_axis) in _moe_specs(p).items():
+        want = [Shard(model_axis) if n == "model" and model_axis is not None
+                else Shard(dp_axis) if n in ("pod", "data") and dp_axis is not None
+                else Replicate() for n in names]
+        w = _leaf(p, path)
+        leaves[path] = local(w if list(w.placements) == want else w.redistribute(mesh, want))
+    x = shard_hint(x, mesh, "dp", None, None)
+    y = _moe_expert_parallel(_with_leaves(leaves), cfg, local(x), mesh, compute_dtype)
+    return DTensor.from_local(y, mesh, x.placements, run_check=False)
+
+
 def moe_apply(p, cfg, x, *, mesh=None, compute_dtype=None):
     """x (B, L, D) -> (B, L, D): every expert on one shard, plus the shared
     expert when the config has one; with no mesh, a ``MeshSpec`` or a mesh
@@ -243,6 +275,8 @@ def moe_apply(p, cfg, x, *, mesh=None, compute_dtype=None):
     is this dp rank's."""
     compute_dtype = compute_dtype or cfg.compute_dtype
     dmesh = _device_mesh(mesh)
+    if dmesh is not None and is_dtensor(x):
+        return _moe_on_shards(p, cfg, x, dmesh, compute_dtype)
     if dmesh is not None:
         return _moe_expert_parallel(p, cfg, x, dmesh, compute_dtype)
     B, L, D = x.shape

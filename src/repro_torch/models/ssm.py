@@ -6,7 +6,9 @@ on (x, B, C); SSD scan over chunks; gated RMSNorm; out_proj.
 
 Prefill runs the chunked SSD: ``cfg.ssm_backend="kernel"`` through the
 ``ssd_scan`` CUDA kernel (its plain version on CPU tensors), ``"chunked"``
-through the plain ``ssd_chunked_batched``.  Decode carries the O(1)
+through the plain ``ssd_chunked_batched``.  On DTensors the kernel route
+first places the scan's inputs (``_scan_placed``): the kernel runs on each
+rank's local shards.  Decode carries the O(1)
 recurrent state (B, H, N, dh) in plain torch, as the JAX package's decode
 is plain jnp.
 """
@@ -18,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, shard_hint
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.common import dense_apply, dense_init, rmsnorm_apply, rmsnorm_init
@@ -82,6 +85,19 @@ def _causal_conv(w, b, u, conv_state=None):
     return F.silu(y), ext[:, L:]  # last K-1 raw inputs = decode state
 
 
+def _scan_placed(x, dt, A, B, C):
+    """The scan's inputs as the kernel runs them on DTensors: the batch on
+    the dp axes and the heads on ``model`` where they divide (B and C the
+    batch only), the placement the reference's partitioner gives the
+    scan; plain tensors unchanged."""
+    if not is_dtensor(x):
+        return x, dt, A, B, C
+    mesh = x.device_mesh
+    return (shard_hint(x, mesh, "dp", None, "model", None),
+            shard_hint(dt, mesh, "dp", None, "model"), shard_hint(A, mesh, "model"),
+            shard_hint(B, mesh, "dp", None, None), shard_hint(C, mesh, "dp", None, None))
+
+
 def ssm_apply(p, cfg, xin, *, return_state=False):
     """Prefill: xin (B, L, D) -> (B, L, D) [, decode state {"S", "conv"}]."""
     Bt, L, _ = xin.shape
@@ -108,7 +124,7 @@ def ssm_apply(p, cfg, xin, *, return_state=False):
 
     args = (xh.float(), dt, A, Bm.float(), Cm.float())
     if cfg.ssm_backend == "kernel":
-        y, S = ssd_ops.ssd_scan(*args, chunk=chunk)
+        y, S = ssd_ops.ssd_scan(*_scan_placed(*args), chunk=chunk)
     elif cfg.ssm_backend == "chunked":
         y, S = ssd_ref.ssd_chunked_batched(*args, chunk=chunk)
     else:

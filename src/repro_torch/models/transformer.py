@@ -28,7 +28,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.distributed.sharding import shard_hint
+from repro_torch.distributed.sharding import is_dtensor, shard_hint, take_rows, zeros_placed_as
 from repro_torch.models import attention, moe, ssm
 from repro_torch.models.common import (
     chunked_softmax_xent,
@@ -196,7 +196,7 @@ def backbone_apply(params, cfg, x, *, positions=None, collect=False, mesh=None):
 
 
 def embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    return take_rows(params["embed"], tokens.long()).to(cfg.compute_dtype)
 
 
 def lm_logits(params, cfg, h):
@@ -292,6 +292,8 @@ def prefill(params, cfg, tokens, max_len: int, *, patches=None, mesh=None):
     if cfg.family == "ssm":
         return logits, aux
     cache = decode_cache_init(cfg, B, max(max_len, T), device=x.device)
+    if is_dtensor(aux["k"]):  # each buffer where its K/V (or state) shards lie
+        cache = {k: zeros_placed_as(aux[k], v.shape, v.dtype) for k, v in cache.items()}
     cache["k"][:, :, :T] = aux["k"]
     cache["v"][:, :, :T] = aux["v"]
     if cfg.family == "hybrid":

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, take_rows, zeros_placed_as
 from repro_torch.models import attention
 from repro_torch.models.common import (
     chunked_softmax_xent,
@@ -87,7 +88,7 @@ def decode_train(params, cfg, tokens, enc_out, *, collect_kv=False, mesh=None):
     K/V (Ld, B, L, Hk, hd) and the cross-attention's (Ld, B, T, Hk, hd);
     else None."""
     cdt = cfg.compute_dtype
-    x = _with_positions(cfg, params["embed"][tokens.long()].to(cdt))
+    x = _with_positions(cfg, take_rows(params["embed"], tokens.long()).to(cdt))
     kv = ([], [], [], [])
     for lp in params["dec"]:
         a, (k, v) = attention.attention_apply(
@@ -148,8 +149,9 @@ def whisper_prefill(params, cfg, tokens, frames, max_len: int, *, mesh=None):
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({L} tokens)")
     cache = {}
     for key, t in (("k", k), ("v", v)):
-        cache[key] = torch.zeros(t.shape[:2] + (max_len,) + t.shape[3:], dtype=t.dtype,
-                                 device=t.device)
+        shape = t.shape[:2] + (max_len,) + t.shape[3:]
+        cache[key] = (zeros_placed_as(t, shape, t.dtype) if is_dtensor(t)
+                      else torch.zeros(shape, dtype=t.dtype, device=t.device))
         cache[key][:, :, :L] = t
     cache["xk"], cache["xv"] = xk, xv
     return logits, cache
@@ -167,7 +169,7 @@ def whisper_decode_step(params, cfg, cache, tokens, pos):
     G = H // Hk
     cdt = cfg.compute_dtype
     pos = pos if pos.dim() == 1 else pos[:, 0]
-    x = params["embed"][tokens[:, None].long()].to(cdt)
+    x = take_rows(params["embed"], tokens[:, None].long()).to(cdt)
     table = sinusoidal_positions(cache["k"].shape[2], D, x.device)
     x = x + table[pos.long()][:, None].to(cdt)
     for i, lp in enumerate(params["dec"]):
@@ -175,7 +177,8 @@ def whisper_decode_step(params, cfg, cache, tokens, pos):
             lp["self_attn"], cfg, layernorm_apply(lp["self_norm"], x), cache["k"][i],
             cache["v"][i], pos, rope=False)
         hn = layernorm_apply(lp["cross_norm"], x)
-        q = dense_apply(lp["cross_attn"]["wq"], hn, cdt)
+        q = attention.whole_heads(attention.split_heads(
+            dense_apply(lp["cross_attn"]["wq"], hn, cdt), H, hd, rows_on_model=True))
         qg = q.float().reshape(B, Hk, G, hd) * hd ** -0.5
         s = torch.einsum("bkgd,bskd->bkgs", qg, cache["xk"][i].float())
         o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), cache["xv"][i].float())

@@ -105,7 +105,8 @@ def test_report_renders_as_the_reference(tmp_path):
 
 def test_full_width_dry_run_allocates_nothing(tmp_path, capsys):
     """qwen3_0_6b's decode cell through the CLI on both H100 meshes (its
-    JSON rendered by both reports alike), then the prefill of each
+    JSON rendered by both reports alike; its collectives recorded on each
+    mesh), then the prefill of each
     kernel's family (flash_attention, ssd_scan): no op
     makes a real tensor, and every argument and output stays on meta."""
     out = tmp_path / "dryrun.json"
@@ -114,7 +115,13 @@ def test_full_width_dry_run_allocates_nothing(tmp_path, capsys):
     data = json.loads(out.read_text())
     row = data["qwen3_0_6b|decode_32k|32x8"]
     assert row["ok"] and row["counted_on"] == "meta" and row["temp_bytes"] is None
-    assert row["collective_s"] == 0 and "collectives not counted" in row["note"]
+    # the collectives of the step run as DTensors on a fake world of the mesh
+    for mesh_name in ("32x8", "2x32x8"):
+        r = data[f"qwen3_0_6b|decode_32k|{mesh_name}"]
+        assert r["collective_s"] > 0 and "collectives recorded" in r["note"]
+        assert r["collective_detail"]["counts"]["all-gather"] > 0
+        assert r["dominant"] == max([("compute", r["compute_s"]), ("memory", r["memory_s"]),
+                                     ("collective", r["collective_s"])], key=lambda kv: kv[1])[0]
     assert row["chips"] == 256 and data["qwen3_0_6b|decode_32k|2x32x8"]["chips"] == 512
     assert "whisper_large_v3|long_500k|skipped" in data
     assert treport.render(str(out)) == jreport.render(str(out))
